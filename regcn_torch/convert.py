@@ -11,6 +11,12 @@ The port keeps the JAX layouts, so the conversion is a copy:
   torch's Linear layout, as in JAX;
 - the GRU's ``w_ih`` / ``w_hh`` are [3H, in] with gate order r, z, n,
   torch's GRUCell layout, as in JAX.
+
+:func:`hyperbolic_params_from_jax` does the same for the pytree of
+``regcn_tpu.hyperbolic.model.init_params``: the nested ``rgcn.layers``
+list, the decoder dicts and the 0-d leaves (``log_c``,
+``score_margin``, ``score_scale_raw``) become tensors of the same
+shapes, and ``HypModelState.radius_target`` comes along.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import Any, Mapping, Tuple
 import numpy as np
 import torch
 
+from regcn_torch.hyperbolic.model import HypModelState
 from regcn_torch.models.recurrent import ModelState
 
 
@@ -42,3 +49,16 @@ def params_from_jax(
         bn_rel=_tensor_tree(model_state_np.bn_rel, device),
     )
     return params, state
+
+
+def hyperbolic_params_from_jax(
+    params_np: Mapping[str, Any], model_state_np, device="cuda"
+) -> Tuple[dict, HypModelState]:
+    """(params, HypModelState) on ``device`` from the hyperbolic JAX
+    parameter pytree and its ``HypModelState``."""
+    state = HypModelState(
+        bn_ob=_tensor_tree(model_state_np.bn_ob, device),
+        bn_rel=_tensor_tree(model_state_np.bn_rel, device),
+        radius_target=_tensor_tree(model_state_np.radius_target, device),
+    )
+    return _tensor_tree(params_np, device), state

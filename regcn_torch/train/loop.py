@@ -3,19 +3,20 @@
 Counterpart of the single-step branch of
 ``regcn_tpu/train/loop.py:Trainer.evaluate`` and of ``Trainer.test``
 (ref:src/main.py:33-107): each eval snapshot is scored from the
-``test_history_len`` snapshots before it, then joins the window.
-Multi-step evaluation (``construct_snap``) and training are not ported
-yet.
+``test_history_len`` snapshots before it, then joins the window. The
+model's scores come from a ``predict`` function, RE-GCN's by default;
+the hyperbolic trainer passes ``regcn_torch.hyperbolic.model.predict``.
+Multi-step evaluation (``construct_snap``) is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from regcn_torch.config import ModelConfig, TrainConfig
+from regcn_torch.config import TrainConfig
 from regcn_torch.data.answers import AnswerFilter, build_answer_filters_by_time
 from regcn_torch.data.dataset import TKGData
 from regcn_torch.data.snapshots import build_history, pad_triples, split_by_time
@@ -24,18 +25,27 @@ from regcn_torch.train import metrics
 
 RANK_KEYS = ("ent_raw", "ent_filter", "rel_raw", "rel_filter")
 
+# predict(params, model_state, cfg, history, triples [B,3], mask [B]) -> (ent [B,N], rel [B,2R])
+Predict = Callable[..., tuple]
+
+
+def regcn_predict(params, model_state, cfg, history, triples, mask):
+    """RE-GCN's eval-mode scores (the mask is not needed there)."""
+    return recurrent.predict(params, model_state, cfg, history, triples)
+
 
 @torch.inference_mode()
 def rolling_ranks(
     params,
-    model_state: recurrent.ModelState,
-    cfg: ModelConfig,
+    model_state,
+    cfg,
     tc: TrainConfig,
     history_list: Sequence[np.ndarray],
     eval_list: Sequence[np.ndarray],
     ent_filters: Optional[List[AnswerFilter]] = None,
     rel_filters: Optional[List[AnswerFilter]] = None,
     device="cuda",
+    predict: Predict = regcn_predict,
 ) -> Dict[str, List[np.ndarray]]:
     """Per eval snapshot, the ranks of its real queries under each of
     ``RANK_KEYS`` (entity/relation, raw/filtered)."""
@@ -53,7 +63,8 @@ def rolling_ranks(
             rel_filters[t] if rel_filters else None, triples[:, [0, 2]], triples[:, 1])
         er, ec, rr, rc = (torch.from_numpy(a).to(device) for a in (er, ec, rr, rc))
         trip = torch.from_numpy(triples).long().to(device)
-        s_ob, s_rel = recurrent.predict(params, model_state, cfg, history, trip)
+        s_ob, s_rel = predict(params, model_state, cfg, history, trip,
+                              torch.from_numpy(mask).to(device))
         step = torch.stack([
             metrics.device_ranks(s_ob, trip[:, 2]),
             metrics.device_filtered_ranks(s_ob, trip[:, 2], er, ec),
@@ -71,28 +82,30 @@ def rolling_ranks(
 
 def evaluate(
     params,
-    model_state: recurrent.ModelState,
-    cfg: ModelConfig,
+    model_state,
+    cfg,
     tc: TrainConfig,
     history_list: Sequence[np.ndarray],
     eval_list: Sequence[np.ndarray],
     ent_filters: Optional[List[AnswerFilter]] = None,
     rel_filters: Optional[List[AnswerFilter]] = None,
     device="cuda",
+    predict: Predict = regcn_predict,
 ) -> Dict[str, metrics.RankStats]:
     """Rolling-window evaluation: ``RANK_KEYS`` -> RankStats."""
     ranks = rolling_ranks(params, model_state, cfg, tc, history_list, eval_list,
-                          ent_filters, rel_filters, device)
+                          ent_filters, rel_filters, device, predict)
     return {k: metrics.stat_ranks(v) for k, v in ranks.items()}
 
 
 def test(
     params,
-    model_state: recurrent.ModelState,
-    cfg: ModelConfig,
+    model_state,
+    cfg,
     tc: TrainConfig,
     data: TKGData,
     device="cuda",
+    predict: Predict = regcn_predict,
 ) -> Dict[str, metrics.RankStats]:
     """Test-split evaluation (``Trainer.test``): history = train + valid,
     eval = test, with per-timestamp answer filters of the test split."""
@@ -103,5 +116,5 @@ def test(
     return evaluate(
         params, model_state, cfg, tc,
         split_by_time(data.train) + split_by_time(data.valid), split_by_time(data.test),
-        ent_f, rel_f, device,
+        ent_f, rel_f, device, predict,
     )

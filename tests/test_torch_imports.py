@@ -46,3 +46,11 @@ def test_port_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_the_hyperbolic_slice_is_covered():
+    """The modules of the hyperbolic slice are among the files checked above."""
+    checked = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for name in ("ops", "decoders", "layers", "model", "optim", "train"):
+        assert f"regcn_torch/hyperbolic/{name}.py" in checked
+    assert "regcn_torch/ops/streaming_ce.py" in checked
