@@ -16,6 +16,10 @@ Phases, each of which exits non-zero on failure:
    card, in several cases, within 1e-5 * max(1, max|plain|) (fp32 on both
    sides; the summation order is the only difference), and times the
    kernel, the plain version and one library call for the same function;
+   the scatter (B1) at config 1's first test snapshot, a skewed E=4096
+   case and the first test snapshot of synthetic-icews18, each beside
+   zeros + index_add_ and its bound (the JSON row's top-level times are
+   config 1's, ``shapes`` holds all three);
 4. main path: RE-GCN config 1 (h=200, 2 UnionRGCN layers, history 3,
    ConvTransE/R) with random weights from a seeded generator, evaluated
    over the whole test split of synthetic-icews14s (seed 123) through
@@ -207,18 +211,40 @@ def scatter_bound_ms(n_real: int, E: int, n: int, d: int) -> tuple:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def first_test_snapshot(data, dev: torch.device):
+    """The first test snapshot as the main path builds it, padded to at
+    least 640 edge slots (a dst=0 tail after the destination-sorted real
+    edges), and its scatter keys (masked edges keyed N)."""
+    N = data.num_nodes
+    first = split_by_time(data.test)[0]
+    snap = build_snapshot(first, N, data.num_rels, edge_pad=max(640, 2 * len(first))).to(dev)
+    keys = torch.where(snap.edge_mask > 0, snap.dst, N).to(torch.int32)
+    return snap, keys
+
+
+def scatter_times(msg, keys, N: int, n_real: int, edge_weight, row_scale) -> dict:
+    """Device time per call of the kernel, its plain version and one
+    library call for the sum (zeros + index_add_; masked keys land in a
+    spare row N), with the bound, at one shape."""
+    E, d = msg.shape
+    kw = dict(edge_weight=edge_weight, row_scale=row_scale)
+    ms = device_time_ms(lambda: scatter_add_sorted(msg, keys, N, **kw))
+    plain_ms = device_time_ms(lambda: scatter_add_sorted_reference(msg, keys, N, **kw))
+    library_ms = device_time_ms(
+        lambda: torch.zeros(N + 1, d, device=msg.device).index_add_(0, keys, msg))
+    bound_ms, bound_by = scatter_bound_ms(n_real, E, N, d)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
+
+
 def phase_kernels(data, N: int, R: int, d: int, dev: torch.device) -> dict:
     g = np.random.default_rng(SEED)
     h = torch.from_numpy(g.normal(size=(N, d)).astype(np.float32)).to(dev)
     rel_emb = torch.from_numpy(g.normal(size=(2 * R, d)).astype(np.float32)).to(dev)
     weight = torch.from_numpy((g.normal(size=(d, d)) / math.sqrt(d)).astype(np.float32)).to(dev)
 
-    # the first test snapshot as the main path builds it, padded to 640
-    # edges: a dst=0 tail after the destination-sorted real edges
-    first = split_by_time(data.test)[0]
-    snap = build_snapshot(first, N, R, edge_pad=max(640, 2 * len(first))).to(dev)
+    snap, keys = first_test_snapshot(data, dev)
     check(bool(snap.dst[-1] == 0) and bool(snap.edge_mask[-1] == 0), "expected a padded dst=0 tail")
-    keys = torch.where(snap.edge_mask > 0, snap.dst, N).to(torch.int32)
     msg = (h[snap.src] + rel_emb[snap.rel]) @ weight
     E, n_real = msg.shape[0], snap.num_edges
 
@@ -234,11 +260,15 @@ def phase_kernels(data, N: int, R: int, d: int, dev: torch.device) -> dict:
         print(f"[kernels] rgcn_scatter_sorted {case}: max abs err {err:.3e} (scale {scale:.3e})",
               flush=True)
 
+    def busiest(k, n):
+        return int(torch.bincount(k.long(), minlength=n + 1)[:n].max().item())
+
     args = (msg, keys, N)
     kw = dict(edge_weight=snap.edge_mask, row_scale=snap.in_deg_norm)
-    busiest = int(torch.bincount(keys.long(), minlength=N + 1)[:N].max().item())
-    compare(f"config1 E={E} real={n_real} N={N} d={d} busiest row {busiest} edges",
+    compare(f"config1 E={E} real={n_real} N={N} d={d} busiest row {busiest(keys, N)} edges",
             scatter_add_sorted(*args, **kw), scatter_add_sorted_reference(*args, **kw))
+    first = scatter_add_sorted(*args, **kw)
+    check(torch.equal(first, scatter_add_sorted(*args, **kw)), "config1: two calls differ")
 
     # skewed: zipf-popular destinations, hundreds of edges on one row
     E_skew = 4096
@@ -251,6 +281,18 @@ def phase_kernels(data, N: int, R: int, d: int, dev: torch.device) -> dict:
     compare(f"skewed E={E_skew} busiest row {top} edges",
             scatter_add_sorted(sk[0], sk[1], N, edge_weight=sk[2], row_scale=sk[3]),
             scatter_add_sorted_reference(sk[0], sk[1], N, sk[2], sk[3]))
+
+    # the ICEWS18 twin's first test snapshot, built as config 1's is
+    data18 = generate("synthetic-icews18", seed=SEED)
+    N18 = data18.num_nodes
+    snap18, keys18 = first_test_snapshot(data18, dev)
+    h18 = torch.from_numpy(g.normal(size=(N18, d)).astype(np.float32)).to(dev)
+    rel18 = torch.from_numpy(g.normal(size=(2 * data18.num_rels, d)).astype(np.float32)).to(dev)
+    msg18 = (h18[snap18.src] + rel18[snap18.rel]) @ weight
+    kw18 = dict(edge_weight=snap18.edge_mask, row_scale=snap18.in_deg_norm)
+    compare(f"ICEWS18 twin E={msg18.shape[0]} real={snap18.num_edges} N={N18} busiest row "
+            f"{busiest(keys18, N18)} edges", scatter_add_sorted(msg18, keys18, N18, **kw18),
+            scatter_add_sorted_reference(msg18, keys18, N18, **kw18))
 
     # not sorted: a hand-built edge order through rgcn_aggregate(dst_sorted=False)
     perm = torch.from_numpy(g.permutation(E)).to(dev)
@@ -270,20 +312,23 @@ def phase_kernels(data, N: int, R: int, d: int, dev: torch.device) -> dict:
     compare("fully masked", got, scatter_add_sorted_reference(msg, masked, N))
     check(torch.count_nonzero(got).item() == 0, "fully masked input gave non-zero rows")
 
-    # times at the config-1 shape, device time per call
-    ms = device_time_ms(lambda: scatter_add_sorted(*args, **kw))
-    plain_ms = device_time_ms(lambda: scatter_add_sorted_reference(*args, **kw))
-    # one library call for the sum (masked keys land in a spare row N)
-    library_ms = device_time_ms(
-        lambda: torch.zeros(N + 1, d, device=dev).index_add_(0, keys, msg))
-    bound_ms, bound_by = scatter_bound_ms(n_real, E, N, d)
-    print(f"[kernels] rgcn_scatter_sorted at E={E} (real {n_real}) N={N} d={d}: "
-          f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
-          f"index_add_ {library_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us ({bound_by})",
-          flush=True)
+    # times, device time per call, at three shapes
+    shapes = [
+        (f"config1 E={E} N={N}", scatter_times(msg, keys, N, n_real, **kw)),
+        (f"skewed E={E_skew} N={N}",
+         scatter_times(sk[0], sk[1], N, E_skew, edge_weight=sk[2], row_scale=sk[3])),
+        (f"ICEWS18 twin E={msg18.shape[0]} N={N18}",
+         scatter_times(msg18, keys18, N18, snap18.num_edges, **kw18)),
+    ]
+    for label, t in shapes:
+        print(f"[kernels] rgcn_scatter_sorted at {label} d={d}: kernel {t['ms'] * 1e3:.2f} us, "
+              f"plain {t['plain_ms'] * 1e3:.2f} us, zeros + index_add_ "
+              f"{t['library_ms'] * 1e3:.2f} us, bound {t['bound_ms'] * 1e3:.2f} us "
+              f"({t['bound_by']}; kernel at {100 * t['bound_ms'] / t['ms']:.0f} % of it)",
+              flush=True)
     return {"rgcn_scatter_sorted": dict(
-        max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=library_ms)}
+        max_abs_err=max(errs.values()), **shapes[0][1],
+        shapes=[dict(shape=label, **t) for label, t in shapes])}
 
 
 def phase_main_path(data, cfg: ModelConfig, tc: TrainConfig, dev: torch.device) -> dict:

@@ -25,17 +25,36 @@ import torch
 from regcn_torch.ops import cuda_build
 
 _INT_MAX = 2**31 - 1
+_MAX_EDGES = 2**24  # the kernel's per-row counters hold chunk ids below 2^19
 
 
 @functools.cache
 def _kernel_lib() -> ctypes.CDLL:
     lib = cuda_build.load("rgcn_scatter")
     lib.rgcn_scatter_sorted.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.rgcn_scatter_sorted.restype = ctypes.c_int
+    lib.rgcn_scatter_chunk_edges.argtypes = []
+    lib.rgcn_scatter_chunk_edges.restype = ctypes.c_int
+    lib.chunk_edges = lib.rgcn_scatter_chunk_edges()
     lib.rgcn_cuda_error_string.argtypes = [ctypes.c_int]
     lib.rgcn_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+_counters: dict = {}
+
+
+def _counters_for(device: torch.device, n: int) -> torch.Tensor:
+    """``n`` 64-bit zeros, one per row, by which the kernel finds the chunk
+    that merges a row cut by chunk boundaries; every launch leaves them at
+    zero again. One buffer per device, grown on demand; launches that share
+    it run on one stream, one after another."""
+    buf = _counters.get(device)
+    if buf is None or buf.shape[0] < n:
+        buf = torch.zeros(max(n, 8192), dtype=torch.int64, device=device)
+        _counters[device] = buf
+    return buf
 
 
 def _check_vector(name: str, t: Optional[torch.Tensor], length: int, dtype, device) -> None:
@@ -89,19 +108,22 @@ def scatter_add_sorted(
         return scatter_add_sorted_reference(msg, keys, n, edge_weight, row_scale)
     if msg.device.type != "cuda":
         raise ValueError(f"scatter_add_sorted runs on cuda or cpu, not {msg.device}")
-    if max(num_edges, n + 1, d) > _INT_MAX:
+    if max(n + 1, d) > _INT_MAX or num_edges >= _MAX_EDGES:
         raise ValueError(f"shape too large for the kernel: E={num_edges} n={n} d={d}")
     out = torch.empty((n, d), dtype=torch.float32, device=msg.device)
     if n == 0 or d == 0:
         return out
     lib = _kernel_lib()
+    # scratch: two partial sums of d per chunk of edge slots, for rows the chunks cut
+    chunks = -(-num_edges // lib.chunk_edges)
+    partial = torch.empty((2 * chunks, d), dtype=torch.float32, device=msg.device)
     with torch.cuda.device(msg.device):
         err = lib.rgcn_scatter_sorted(
             msg.data_ptr(), keys.data_ptr(),
             None if edge_weight is None else edge_weight.data_ptr(),
             None if row_scale is None else row_scale.data_ptr(),
-            out.data_ptr(), num_edges, n, d,
-            torch.cuda.current_stream(msg.device).cuda_stream,
+            out.data_ptr(), partial.data_ptr(), _counters_for(msg.device, n).data_ptr(),
+            num_edges, n, d, torch.cuda.current_stream(msg.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(

@@ -9,6 +9,9 @@ Tolerance on the card: fp32 on both sides, the summation order is the
 only difference, so max|kernel - plain| <= 1e-5 * max(1, max|plain|).
 """
 
+import pathlib
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +23,7 @@ from regcn_torch.ops.rgcn_scatter import (
 )
 
 KERNEL_TOL = 1e-5
+ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture
@@ -83,23 +87,80 @@ def test_wrapper_rejects_bad_inputs(bad):
         scatter_add_sorted(msg, keys, n, **kw)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", ["config1", "skewed", "fully_masked", "unweighted",
-                                  "odd_width", "wide", "wide_odd", "misaligned"])
-def test_kernel_matches_plain_version(rng, cuda, case):
-    """config-1 shapes, plus the kernel's other paths: scalar columns (odd
-    width or a msg not 16-byte aligned) and rows wider than one block pass."""
-    n, d, E, n_real, zipf = {
+def runs(n, lengths, E=None):
+    """Ascending keys: row i of ``lengths`` gets lengths[i] edges, on rows
+    spread over [0, n); then a masked tail keyed n up to E slots."""
+    rows = np.linspace(0, n - 1, len(lengths)).astype(np.int64)
+    keys = np.repeat(rows, lengths).astype(np.int32)
+    E = len(keys) if E is None else E
+    return np.concatenate([keys, np.full(E - len(keys), n, np.int32)])
+
+
+# The kernel cuts the edge slots into chunks of 32 (CHUNK); a row whose
+# edges cross a chunk boundary is summed in parts and merged by the chunk
+# that finishes last.
+CHUNK = 32
+
+
+def kernel_case(case, rng):
+    """(n, d, keys, weighted) of each parametrised case."""
+    shapes = {
         "config1": (7128, 200, 640, 548, 1.4), "skewed": (7128, 200, 4096, 4096, 1.3),
         "fully_masked": (7128, 200, 640, 0, None), "unweighted": (7128, 200, 512, 500, None),
         "odd_width": (301, 7, 300, 290, 1.4), "wide": (301, 2100, 300, 290, 1.4),
         "wide_odd": (301, 2102, 300, 290, 1.4), "misaligned": (301, 200, 300, 290, 1.4),
+        "icews18_shape": (23033, 200, 2314, 2314, 1.3),
+    }
+    if case in shapes:
+        n, d, E, n_real, zipf = shapes[case]
+        return n, d, sorted_keys(rng, E, n, n_real, zipf), case != "unweighted"
+    n, d = 7128, 200
+    keys = {
+        # rows one edge short of a chunk, filling one and one edge over, at
+        # the alignments the sequence gives, among rows of 1 to 9 edges
+        "row_sizes_at_thresholds": runs(n, [8, 9, 1, CHUNK - 1, CHUNK, CHUNK + 1, 3, CHUNK,
+                                            CHUNK + 1, 2], E=200),
+        # a row of 3 chunks and more that starts in the middle of chunk 0
+        "row_over_three_chunks_from_mid_chunk": runs(n, [1] * 10 + [3 * CHUNK + 7, 2, 5], E=160),
+        "every_edge_on_one_row": runs(n, [500], E=640),
+        "one_real_edge": runs(n, [1], E=640),
+        # E = 1000 slots, all real: the last chunk is partial, with no masked tail
+        "edges_not_a_multiple_of_the_chunk": sorted_keys(rng, 1000, n, 1000, 1.3),
     }[case]
-    keys = torch.from_numpy(sorted_keys(rng, E, n, n_real, zipf)).to(cuda)
+    return n, d, keys, True
+
+
+def test_diagnosis_role_builds_cut_the_kernel_source():
+    """tools/scatter_diagnosis.py times each kind of block alone by editing
+    the kernel's dispatch: each edit still finds its place in the source."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import scatter_diagnosis
+
+    src = (ROOT / "regcn_torch" / "csrc" / "rgcn_scatter.cu").read_text()
+    builds = scatter_diagnosis.role_builds(src)
+    assert "{\n    return;\n    row_block" in builds["chunks only"]
+    assert "{\n    return;\n    chunk_block" in builds["rows only"]
+    assert all(b.count("return;\n    ") == src.count("return;\n    ") + 1 for b in builds.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "config1", "skewed", "fully_masked", "unweighted", "odd_width", "wide", "wide_odd",
+    "misaligned", "row_sizes_at_thresholds", "row_over_three_chunks_from_mid_chunk",
+    "every_edge_on_one_row", "one_real_edge", "edges_not_a_multiple_of_the_chunk",
+    "icews18_shape"])
+def test_kernel_matches_plain_version(rng, cuda, case):
+    """config-1 shapes, the kernel's other paths (scalar columns for an odd
+    width or a msg not 16-byte aligned, rows wider than one pass), and the
+    edge-chunk structure: rows at the chunk size, a row merged from several
+    chunks, skew to the limit, a partial last chunk, the ICEWS18 shape."""
+    n, d, keys, weighted = kernel_case(case, rng)
+    E = len(keys)
+    keys = torch.from_numpy(keys).to(cuda)
     msg = torch.from_numpy(rng.normal(size=(E * d + 1,)).astype(np.float32)).to(cuda)
     msg = msg[1:].view(E, d) if case == "misaligned" else msg[:-1].view(E, d)
     kw = {}
-    if case != "unweighted":
+    if weighted:
         kw = dict(edge_weight=torch.from_numpy((rng.random(E) < 0.9).astype(np.float32)).to(cuda),
                   row_scale=torch.from_numpy(rng.random(n).astype(np.float32)).to(cuda))
     before = scatter_add_sorted.launches
@@ -111,6 +172,24 @@ def test_kernel_matches_plain_version(rng, cuda, case):
     assert err <= KERNEL_TOL * max(1.0, want.abs().max().item())
     if case == "fully_masked":
         assert torch.count_nonzero(got).item() == 0
+
+
+@pytest.mark.cuda
+def test_kernel_is_bitwise_deterministic(rng, cuda):
+    """Two calls on the same inputs give the same bits, also with another
+    call between them (the per-row counters are back at zero after each)."""
+    n, d, E = 7128, 200, 2048
+    keys = torch.from_numpy(sorted_keys(rng, E, n, 1900, 1.3)).to(cuda)
+    msg = torch.from_numpy(rng.normal(size=(E, d)).astype(np.float32)).to(cuda)
+    w = torch.from_numpy(rng.random(E).astype(np.float32)).to(cuda)
+    scale = torch.from_numpy(rng.random(n).astype(np.float32)).to(cuda)
+    first = scatter_add_sorted(msg, keys, n, edge_weight=w, row_scale=scale)
+    second = scatter_add_sorted(msg, keys, n, edge_weight=w, row_scale=scale)
+    other = torch.from_numpy(runs(n, [3 * CHUNK + 7, 5], E=200)).to(cuda)
+    scatter_add_sorted(msg[:200], other, n)
+    third = scatter_add_sorted(msg, keys, n, edge_weight=w, row_scale=scale)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(first, third)
 
 
 @pytest.mark.cuda
