@@ -31,7 +31,9 @@ Phases, each of which exits non-zero on failure:
    relation shapes, the true distance with per-query curvature, points at
    the ball's edge on both distances, partial tiles, a masked query
    tail), value and all six gradients; the kernels, the plain version
-   and the GEMM of the same shape are timed at both config-3 shapes;
+   and the GEMM of the same shape are timed at both config-3 shapes, and
+   the candidate-side backward's grid, cluster size and blocks per SM
+   are printed;
 6. training path: hyperbolic config 3 (LGCN + RotH, c=0.01 learned with
    a 5-epoch warmup, radius supervision, h=200, 2 layers, n_bases 100,
    history 3) through ``regcn_torch.hyperbolic.train.HyperbolicTrainer``:
@@ -559,6 +561,11 @@ def phase_ce_kernels(N: int, R: int, d: int, dev: torch.device) -> dict:
                   f"{row['ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f} us, matmul "
                   f"{row['library_ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.2f} us "
                   f"({row['bound_by']})", flush=True)
+        plan = ce.backward_x_plan(B, n, d, False, dev)
+        print(f"[ce] streaming_ce_bwd_x launch at the {label} shape: grid {plan['grid']} blocks "
+              f"in clusters of {plan['cluster']} ({plan['query_tiles_per_block']} query tiles of "
+              f"{ce.BWD_X_ROWS} rows per block), {plan['blocks_per_sm']} block(s) per SM, "
+              f"{plan['active_clusters']} clusters resident at once", flush=True)
         times[label] = t
     return {k: dict(max_abs_err=errs[k], **times["entity"][k]) for k in CE_KERNELS}
 

@@ -33,15 +33,16 @@
 //                       dscale / dmargin; the last block of a query tile sums
 //                       the splits' dq and dc in split order, and the last
 //                       block of the grid sums dscale / dmargin.
-//   ce_backward_x_kernel  grid (candidate tile, query split). Walks its
-//                       split's query tiles: dx = sum_i dp q_i + 2 x sum_i dxx,
-//                       dbias = sum_i dlogit; the last block of a candidate
-//                       tile sums the splits in split order.
+//   ce_backward_x_kernel  one thread-block cluster per 64 candidates; its
+//                       blocks split the query tiles. Each walks its 32-row
+//                       query tiles: dx = sum_i dp q_i + 2 x sum_i dxx,
+//                       dbias = sum_i dlogit; the cluster sums its blocks'
+//                       partials in rank order through distributed shared
+//                       memory and writes dx once.
 //
-// Splits are sized to fill the SMs in one wave (two forward blocks, or one
-// backward block, fit on an SM). Every sum is taken in a fixed order: the
-// counters only decide which block does the combining, so results are the
-// same from run to run. Candidates
+// Every sum is taken in a fixed order: the forward's and backward_q's
+// counters only decide which block does the combining, and backward_x's
+// ranks are fixed, so results are the same from run to run. Candidates
 // >= N and queries >= B are masked in the kernel (no -1e30 padding): they add
 // exactly 0 to every sum and get no gradient. The clamps (max(num_sq, 0), the
 // max_norm minimum, max(diff_sq, eps^2), min(z, 1 - eps)) pass no gradient
@@ -51,17 +52,50 @@
 // loss (B = 512 padded queries, N = 7128 entities, d = 200) the forward is
 // 2 B N d = 1.46 GFLOP of q.x products plus ~30 flops per logit, ~23 us at
 // the 67 TFLOP/s fp32 rate, while its inputs are 6.1 MB (1.8 us of HBM). Each
-// backward kernel recomputes p and does one more product of the same size.
-// All products are fp32 FMAs (no TF32: the port is held to fp32 parity).
-// Design: 64 x 64 tiles, 256 threads each owning a 4 x 4 block of logits
-// (rows ty + 16 i, columns tx + 16 j, so shared-memory reads are
-// conflict-free); both operand tiles sit whole in shared memory (rows padded
-// to an odd number of float4s) and the products read them as float4, so a
-// thread does 64 FMAs per 8 shared loads. The candidate axis (or, for
-// dx, the query axis) is split across blocks so that the SMs are full even
-// with only B/64 = 8 query tiles. d <= 256, a multiple of 4, and q and x
-// 16-byte aligned (every load is a float4).
+// backward kernel recomputes p and does one more product of the same size
+// plus ~90 flops per pair: 48.48 us. All products are fp32 FMAs (no TF32: the
+// port is held to fp32 parity).
+//
+// Forward and backward_q: 64 x 64 tiles, 256 threads each owning a 4 x 4
+// block of logits (rows ty + 16 i, columns tx + 16 j, so shared-memory reads
+// are conflict-free); both operand tiles sit whole in shared memory (rows
+// padded to an odd number of float4s) and the products read them as float4.
+// The candidate axis is split across blocks (two forward blocks, or one
+// backward block, fit on an SM; the last block of a query tile merges the
+// splits) so that the SMs are full even with only B/64 = 8 query tiles.
+//
+// backward_x: its first design (one block per candidate tile walking every
+// query tile, 130 KB of shared memory, so one block of 8 warps per SM) used
+// 112 of 132 SMs at the entity shape and 64 at the relation shape, loaded
+// each query tile synchronously between barriers with nothing to overlap it,
+// recomputed the per-query constants for every pair, idled 14 of 64 lanes
+// in its dX product at d = 200, and merged its splits through device memory
+// even when there was one. Now:
+// - work: clusters of up to 8 blocks split the query axis (the wrapper picks
+//   the size whose busiest SM walks the fewest query tiles, from the
+//   occupancy), and the cluster merges on chip; with one split the merge is a
+//   copy out of shared memory;
+// - overlap: query tiles of 32 rows and their cq / target / lse / g are
+//   double-buffered with cp.async, so tile t + 1 arrives while tile t is
+//   computed; |q|^2 and the per-query constants of the distance are computed
+//   once per row;
+// - products: a warp-wide 128-bit shared-memory load is paid per quarter-warp
+//   (8 lanes reading 8 distinct float4s cost as much as 32 lanes reading 32;
+//   one float4 for the whole warp costs far less), so a 2 x 4 register tile
+//   of float4 loads was bound by shared memory. Instead each thread keeps its
+//   candidates (lane and lane + 32) at its warp's float4 columns (warp + 8 m,
+//   m < ceil(d / 32), a template argument so the loops unroll) in registers
+//   for the whole walk, and both products read only query rows, one float4
+//   for the whole warp at a time, 8 rows per step: p as per-warp partial dot
+//   products summed over the 8 warps in order through shared memory, dX into
+//   registers of the same shape;
+// - the elementwise chain has no branches (masked pairs give finite values
+//   that are dropped), so a thread's 8 pairs interleave; the proxy, whose
+//   clamp caps the distance, uses the fast division and exponential.
+// d <= 256, a multiple of 4, and q and x 16-byte aligned (every load is a
+// float4).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -562,157 +596,405 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ----------------------------------------------------- backward: candidates
+//
+// One cluster per tile of kCands candidates; its blocks (ranks) split the
+// query tiles. Each block keeps the candidate tile in registers and walks
+// its query tiles of kRows rows, double-buffered with cp.async. At the end
+// every block leaves its dx / dxx / dbias partial in its own shared memory,
+// and after a cluster barrier the ranks sum them in rank order through
+// distributed shared memory, each writing its share of dx once.
 
+namespace bwdx {
+
+constexpr int kCands = 64;     // candidates per cluster tile: lane l holds l and l + 32
+constexpr int kRows = 32;      // queries per tile of a block's walk
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxCluster = 8;  // the portable cluster size
+constexpr int kRowStep = 8;    // query rows per step of both products
+// per-row values of the current query tile: |q|^2, c, lse, g, 1 - c|q|^2 and
+// three constants of the distance (true: sqrt(c + eps), 2 / (sqrt(c + eps) +
+// eps), the max-norm clamp; proxy: the squared clamp)
+enum { kQQ, kC, kL, kG, kBc, kK0, kK1, kK2, kFields };
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// rows [row0, row0 + rows) of a row-major [nrows, d] matrix into shared memory
+// (row stride sh.ld4), zero-filled past nrows; asynchronous.
+__device__ __forceinline__ void load_tile_async(float4* s, const float* g, int row0, int rows,
+                                                int nrows, Shape sh) {
+  const float4* g4 = reinterpret_cast<const float4*>(g);
+  for (int i = threadIdx.x; i < rows * sh.d4; i += kThreads) {
+    const int r = i / sh.d4, k = i - r * sh.d4;
+    const bool ok = row0 + r < nrows;
+    cp_async16(s + r * sh.ld4 + k, g4 + (ok ? static_cast<size_t>(row0 + r) * sh.d4 + k : 0), ok);
+  }
+}
+
+// cq, target, lse and g of the query tile at row0 into raw[4][kRows]; asynchronous.
+__device__ __forceinline__ void load_rows_async(float* raw, const float* cq, const int* target,
+                                                const float* lse, const float* g, int row0,
+                                                int B) {
+  if (threadIdx.x < 4 * kRows) {
+    const int f = threadIdx.x / kRows, r = threadIdx.x % kRows, row = row0 + r;
+    const bool ok = row < B;
+    const int at = ok ? row : 0;
+    const void* src = f == 0 ? static_cast<const void*>(cq + at)
+                      : f == 1 ? static_cast<const void*>(target + at)
+                      : f == 2 ? static_cast<const void*>(lse + at)
+                               : static_cast<const void*>(g + at);
+    cp_async4(raw + f * kRows + r, src, ok);
+  }
+}
+
+// |row|^2 of one shared row, summed over a warp (lane-strided, then a butterfly).
+__device__ __forceinline__ float warp_row_sq(const float4* row, Shape sh, int lane) {
+  const float* sf = reinterpret_cast<const float*>(row);
+  float acc = 0.f;
+  for (int k = lane; k < 4 * sh.d4; k += 32) acc = fmaf(sf[k], sf[k], acc);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  return acc;
+}
+
+// The per-row values of a query tile, hoisted out of the per-pair chain;
+// warp w sums |q|^2 of rows 4w .. 4w + 3, then lanes 0 .. 3 fill one row
+// each. Rows past B get c = 1 (they are masked).
 template <bool kTrue>
-__global__ void __launch_bounds__(kThreads, 1)
+__device__ __forceinline__ void row_constants(const float4* Qb, const float* raw, int row0, int B,
+                                              Shape sh, float (*rowc)[kRows], int* tgt) {
+  constexpr int kPerWarp = kRows / kWarps;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float qq_r[kPerWarp];
+#pragma unroll
+  for (int rr = 0; rr < kPerWarp; ++rr)
+    qq_r[rr] = warp_row_sq(Qb + (warp * kPerWarp + rr) * sh.ld4, sh, lane);
+  if (lane >= kPerWarp) return;
+  float qq = qq_r[0];
+#pragma unroll
+  for (int rr = 1; rr < kPerWarp; ++rr)
+    if (lane == rr) qq = qq_r[rr];
+  const int r = warp * kPerWarp + lane;
+  const bool ok = row0 + r < B;
+  const float c = ok ? raw[r] : 1.f;
+  rowc[kQQ][r] = qq;
+  rowc[kC][r] = c;
+  rowc[kL][r] = ok ? raw[2 * kRows + r] : 0.f;
+  rowc[kG][r] = ok ? raw[3 * kRows + r] : 0.f;
+  rowc[kBc][r] = 1.f - c * qq;
+  tgt[r] = ok ? __float_as_int(raw[kRows + r]) : -1;
+  if (kTrue) {
+    const float sqrt_c = sqrtf(c + kEps);
+    rowc[kK0][r] = sqrt_c;
+    rowc[kK1][r] = 2.f / (sqrt_c + kEps);
+    rowc[kK2][r] = 1.f / (sqrt_c + kEps) - kEps;
+  } else {
+    const float mx = 1.f / sqrtf(c) - 2.f * kEps;
+    rowc[kK0][r] = mx * mx;
+  }
+}
+
+// For one pair: dlogit, and the chain rule from it back to p and |x|^2 (the
+// kernel needs no gradient of |q|^2 or c). The same expressions as
+// eval_logit / grad_logit, with the per-row values precomputed.
+template <bool kTrue>
+__device__ __forceinline__ void pair_grad(float p, float xx, float b, bool is_target,
+                                          float (*rowc)[kRows], int r, float scale,
+                                          float margin, float& dlogit, float& gp, float& gxx) {
+  const float qq = rowc[kQQ][r], c = rowc[kC][r], Bc = rowc[kBc][r];
+  const float A = 1.f - 2.f * c * p + c * xx;
+  const float D = 1.f - 2.f * c * p + (c * c) * qq * xx + kEps;
+  const float num_sq = A * A * qq - 2.f * A * Bc * p + Bc * Bc * xx;
+  // the proxy needs no IEEE division or expf: its clamp caps the distance,
+  // while the true distance's artanh amplifies the rounding of diff_sq near
+  // the edge
+  const float diff_sq =
+      kTrue ? fmaxf(num_sq, 0.f) / (D * D) : __fdividef(fmaxf(num_sq, 0.f), D * D);
+  float dist, sqrt_c = 0.f, two_s1 = 0.f, mn = 0.f, dn0 = 0.f, dn = 0.f, z = 0.f;
+  if (kTrue) {
+    sqrt_c = rowc[kK0][r];
+    two_s1 = rowc[kK1][r];
+    mn = rowc[kK2][r];
+    dn0 = sqrtf(fmaxf(diff_sq, kEps * kEps));
+    dn = fminf(dn0, mn);
+    z = fminf(sqrt_c * dn, 1.f - kEps);
+    dist = two_s1 * atanhf(z);
+  } else {
+    dist = fminf(diff_sq, rowc[kK0][r]);
+  }
+  const float logit = scale * (margin - dist) + b;
+  const float e = kTrue ? expf(logit - rowc[kL][r]) : __expf(logit - rowc[kL][r]);
+  dlogit = rowc[kG][r] * (e - (is_target ? 1.f : 0.f));
+  const float ddist = -scale * dlogit;
+  float ddiff = 0.f;
+  if (kTrue) {
+    const float dz = (sqrt_c * dn < 1.f - kEps) ? ddist * two_s1 / (1.f - z * z) : 0.f;
+    const float ddn0 = dn0 < mn ? dz * sqrt_c : 0.f;
+    if (diff_sq > kEps * kEps) ddiff = ddn0 * 0.5f / dn0;
+  } else if (diff_sq < rowc[kK0][r]) {
+    ddiff = ddist;
+  }
+  const float inv_d = kTrue ? 1.f / D : __fdividef(1.f, D);
+  const float inv_d2 = inv_d * inv_d;
+  const float dnum = num_sq > 0.f ? ddiff * inv_d2 : 0.f;
+  const float dD = -2.f * ddiff * fmaxf(num_sq, 0.f) * inv_d2 * inv_d;
+  const float dA = dnum * (2.f * A * qq - 2.f * Bc * p);
+  gp = -2.f * A * Bc * dnum - 2.f * c * dA - 2.f * c * dD;
+  gxx = Bc * Bc * dnum + c * dA + c * c * qq * dD;
+}
+
+size_t smem_bytes(int d) {
+  return 2 * static_cast<size_t>(kRows) * make_shape(d).ld4 * sizeof(float4) +
+         static_cast<size_t>(kWarps + 1) * kRows * kCands * sizeof(float);
+}
+
+}  // namespace bwdx
+
+// kCol4 = ceil(d / 32) float4 columns per warp: the loops over them are
+// unrolled and only the last column, which some warps lack, is behind a
+// (warp-uniform) branch, so the other columns' loads can be issued ahead.
+template <bool kTrue, int kCol4>
+__global__ void __launch_bounds__(bwdx::kThreads, 1)
     ce_backward_x_kernel(const float* __restrict__ q, const float* __restrict__ x,
                          const float* __restrict__ bias, const float* __restrict__ cq,
                          const int* __restrict__ target, Scalars sc,
                          const float* __restrict__ lse, const float* __restrict__ g,
-                         float* __restrict__ dx_part, float* __restrict__ cols_part,
-                         float* __restrict__ dx, float* __restrict__ dbias,
-                         int* __restrict__ counters, int B, int N, int d,
-                         int tiles_per_split) {
+                         float* __restrict__ dx, float* __restrict__ dbias, int B, int N, int d) {
+  using namespace bwdx;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  unsigned cluster_size;
+  asm("mov.u32 %0, %%cluster_nctarank;" : "=r"(cluster_size));
+  const int splits = static_cast<int>(cluster_size);
   extern __shared__ float4 smem[];
-  __shared__ float qq_s[kTile], xx_s[kTile], red[2][16][kTile];
-  __shared__ int flag;
+  __shared__ float raw[2][4 * kRows];
+  __shared__ float rowc[kFields][kRows];
+  __shared__ int tgt_s[kRows];
+  __shared__ float xx_s[kCands], csum[2][kCands];
   const Shape sh = make_shape(d);
-  float4* Xs = smem;
-  float4* Qs = smem + kTile * sh.ld4;
-  float* Gs = reinterpret_cast<float*>(smem + 2 * kTile * sh.ld4);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int col0 = blockIdx.x * kTile;
+  float4* Qs = smem;  // two buffers of kRows rows
+  float* red = reinterpret_cast<float*>(Qs + 2 * kRows * sh.ld4);  // [kWarps][kRows][kCands]
+  float* Gs = red + kWarps * kRows * kCands;                        // [kRows][kCands]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int col0 = static_cast<int>(blockIdx.x) / splits * kCands;
   const float scale = __ldg(sc.scale), margin = __ldg(sc.margin);
 
-  load_tile(Xs, x, col0, N, sh);
-  __syncthreads();
-  row_sq_norms(Xs, sh, xx_s);
-  __syncthreads();
-  float xx[4], b[4], sum_xx[4], sum_g[4];
-  bool col_ok[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = col0 + tx + 16 * j;
-    col_ok[j] = col < N;
-    xx[j] = xx_s[tx + 16 * j];
-    b[j] = col_ok[j] ? __ldg(bias + col) : 0.f;
-    sum_xx[j] = 0.f;
-    sum_g[j] = 0.f;
+  // this rank's query tiles; the first is in flight while the candidates load
+  const int q_tiles = (B + kRows - 1) / kRows;
+  const int per = (q_tiles + splits - 1) / splits;
+  const int t_begin = min(rank * per, q_tiles), t_end = min(t_begin + per, q_tiles);
+  if (t_begin < t_end) {
+    load_tile_async(Qs, q, t_begin * kRows, kRows, B, sh);
+    load_rows_async(raw[0], cq, target, lse, g, t_begin * kRows, B);
   }
-  float4 acc[4][kColsPerThread];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int k = 0; k < kColsPerThread; ++k) acc[i][k] = make_float4(0.f, 0.f, 0.f, 0.f);
+  cp_async_commit();
 
-  const int q_tiles = (B + kTile - 1) / kTile;
-  const int qt_end = min((blockIdx.y + 1) * tiles_per_split, q_tiles);
-  for (int qt = blockIdx.y * tiles_per_split; qt < qt_end; ++qt) {
-    const int row0 = qt * kTile;
-    __syncthreads();
-    load_tile(Qs, q, row0, B, sh);
-    __syncthreads();
-    row_sq_norms(Qs, sh, qq_s);
-    __syncthreads();
-    float p[4][4];
-    tile_dot(Qs, Xs, sh, ty, tx, p);  // p[i][j]: query ty + 16 i, candidate tx + 16 j
+  // candidates lane and lane + 32, float4 columns warp + 8 m: in registers
+  // for the whole walk (both products read only the query rows from shared
+  // memory, every lane of a warp the same float4)
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  const bool last = warp + kWarps * (kCol4 - 1) < sh.d4;  // this warp has column kCol4 - 1
+  float4 xr[2][kCol4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = row0 + ty + 16 * i;
-      const bool row_ok = row < B;
-      const float qq = qq_s[ty + 16 * i];
-      const float c = row_ok ? __ldg(cq + row) : 1.f;
-      const int tgt = row_ok ? __ldg(target + row) : -1;
-      const float l = row_ok ? __ldg(lse + row) : 0.f;
-      const float gr = row_ok ? __ldg(g + row) : 0.f;
+  for (int c = 0; c < 2; ++c) {
+    const int cand = col0 + lane + 32 * c;
+    float xxp = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float gp = 0.f;
-        if (row_ok && col_ok[j]) {
-          const int col = col0 + tx + 16 * j;
-          const Elem e = eval_logit<kTrue>(p[i][j], qq, xx[j], c, scale, margin, b[j]);
-          const float dlogit = gr * (expf(e.logit - l) - (col == tgt ? 1.f : 0.f));
-          const Grad gd = grad_logit<kTrue>(e, dlogit, p[i][j], qq, xx[j], c, scale);
-          gp = gd.p;
-          sum_xx[j] += gd.xx;
-          sum_g[j] += dlogit;
+    for (int m = 0; m < kCol4; ++m) {
+      const int k = warp + kWarps * m;
+      xr[c][m] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (cand < N && k < sh.d4) xr[c][m] = __ldg(x4 + static_cast<size_t>(cand) * sh.d4 + k);
+      xxp = fmaf(xr[c][m].x, xr[c][m].x, xxp);
+      xxp = fmaf(xr[c][m].y, xr[c][m].y, xxp);
+      xxp = fmaf(xr[c][m].z, xr[c][m].z, xxp);
+      xxp = fmaf(xr[c][m].w, xr[c][m].w, xxp);
+    }
+    red[warp * kCands + lane + 32 * c] = xxp;
+  }
+  __syncthreads();
+  // the elementwise chain: candidate ec, rows er + 4 i
+  const int ec = tid % kCands, er = tid / kCands;
+  float xx = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) xx += red[w * kCands + ec];
+  const bool col_ok = col0 + ec < N;
+  const float bv = col_ok ? __ldg(bias + col0 + ec) : 0.f;
+  float sum_xx = 0.f, sum_g = 0.f;
+  float4 acc[2][kCol4];
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int m = 0; m < kCol4; ++m) acc[c][m] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int buf = (t - t_begin) & 1, row0 = t * kRows;
+    const float4* Qb = Qs + buf * kRows * sh.ld4;
+    cp_async_wait_all();
+    __syncthreads();  // tile t has landed; tile t - 1 (and red, Gs) no longer read
+    if (t + 1 < t_end) {
+      load_tile_async(Qs + (buf ^ 1) * kRows * sh.ld4, q, row0 + kRows, kRows, B, sh);
+      load_rows_async(raw[buf ^ 1], cq, target, lse, g, row0 + kRows, B);
+    }
+    cp_async_commit();
+    row_constants<kTrue>(Qb, raw[buf], row0, B, sh, rowc, tgt_s);
+    // this warp's share of p over its columns, kRowStep rows at a time
+    for (int r0 = 0; r0 < kRows; r0 += kRowStep) {
+      float pp[kRowStep][2];
+#pragma unroll
+      for (int s = 0; s < kRowStep; ++s) pp[s][0] = pp[s][1] = 0.f;
+#pragma unroll
+      for (int m = 0; m < kCol4; ++m) {
+        if (m == kCol4 - 1 && !last) break;
+#pragma unroll
+        for (int s = 0; s < kRowStep; ++s) {
+          const float4 qv = Qb[(r0 + s) * sh.ld4 + warp + kWarps * m];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            float v = pp[s][c];
+            v = fmaf(qv.x, xr[c][m].x, v);
+            v = fmaf(qv.y, xr[c][m].y, v);
+            v = fmaf(qv.z, xr[c][m].z, v);
+            v = fmaf(qv.w, xr[c][m].w, v);
+            pp[s][c] = v;
+          }
         }
-        Gs[(ty + 16 * i) * kGsLd + tx + 16 * j] = gp;
+      }
+#pragma unroll
+      for (int s = 0; s < kRowStep; ++s) {
+        red[(warp * kRows + r0 + s) * kCands + lane] = pp[s][0];
+        red[(warp * kRows + r0 + s) * kCands + lane + 32] = pp[s][1];
       }
     }
-    __syncthreads();
-    // acc[candidate ty + 16 i][cols] += sum_r dp[r][candidate] * q[r][cols]
-    for (int r = 0; r < kTile; ++r) {
-      float gv[4];
+    __syncthreads();  // red, rowc
+    // without branches, so the eight chains interleave: rows past B (c = 1,
+    // q = 0, g = 0) and candidates past N (x = 0) give finite values, dropped
 #pragma unroll
-      for (int i = 0; i < 4; ++i) gv[i] = Gs[r * kGsLd + ty + 16 * i];
+    for (int i = 0; i < kRows / 4; ++i) {
+      const int r = er + 4 * i;
+      float p = 0.f;
 #pragma unroll
-      for (int k = 0; k < kColsPerThread; ++k) {
-        if (tx + 16 * k >= sh.d4) break;
-        const float4 qv = Qs[r * sh.ld4 + tx + 16 * k];
+      for (int w = 0; w < kWarps; ++w) p += red[(w * kRows + r) * kCands + ec];
+      float dlogit, gp, gxx;
+      pair_grad<kTrue>(p, xx, bv, col0 + ec == tgt_s[r], rowc, r, scale, margin, dlogit, gp,
+                       gxx);
+      const bool ok = col_ok && row0 + r < B;
+      sum_xx += ok ? gxx : 0.f;
+      sum_g += ok ? dlogit : 0.f;
+      Gs[r * kCands + ec] = ok ? gp : 0.f;
+    }
+    __syncthreads();  // Gs
+    // acc[candidate lane + 32 c][warp + 8 m] += sum_r dp[r][candidate] * q[r][warp + 8 m],
+    // kRowStep rows at a time so that each column's loads go out together
+    for (int r0 = 0; r0 < kRows; r0 += kRowStep) {
+      float ga[kRowStep], gb[kRowStep];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][k].x = fmaf(gv[i], qv.x, acc[i][k].x);
-          acc[i][k].y = fmaf(gv[i], qv.y, acc[i][k].y);
-          acc[i][k].z = fmaf(gv[i], qv.z, acc[i][k].z);
-          acc[i][k].w = fmaf(gv[i], qv.w, acc[i][k].w);
+      for (int s = 0; s < kRowStep; ++s) {
+        ga[s] = Gs[(r0 + s) * kCands + lane];
+        gb[s] = Gs[(r0 + s) * kCands + lane + 32];
+      }
+#pragma unroll
+      for (int m = 0; m < kCol4; ++m) {
+        if (m == kCol4 - 1 && !last) break;
+        float4 qv[kRowStep];
+#pragma unroll
+        for (int s = 0; s < kRowStep; ++s) qv[s] = Qb[(r0 + s) * sh.ld4 + warp + kWarps * m];
+#pragma unroll
+        for (int s = 0; s < kRowStep; ++s) {
+          acc[0][m].x = fmaf(ga[s], qv[s].x, acc[0][m].x);
+          acc[0][m].y = fmaf(ga[s], qv[s].y, acc[0][m].y);
+          acc[0][m].z = fmaf(ga[s], qv[s].z, acc[0][m].z);
+          acc[0][m].w = fmaf(ga[s], qv[s].w, acc[0][m].w);
+          acc[1][m].x = fmaf(gb[s], qv[s].x, acc[1][m].x);
+          acc[1][m].y = fmaf(gb[s], qv[s].y, acc[1][m].y);
+          acc[1][m].z = fmaf(gb[s], qv[s].z, acc[1][m].z);
+          acc[1][m].w = fmaf(gb[s], qv[s].w, acc[1][m].w);
         }
       }
     }
   }
 
-  // per-candidate totals over the 16 thread rows, in ty order
+  // this block's partials into its own shared memory: dx rows over the query
+  // buffers, per-candidate sums over the four threads of a candidate in order
+  __syncthreads();  // the walk no longer reads Qs, red or Gs
+  red[er * kCands + ec] = sum_xx;
+  red[(4 + er) * kCands + ec] = sum_g;
+  float4* part = Qs;  // [kCands][d4]
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    red[0][ty][tx + 16 * j] = sum_xx[j];
-    red[1][ty][tx + 16 * j] = sum_g[j];
-  }
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int m = 0; m < kCol4; ++m) {
+      const int k = warp + kWarps * m;
+      if (k < sh.d4) part[(lane + 32 * c) * sh.d4 + k] = acc[c][m];
+    }
   __syncthreads();
-  float* gsum = qq_s;  // reuse: per-candidate dbias of this block
-  if (threadIdx.x < kTile) {
+  if (tid < kCands) {
+    csum[0][tid] = ((red[tid] + red[kCands + tid]) + red[2 * kCands + tid]) + red[3 * kCands + tid];
+    csum[1][tid] = ((red[4 * kCands + tid] + red[5 * kCands + tid]) + red[6 * kCands + tid]) +
+                   red[7 * kCands + tid];
+  }
+  cluster.sync();  // every rank's partials are in its shared memory
+
+  // the cluster's sums, in rank order: per-candidate totals, then this rank's share of dx
+  if (tid < kCands) {
     float txx = 0.f, tg = 0.f;
-    for (int r = 0; r < 16; ++r) {
-      txx += red[0][r][threadIdx.x];
-      tg += red[1][r][threadIdx.x];
+    for (int k = 0; k < splits; ++k) {
+      const float* cs = cluster.map_shared_rank(&csum[0][0], k);
+      txx += cs[tid];
+      tg += cs[kCands + tid];
     }
-    xx_s[threadIdx.x] = txx;
-    gsum[threadIdx.x] = tg;
+    xx_s[tid] = txx;
+    if (tid % splits == rank && col0 + tid < N) dbias[col0 + tid] = tg;
   }
-  __syncthreads();
-  const int splits = gridDim.y;
-
-  // publish this split's partials; the last block of the tile sums them
-  const size_t slice = static_cast<size_t>(blockIdx.y) * N;
-  if (threadIdx.x < kTile && col0 + threadIdx.x < N) {
-    cols_part[slice + col0 + threadIdx.x] = xx_s[threadIdx.x];
-    cols_part[static_cast<size_t>(splits) * N + slice + col0 + threadIdx.x] = gsum[threadIdx.x];
-  }
+  const float4* parts[kMaxCluster];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int cand = ty + 16 * i;
-    if (col0 + cand >= N) continue;
-    float4* dst = reinterpret_cast<float4*>(dx_part + (slice + col0 + cand) * d);
+  for (int k = 0; k < kMaxCluster; ++k) parts[k] = k < splits ? cluster.map_shared_rank(part, k) : part;
+  __syncthreads();  // xx_s
+  const int cands = min(kCands, N - col0), total = cands * sh.d4;
+  const int chunk = (total + splits - 1) / splits;
+  const int e_end = min(total, (rank + 1) * chunk);
+  const float4* xt4 = x4 + static_cast<size_t>(col0) * sh.d4;
+  float4* dx4 = reinterpret_cast<float4*>(dx) + static_cast<size_t>(col0) * sh.d4;
+  for (int e = rank * chunk + tid; e < e_end; e += bwdx::kThreads) {
+    float4 v[kMaxCluster];
 #pragma unroll
-    for (int k = 0; k < kColsPerThread; ++k) {
-      if (tx + 16 * k >= sh.d4) break;
-      dst[tx + 16 * k] = acc[i][k];
-    }
+    for (int k = 0; k < kMaxCluster; ++k)
+      if (k < splits) v[k] = parts[k][e];
+    float4 s = v[0];
+#pragma unroll
+    for (int k = 1; k < kMaxCluster; ++k)
+      if (k < splits) {
+        s.x += v[k].x;
+        s.y += v[k].y;
+        s.z += v[k].z;
+        s.w += v[k].w;
+      }
+    const float two = 2.f * xx_s[e / sh.d4];
+    const float4 xv = __ldg(xt4 + e);
+    dx4[e] = make_float4(fmaf(two, xv.x, s.x), fmaf(two, xv.y, s.y), fmaf(two, xv.z, s.z),
+                         fmaf(two, xv.w, s.w));
   }
-  if (!last_to_finish(counters + blockIdx.x, splits, &flag)) return;
-  if (threadIdx.x < kTile && col0 + threadIdx.x < N) {
-    const int col = col0 + threadIdx.x;
-    xx_s[threadIdx.x] = split_sum(cols_part, N, splits, col);
-    dbias[col] = split_sum(cols_part + static_cast<size_t>(splits) * N, N, splits, col);
-  }
-  __syncthreads();
-  const int cands = min(kTile, N - col0);
-  for (int e = threadIdx.x; e < cands * d; e += kThreads) {
-    const int r = e / d;
-    const size_t at = static_cast<size_t>(col0 + r) * d + (e - r * d);
-    dx[at] = fmaf(2.f * xx_s[r], __ldg(x + at),
-                  split_sum(dx_part, static_cast<size_t>(N) * d, splits, at));
-  }
-  if (threadIdx.x == 0) counters[blockIdx.x] = 0;
+  cluster.sync();  // no block leaves while another still reads its shared memory
 }
 
 size_t tile_smem_bytes(int d, int extra_floats) {
@@ -733,6 +1015,68 @@ bool float4_rows(const float* q, const float* x, int d) {
   return d % 4 == 0 && aligned16(q) && aligned16(x);
 }
 
+typedef void (*BackwardX)(const float*, const float*, const float*, const float*, const int*,
+                          Scalars, const float*, const float*, float*, float*, int, int, int);
+
+// The instance of the candidate-side backward for width d (<= 256).
+template <bool kTrue>
+BackwardX backward_x_kernel(int d) {
+  switch ((d / 4 + bwdx::kWarps - 1) / bwdx::kWarps) {
+    case 1: return ce_backward_x_kernel<kTrue, 1>;
+    case 2: return ce_backward_x_kernel<kTrue, 2>;
+    case 3: return ce_backward_x_kernel<kTrue, 3>;
+    case 4: return ce_backward_x_kernel<kTrue, 4>;
+    case 5: return ce_backward_x_kernel<kTrue, 5>;
+    case 6: return ce_backward_x_kernel<kTrue, 6>;
+    case 7: return ce_backward_x_kernel<kTrue, 7>;
+    default: return ce_backward_x_kernel<kTrue, 8>;
+  }
+}
+
+// The launch of one cluster of `splits` blocks per candidate tile.
+cudaLaunchConfig_t backward_x_config(int N, int d, int splits, cudaStream_t stream,
+                                     cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((N + bwdx::kCands - 1) / bwdx::kCands) * splits);
+  cfg.blockDim = dim3(bwdx::kThreads);
+  cfg.dynamicSmemBytes = bwdx::smem_bytes(d);
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = splits;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <bool kTrue>
+cudaError_t launch_backward_x(const float* q, const float* x, const float* bias, const float* cq,
+                              const int* target, Scalars sc, const float* lse, const float* g,
+                              float* dx, float* dbias, int B, int N, int d, int splits,
+                              cudaStream_t stream) {
+  const BackwardX kernel = backward_x_kernel<kTrue>(d);
+  cudaError_t err = allow_smem(kernel, bwdx::smem_bytes(d));
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = backward_x_config(N, d, splits, stream, &attr);
+  return cudaLaunchKernelEx(&cfg, kernel, q, x, bias, cq, target, sc, lse, g, dx, dbias, B, N, d);
+}
+
+template <bool kTrue>
+cudaError_t backward_x_occupancy(int d, int splits, int* blocks_per_sm, int* active_clusters) {
+  const BackwardX kernel = backward_x_kernel<kTrue>(d);
+  const size_t smem = bwdx::smem_bytes(d);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, bwdx::kThreads,
+                                                        smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = backward_x_config(splits * bwdx::kCands, d, splits, nullptr, &attr);
+  return cudaOccupancyMaxActiveClusters(active_clusters, kernel, &cfg);
+}
+
 }  // namespace
 
 extern "C" {
@@ -742,7 +1086,8 @@ extern "C" {
 // 4 and q and x are 16-byte aligned (else cudaErrorInvalidValue). `counters` are
 // int32 zeros that each launch leaves at zero again: q_tiles of them for the
 // forward, q_tiles + 1 for backward_q; launches sharing counters must not run
-// concurrently.
+// concurrently. backward_x uses no counters: it launches clusters of `splits`
+// (1 to 8) blocks, one cluster per 64 candidates.
 
 int streaming_ce_forward(const float* q, const float* x, const float* bias, const float* cq,
                          const int* target, const float* scale, const float* margin, float* part,
@@ -796,28 +1141,30 @@ int streaming_ce_backward_q(const float* q, const float* x, const float* bias, c
 
 int streaming_ce_backward_x(const float* q, const float* x, const float* bias, const float* cq,
                             const int* target, const float* scale, const float* margin,
-                            const float* lse, const float* g, float* dx_part, float* cols_part,
-                            float* dx, float* dbias, int* counters, int B, int N, int d,
-                            int splits, int tiles_per_split, int true_dist, cudaStream_t stream) {
-  if (!float4_rows(q, x, d)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = tile_smem_bytes(d, kTile * kGsLd);
-  const dim3 grid((N + kTile - 1) / kTile, splits);
+                            const float* lse, const float* g, float* dx, float* dbias, int B, int N,
+                            int d, int splits, int true_dist, cudaStream_t stream) {
+  if (!float4_rows(q, x, d) || splits < 1 || splits > bwdx::kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Scalars sc{scale, margin};
-  cudaError_t err;
-  if (true_dist) {
-    err = allow_smem(ce_backward_x_kernel<true>, smem);
-    if (err == cudaSuccess)
-      ce_backward_x_kernel<true><<<grid, kThreads, smem, stream>>>(
-          q, x, bias, cq, target, sc, lse, g, dx_part, cols_part, dx, dbias, counters, B, N, d,
-          tiles_per_split);
-  } else {
-    err = allow_smem(ce_backward_x_kernel<false>, smem);
-    if (err == cudaSuccess)
-      ce_backward_x_kernel<false><<<grid, kThreads, smem, stream>>>(
-          q, x, bias, cq, target, sc, lse, g, dx_part, cols_part, dx, dbias, counters, B, N, d,
-          tiles_per_split);
-  }
+  const cudaError_t err =
+      true_dist ? launch_backward_x<true>(q, x, bias, cq, target, sc, lse, g, dx, dbias, B, N, d,
+                                          splits, stream)
+                : launch_backward_x<false>(q, x, bias, cq, target, sc, lse, g, dx, dbias, B, N, d,
+                                           splits, stream);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// Blocks of the candidate-side backward that fit on one SM, and clusters of
+// `splits` blocks that can be resident at once, at width d.
+int streaming_ce_backward_x_occupancy(int d, int splits, int true_dist, int* blocks_per_sm,
+                                      int* active_clusters) {
+  if (d < 4 || d > 4 * kMaxD4 || splits < 1 || splits > bwdx::kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(true_dist
+                              ? backward_x_occupancy<true>(d, splits, blocks_per_sm,
+                                                           active_clusters)
+                              : backward_x_occupancy<false>(d, splits, blocks_per_sm,
+                                                            active_clusters));
 }
 
 const char* streaming_ce_error_string(int code) {

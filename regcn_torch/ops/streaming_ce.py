@@ -32,6 +32,8 @@ from regcn_torch.ops import cuda_build
 
 SCORE_EPS = 1e-6  # ref SCORE_SCALE_EPSILON
 TILE = 64  # queries and candidates per kernel tile
+BWD_X_ROWS = 32  # queries per tile of the candidate-side backward's walk
+MAX_CLUSTER = 8  # blocks of one candidate tile in the candidate-side backward
 MAX_D = 256  # widest embedding the kernels take
 # blocks of each kernel that fit on an SM (shared memory: ~105 KB forward,
 # ~125 KB backward at d = 200); splits are sized to fill the SMs in one wave
@@ -96,9 +98,10 @@ def _kernel_lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.streaming_ce_forward.argtypes = [ptr] * 11 + [i32] * 6 + [ptr]
     lib.streaming_ce_backward_q.argtypes = [ptr] * 17 + [i32] * 6 + [ptr]
-    lib.streaming_ce_backward_x.argtypes = [ptr] * 14 + [i32] * 6 + [ptr]
+    lib.streaming_ce_backward_x.argtypes = [ptr] * 11 + [i32] * 5 + [ptr]
+    lib.streaming_ce_backward_x_occupancy.argtypes = [i32] * 3 + [ptr] * 2
     for fn in (lib.streaming_ce_forward, lib.streaming_ce_backward_q,
-               lib.streaming_ce_backward_x):
+               lib.streaming_ce_backward_x, lib.streaming_ce_backward_x_occupancy):
         fn.restype = ctypes.c_int
     lib.streaming_ce_error_string.argtypes = [i32]
     lib.streaming_ce_error_string.restype = ctypes.c_char_p
@@ -116,7 +119,7 @@ def _stream(t: torch.Tensor) -> int:
 
 
 _counters: dict = {}
-_KERNEL_SLOT = {"forward": 0, "backward_q": 1, "backward_x": 2}
+_KERNEL_SLOT = {"forward": 0, "backward_q": 1}
 
 
 def _counters_for(kernel: str, device: torch.device, n: int) -> torch.Tensor:
@@ -188,22 +191,52 @@ def ce_backward_q(q, x, bias, cq, target, scale, margin, lse, g, true_dist: bool
     return dq, dc, dscale, dmargin
 
 
-def ce_backward_x(q, x, bias, cq, target, scale, margin, lse, g, true_dist: bool):
-    """Launches the candidate-side backward kernel: (dx [N,d], dbias [N])."""
+@functools.cache
+def _backward_x_occupancy(device: torch.device, d: int, cluster: int, true_dist: bool
+                          ) -> Tuple[int, int]:
+    """(blocks per SM, clusters resident at once) of the candidate-side backward."""
+    per_sm, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = _kernel_lib().streaming_ce_backward_x_occupancy(
+            d, cluster, int(true_dist), ctypes.addressof(per_sm), ctypes.addressof(clusters))
+    _raise_on(err, "streaming_ce_backward_x_occupancy")
+    return per_sm.value, clusters.value
+
+
+def backward_x_plan(B: int, N: int, d: int, true_dist: bool, device: torch.device,
+                    cluster: int = 0) -> dict:
+    """The candidate-side backward's launch: one cluster of ``cluster`` blocks
+    per 64 candidates, the blocks splitting the query tiles. ``cluster=0``
+    picks the size whose busiest SM walks the fewest query tiles (waves of
+    resident clusters times tiles per block), the smallest such size."""
+    c_tiles, q_tiles = -(-N // TILE), -(-B // BWD_X_ROWS)
+
+    def tiles_on_busiest_sm(size: int) -> int:
+        clusters = _backward_x_occupancy(device, d, size, true_dist)[1]
+        return -(-c_tiles // max(clusters, 1)) * -(-q_tiles // size)
+
+    if not cluster:
+        cluster = min(range(1, min(MAX_CLUSTER, q_tiles) + 1), key=tiles_on_busiest_sm)
+    per_sm, clusters = _backward_x_occupancy(device, d, cluster, true_dist)
+    return dict(grid=c_tiles * cluster, cluster=cluster, blocks_per_sm=per_sm,
+                active_clusters=clusters, query_tiles_per_block=-(-q_tiles // cluster))
+
+
+def ce_backward_x(q, x, bias, cq, target, scale, margin, lse, g, true_dist: bool,
+                  cluster: int = 0):
+    """Launches the candidate-side backward kernel: (dx [N,d], dbias [N]).
+    ``cluster`` (1 to 8 blocks per candidate tile; 0 = chosen by
+    :func:`backward_x_plan`) changes the sums' order, not their terms."""
     B, d = q.shape
     N = x.shape[0]
-    c_tiles = -(-N // TILE)
-    splits, per = _splits(-(-B // TILE), c_tiles, _BWD_BLOCKS_PER_SM, q.device)
+    splits = backward_x_plan(B, N, d, true_dist, q.device, cluster)["cluster"]
     f32 = dict(dtype=torch.float32, device=q.device)
     dx, dbias = torch.empty((N, d), **f32), torch.empty(N, **f32)
-    dx_part, cols_part = torch.empty((splits, N, d), **f32), torch.empty((2, splits, N), **f32)
-    counters = _counters_for("backward_x", q.device, c_tiles)
     with torch.cuda.device(q.device):
         err = _kernel_lib().streaming_ce_backward_x(
             q.data_ptr(), x.data_ptr(), bias.data_ptr(), cq.data_ptr(), target.data_ptr(),
-            scale.data_ptr(), margin.data_ptr(), lse.data_ptr(), g.data_ptr(),
-            dx_part.data_ptr(), cols_part.data_ptr(), dx.data_ptr(), dbias.data_ptr(),
-            counters.data_ptr(), B, N, d, splits, per, int(true_dist), _stream(q))
+            scale.data_ptr(), margin.data_ptr(), lse.data_ptr(), g.data_ptr(), dx.data_ptr(),
+            dbias.data_ptr(), B, N, d, splits, int(true_dist), _stream(q))
     _raise_on(err, "streaming_ce_backward_x")
     ce_backward_x.launches += 1
     return dx, dbias

@@ -18,6 +18,8 @@ thousandfold, and there the fp32 plain version is off by ~2 % in dq.
 """
 
 import math
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -52,7 +54,8 @@ def make_case(B, N, d, *, true=False, per_query_c=False, near_edge=False, seed=0
         u = q[:8] / q[:8].norm(dim=1, keepdim=True)
         q[:8], x[:8], x[8:16] = 9.995 * u, -9.995 * u, -12.0 * u
     target = torch.from_numpy(rng.integers(0, N, B))
-    target[:4] = N - 1 - torch.arange(4)  # targets in the last, partial tile
+    k = min(4, B)
+    target[:k] = N - 1 - torch.arange(k)  # targets in the last, partial tile
     # per-query curvatures as clamp_relation_curvature bounds them: at most
     # 0.999 c, so the points stay inside every query's ball
     cq = (torch.from_numpy(rng.uniform(0.005, 0.999 * C, B).astype(np.float32)) if per_query_c
@@ -90,6 +93,35 @@ def test_dist_ce_loss_on_cpu_is_the_masked_mean_of_the_plain_nll():
     torch.testing.assert_close(loss, (nll * mask).sum() / 9, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("B, N, picked", [(512, 7128, 1), (512, 460, 8), (1, 460, 1),
+                                           (97, 65, 4)])
+def test_backward_x_plan_picks_the_fewest_tiles_on_the_busiest_sm(monkeypatch, B, N, picked):
+    """The cluster size the candidate-side backward launches with, given the
+    occupancy an H100 reports at d = 200 (clusters of 1 to 8 blocks resident
+    at once; one block per SM): the smallest size whose busiest SM walks the
+    fewest 32-row query tiles."""
+    resident = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+    monkeypatch.setattr(S, "_backward_x_occupancy", lambda dev, d, size, true: (1, resident[size]))
+    plan = S.backward_x_plan(B, N, 200, False, torch.device("cpu"))
+    assert plan["cluster"] == picked
+    assert plan["grid"] == -(-N // S.TILE) * picked
+    q_tiles = -(-B // S.BWD_X_ROWS)
+    assert plan["query_tiles_per_block"] == -(-q_tiles // picked)
+
+
+def test_diagnosis_phase_builds_cut_the_kernel_source():
+    """tools/ce_bwd_x_diagnosis.py --phases times the candidate-side backward
+    with one phase of its walk emptied: each edit still finds its one place."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
+    import ce_bwd_x_diagnosis
+
+    src = (Path(S.__file__).resolve().parent.parent / "csrc" / "streaming_ce.cu").read_text()
+    builds = ce_bwd_x_diagnosis.phase_sources()
+    assert set(builds) == set(ce_bwd_x_diagnosis.PHASES)
+    for name, (old, new) in ce_bwd_x_diagnosis.PHASES.items():
+        assert src.count(old) == 1 and builds[name] == src.replace(old, new), name
+
+
 @pytest.mark.parametrize("bad", ["f64_q", "short_bias", "strided_x", "cq_shape", "scale_shape",
                                  "width_mismatch", "meta_device"])
 def test_wrapper_rejects_bad_inputs(bad):
@@ -121,6 +153,14 @@ CUDA_CASES = {
     "near_edge_true": (512, 7128, 200, True, False, True, False),
     "partial_tiles": (300, 1000, 200, True, True, False, True),
     "narrow": (16, 70, 8, True, False, False, False),
+    # the candidate-side backward's cut: 64 candidates per cluster, 32-row query tiles
+    "relation_true_per_query_c": (512, 460, 200, True, True, False, False),
+    "one_query": (1, 7128, 200, False, False, False, False),
+    "b_64": (64, 7128, 200, True, True, False, False),
+    "n_below_one_tile": (512, 40, 200, False, False, False, True),
+    "n_one_past_a_tile": (300, 65, 200, True, True, False, False),
+    "n_one_past_two_tiles": (512, 129, 200, False, False, False, True),
+    "b_past_a_query_tile_masked_tail": (97, 1000, 200, False, False, False, True),
 }
 
 
@@ -152,12 +192,34 @@ def test_kernels_match_plain_version(cuda, name):
 
 
 @pytest.mark.cuda
-def test_kernels_are_deterministic(cuda):
-    case = make_case(512, 7128, 200, true=True, per_query_c=True)
+@pytest.mark.parametrize("N", [7128, 460], ids=["entity", "relation"])
+def test_kernels_are_deterministic(cuda, N):
+    case = make_case(512, N, 200, true=True, per_query_c=True)
     first = run(S.streaming_nll, case, True, cuda)
     second = run(S.streaming_nll, case, True, cuda)
     assert torch.equal(first[0], second[0])
     assert all(torch.equal(a, b) for a, b in zip(first[1], second[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", range(1, S.MAX_CLUSTER + 1))
+def test_backward_x_at_every_cluster_size(cuda, cluster):
+    """dx and dbias with the query tiles cut over 1 to 8 blocks of a cluster
+    (the wrapper picks one of these): each within the plain version's
+    tolerance, and bitwise repeatable."""
+    B, N, d = 300, 1000, 200
+    q, x, bias, target, cq, scale, margin, g = (
+        t.to(cuda) for t in make_case(B, N, d, true=True, per_query_c=True))
+    target = target.to(torch.int32)
+    _, lse = S.ce_forward(q, x, bias, cq, target, scale, margin, True)
+    first = S.ce_backward_x(q, x, bias, cq, target, scale, margin, lse, g, True, cluster)
+    second = S.ce_backward_x(q, x, bias, cq, target, scale, margin, lse, g, True, cluster)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    _, plain_g = run(S.streaming_nll_reference, (q, x, bias, target, cq, scale, margin, g), True,
+                     cuda)
+    for got, want in zip(first, plain_g[1:3]):
+        err = (got - want).abs().max().item()
+        assert err <= GRAD_TOL * max(1.0, want.abs().max().item()), err
 
 
 @pytest.mark.cuda
