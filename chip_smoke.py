@@ -19,7 +19,10 @@ Phases, each of which exits non-zero on failure:
    the scatter (B1) at config 1's first test snapshot, a skewed E=4096
    case and the first test snapshot of synthetic-icews18, each beside
    zeros + index_add_ and its bound (the JSON row's top-level times are
-   config 1's, ``shapes`` holds all three);
+   config 1's, ``shapes`` holds all three); and the scatter's backward:
+   the gradients of h, rel_emb, W and the edge weight through
+   ``rgcn_aggregate`` at config 1's first test snapshot against the CPU's,
+   within the same tolerance, and bitwise repeatable;
 4. main path: RE-GCN config 1 (h=200, 2 UnionRGCN layers, history 3,
    ConvTransE/R) with random weights from a seeded generator, evaluated
    over the whole test split of synthetic-icews14s (seed 123) through
@@ -32,8 +35,8 @@ Phases, each of which exits non-zero on failure:
    the ball's edge on both distances, partial tiles, a masked query
    tail), value and all six gradients; the kernels, the plain version
    and the GEMM of the same shape are timed at both config-3 shapes, and
-   the candidate-side backward's grid, cluster size and blocks per SM
-   are printed;
+   both backward kernels' grids, cluster sizes and blocks per SM are
+   printed;
 6. training path: hyperbolic config 3 (LGCN + RotH, c=0.01 learned with
    a 5-epoch warmup, radius supervision, h=200, 2 layers, n_bases 100,
    history 3) through ``regcn_torch.hyperbolic.train.HyperbolicTrainer``:
@@ -239,6 +242,39 @@ def scatter_times(msg, keys, N: int, n_real: int, edge_weight, row_scale) -> dic
                 library_ms=library_ms)
 
 
+def aggregate_grads(h, rel_emb, weight, snap, G, device) -> tuple:
+    """Gradients of sum(rgcn_aggregate(...) * G) by h, rel_emb, W and the
+    edge weight (the snapshot's edge mask, made to require grad)."""
+    leaves = [t.detach().to(device).requires_grad_(True)
+              for t in (h, rel_emb, weight, snap.edge_mask)]
+    out = rgcn_aggregate(*leaves[:3], snap.src.to(device), snap.dst.to(device),
+                         snap.rel.to(device), leaves[3], snap.in_deg_norm.to(device),
+                         dst_sorted=True)
+    return torch.autograd.grad(out, leaves, G.to(device), allow_unused=True)
+
+
+def aggregate_grad_check(h, rel_emb, weight, snap, G, dev) -> None:
+    """The scatter's backward on the card: every gradient present, within
+    KERNEL_TOL * max(1, max|cpu gradient|) of the CPU's from the same
+    inputs, and two backward calls bitwise equal."""
+    first = aggregate_grads(h, rel_emb, weight, snap, G, dev)
+    second = aggregate_grads(h, rel_emb, weight, snap, G, dev)
+    want = aggregate_grads(h, rel_emb, weight, snap, G, "cpu")
+    torch.cuda.synchronize()
+    parts = []
+    for name, a, b, w in zip(("h", "rel_emb", "W", "edge_weight"), first, second, want):
+        check(a is not None and w is not None, f"rgcn_aggregate gave {name} no gradient")
+        err = (a.cpu() - w).abs().max().item()
+        scale = max(1.0, w.abs().max().item())
+        check(math.isfinite(err) and err <= KERNEL_TOL * scale,
+              f"rgcn_aggregate d{name} cuda vs cpu: max abs err {err:.3e} > {KERNEL_TOL:.0e} * "
+              f"{scale:.3e}")
+        check(torch.equal(a, b), f"rgcn_aggregate d{name}: two backward calls differ")
+        parts.append(f"d{name} {err:.3e} (scale {scale:.3e})")
+    print("[kernels] rgcn_aggregate gradients cuda vs cpu at config 1's first test snapshot, "
+          "bitwise repeatable: " + ", ".join(parts), flush=True)
+
+
 def phase_kernels(data, N: int, R: int, d: int, dev: torch.device) -> dict:
     g = np.random.default_rng(SEED)
     h = torch.from_numpy(g.normal(size=(N, d)).astype(np.float32)).to(dev)
@@ -313,6 +349,10 @@ def phase_kernels(data, N: int, R: int, d: int, dev: torch.device) -> dict:
                              row_scale=snap.in_deg_norm)
     compare("fully masked", got, scatter_add_sorted_reference(msg, masked, N))
     check(torch.count_nonzero(got).item() == 0, "fully masked input gave non-zero rows")
+
+    # differentiable on the card: gradients through rgcn_aggregate against the CPU
+    G = torch.from_numpy(g.normal(size=(N, d)).astype(np.float32))
+    aggregate_grad_check(h, rel_emb, weight, snap, G, dev)
 
     # times, device time per call, at three shapes
     shapes = [
@@ -561,6 +601,12 @@ def phase_ce_kernels(N: int, R: int, d: int, dev: torch.device) -> dict:
                   f"{row['ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f} us, matmul "
                   f"{row['library_ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.2f} us "
                   f"({row['bound_by']})", flush=True)
+        plan = ce.backward_q_plan(B, n, d, False, dev)
+        print(f"[ce] streaming_ce_bwd_q launch at the {label} shape: grid {plan['grid']} blocks, "
+              f"{plan['splits']} clusters of {plan['cluster']} per query tile "
+              f"({plan['candidate_tiles_per_block']} candidate tiles of {ce.BWD_Q_ROWS} rows per "
+              f"block), {plan['blocks_per_sm']} block(s) per SM, {plan['active_clusters']} "
+              f"clusters resident at once", flush=True)
         plan = ce.backward_x_plan(B, n, d, False, dev)
         print(f"[ce] streaming_ce_bwd_x launch at the {label} shape: grid {plan['grid']} blocks "
               f"in clusters of {plan['cluster']} ({plan['query_tiles_per_block']} query tiles of "

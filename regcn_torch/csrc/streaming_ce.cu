@@ -27,12 +27,15 @@
 //                       target logit); the last block of a query tile to
 //                       finish (a counter, atomically incremented) combines
 //                       the splits in split order into nll and lse.
-//   ce_backward_q_kernel  grid (query tile, candidate split). Recomputes the
-//                       logits and dlogit = g (softmax - onehot), then
-//                       dq = sum_j dp x_j + 2 q sum_j dqq, dc, and partials of
-//                       dscale / dmargin; the last block of a query tile sums
-//                       the splits' dq and dc in split order, and the last
-//                       block of the grid sums dscale / dmargin.
+//   ce_backward_q_kernel  one thread-block cluster per 64 queries; its
+//                       blocks split the candidate tiles. Each recomputes the
+//                       logits of its 32-row candidate tiles and dlogit =
+//                       g (softmax - onehot), then dq = sum_j dp x_j +
+//                       2 q sum_j dqq, dc and the terms of dscale / dmargin;
+//                       the cluster sums its blocks' partials in rank order
+//                       through distributed shared memory and writes dq and
+//                       dc once; the last cluster to finish (a counter) sums
+//                       the clusters' dscale / dmargin terms in order.
 //   ce_backward_x_kernel  one thread-block cluster per 64 candidates; its
 //                       blocks split the query tiles. Each walks its 32-row
 //                       query tiles: dx = sum_i dp q_i + 2 x sum_i dxx,
@@ -41,7 +44,7 @@
 //                       memory and writes dx once.
 //
 // Every sum is taken in a fixed order: the forward's and backward_q's
-// counters only decide which block does the combining, and backward_x's
+// counters only decide which block does the combining, and the clusters'
 // ranks are fixed, so results are the same from run to run. Candidates
 // >= N and queries >= B are masked in the kernel (no -1e30 padding): they add
 // exactly 0 to every sum and get no gradient. The clamps (max(num_sq, 0), the
@@ -56,13 +59,13 @@
 // plus ~90 flops per pair: 48.48 us. All products are fp32 FMAs (no TF32: the
 // port is held to fp32 parity).
 //
-// Forward and backward_q: 64 x 64 tiles, 256 threads each owning a 4 x 4
-// block of logits (rows ty + 16 i, columns tx + 16 j, so shared-memory reads
-// are conflict-free); both operand tiles sit whole in shared memory (rows
-// padded to an odd number of float4s) and the products read them as float4.
-// The candidate axis is split across blocks (two forward blocks, or one
-// backward block, fit on an SM; the last block of a query tile merges the
-// splits) so that the SMs are full even with only B/64 = 8 query tiles.
+// Forward: 64 x 64 tiles, 256 threads each owning a 4 x 4 block of logits
+// (rows ty + 16 i, columns tx + 16 j, so shared-memory reads are
+// conflict-free); both operand tiles sit whole in shared memory (rows padded
+// to an odd number of float4s) and the products read them as float4. The
+// candidate axis is split across blocks (two fit on an SM; the last block of
+// a query tile merges the splits) so that the SMs are full even with only
+// B/64 = 8 query tiles.
 //
 // backward_x: its first design (one block per candidate tile walking every
 // query tile, 130 KB of shared memory, so one block of 8 warps per SM) used
@@ -92,6 +95,20 @@
 // - the elementwise chain has no branches (masked pairs give finite values
 //   that are dropped), so a thread's 8 pairs interleave; the proxy, whose
 //   clamp caps the distance, uses the fast division and exponential.
+//
+// backward_q is the same design with q and x swapped; its v2 (one 64 x 64
+// tile pair at a time from shared memory, like the forward) had the same
+// four faults. What differs: at B = 512 there are only 8 query tiles of 64,
+// so the candidate axis carries the parallelism: per query tile, `splits`
+// clusters of C blocks (C up to 16, above 8 a non-portable size) cut it, 32
+// candidates per tile; a cluster merges on chip and the clusters of a query
+// tile through L2. The wrapper picks C and splits from
+// cudaOccupancyMaxActiveClusters: the fewest candidate tiles on the busiest
+// SM, then the fewest splits. Each chain thread works on one query for the
+// whole walk, so its per-query constants and its sums of dqq, dc,
+// dlogit * block and dlogit stay in registers; dq's 2 q sum dqq term is added
+// once, in the merge. The softmax weight keeps expf on both distances (see
+// bwdq::pair_grad).
 // d <= 256, a multiple of 4, and q and x 16-byte aligned (every load is a
 // float4).
 
@@ -105,8 +122,6 @@ namespace {
 constexpr int kTile = 64;
 constexpr int kThreads = 256;
 constexpr int kMaxD4 = 64;           // d <= 256
-constexpr int kColsPerThread = kMaxD4 / 16;
-constexpr int kGsLd = kTile + 1;     // dlogit/dp tile row stride
 constexpr float kEps = 1e-6f;
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
@@ -208,64 +223,12 @@ __device__ __forceinline__ Elem eval_logit(float p, float qq, float xx, float c,
   return e;
 }
 
-struct Grad {
-  float p, qq, xx, c;
-};
-
-// Chain rule from dlogit back to p, qq, xx and c.
-template <bool kTrue>
-__device__ __forceinline__ Grad grad_logit(const Elem& e, float dlogit, float p, float qq,
-                                           float xx, float c, float scale) {
-  const float ddist = -scale * dlogit;
-  float ddiff = 0.f, dc = 0.f;
-  if (kTrue) {
-    const float s1 = e.sqrt_c + kEps;
-    const float inv_s1_sq = 1.f / (s1 * s1);
-    float ds1 = ddist * atanhf(e.z) * (-2.f * inv_s1_sq);
-    const float dz = (e.sqrt_c * e.dn < 1.f - kEps) ? ddist * (2.f / s1) / (1.f - e.z * e.z) : 0.f;
-    float dsqrt_c = dz * e.dn;
-    const float ddn = dz * e.sqrt_c;
-    float ddn0 = 0.f;
-    if (e.dn0 < e.mn) {
-      ddn0 = ddn;
-    } else {
-      ds1 -= ddn * inv_s1_sq;
-    }
-    dsqrt_c += ds1;
-    dc += dsqrt_c * 0.5f / e.sqrt_c;
-    if (e.diff_sq > kEps * kEps) ddiff = ddn0 * 0.5f / e.dn0;
-  } else if (e.diff_sq < e.mx * e.mx) {
-    ddiff = ddist;
-  } else {
-    dc += ddist * 2.f * e.mx * (-0.5f / (c * sqrtf(c)));
-  }
-  const float inv_d = 1.f / e.D;
-  const float inv_d2 = inv_d * inv_d;
-  const float dnum = e.num_sq > 0.f ? ddiff * inv_d2 : 0.f;
-  const float dD = -2.f * ddiff * fmaxf(e.num_sq, 0.f) * inv_d2 * inv_d;
-  const float dA = dnum * (2.f * e.A * qq - 2.f * e.Bc * p);
-  const float dB = dnum * (2.f * e.Bc * xx - 2.f * e.A * p);
-  Grad g;
-  g.p = -2.f * e.A * e.Bc * dnum - 2.f * c * dA - 2.f * c * dD;
-  g.qq = e.A * e.A * dnum - c * dB + c * c * xx * dD;
-  g.xx = e.Bc * e.Bc * dnum + c * dA + c * c * qq * dD;
-  g.c = dc + (xx - 2.f * p) * dA - qq * dB + (2.f * c * qq * xx - 2.f * p) * dD;
-  return g;
-}
-
 // (m, s) <- (m, s) (+) (m2, s2) for running (max, sum of exp(. - max)).
 __device__ __forceinline__ void lse_merge(float& m, float& s, float m2, float s2) {
   const float mx = fmaxf(m, m2);
   if (mx == neg_inf()) return;  // both empty
   s = s * expf(m - mx) + s2 * expf(m2 - mx);
   m = mx;
-}
-
-// Sum over the 16 lanes that share ty (lanes 0-15 and 16-31 of a warp).
-__device__ __forceinline__ float sum16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // Marks this block done for `counter`; true in the block that finishes last.
@@ -278,20 +241,6 @@ __device__ __forceinline__ bool last_to_finish(int* counter, int expected, int* 
   const bool last = *flag != 0;
   if (last) __threadfence();
   return last;
-}
-
-// sum_k part[k * stride + at] over k < splits, in a fixed order, with eight
-// loads in flight (the split partials are read back from L2 by one block).
-__device__ __forceinline__ float split_sum(const float* __restrict__ part, size_t stride,
-                                           int splits, size_t at) {
-  float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  int k = 0;
-  for (; k + 8 <= splits; k += 8) {
-#pragma unroll
-    for (int u = 0; u < 8; ++u) s[u] += __ldcg(part + static_cast<size_t>(k + u) * stride + at);
-  }
-  for (; k < splits; ++k) s[0] += __ldcg(part + static_cast<size_t>(k) * stride + at);
-  return ((s[0] + s[1]) + (s[2] + s[3])) + ((s[4] + s[5]) + (s[6] + s[7]));
 }
 
 struct Scalars {
@@ -411,188 +360,6 @@ __global__ void __launch_bounds__(kThreads, 2)
     nll[row] = l - T;
   }
   if (threadIdx.x == 0) counters[blockIdx.x] = 0;  // ready for the next launch
-}
-
-// -------------------------------------------------------- backward: queries
-
-template <bool kTrue>
-__global__ void __launch_bounds__(kThreads, 1)
-    ce_backward_q_kernel(const float* __restrict__ q, const float* __restrict__ x,
-                         const float* __restrict__ bias, const float* __restrict__ cq,
-                         const int* __restrict__ target, Scalars sc,
-                         const float* __restrict__ lse, const float* __restrict__ g,
-                         float* __restrict__ dq_part, float* __restrict__ rows_part,
-                         float* __restrict__ scal_part, float* __restrict__ dq,
-                         float* __restrict__ dc, float* __restrict__ dscale,
-                         float* __restrict__ dmargin, int* __restrict__ counters, int B, int N,
-                         int d, int tiles_per_split) {
-  extern __shared__ float4 smem[];
-  __shared__ float qq_s[kTile], xx_s[kTile], red[2][kThreads / 32];
-  __shared__ int flag_tile, flag_all;
-  const Shape sh = make_shape(d);
-  float4* Qs = smem;
-  float4* Xs = smem + kTile * sh.ld4;
-  float* Gs = reinterpret_cast<float*>(smem + 2 * kTile * sh.ld4);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int row0 = blockIdx.x * kTile, split = blockIdx.y, splits = gridDim.y;
-  const float scale = __ldg(sc.scale), margin = __ldg(sc.margin);
-
-  load_tile(Qs, q, row0, B, sh);
-  __syncthreads();
-  row_sq_norms(Qs, sh, qq_s);
-  __syncthreads();
-  float qq[4], c[4], l[4], gr[4], sum_qq[4], sum_c[4];
-  int tgt[4];
-  bool row_ok[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty + 16 * i;
-    row_ok[i] = row < B;
-    qq[i] = qq_s[ty + 16 * i];
-    c[i] = row_ok[i] ? __ldg(cq + row) : 1.f;
-    tgt[i] = row_ok[i] ? __ldg(target + row) : -1;
-    l[i] = row_ok[i] ? __ldg(lse + row) : 0.f;
-    gr[i] = row_ok[i] ? __ldg(g + row) : 0.f;
-    sum_qq[i] = 0.f;
-    sum_c[i] = 0.f;
-  }
-  float sum_gblock = 0.f, sum_dblock = 0.f;
-  float4 acc[4][kColsPerThread];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int k = 0; k < kColsPerThread; ++k) acc[i][k] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  const int n_tiles = (N + kTile - 1) / kTile;
-  const int tile_end = min((split + 1) * tiles_per_split, n_tiles);
-  for (int tile = split * tiles_per_split; tile < tile_end; ++tile) {
-    const int col0 = tile * kTile;
-    __syncthreads();
-    load_tile(Xs, x, col0, N, sh);
-    __syncthreads();
-    row_sq_norms(Xs, sh, xx_s);
-    __syncthreads();
-    float p[4][4];
-    tile_dot(Qs, Xs, sh, ty, tx, p);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + tx + 16 * j;
-      const bool col_ok = col < N;
-      const float xx = xx_s[tx + 16 * j];
-      const float b = col_ok ? __ldg(bias + col) : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float gp = 0.f;
-        if (col_ok && row_ok[i]) {
-          const Elem e = eval_logit<kTrue>(p[i][j], qq[i], xx, c[i], scale, margin, b);
-          const float dlogit = gr[i] * (expf(e.logit - l[i]) - (col == tgt[i] ? 1.f : 0.f));
-          const Grad gd = grad_logit<kTrue>(e, dlogit, p[i][j], qq[i], xx, c[i], scale);
-          gp = gd.p;
-          sum_qq[i] += gd.qq;
-          sum_c[i] += gd.c;
-          sum_gblock += dlogit * e.block;
-          sum_dblock += scale * dlogit;
-        }
-        Gs[(ty + 16 * i) * kGsLd + tx + 16 * j] = gp;
-      }
-    }
-    __syncthreads();
-    // acc[row][cols] += sum_j dp[row][j] * x[j][cols]
-    for (int jj = 0; jj < kTile; ++jj) {
-      float gv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) gv[i] = Gs[(ty + 16 * i) * kGsLd + jj];
-#pragma unroll
-      for (int k = 0; k < kColsPerThread; ++k) {
-        if (tx + 16 * k >= sh.d4) break;
-        const float4 xv = Xs[jj * sh.ld4 + tx + 16 * k];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][k].x = fmaf(gv[i], xv.x, acc[i][k].x);
-          acc[i][k].y = fmaf(gv[i], xv.y, acc[i][k].y);
-          acc[i][k].z = fmaf(gv[i], xv.z, acc[i][k].z);
-          acc[i][k].w = fmaf(gv[i], xv.w, acc[i][k].w);
-        }
-      }
-    }
-  }
-
-  // publish this split's partials: dq rows, per-row sums, block scalars
-  const size_t split_rows = static_cast<size_t>(split) * B;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty + 16 * i;
-    const float rq = sum16(sum_qq[i]);
-    const float rc = sum16(sum_c[i]);
-    if (!row_ok[i]) continue;
-    if (tx == 0) {
-      rows_part[split_rows + row] = rq;
-      rows_part[static_cast<size_t>(gridDim.y) * B + split_rows + row] = rc;
-    }
-    float4* dst = reinterpret_cast<float4*>(dq_part + (split_rows + row) * d);
-#pragma unroll
-    for (int k = 0; k < kColsPerThread; ++k) {
-      if (tx + 16 * k >= sh.d4) break;
-      dst[tx + 16 * k] = acc[i][k];
-    }
-  }
-  {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    float a = sum_gblock, b = sum_dblock;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      a += __shfl_xor_sync(0xffffffffu, a, o);
-      b += __shfl_xor_sync(0xffffffffu, b, o);
-    }
-    if (lane == 0) {
-      red[0][warp] = a;
-      red[1][warp] = b;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float ta = 0.f, tb = 0.f;
-      for (int w = 0; w < kThreads / 32; ++w) {
-        ta += red[0][w];
-        tb += red[1][w];
-      }
-      const size_t blk = static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
-      scal_part[2 * blk] = ta;
-      scal_part[2 * blk + 1] = tb;
-    }
-  }
-
-  const int n_blocks = gridDim.x * gridDim.y;
-  const bool last_tile = last_to_finish(counters + blockIdx.x, splits, &flag_tile);
-  if (last_tile) {
-    // dq = sum over splits of the partials + 2 q * sum over splits of dqq
-    float* qsum = qq_s;  // reuse: per-row totals of dqq for this tile
-    if (threadIdx.x < kTile && row0 + threadIdx.x < B) {
-      const int row = row0 + threadIdx.x;
-      qsum[threadIdx.x] = split_sum(rows_part, B, splits, row);
-      dc[row] = split_sum(rows_part + static_cast<size_t>(splits) * B, B, splits, row);
-    }
-    __syncthreads();
-    const int rows = min(kTile, B - row0);
-    for (int e = threadIdx.x; e < rows * d; e += kThreads) {
-      const int r = e / d, col = e - r * d;
-      const size_t at = static_cast<size_t>(row0 + r) * d + col;
-      dq[at] = fmaf(2.f * qsum[r], __ldg(q + at),
-                    split_sum(dq_part, static_cast<size_t>(B) * d, splits, at));
-    }
-    if (threadIdx.x == 0) counters[blockIdx.x] = 0;
-  }
-  if (last_to_finish(counters + gridDim.x, n_blocks, &flag_all)) {
-    if (threadIdx.x == 0) {
-      float ta = 0.f, tb = 0.f;
-      for (int b = 0; b < n_blocks; ++b) {
-        ta += __ldcg(scal_part + 2 * b);
-        tb += __ldcg(scal_part + 2 * b + 1);
-      }
-      *dscale = ta;
-      *dmargin = tb;
-      counters[gridDim.x] = 0;
-    }
-  }
 }
 
 // ----------------------------------------------------- backward: candidates
@@ -716,7 +483,7 @@ __device__ __forceinline__ void row_constants(const float4* Qb, const float* raw
 
 // For one pair: dlogit, and the chain rule from it back to p and |x|^2 (the
 // kernel needs no gradient of |q|^2 or c). The same expressions as
-// eval_logit / grad_logit, with the per-row values precomputed.
+// eval_logit and bwdq::pair_grad, with the per-row values precomputed.
 template <bool kTrue>
 __device__ __forceinline__ void pair_grad(float p, float xx, float b, bool is_target,
                                           float (*rowc)[kRows], int r, float scale,
@@ -997,6 +764,585 @@ __global__ void __launch_bounds__(bwdx::kThreads, 1)
   cluster.sync();  // no block leaves while another still reads its shared memory
 }
 
+// -------------------------------------------------------- backward: queries
+//
+// The mirror of backward_x, with q and x swapped. Each tile of kQueries
+// queries gets `splits` clusters of C blocks, and the splits x C blocks cut
+// its candidate tiles. Each block keeps the query tile in registers and walks
+// its candidate tiles of kRows rows, double-buffered with cp.async. At the
+// end every block leaves its dq / dqq / dc partial in its own shared memory;
+// after a cluster barrier the ranks sum them in rank order through
+// distributed shared memory and write the cluster's partial to device
+// memory, each rank its share; the last cluster of the query tile to finish
+// (a counter per query tile) sums the clusters' partials in split order and
+// writes dq and dc once. Rank 0 of each cluster leaves the cluster's
+// dscale / dmargin terms in device memory, and the last cluster of the grid
+// (one more counter) sums them in cluster order. The card holds only 7
+// clusters of 10 to 16 blocks at once and 15 of 8 (H100 SXM), so with 8
+// query tiles it is clusters of 2, 8 per query tile (128 blocks), that fill
+// the SMs in one wave.
+
+namespace bwdq {
+
+constexpr int kQueries = 64;    // queries per cluster tile: lane l holds l and l + 32
+constexpr int kRows = 32;       // candidates per tile of a block's walk
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxCluster = 16;  // above 8 a non-portable cluster size
+constexpr int kRowStep = 8;     // candidate rows per step of both products
+constexpr int kBatch = 8;       // split partials loaded at once in the merge
+// the dq partial of a block, [kQueries][d4], fits the two candidate buffers
+static_assert(kQueries == 2 * kRows, "the merge reuses the candidate buffers");
+
+// The per-query values of the chain, hoisted out of it: each thread of the
+// chain works on one query for the whole walk and keeps them in registers.
+// k0..k4: true distance, sqrt(c + eps), 2 / (sqrt(c + eps) + eps), the
+// max-norm clamp 1 / (sqrt(c + eps) + eps) - eps, 1 / (sqrt(c + eps) + eps)^2
+// and 0.5 / sqrt(c + eps); proxy, the squared clamp and d dist / d c where
+// the clamp binds.
+struct Query {
+  float qq, c, l, g, Bc, k0, k1, k2, k3, k4;
+  int tgt;
+};
+
+template <bool kTrue>
+__device__ __forceinline__ Query query_constants(float qq, float c, float l, float g, int tgt) {
+  Query k;
+  k.qq = qq;
+  k.c = c;
+  k.l = l;
+  k.g = g;
+  k.tgt = tgt;
+  k.Bc = 1.f - c * qq;
+  if (kTrue) {
+    const float sqrt_c = sqrtf(c + kEps);
+    const float s1 = sqrt_c + kEps;
+    k.k0 = sqrt_c;
+    k.k1 = 2.f / s1;
+    k.k2 = 1.f / s1 - kEps;
+    k.k3 = 1.f / (s1 * s1);
+    k.k4 = 0.5f / sqrt_c;
+  } else {
+    const float mx = 1.f / sqrtf(c) - 2.f * kEps;
+    k.k0 = mx * mx;
+    k.k1 = 2.f * mx * (-0.5f / (c * sqrtf(c)));
+    k.k2 = k.k3 = k.k4 = 0.f;
+  }
+  return k;
+}
+
+// For one pair: dlogit, block = margin - dist, and the chain rule from dlogit
+// back to p, |q|^2 and c (the kernel needs no gradient of |x|^2): eval_logit's
+// expressions and the derivative of each, with the per-query values
+// precomputed; the clamps pass no gradient where they bind.
+template <bool kTrue>
+__device__ __forceinline__ void pair_grad(float p, float xx, float b, bool is_target,
+                                          const Query& k, float scale, float margin,
+                                          float& dlogit, float& block, float& gp, float& gqq,
+                                          float& gc) {
+  const float qq = k.qq, c = k.c, Bc = k.Bc;
+  const float A = 1.f - 2.f * c * p + c * xx;
+  const float D = 1.f - 2.f * c * p + (c * c) * qq * xx + kEps;
+  const float num_sq = A * A * qq - 2.f * A * Bc * p + Bc * Bc * xx;
+  // the proxy needs no IEEE division: its clamp caps the distance, while the
+  // true distance's artanh amplifies the rounding of diff_sq near the edge
+  const float diff_sq =
+      kTrue ? fmaxf(num_sq, 0.f) / (D * D) : __fdividef(fmaxf(num_sq, 0.f), D * D);
+  float dist, dn0 = 0.f, dn = 0.f, z = 0.f, at = 0.f;
+  if (kTrue) {
+    dn0 = sqrtf(fmaxf(diff_sq, kEps * kEps));
+    dn = fminf(dn0, k.k2);
+    z = fminf(k.k0 * dn, 1.f - kEps);
+    at = atanhf(z);
+    dist = k.k1 * at;
+  } else {
+    dist = fminf(diff_sq, k.k0);
+  }
+  block = margin - dist;
+  const float logit = scale * block + b;
+  // expf on both distances: __expf's bias (~1e-6 of each weight) shows in
+  // dscale, a sum over B x N pairs
+  dlogit = k.g * (expf(logit - k.l) - (is_target ? 1.f : 0.f));
+  const float ddist = -scale * dlogit;
+  float ddiff, dc;
+  if (kTrue) {
+    const float dz = (k.k0 * dn < 1.f - kEps) ? ddist * k.k1 / (1.f - z * z) : 0.f;
+    const float ddn = dz * k.k0;
+    const bool unclamped = dn0 < k.k2;  // the max-norm clamp does not bind
+    const float ds1 = ddist * at * (-2.f * k.k3) - (unclamped ? 0.f : ddn * k.k3);
+    dc = (dz * dn + ds1) * k.k4;
+    ddiff = diff_sq > kEps * kEps ? (unclamped ? ddn : 0.f) * 0.5f / dn0 : 0.f;
+  } else {
+    const bool inside = diff_sq < k.k0;
+    ddiff = inside ? ddist : 0.f;
+    dc = inside ? 0.f : ddist * k.k1;
+  }
+  const float inv_d = kTrue ? 1.f / D : __fdividef(1.f, D);
+  const float inv_d2 = inv_d * inv_d;
+  const float dnum = num_sq > 0.f ? ddiff * inv_d2 : 0.f;
+  const float dD = -2.f * ddiff * fmaxf(num_sq, 0.f) * inv_d2 * inv_d;
+  const float dA = dnum * (2.f * A * qq - 2.f * Bc * p);
+  const float dB = dnum * (2.f * Bc * xx - 2.f * A * p);
+  gp = -2.f * A * Bc * dnum - 2.f * c * dA - 2.f * c * dD;
+  gqq = A * A * dnum - c * dB + c * c * xx * dD;
+  gc = dc + (xx - 2.f * p) * dA - qq * dB + (2.f * c * qq * xx - 2.f * p) * dD;
+}
+
+constexpr int kPerLane = 4 * kMaxD4 / 32;  // elements of a row per lane, d <= 256
+
+// |row|^2 of kN rows of a row-major [*, width] matrix (rows past `valid` give
+// 0), each summed over the warp in the order of bwdx::warp_row_sq (lane-strided,
+// then a butterfly), with every load issued before the first add: out[i] in
+// every lane. Near the ball's edge 1 - c |q|^2 cancels to ~1e-3, and the true
+// distance's artanh amplifies its rounding ~1000x, so |q|^2 keeps the
+// summation order of the earlier kernels.
+template <int kN, typename Load>
+__device__ __forceinline__ void warp_rows_sq(Load load, int width, int valid, int lane,
+                                             float* out) {
+  float v[kN][kPerLane];
+#pragma unroll
+  for (int i = 0; i < kN; ++i)
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j) {
+      const int k = lane + 32 * j;
+      v[i][j] = i < valid && k < width ? load(i, k) : 0.f;
+    }
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    float acc = 0.f;
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j) acc = fmaf(v[i][j], v[i][j], acc);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    out[i] = acc;
+  }
+}
+
+__device__ __forceinline__ void add4(float4& s, const float4& v) {
+  s.x += v.x;
+  s.y += v.y;
+  s.z += v.z;
+  s.w += v.w;
+}
+
+// bias of the candidate tile at col0 into s[kRows], zero past N; asynchronous.
+__device__ __forceinline__ void load_bias_async(float* s, const float* bias, int col0, int N) {
+  if (threadIdx.x < kRows) {
+    const bool ok = col0 + static_cast<int>(threadIdx.x) < N;
+    bwdx::cp_async4(s + threadIdx.x, bias + (ok ? col0 + threadIdx.x : 0), ok);
+  }
+}
+
+size_t smem_bytes(int d) {
+  return 2 * static_cast<size_t>(kRows) * make_shape(d).ld4 * sizeof(float4) +
+         static_cast<size_t>(kWarps + 1) * kRows * kQueries * sizeof(float);
+}
+
+}  // namespace bwdq
+
+// kCol4 = ceil(d / 32) float4 columns per warp, as in backward_x.
+template <bool kTrue, int kCol4>
+__global__ void __launch_bounds__(bwdq::kThreads, 1)
+    ce_backward_q_kernel(const float* __restrict__ q, const float* __restrict__ x,
+                         const float* __restrict__ bias, const float* __restrict__ cq,
+                         const int* __restrict__ target, Scalars sc,
+                         const float* __restrict__ lse, const float* __restrict__ g,
+                         float* __restrict__ dq_part, float* __restrict__ rows_part,
+                         float* __restrict__ scal_part, float* __restrict__ dq,
+                         float* __restrict__ dc, float* __restrict__ dscale,
+                         float* __restrict__ dmargin, int* __restrict__ counters, int B, int N,
+                         int d, int splits) {
+  using namespace bwdq;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  unsigned cluster_size;
+  asm("mov.u32 %0, %%cluster_nctarank;" : "=r"(cluster_size));
+  const int C = static_cast<int>(cluster_size);
+  extern __shared__ float4 smem[];
+  __shared__ float bias_s[2][kRows], xx_s[kRows];
+  __shared__ float qsum[2][kQueries], tqq_s[kQueries];
+  __shared__ float wsum[2][kWarps], bsum[2];
+  __shared__ int last_of_tile, last_of_grid;
+  const Shape sh = make_shape(d);
+  float4* Xs = smem;  // two buffers of kRows rows
+  float* red = reinterpret_cast<float*>(Xs + 2 * kRows * sh.ld4);  // [kWarps][kRows][kQueries]
+  float* Gs = red + kWarps * kRows * kQueries;                      // [kRows][kQueries]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int cid = static_cast<int>(blockIdx.x) / C, n_clusters = static_cast<int>(gridDim.x) / C;
+  const int qtile = cid / splits, csplit = cid % splits, row0 = qtile * kQueries;
+  const int q_tiles = n_clusters / splits;
+  const float scale = __ldg(sc.scale), margin = __ldg(sc.margin);
+
+  // this block's candidate tiles (split csplit * C + rank of splits * C); the
+  // first is in flight while the queries load
+  const int c_tiles = (N + kRows - 1) / kRows;
+  const int per = (c_tiles + splits * C - 1) / (splits * C);
+  const int t_begin = min((csplit * C + rank) * per, c_tiles), t_end = min(t_begin + per, c_tiles);
+  if (t_begin < t_end) {
+    bwdx::load_tile_async(Xs, x, t_begin * kRows, kRows, N, sh);
+    load_bias_async(bias_s[0], bias, t_begin * kRows, N);
+  }
+  bwdx::cp_async_commit();
+
+  // queries lane and lane + 32, float4 columns warp + 8 m: in registers for
+  // the whole walk (both products read only the candidate rows from shared
+  // memory, every lane of a warp the same float4)
+  const float4* q4 = reinterpret_cast<const float4*>(q);
+  const bool last = warp + kWarps * (kCol4 - 1) < sh.d4;  // this warp has column kCol4 - 1
+  float4 qr[2][kCol4];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int row = row0 + lane + 32 * c;
+#pragma unroll
+    for (int m = 0; m < kCol4; ++m) {
+      const int k = warp + kWarps * m;
+      qr[c][m] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row < B && k < sh.d4) qr[c][m] = __ldg(q4 + static_cast<size_t>(row) * sh.d4 + k);
+    }
+  }
+  {  // |q|^2, warp w summing rows 8w .. 8w + 7
+    constexpr int kPerWarp = kQueries / kWarps;
+    const int r0 = warp * kPerWarp;
+    const float* qw = q + static_cast<size_t>(row0 + r0) * d;
+    float qq_r[kPerWarp];
+    warp_rows_sq<kPerWarp>([&](int i, int k) { return __ldg(qw + static_cast<size_t>(i) * d + k); },
+                           d, B - row0 - r0, lane, qq_r);
+    if (lane < kPerWarp) {
+      float v = qq_r[0];
+#pragma unroll
+      for (int i = 1; i < kPerWarp; ++i)
+        if (lane == i) v = qq_r[i];
+      red[r0 + lane] = v;
+    }
+  }
+  __syncthreads();
+  // the elementwise chain: query eq, candidate rows er + 4 i; rows past B get
+  // c = 1, lse = g = 0 (they are masked)
+  const int eq = tid % kQueries, er = tid / kQueries;
+  const float qq = red[eq];
+  const int qrow = row0 + eq;
+  const bool row_ok = qrow < B;
+  const Query kq = query_constants<kTrue>(
+      qq, row_ok ? __ldg(cq + qrow) : 1.f, row_ok ? __ldg(lse + qrow) : 0.f,
+      row_ok ? __ldg(g + qrow) : 0.f, row_ok ? __ldg(target + qrow) : -1);
+  float sum_qq = 0.f, sum_c = 0.f, sum_gblock = 0.f;
+  // dmargin: a shift of all of a query's logits leaves its NLL unchanged, so
+  // sum_j dlogit_ij = g_i (sum_j softmax_ij - [target_i < N]) = g_i [target_i
+  // is no candidate], counted once per query. Summing the B x N dlogits
+  // instead leaves the noise of the recomputed logits, which differ from the
+  // forward's by a few ulp (1e-4 at config 3's entity shape, against 0).
+  const float sum_g =
+      er == 0 && rank == 0 && csplit == 0 && (kq.tgt < 0 || kq.tgt >= N) ? kq.g : 0.f;
+  float4 acc[2][kCol4];
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int m = 0; m < kCol4; ++m) acc[c][m] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int buf = (t - t_begin) & 1, col0 = t * kRows;
+    const float4* Xb = Xs + buf * kRows * sh.ld4;
+    bwdx::cp_async_wait_all();
+    __syncthreads();  // tile t has landed; tile t - 1 (and red, Gs, xx_s) no longer read
+    if (t + 1 < t_end) {
+      bwdx::load_tile_async(Xs + (buf ^ 1) * kRows * sh.ld4, x, col0 + kRows, kRows, N, sh);
+      load_bias_async(bias_s[buf ^ 1], bias, col0 + kRows, N);
+    }
+    bwdx::cp_async_commit();
+    {  // |x|^2 of the tile's rows: warp w sums rows 4w .. 4w + 3, lanes 0 .. 3 store them
+      constexpr int kPerWarp = kRows / kWarps;
+      const float* xw = reinterpret_cast<const float*>(Xb + warp * kPerWarp * sh.ld4);
+      float xx_r[kPerWarp];
+      warp_rows_sq<kPerWarp>([&](int i, int k) { return xw[i * 4 * sh.ld4 + k]; }, d, kPerWarp,
+                             lane, xx_r);
+      float v = xx_r[0];
+#pragma unroll
+      for (int rr = 1; rr < kPerWarp; ++rr)
+        if (lane == rr) v = xx_r[rr];
+      if (lane < kPerWarp) xx_s[warp * kPerWarp + lane] = v;
+    }
+    // this warp's share of p over its columns, kRowStep candidates at a time
+    for (int j0 = 0; j0 < kRows; j0 += kRowStep) {
+      float pd[kRowStep][2];
+#pragma unroll
+      for (int s = 0; s < kRowStep; ++s) pd[s][0] = pd[s][1] = 0.f;
+#pragma unroll
+      for (int m = 0; m < kCol4; ++m) {
+        if (m == kCol4 - 1 && !last) break;
+#pragma unroll
+        for (int s = 0; s < kRowStep; ++s) {
+          const float4 xv = Xb[(j0 + s) * sh.ld4 + warp + kWarps * m];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            float v = pd[s][c];
+            v = fmaf(xv.x, qr[c][m].x, v);
+            v = fmaf(xv.y, qr[c][m].y, v);
+            v = fmaf(xv.z, qr[c][m].z, v);
+            v = fmaf(xv.w, qr[c][m].w, v);
+            pd[s][c] = v;
+          }
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < kRowStep; ++s) {
+        red[(warp * kRows + j0 + s) * kQueries + lane] = pd[s][0];
+        red[(warp * kRows + j0 + s) * kQueries + lane + 32] = pd[s][1];
+      }
+    }
+    __syncthreads();  // red, xx_s
+    // without branches, so the eight chains interleave: queries past B and
+    // candidates past N (x = 0, bias = 0) give finite values, dropped
+    const float* bt = bias_s[buf];
+#pragma unroll
+    for (int i = 0; i < kRows / 4; ++i) {
+      const int r = er + 4 * i;
+      float p = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) p += red[(w * kRows + r) * kQueries + eq];
+      float dlogit, block, gp, gqq, gc;
+      pair_grad<kTrue>(p, xx_s[r], bt[r], col0 + r == kq.tgt, kq, scale, margin, dlogit, block,
+                       gp, gqq, gc);
+      const bool ok = row_ok && col0 + r < N;
+      sum_qq += ok ? gqq : 0.f;
+      sum_c += ok ? gc : 0.f;
+      sum_gblock += ok ? dlogit * block : 0.f;
+      Gs[r * kQueries + eq] = ok ? gp : 0.f;
+    }
+    __syncthreads();  // Gs
+    // acc[query lane + 32 c][warp + 8 m] += sum_j dp[query][j] * x[j][warp + 8 m],
+    // kRowStep candidates at a time so that each column's loads go out together
+    for (int j0 = 0; j0 < kRows; j0 += kRowStep) {
+      float g0[kRowStep], g1[kRowStep];
+#pragma unroll
+      for (int s = 0; s < kRowStep; ++s) {
+        g0[s] = Gs[(j0 + s) * kQueries + lane];
+        g1[s] = Gs[(j0 + s) * kQueries + lane + 32];
+      }
+#pragma unroll
+      for (int m = 0; m < kCol4; ++m) {
+        if (m == kCol4 - 1 && !last) break;
+        float4 xv[kRowStep];
+#pragma unroll
+        for (int s = 0; s < kRowStep; ++s) xv[s] = Xb[(j0 + s) * sh.ld4 + warp + kWarps * m];
+#pragma unroll
+        for (int s = 0; s < kRowStep; ++s) {
+          acc[0][m].x = fmaf(g0[s], xv[s].x, acc[0][m].x);
+          acc[0][m].y = fmaf(g0[s], xv[s].y, acc[0][m].y);
+          acc[0][m].z = fmaf(g0[s], xv[s].z, acc[0][m].z);
+          acc[0][m].w = fmaf(g0[s], xv[s].w, acc[0][m].w);
+          acc[1][m].x = fmaf(g1[s], xv[s].x, acc[1][m].x);
+          acc[1][m].y = fmaf(g1[s], xv[s].y, acc[1][m].y);
+          acc[1][m].z = fmaf(g1[s], xv[s].z, acc[1][m].z);
+          acc[1][m].w = fmaf(g1[s], xv[s].w, acc[1][m].w);
+        }
+      }
+    }
+  }
+
+  // this block's partials into its own shared memory: dq rows over the
+  // candidate buffers, per-query sums over the four threads of a query in
+  // order, the block's dscale / dmargin terms over the warps in order
+  __syncthreads();  // the walk no longer reads Xs, red or Gs
+  red[er * kQueries + eq] = sum_qq;
+  red[(4 + er) * kQueries + eq] = sum_c;
+  float4* part = Xs;  // [kQueries][d4]
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int m = 0; m < kCol4; ++m) {
+      const int k = warp + kWarps * m;
+      if (k < sh.d4) part[(lane + 32 * c) * sh.d4 + k] = acc[c][m];
+    }
+  {
+    float a = sum_gblock, b = sum_g;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      a += __shfl_xor_sync(0xffffffffu, a, o);
+      b += __shfl_xor_sync(0xffffffffu, b, o);
+    }
+    if (lane == 0) {
+      wsum[0][warp] = a;
+      wsum[1][warp] = b;
+    }
+  }
+  __syncthreads();
+  if (tid < kQueries) {
+    qsum[0][tid] = ((red[tid] + red[kQueries + tid]) + red[2 * kQueries + tid]) +
+                   red[3 * kQueries + tid];
+    qsum[1][tid] = ((red[4 * kQueries + tid] + red[5 * kQueries + tid]) +
+                    red[6 * kQueries + tid]) + red[7 * kQueries + tid];
+  }
+  if (tid == 0) {
+    float a = 0.f, b = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      a += wsum[0][w];
+      b += wsum[1][w];
+    }
+    bsum[0] = a;
+    bsum[1] = b;
+  }
+  cluster.sync();  // every rank's partials are in its shared memory
+
+  // the cluster's sums, in rank order, into device memory: per-query dqq and
+  // dc (by the rank that owns the query), the scalar terms (rank 0) and this
+  // rank's share of the dq rows
+  if (tid < kQueries) {
+    float tq = 0.f, tc = 0.f;
+    for (int k = 0; k < C; ++k) {
+      const float* qs = cluster.map_shared_rank(&qsum[0][0], k);
+      tq += qs[tid];
+      tc += qs[kQueries + tid];
+    }
+    if (tid % C == rank && row0 + tid < B) {
+      rows_part[static_cast<size_t>(csplit) * B + row0 + tid] = tq;
+      rows_part[static_cast<size_t>(splits + csplit) * B + row0 + tid] = tc;
+    }
+  }
+  if (rank == 0 && tid == kQueries) {
+    float a = 0.f, b = 0.f;
+    for (int k = 0; k < C; ++k) {
+      const float* bs = cluster.map_shared_rank(bsum, k);
+      a += bs[0];
+      b += bs[1];
+    }
+    scal_part[2 * cid] = a;
+    scal_part[2 * cid + 1] = b;
+  }
+  const float4* parts[kMaxCluster];
+#pragma unroll
+  for (int k = 0; k < kMaxCluster; ++k) parts[k] = k < C ? cluster.map_shared_rank(part, k) : part;
+  const int rows = min(kQueries, B - row0), total = rows * sh.d4;
+  const int chunk = (total + C - 1) / C;
+  const int e_begin = rank * chunk, e_end = min(total, (rank + 1) * chunk);
+  float4* dq_part4 = reinterpret_cast<float4*>(dq_part);
+  const size_t split_stride = static_cast<size_t>(B) * sh.d4;  // float4s per split
+  float4* mine = dq_part4 + csplit * split_stride + static_cast<size_t>(row0) * sh.d4;
+  for (int e = e_begin + tid; e < e_end; e += 2 * bwdq::kThreads) {
+    const int e2 = e + bwdq::kThreads;  // two elements a thread, every load in flight
+    const bool two = e2 < e_end;
+    float4 v[kMaxCluster], w[kMaxCluster];
+#pragma unroll
+    for (int k = 0; k < kMaxCluster; ++k)
+      if (k < C) {
+        v[k] = parts[k][e];
+        w[k] = two ? parts[k][e2] : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    float4 s = v[0], s2 = w[0];
+#pragma unroll
+    for (int k = 1; k < kMaxCluster; ++k)
+      if (k < C) {
+        add4(s, v[k]);
+        add4(s2, w[k]);
+      }
+    mine[e] = s;
+    if (two) mine[e2] = s2;
+  }
+  __threadfence();
+  cluster.sync();  // the cluster's partial is out; no rank reads another's shared memory any more
+  if (rank == 0 && tid == 0) {
+    const int last = atomicAdd(counters + qtile, 1) == splits - 1;
+    for (int k = 0; k < C; ++k) *cluster.map_shared_rank(&last_of_tile, k) = last;
+  }
+  cluster.sync();
+
+  // the last cluster of this query tile: the splits' partials in split order
+  if (last_of_tile) {
+    __threadfence();
+    // (kBatch splits' loads in flight at a time, for two elements a thread)
+    if (tid < kQueries && row0 + tid < B) {
+      const float* tq_part = rows_part + row0 + tid;
+      const float* tc_part = tq_part + static_cast<size_t>(splits) * B;
+      float tq = 0.f, tc = 0.f;
+      for (int k0 = 0; k0 < splits; k0 += kBatch) {
+        float a[kBatch], b[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          if (k0 + u < splits) {
+            a[u] = __ldcg(tq_part + static_cast<size_t>(k0 + u) * B);
+            b[u] = __ldcg(tc_part + static_cast<size_t>(k0 + u) * B);
+          }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          if (k0 + u < splits) {
+            tq += a[u];
+            tc += b[u];
+          }
+      }
+      tqq_s[tid] = tq;
+      if (tid % C == rank) dc[row0 + tid] = tc;
+    }
+    __syncthreads();  // tqq_s
+    const float4* first = dq_part4 + static_cast<size_t>(row0) * sh.d4;
+    const float4* qt4 = q4 + static_cast<size_t>(row0) * sh.d4;
+    float4* dq4 = reinterpret_cast<float4*>(dq) + static_cast<size_t>(row0) * sh.d4;
+    for (int e = e_begin + tid; e < e_end; e += 2 * bwdq::kThreads) {
+      const int e2 = e + bwdq::kThreads;
+      const bool two = e2 < e_end;
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f), s2 = s;
+      for (int k0 = 0; k0 < splits; k0 += kBatch) {
+        float4 v[kBatch], w[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          if (k0 + u < splits) {
+            v[u] = __ldcg(first + (k0 + u) * split_stride + e);
+            if (two) w[u] = __ldcg(first + (k0 + u) * split_stride + e2);
+          }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          if (k0 + u < splits) {
+            add4(s, v[u]);
+            if (two) add4(s2, w[u]);
+          }
+      }
+      const float t1 = 2.f * tqq_s[e / sh.d4];
+      const float4 qv = __ldg(qt4 + e);
+      dq4[e] = make_float4(fmaf(t1, qv.x, s.x), fmaf(t1, qv.y, s.y), fmaf(t1, qv.z, s.z),
+                           fmaf(t1, qv.w, s.w));
+      if (two) {
+        const float t2 = 2.f * tqq_s[e2 / sh.d4];
+        const float4 qv2 = __ldg(qt4 + e2);
+        dq4[e2] = make_float4(fmaf(t2, qv2.x, s2.x), fmaf(t2, qv2.y, s2.y),
+                              fmaf(t2, qv2.z, s2.z), fmaf(t2, qv2.w, s2.w));
+      }
+    }
+    if (rank == 0 && tid == 0) counters[qtile] = 0;  // ready for the next launch
+  }
+
+  // dscale and dmargin: the last cluster of the grid sums the clusters' terms in order
+  // (a fixed order: thread t sums entries t, t + 256, ..., then the warps'
+  // butterflies, then the warps in order)
+  if (rank == 0 && last_to_finish(counters + q_tiles, n_clusters, &last_of_grid)) {
+    float a = 0.f, b = 0.f;
+    for (int k = tid; k < n_clusters; k += bwdq::kThreads) {
+      a += __ldcg(scal_part + 2 * k);
+      b += __ldcg(scal_part + 2 * k + 1);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      a += __shfl_xor_sync(0xffffffffu, a, o);
+      b += __shfl_xor_sync(0xffffffffu, b, o);
+    }
+    if (lane == 0) {
+      wsum[0][warp] = a;
+      wsum[1][warp] = b;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      float ta = 0.f, tb = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        ta += wsum[0][w];
+        tb += wsum[1][w];
+      }
+      *dscale = ta;
+      *dmargin = scale * tb;
+      counters[q_tiles] = 0;  // ready for the next launch
+    }
+  }
+}
+
 size_t tile_smem_bytes(int d, int extra_floats) {
   return (2 * static_cast<size_t>(kTile) * make_shape(d).ld4) * sizeof(float4) +
          static_cast<size_t>(extra_floats) * sizeof(float);
@@ -1077,6 +1423,84 @@ cudaError_t backward_x_occupancy(int d, int splits, int* blocks_per_sm, int* act
   return cudaOccupancyMaxActiveClusters(active_clusters, kernel, &cfg);
 }
 
+typedef void (*BackwardQ)(const float*, const float*, const float*, const float*, const int*,
+                          Scalars, const float*, const float*, float*, float*, float*, float*,
+                          float*, float*, float*, int*, int, int, int, int);
+
+// The instance of the query-side backward for width d (<= 256).
+template <bool kTrue>
+BackwardQ backward_q_kernel(int d) {
+  switch ((d / 4 + bwdq::kWarps - 1) / bwdq::kWarps) {
+    case 1: return ce_backward_q_kernel<kTrue, 1>;
+    case 2: return ce_backward_q_kernel<kTrue, 2>;
+    case 3: return ce_backward_q_kernel<kTrue, 3>;
+    case 4: return ce_backward_q_kernel<kTrue, 4>;
+    case 5: return ce_backward_q_kernel<kTrue, 5>;
+    case 6: return ce_backward_q_kernel<kTrue, 6>;
+    case 7: return ce_backward_q_kernel<kTrue, 7>;
+    default: return ce_backward_q_kernel<kTrue, 8>;
+  }
+}
+
+// Shared memory above 48 KB, and clusters above the portable 8 blocks.
+cudaError_t prepare_backward_q(BackwardQ kernel, int d) {
+  cudaError_t err = allow_smem(kernel, bwdq::smem_bytes(d));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
+// The launch of `splits` clusters of `cluster` blocks per query tile.
+cudaLaunchConfig_t backward_q_config(int B, int d, int cluster, int splits, cudaStream_t stream,
+                                     cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((B + bwdq::kQueries - 1) / bwdq::kQueries) * splits * cluster);
+  cfg.blockDim = dim3(bwdq::kThreads);
+  cfg.dynamicSmemBytes = bwdq::smem_bytes(d);
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <bool kTrue>
+cudaError_t launch_backward_q(const float* q, const float* x, const float* bias, const float* cq,
+                              const int* target, Scalars sc, const float* lse, const float* g,
+                              float* dq_part, float* rows_part, float* scal_part, float* dq,
+                              float* dc, float* dscale, float* dmargin, int* counters, int B,
+                              int N, int d, int cluster, int splits, cudaStream_t stream) {
+  const BackwardQ kernel = backward_q_kernel<kTrue>(d);
+  cudaError_t err = prepare_backward_q(kernel, d);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = backward_q_config(B, d, cluster, splits, stream, &attr);
+  return cudaLaunchKernelEx(&cfg, kernel, q, x, bias, cq, target, sc, lse, g, dq_part, rows_part,
+                            scal_part, dq, dc, dscale, dmargin, counters, B, N, d, splits);
+}
+
+template <bool kTrue>
+cudaError_t backward_q_occupancy(int d, int cluster, int* blocks_per_sm, int* active_clusters) {
+  const BackwardQ kernel = backward_q_kernel<kTrue>(d);
+  cudaError_t err = prepare_backward_q(kernel, d);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, bwdq::kThreads,
+                                                        bwdq::smem_bytes(d));
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = backward_q_config(bwdq::kQueries, d, cluster, 1, nullptr, &attr);
+  err = cudaOccupancyMaxActiveClusters(active_clusters, kernel, &cfg);
+  if (err == cudaErrorInvalidClusterSize) {  // no cluster of this size fits the card
+    cudaGetLastError();
+    *active_clusters = 0;
+    err = cudaSuccess;
+  }
+  return err;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1086,8 +1510,11 @@ extern "C" {
 // 4 and q and x are 16-byte aligned (else cudaErrorInvalidValue). `counters` are
 // int32 zeros that each launch leaves at zero again: q_tiles of them for the
 // forward, q_tiles + 1 for backward_q; launches sharing counters must not run
-// concurrently. backward_x uses no counters: it launches clusters of `splits`
-// (1 to 8) blocks, one cluster per 64 candidates.
+// concurrently. backward_q launches `splits` clusters of `cluster` (1 to 16)
+// blocks per 64 queries, with partials of dq [splits, B, d], of dqq and dc
+// [2, splits, B] and of dscale / dmargin [q_tiles * splits, 2]; backward_x uses
+// no counters: it launches clusters of `splits` (1 to 8) blocks, one cluster
+// per 64 candidates.
 
 int streaming_ce_forward(const float* q, const float* x, const float* bias, const float* cq,
                          const int* target, const float* scale, const float* margin, float* part,
@@ -1116,26 +1543,18 @@ int streaming_ce_backward_q(const float* q, const float* x, const float* bias, c
                             const int* target, const float* scale, const float* margin,
                             const float* lse, const float* g, float* dq_part, float* rows_part,
                             float* scal_part, float* dq, float* dc, float* dscale, float* dmargin,
-                            int* counters, int B, int N, int d, int splits, int tiles_per_split,
+                            int* counters, int B, int N, int d, int cluster, int splits,
                             int true_dist, cudaStream_t stream) {
-  if (!float4_rows(q, x, d)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = tile_smem_bytes(d, kTile * kGsLd);
-  const dim3 grid((B + kTile - 1) / kTile, splits);
+  if (!float4_rows(q, x, d) || cluster < 1 || cluster > bwdq::kMaxCluster || splits < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Scalars sc{scale, margin};
-  cudaError_t err;
-  if (true_dist) {
-    err = allow_smem(ce_backward_q_kernel<true>, smem);
-    if (err == cudaSuccess)
-      ce_backward_q_kernel<true><<<grid, kThreads, smem, stream>>>(
-          q, x, bias, cq, target, sc, lse, g, dq_part, rows_part, scal_part, dq, dc, dscale,
-          dmargin, counters, B, N, d, tiles_per_split);
-  } else {
-    err = allow_smem(ce_backward_q_kernel<false>, smem);
-    if (err == cudaSuccess)
-      ce_backward_q_kernel<false><<<grid, kThreads, smem, stream>>>(
-          q, x, bias, cq, target, sc, lse, g, dq_part, rows_part, scal_part, dq, dc, dscale,
-          dmargin, counters, B, N, d, tiles_per_split);
-  }
+  const cudaError_t err =
+      true_dist ? launch_backward_q<true>(q, x, bias, cq, target, sc, lse, g, dq_part, rows_part,
+                                          scal_part, dq, dc, dscale, dmargin, counters, B, N, d,
+                                          cluster, splits, stream)
+                : launch_backward_q<false>(q, x, bias, cq, target, sc, lse, g, dq_part, rows_part,
+                                           scal_part, dq, dc, dscale, dmargin, counters, B, N, d,
+                                           cluster, splits, stream);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
@@ -1164,6 +1583,20 @@ int streaming_ce_backward_x_occupancy(int d, int splits, int true_dist, int* blo
                               ? backward_x_occupancy<true>(d, splits, blocks_per_sm,
                                                            active_clusters)
                               : backward_x_occupancy<false>(d, splits, blocks_per_sm,
+                                                            active_clusters));
+}
+
+// Blocks of the query-side backward that fit on one SM, and clusters of
+// `cluster` blocks (1 to 16) that can be resident at once (0 if none fits), at
+// width d.
+int streaming_ce_backward_q_occupancy(int d, int cluster, int true_dist, int* blocks_per_sm,
+                                      int* active_clusters) {
+  if (d < 4 || d > 4 * kMaxD4 || cluster < 1 || cluster > bwdq::kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(true_dist
+                              ? backward_q_occupancy<true>(d, cluster, blocks_per_sm,
+                                                           active_clusters)
+                              : backward_q_occupancy<false>(d, cluster, blocks_per_sm,
                                                             active_clusters));
 }
 

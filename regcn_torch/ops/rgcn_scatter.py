@@ -12,13 +12,26 @@ outside its kernel). The scatter is the hand-written CUDA kernel
 ``regcn_torch/csrc/rgcn_scatter.cu`` on a CUDA tensor, and its plain
 version :func:`scatter_add_sorted_reference` on a CPU tensor. There is
 no switch that sends a CUDA tensor to the plain version.
+
+Both devices differentiate the scatter through one
+``torch.autograd.Function`` whose backward is plain torch indexing: the
+counterpart of ``regcn_tpu/ops/pallas_rgcn.py:_scatter_bwd``, a gather
+``g[dst] * [dst < N]`` that XLA runs, not a Pallas kernel. With the
+edge weight and row scale folded in as the forward folds them,
+
+    gk_e   = row_scale[key_e] * g[key_e]  (0 for a masked edge, key_e == n)
+    dmsg_e = w_e * gk_e
+    dw_e   = <gk_e, msg_e>                (only when the weight needs it)
+
+``row_scale`` gets no gradient: the in-degree norm is data in both
+packages, so a ``row_scale`` that requires grad raises under grad mode.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -84,30 +97,29 @@ def scatter_add_sorted_reference(
     return out
 
 
-def scatter_add_sorted(
-    msg: torch.Tensor, keys: torch.Tensor, n: int,
-    edge_weight: Optional[torch.Tensor] = None, row_scale: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Sorted-segment sum ``out[v] = row_scale[v] * sum_{keys[e]==v} w_e msg_e``.
+def scatter_add_sorted_backward(
+    g: torch.Tensor, keys: torch.Tensor, n: int, edge_weight: Optional[torch.Tensor],
+    row_scale: Optional[torch.Tensor], msg: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(dmsg [E, d], dw [E] or None) of the scatter, given the gradient g
+    [n, d] of its output: the gather of ``_scatter_bwd``, clamped and
+    masked as JAX does, with w and row_scale folded in; dw only if msg is
+    given. The same plain torch code on both devices."""
+    gs = g if row_scale is None else g * row_scale[:, None]
+    if n == 0:
+        gk = g.new_zeros((keys.shape[0], g.shape[1]))
+    else:
+        gk = torch.where((keys < n)[:, None], gs.index_select(0, keys.clamp(max=n - 1)), 0.0)
+    dmsg = gk if edge_weight is None else gk * edge_weight[:, None]
+    dw = None if msg is None else (gk * msg).sum(dim=1)
+    return dmsg, dw
 
-    msg: [E, d] float32; keys: [E] int32, ascending, masked edges keyed n;
-    edge_weight: optional [E] float32; row_scale: optional [n] float32.
-    On a CUDA tensor this launches the kernel and adds one to
-    ``scatter_add_sorted.launches``; on a CPU tensor it runs the plain
-    version. Unsorted keys give wrong sums on CUDA: sort them first, as
-    :func:`rgcn_aggregate` does for ``dst_sorted=False``.
-    """
-    if msg.dim() != 2 or msg.dtype != torch.float32 or not msg.is_contiguous():
-        raise ValueError(f"msg must be a contiguous 2-D float32 tensor; got {msg.dtype} "
-                         f"{tuple(msg.shape)}")
+
+def _scatter_forward(msg, keys, n, edge_weight, row_scale) -> torch.Tensor:
+    """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
     num_edges, d = msg.shape
-    _check_vector("keys", keys, num_edges, torch.int32, msg.device)
-    _check_vector("edge_weight", edge_weight, num_edges, torch.float32, msg.device)
-    _check_vector("row_scale", row_scale, n, torch.float32, msg.device)
     if msg.device.type == "cpu":
         return scatter_add_sorted_reference(msg, keys, n, edge_weight, row_scale)
-    if msg.device.type != "cuda":
-        raise ValueError(f"scatter_add_sorted runs on cuda or cpu, not {msg.device}")
     if max(n + 1, d) > _INT_MAX or num_edges >= _MAX_EDGES:
         raise ValueError(f"shape too large for the kernel: E={num_edges} n={n} d={d}")
     out = torch.empty((n, d), dtype=torch.float32, device=msg.device)
@@ -130,6 +142,52 @@ def scatter_add_sorted(
             f"rgcn_scatter_sorted launch failed: {lib.rgcn_cuda_error_string(err).decode()}")
     scatter_add_sorted.launches += 1
     return out
+
+
+class _ScatterAddSorted(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, msg, edge_weight, keys, n, row_scale):
+        out = _scatter_forward(msg, keys, n, edge_weight, row_scale)
+        need_dw = edge_weight is not None and ctx.needs_input_grad[1]
+        ctx.save_for_backward(keys, edge_weight, row_scale, msg if need_dw else None)
+        ctx.n = n
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        keys, edge_weight, row_scale, msg = ctx.saved_tensors
+        dmsg, dw = scatter_add_sorted_backward(g, keys, ctx.n, edge_weight, row_scale, msg)
+        return (dmsg if ctx.needs_input_grad[0] else None), dw, None, None, None
+
+
+def scatter_add_sorted(
+    msg: torch.Tensor, keys: torch.Tensor, n: int,
+    edge_weight: Optional[torch.Tensor] = None, row_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Sorted-segment sum ``out[v] = row_scale[v] * sum_{keys[e]==v} w_e msg_e``.
+
+    msg: [E, d] float32; keys: [E] int32, ascending, masked edges keyed n;
+    edge_weight: optional [E] float32; row_scale: optional [n] float32.
+    On a CUDA tensor this launches the kernel and adds one to
+    ``scatter_add_sorted.launches``; on a CPU tensor it runs the plain
+    version. Either way the result is differentiable in msg and
+    edge_weight (:func:`scatter_add_sorted_backward`). Unsorted keys give
+    wrong sums on CUDA: sort them first, as :func:`rgcn_aggregate` does
+    for ``dst_sorted=False``.
+    """
+    if msg.dim() != 2 or msg.dtype != torch.float32 or not msg.is_contiguous():
+        raise ValueError(f"msg must be a contiguous 2-D float32 tensor; got {msg.dtype} "
+                         f"{tuple(msg.shape)}")
+    num_edges = msg.shape[0]
+    _check_vector("keys", keys, num_edges, torch.int32, msg.device)
+    _check_vector("edge_weight", edge_weight, num_edges, torch.float32, msg.device)
+    _check_vector("row_scale", row_scale, n, torch.float32, msg.device)
+    if msg.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"scatter_add_sorted runs on cuda or cpu, not {msg.device}")
+    if row_scale is not None and row_scale.requires_grad and torch.is_grad_enabled():
+        raise ValueError("scatter_add_sorted has no gradient for row_scale (the in-degree norm "
+                         "is data): pass it detached")
+    return _ScatterAddSorted.apply(msg, edge_weight, keys, n, row_scale)
 
 
 scatter_add_sorted.launches = 0

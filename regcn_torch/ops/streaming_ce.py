@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Tuple
 
 import torch
@@ -33,11 +34,13 @@ from regcn_torch.ops import cuda_build
 SCORE_EPS = 1e-6  # ref SCORE_SCALE_EPSILON
 TILE = 64  # queries and candidates per kernel tile
 BWD_X_ROWS = 32  # queries per tile of the candidate-side backward's walk
+BWD_Q_ROWS = 32  # candidates per tile of the query-side backward's walk
 MAX_CLUSTER = 8  # blocks of one candidate tile in the candidate-side backward
+MAX_CLUSTER_Q = 16  # blocks of one query tile in the query-side backward
 MAX_D = 256  # widest embedding the kernels take
-# blocks of each kernel that fit on an SM (shared memory: ~105 KB forward,
-# ~125 KB backward at d = 200); splits are sized to fill the SMs in one wave
-_FWD_BLOCKS_PER_SM, _BWD_BLOCKS_PER_SM = 2, 1
+# forward blocks that fit on an SM (shared memory: ~105 KB at d = 200); its
+# splits are sized to fill the SMs in one wave
+_FWD_BLOCKS_PER_SM = 2
 _INT_MAX = 2**31 - 1
 
 
@@ -99,9 +102,11 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.streaming_ce_forward.argtypes = [ptr] * 11 + [i32] * 6 + [ptr]
     lib.streaming_ce_backward_q.argtypes = [ptr] * 17 + [i32] * 6 + [ptr]
     lib.streaming_ce_backward_x.argtypes = [ptr] * 11 + [i32] * 5 + [ptr]
+    lib.streaming_ce_backward_q_occupancy.argtypes = [i32] * 3 + [ptr] * 2
     lib.streaming_ce_backward_x_occupancy.argtypes = [i32] * 3 + [ptr] * 2
     for fn in (lib.streaming_ce_forward, lib.streaming_ce_backward_q,
-               lib.streaming_ce_backward_x, lib.streaming_ce_backward_x_occupancy):
+               lib.streaming_ce_backward_x, lib.streaming_ce_backward_q_occupancy,
+               lib.streaming_ce_backward_x_occupancy):
         fn.restype = ctypes.c_int
     lib.streaming_ce_error_string.argtypes = [i32]
     lib.streaming_ce_error_string.restype = ctypes.c_char_p
@@ -123,7 +128,7 @@ _KERNEL_SLOT = {"forward": 0, "backward_q": 1}
 
 
 def _counters_for(kernel: str, device: torch.device, n: int) -> torch.Tensor:
-    """``n`` int32 zeros for one kernel to find the last block of a tile;
+    """``n`` int32 zeros for one kernel to find the last block (or cluster);
     every launch leaves them at zero again. One buffer per device with a
     slot per kernel, grown on demand; launches of one kernel that share
     its slot run on one stream, one after another."""
@@ -166,15 +171,61 @@ def ce_forward(q, x, bias, cq, target, scale, margin, true_dist: bool):
     return nll, lse
 
 
-def ce_backward_q(q, x, bias, cq, target, scale, margin, lse, g, true_dist: bool):
-    """Launches the query-side backward kernel: (dq [B,d], dc [B], dscale, dmargin)."""
+@functools.cache
+def _backward_q_occupancy(device: torch.device, d: int, cluster: int, true_dist: bool
+                          ) -> Tuple[int, int]:
+    """(blocks per SM, clusters resident at once) of the query-side backward;
+    0 clusters if none of this size fits the card."""
+    per_sm, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = _kernel_lib().streaming_ce_backward_q_occupancy(
+            d, cluster, int(true_dist), ctypes.addressof(per_sm), ctypes.addressof(clusters))
+    _raise_on(err, "streaming_ce_backward_q_occupancy")
+    return per_sm.value, clusters.value
+
+
+def backward_q_plan(B: int, N: int, d: int, true_dist: bool, device: torch.device,
+                    cluster: int = 0, splits: int = 0) -> dict:
+    """The query-side backward's launch: per 64 queries, ``splits`` clusters
+    of ``cluster`` blocks, which cut the 32-row candidate tiles between them.
+    For each size, ``splits`` defaults to as many clusters as the card holds
+    at once over the query tiles (at most one split per block's tile);
+    ``cluster=0`` picks the size whose busiest SM walks the fewest candidate
+    tiles (waves of resident clusters times tiles per block), then the
+    fewest splits (partials merged through device memory), then the smallest
+    size. A size of which no cluster fits the card is never picked."""
+    q_tiles, c_tiles = -(-B // TILE), -(-N // BWD_Q_ROWS)
+
+    def launch(size: int) -> tuple:
+        """(tiles on the busiest SM, splits, size) of clusters of ``size``."""
+        clusters = _backward_q_occupancy(device, d, size, true_dist)[1]
+        n = splits or max(1, min(-(-c_tiles // size), clusters // q_tiles))
+        cost = -(-q_tiles * n // clusters) * -(-c_tiles // (n * size)) if clusters else math.inf
+        return cost, n, size
+
+    if cluster:
+        _, n, cluster = launch(cluster)
+    else:
+        _, n, cluster = min(launch(size) for size in range(1, min(MAX_CLUSTER_Q, c_tiles) + 1))
+    per_sm, clusters = _backward_q_occupancy(device, d, cluster, true_dist)
+    return dict(grid=q_tiles * n * cluster, cluster=cluster, splits=n, blocks_per_sm=per_sm,
+                active_clusters=clusters,
+                candidate_tiles_per_block=-(-c_tiles // (n * cluster)))
+
+
+def ce_backward_q(q, x, bias, cq, target, scale, margin, lse, g, true_dist: bool,
+                  cluster: int = 0, splits: int = 0):
+    """Launches the query-side backward kernel: (dq [B,d], dc [B], dscale,
+    dmargin). ``cluster`` (1 to 16 blocks) and ``splits`` (clusters per 64
+    queries; 0 = chosen by :func:`backward_q_plan`) change the sums' order,
+    not their terms."""
     B, d = q.shape
     N = x.shape[0]
+    plan = backward_q_plan(B, N, d, true_dist, q.device, cluster, splits)
+    cluster, splits = plan["cluster"], plan["splits"]
     q_tiles = -(-B // TILE)
-    splits, per = _splits(-(-N // TILE), q_tiles, _BWD_BLOCKS_PER_SM, q.device)
     f32 = dict(dtype=torch.float32, device=q.device)
-    dq_part = torch.empty((splits, B, d), **f32)
-    rows_part = torch.empty((2, splits, B), **f32)
+    dq_part, rows_part = torch.empty((splits, B, d), **f32), torch.empty((2, splits, B), **f32)
     scal_part = torch.empty((q_tiles * splits, 2), **f32)
     dq, dc = torch.empty((B, d), **f32), torch.empty(B, **f32)
     dscale, dmargin = torch.empty((), **f32), torch.empty((), **f32)
@@ -184,8 +235,8 @@ def ce_backward_q(q, x, bias, cq, target, scale, margin, lse, g, true_dist: bool
             q.data_ptr(), x.data_ptr(), bias.data_ptr(), cq.data_ptr(), target.data_ptr(),
             scale.data_ptr(), margin.data_ptr(), lse.data_ptr(), g.data_ptr(),
             dq_part.data_ptr(), rows_part.data_ptr(), scal_part.data_ptr(), dq.data_ptr(),
-            dc.data_ptr(), dscale.data_ptr(), dmargin.data_ptr(), counters.data_ptr(),
-            B, N, d, splits, per, int(true_dist), _stream(q))
+            dc.data_ptr(), dscale.data_ptr(), dmargin.data_ptr(), counters.data_ptr(), B, N, d,
+            cluster, splits, int(true_dist), _stream(q))
     _raise_on(err, "streaming_ce_backward_q")
     ce_backward_q.launches += 1
     return dq, dc, dscale, dmargin

@@ -6,7 +6,10 @@ without it (``--noconftest`` skips the JAX set-up in conftest.py):
     python -m pytest --noconftest -q -m cuda tests/test_torch_kernels.py
 
 Tolerance on the card: fp32 on both sides, the summation order is the
-only difference, so max|kernel - plain| <= 1e-5 * max(1, max|plain|).
+only difference, so max|kernel - plain| <= 1e-5 * max(1, max|plain|);
+gradients on the card against the CPU's, from the same inputs, within
+1e-5 * max(1, max|cpu gradient|) (GEMMs and gathers summed in another
+order; TF32 off).
 """
 
 import pathlib
@@ -35,6 +38,7 @@ def rng():
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -213,3 +217,48 @@ def test_unsorted_edges_through_rgcn_aggregate(rng, cuda):
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     assert err <= KERNEL_TOL * max(1.0, want.abs().max().item())
+
+
+def aggregate_case(rng, dst_sorted):
+    """Config-1 shapes: 520 real edges sorted by dst, a padded tail with
+    dst = 0 and weight 0, real weights in (0, 1]; shuffled when not sorted."""
+    n, R, d, E, real = 7128, 230, 200, 640, 520
+    dst = np.concatenate([np.sort(rng.integers(0, n, real)), np.zeros(E - real, np.int64)])
+    w = np.concatenate([rng.uniform(0.1, 1.0, real), np.zeros(E - real)]).astype(np.float32)
+    src, rel = rng.integers(0, n, E), rng.integers(0, 2 * R, E)
+    if not dst_sorted:
+        order = rng.permutation(E)
+        src, dst, rel, w = src[order], dst[order], rel[order], w[order]
+    return dict(h=rng.normal(size=(n, d)).astype(np.float32),
+                rel_emb=rng.normal(size=(2 * R, d)).astype(np.float32),
+                weight=(rng.normal(size=(d, d)) / d ** 0.5).astype(np.float32),
+                src=src, dst=dst, rel=rel, edge_weight=w,
+                norm=rng.random(n).astype(np.float32), G=rng.normal(size=(n, d)).astype(np.float32))
+
+
+def aggregate_grads(case, device, dst_sorted):
+    """Gradients of sum(rgcn_aggregate(...) * G) by h, rel_emb, W and the edge weight."""
+    leaves = [torch.from_numpy(case[k]).to(device).requires_grad_(True)
+              for k in ("h", "rel_emb", "weight", "edge_weight")]
+    src, dst, rel, norm, G = (torch.from_numpy(case[k]).to(device)
+                              for k in ("src", "dst", "rel", "norm", "G"))
+    out = rgcn_aggregate(*leaves[:3], src, dst, rel, leaves[3], norm, dst_sorted=dst_sorted)
+    return torch.autograd.grad(out, leaves, G)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dst_sorted", [True, False])
+def test_rgcn_aggregate_gradients_on_cuda_match_the_cpu(rng, cuda, dst_sorted):
+    """The scatter is differentiable on the card: h, rel_emb, W and the edge
+    weight get the CPU's gradients, and two backward calls the same bits."""
+    case = aggregate_case(rng, dst_sorted)
+    before = scatter_add_sorted.launches
+    first = aggregate_grads(case, cuda, dst_sorted)
+    second = aggregate_grads(case, cuda, dst_sorted)
+    assert scatter_add_sorted.launches == before + 2
+    want = aggregate_grads(case, "cpu", dst_sorted)
+    torch.cuda.synchronize()
+    for name, a, b, w in zip(("h", "rel_emb", "W", "edge_weight"), first, second, want):
+        assert a is not None and torch.equal(a, b), name
+        err = (a.cpu() - w).abs().max().item()
+        assert err <= KERNEL_TOL * max(1.0, w.abs().max().item()), (name, err)

@@ -109,17 +109,54 @@ def test_backward_x_plan_picks_the_fewest_tiles_on_the_busiest_sm(monkeypatch, B
     assert plan["query_tiles_per_block"] == -(-q_tiles // picked)
 
 
+# clusters of the query-side backward resident at once on an H100 SXM at
+# d = 200 (one block per SM), as cudaOccupancyMaxActiveClusters reports them;
+# 16 varies in the cases below
+Q_RESIDENT = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15, 9: 9, 10: 7, 11: 7,
+              12: 7, 13: 7, 14: 7, 15: 7}
+
+
+@pytest.mark.parametrize("B, N, resident_16, cluster, splits", [
+    (512, 7128, 7, 2, 8), (512, 460, 7, 2, 8), (512, 7128, 8, 16, 1), (1, 7128, 7, 16, 7),
+    (1, 7128, 0, 8, 15), (97, 65, 7, 3, 1)])
+def test_backward_q_plan_picks_the_fewest_tiles_on_the_busiest_sm(monkeypatch, B, N, resident_16,
+                                                                  cluster, splits):
+    """The launch of the query-side backward: per size, as many splits as fit
+    the card at once; then the size whose busiest SM walks the fewest 32-row
+    candidate tiles, with the fewest splits, never a size of which no
+    cluster fits. At config 3's shapes (B = 512) clusters of 16 cannot hold
+    the 8 query tiles at once, so 8 clusters of 2 per tile fill 128 SMs."""
+    resident = {**Q_RESIDENT, 16: resident_16}
+    monkeypatch.setattr(S, "_backward_q_occupancy", lambda dev, d, size, true: (1, resident[size]))
+    plan = S.backward_q_plan(B, N, 200, False, torch.device("cpu"))
+    assert (plan["cluster"], plan["splits"]) == (cluster, splits)
+    assert plan["grid"] == -(-B // S.TILE) * splits * cluster
+    c_tiles = -(-N // S.BWD_Q_ROWS)
+    assert plan["candidate_tiles_per_block"] == -(-c_tiles // (splits * cluster))
+    forced = S.backward_q_plan(B, N, 200, False, torch.device("cpu"), cluster=1, splits=3)
+    assert (forced["cluster"], forced["splits"]) == (1, 3)
+
+
+def _check_phase_builds(tool: str) -> None:
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
+    module = __import__(tool)
+    src = (Path(S.__file__).resolve().parent.parent / "csrc" / "streaming_ce.cu").read_text()
+    builds = module.phase_sources()
+    assert set(builds) == set(module.PHASES)
+    for name, (old, new) in module.PHASES.items():
+        assert src.count(old) == 1 and builds[name] == src.replace(old, new), name
+
+
 def test_diagnosis_phase_builds_cut_the_kernel_source():
     """tools/ce_bwd_x_diagnosis.py --phases times the candidate-side backward
     with one phase of its walk emptied: each edit still finds its one place."""
-    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
-    import ce_bwd_x_diagnosis
+    _check_phase_builds("ce_bwd_x_diagnosis")
 
-    src = (Path(S.__file__).resolve().parent.parent / "csrc" / "streaming_ce.cu").read_text()
-    builds = ce_bwd_x_diagnosis.phase_sources()
-    assert set(builds) == set(ce_bwd_x_diagnosis.PHASES)
-    for name, (old, new) in ce_bwd_x_diagnosis.PHASES.items():
-        assert src.count(old) == 1 and builds[name] == src.replace(old, new), name
+
+def test_bwd_q_diagnosis_phase_builds_cut_the_kernel_source():
+    """tools/ce_bwd_q_diagnosis.py --phases does the same for the query-side
+    backward's walk."""
+    _check_phase_builds("ce_bwd_q_diagnosis")
 
 
 @pytest.mark.parametrize("bad", ["f64_q", "short_bias", "strided_x", "cq_shape", "scale_shape",
@@ -247,3 +284,26 @@ def test_shapes_the_kernels_do_not_take_raise_on_cuda(cuda, shape):
         x = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(20, d)
     with pytest.raises(ValueError):
         S.streaming_nll(q, x, bias, target, cq, scale, margin)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster, splits", [(c, 0) for c in range(1, S.MAX_CLUSTER_Q + 1)]
+                         + [(1, 1), (2, 3), (4, 8), (1, 32)])
+def test_backward_q_at_every_cluster_size(cuda, cluster, splits):
+    """dq, dc, dscale and dmargin with the candidate tiles cut over 1 to 16
+    blocks of a cluster and over one or more clusters per query tile (the
+    wrapper picks one of these; (4, 8) needs two waves of clusters): each
+    within the plain version's tolerance, and bitwise repeatable."""
+    B, N, d = 300, 1000, 200
+    q, x, bias, target, cq, scale, margin, g = (
+        t.to(cuda) for t in make_case(B, N, d, true=True, per_query_c=True))
+    target = target.to(torch.int32)
+    _, lse = S.ce_forward(q, x, bias, cq, target, scale, margin, True)
+    first = S.ce_backward_q(q, x, bias, cq, target, scale, margin, lse, g, True, cluster, splits)
+    second = S.ce_backward_q(q, x, bias, cq, target, scale, margin, lse, g, True, cluster, splits)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    _, plain_g = run(S.streaming_nll_reference, (q, x, bias, target, cq, scale, margin, g), True,
+                     cuda)
+    for got, want in zip(first, [plain_g[0], plain_g[3], plain_g[4], plain_g[5]]):
+        err = (got - want).abs().max().item()
+        assert err <= GRAD_TOL * max(1.0, want.abs().max().item()), err
