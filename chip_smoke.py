@@ -35,8 +35,8 @@ Phases, each of which exits non-zero on failure:
    the ball's edge on both distances, partial tiles, a masked query
    tail), value and all six gradients; the kernels, the plain version
    and the GEMM of the same shape are timed at both config-3 shapes, and
-   both backward kernels' grids, cluster sizes and blocks per SM are
-   printed;
+   the forward's grid, splits and blocks per SM and both backward
+   kernels' grids, cluster sizes and blocks per SM are printed;
 6. training path: hyperbolic config 3 (LGCN + RotH, c=0.01 learned with
    a 5-epoch warmup, radius supervision, h=200, 2 layers, n_bases 100,
    history 3) through ``regcn_torch.hyperbolic.train.HyperbolicTrainer``:
@@ -601,6 +601,11 @@ def phase_ce_kernels(N: int, R: int, d: int, dev: torch.device) -> dict:
                   f"{row['ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f} us, matmul "
                   f"{row['library_ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.2f} us "
                   f"({row['bound_by']})", flush=True)
+        plan = ce.forward_plan(B, n, d, False, dev)
+        print(f"[ce] streaming_ce_fwd launch at the {label} shape: grid {plan['grid']} blocks, "
+              f"{plan['splits']} splits per tile of {plan['queries']} queries "
+              f"({plan['candidate_tiles_per_block']} candidate tiles of {ce.FWD_ROWS} rows per "
+              f"block), {plan['blocks_per_sm']} block(s) per SM", flush=True)
         plan = ce.backward_q_plan(B, n, d, False, dev)
         print(f"[ce] streaming_ce_bwd_q launch at the {label} shape: grid {plan['grid']} blocks, "
               f"{plan['splits']} clusters of {plan['cluster']} per query tile "

@@ -22,10 +22,11 @@
 // (max, sum-exp, target) accumulator from one grid step to the next. Here
 // blocks run in parallel and share nothing, so the work is cut three ways:
 //
-//   ce_forward_kernel   grid (query tile, candidate split). Each block folds
-//                       its split's tiles into per-row partial (max, sum-exp,
-//                       target logit); the last block of a query tile to
-//                       finish (a counter, atomically incremented) combines
+//   ce_forward_kernel   per tile of 128 queries, `splits` blocks cut
+//                       the candidate tiles. Each walks its 16-row tiles and
+//                       folds each query's logits into a running (max,
+//                       sum-exp, target logit); the last block of a query tile
+//                       to finish (a counter, atomically incremented) combines
 //                       the splits in split order into nll and lse.
 //   ce_backward_q_kernel  one thread-block cluster per 64 queries; its
 //                       blocks split the candidate tiles. Each recomputes the
@@ -59,14 +60,6 @@
 // plus ~90 flops per pair: 48.48 us. All products are fp32 FMAs (no TF32: the
 // port is held to fp32 parity).
 //
-// Forward: 64 x 64 tiles, 256 threads each owning a 4 x 4 block of logits
-// (rows ty + 16 i, columns tx + 16 j, so shared-memory reads are
-// conflict-free); both operand tiles sit whole in shared memory (rows padded
-// to an odd number of float4s) and the products read them as float4. The
-// candidate axis is split across blocks (two fit on an SM; the last block of
-// a query tile merges the splits) so that the SMs are full even with only
-// B/64 = 8 query tiles.
-//
 // backward_x: its first design (one block per candidate tile walking every
 // query tile, 130 KB of shared memory, so one block of 8 warps per SM) used
 // 112 of 132 SMs at the entity shape and 64 at the relation shape, loaded
@@ -97,7 +90,7 @@
 //   clamp caps the distance, uses the fast division and exponential.
 //
 // backward_q is the same design with q and x swapped; its v2 (one 64 x 64
-// tile pair at a time from shared memory, like the forward) had the same
+// tile pair at a time from shared memory, like the forward's v2) had the same
 // four faults. What differs: at B = 512 there are only 8 query tiles of 64,
 // so the candidate axis carries the parallelism: per query tile, `splits`
 // clusters of C blocks (C up to 16, above 8 a non-portable size) cut it, 32
@@ -109,18 +102,34 @@
 // dlogit * block and dlogit stay in registers; dq's 2 q sum dqq term is added
 // once, in the merge. The softmax weight keeps expf on both distances (see
 // bwdq::pair_grad).
+//
+// The forward is backward_q's walk without the dQ product. Its v2 (64 x 64
+// tiles of both operands in shared memory, a 4 x 4 register tile of logits
+// per thread) had the same faults: bound by shared-memory loads, tiles loaded
+// synchronously between three barriers, per-query constants recomputed per
+// pair, and a p summed in another order than the backward kernels', so its
+// lse belonged to logits a few ulp away from those they recompute. Now each
+// lane keeps 4 queries (128 per block; one broadcast float4 of a candidate
+// row feeds 16 FMAs) in registers, candidate tiles of
+// 16 rows are double-buffered with cp.async, p, |q|^2 and |x|^2 are taken in
+// backward_q's order and each logit by bwdq::pair_logit, so the forward's
+// logits are backward_q's bit for bit. Each chain thread keeps a running
+// (max, sum-exp, target) for its query, rescaled once per tile; the chain of
+// one tile and the product of the next share a barrier interval (the p
+// partials are double-buffered); the splits of a query tile (the wrapper
+// sizes them from the occupancy to fill the SMs in one wave) merge three
+// floats per query through L2.
 // d <= 256, a multiple of 4, and q and x 16-byte aligned (every load is a
 // float4).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace {
 
-constexpr int kTile = 64;
-constexpr int kThreads = 256;
 constexpr int kMaxD4 = 64;           // d <= 256
 constexpr float kEps = 1e-6f;
 
@@ -133,94 +142,6 @@ struct Shape {
 __host__ __device__ __forceinline__ Shape make_shape(int d) {
   const int d4 = d / 4;
   return Shape{d4, d4 | 1};
-}
-
-// rows [row0, row0 + kTile) of a row-major [nrows, d] matrix into shared
-// memory, zero-filled past nrows.
-__device__ __forceinline__ void load_tile(float4* __restrict__ s, const float* __restrict__ g,
-                                          int row0, int nrows, Shape sh) {
-  const float4* g4 = reinterpret_cast<const float4*>(g);
-  for (int i = threadIdx.x; i < kTile * sh.d4; i += kThreads) {
-    const int r = i / sh.d4, k = i - r * sh.d4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < nrows) v = __ldg(g4 + static_cast<size_t>(row0 + r) * sh.d4 + k);
-    s[r * sh.ld4 + k] = v;
-  }
-}
-
-// out[r] = |row r|^2 for the kTile rows of a shared tile; one warp per row.
-__device__ __forceinline__ void row_sq_norms(const float4* __restrict__ s, Shape sh,
-                                             float* __restrict__ out) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float* sf = reinterpret_cast<const float*>(s);
-  const int width = 4 * sh.d4, ld = 4 * sh.ld4;
-  for (int r = warp; r < kTile; r += kThreads / 32) {
-    float acc = 0.f;
-    for (int k = lane; k < width; k += 32) acc = fmaf(sf[r * ld + k], sf[r * ld + k], acc);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    if (lane == 0) out[r] = acc;
-  }
-}
-
-// acc[i][j] = A row (ty + 16 i) . Bm row (tx + 16 j), both tiles in shared memory.
-__device__ __forceinline__ void tile_dot(const float4* __restrict__ As, const float4* __restrict__ Bs,
-                                         Shape sh, int ty, int tx, float acc[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k = 0; k < sh.d4; ++k) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = As[(ty + 16 * i) * sh.ld4 + k];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = Bs[(tx + 16 * j) * sh.ld4 + k];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float t = acc[i][j];
-        t = fmaf(a[i].x, b[j].x, t);
-        t = fmaf(a[i].y, b[j].y, t);
-        t = fmaf(a[i].z, b[j].z, t);
-        t = fmaf(a[i].w, b[j].w, t);
-        acc[i][j] = t;
-      }
-  }
-}
-
-// One logit and the intermediates its gradient needs.
-struct Elem {
-  float A, Bc, D, num_sq, diff_sq, block, logit;
-  float sqrt_c, dn0, mn, dn, z;  // true distance
-  float mx;                      // proxy
-};
-
-template <bool kTrue>
-__device__ __forceinline__ Elem eval_logit(float p, float qq, float xx, float c, float scale,
-                                           float margin, float bias) {
-  Elem e;
-  e.A = 1.f - 2.f * c * p + c * xx;
-  e.Bc = 1.f - c * qq;
-  e.D = 1.f - 2.f * c * p + (c * c) * qq * xx + kEps;
-  e.num_sq = e.A * e.A * qq - 2.f * e.A * e.Bc * p + e.Bc * e.Bc * xx;
-  e.diff_sq = fmaxf(e.num_sq, 0.f) / (e.D * e.D);
-  float dist;
-  if (kTrue) {
-    e.sqrt_c = sqrtf(c + kEps);
-    e.dn0 = sqrtf(fmaxf(e.diff_sq, kEps * kEps));
-    e.mn = 1.f / (e.sqrt_c + kEps) - kEps;
-    e.dn = fminf(e.dn0, e.mn);
-    e.z = fminf(e.sqrt_c * e.dn, 1.f - kEps);
-    dist = (2.f / (e.sqrt_c + kEps)) * atanhf(e.z);
-  } else {
-    e.mx = 1.f / sqrtf(c) - 2.f * kEps;
-    dist = fminf(e.diff_sq, e.mx * e.mx);
-  }
-  e.block = margin - dist;
-  e.logit = scale * e.block + bias;
-  return e;
 }
 
 // (m, s) <- (m, s) (+) (m2, s2) for running (max, sum of exp(. - max)).
@@ -247,120 +168,6 @@ struct Scalars {
   const float* scale;
   const float* margin;
 };
-
-// ---------------------------------------------------------------- forward
-
-template <bool kTrue>
-__global__ void __launch_bounds__(kThreads, 2)
-    ce_forward_kernel(const float* __restrict__ q, const float* __restrict__ x,
-                      const float* __restrict__ bias, const float* __restrict__ cq,
-                      const int* __restrict__ target, Scalars sc, float* __restrict__ part,
-                      float* __restrict__ nll, float* __restrict__ lse, int* __restrict__ counters,
-                      int B, int N, int d, int tiles_per_split) {
-  extern __shared__ float4 smem[];
-  __shared__ float qq_s[kTile], xx_s[kTile];
-  __shared__ int flag;
-  const Shape sh = make_shape(d);
-  float4* Qs = smem;
-  float4* Xs = smem + kTile * sh.ld4;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int row0 = blockIdx.x * kTile, split = blockIdx.y, splits = gridDim.y;
-  const float scale = __ldg(sc.scale), margin = __ldg(sc.margin);
-
-  load_tile(Qs, q, row0, B, sh);
-  __syncthreads();
-  row_sq_norms(Qs, sh, qq_s);
-  __syncthreads();
-  float qq[4], c[4], m[4], s[4], t[4];
-  int tgt[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty + 16 * i;
-    qq[i] = qq_s[ty + 16 * i];
-    c[i] = row < B ? __ldg(cq + row) : 1.f;
-    tgt[i] = row < B ? __ldg(target + row) : -1;
-    m[i] = neg_inf();
-    s[i] = 0.f;
-    t[i] = 0.f;
-  }
-
-  const int n_tiles = (N + kTile - 1) / kTile;
-  const int tile_end = min((split + 1) * tiles_per_split, n_tiles);
-  for (int tile = split * tiles_per_split; tile < tile_end; ++tile) {
-    const int col0 = tile * kTile;
-    __syncthreads();  // the previous tile's Xs and xx_s are no longer read
-    load_tile(Xs, x, col0, N, sh);
-    __syncthreads();
-    row_sq_norms(Xs, sh, xx_s);
-    __syncthreads();
-    float p[4][4];
-    tile_dot(Qs, Xs, sh, ty, tx, p);
-    float logit[4][4];
-    bool valid[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + tx + 16 * j;
-      valid[j] = col < N;
-      const float xx = xx_s[tx + 16 * j];
-      const float b = valid[j] ? __ldg(bias + col) : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        logit[i][j] = eval_logit<kTrue>(p[i][j], qq[i], xx, c[i], scale, margin, b).logit;
-        if (valid[j] && col == tgt[i]) t[i] += logit[i][j];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float tile_max = neg_inf();
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (valid[j]) tile_max = fmaxf(tile_max, logit[i][j]);
-      if (tile_max == neg_inf()) continue;  // no candidate of this thread in the tile
-      const float mx = fmaxf(m[i], tile_max);
-      float acc = s[i] * expf(m[i] - mx);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (valid[j]) acc += expf(logit[i][j] - mx);
-      s[i] = acc;
-      m[i] = mx;
-    }
-  }
-
-  // combine the 16 threads of each row, then publish the split's partial
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) {
-      const float m2 = __shfl_xor_sync(0xffffffffu, m[i], o);
-      const float s2 = __shfl_xor_sync(0xffffffffu, s[i], o);
-      t[i] += __shfl_xor_sync(0xffffffffu, t[i], o);
-      lse_merge(m[i], s[i], m2, s2);
-    }
-    const int row = row0 + ty + 16 * i;
-    if (tx == 0 && row < B) {
-      const size_t at = static_cast<size_t>(split) * B + row;
-      part[at] = m[i];
-      part[static_cast<size_t>(splits) * B + at] = s[i];
-      part[2 * static_cast<size_t>(splits) * B + at] = t[i];
-    }
-  }
-
-  if (!last_to_finish(counters + blockIdx.x, splits, &flag)) return;
-  // the last block of this query tile: the splits in order, one thread a row
-  if (threadIdx.x < kTile && row0 + threadIdx.x < B) {
-    const int row = row0 + threadIdx.x;
-    float M = neg_inf(), S = 0.f, T = 0.f;
-    for (int k = 0; k < splits; ++k) {
-      const size_t at = static_cast<size_t>(k) * B + row;
-      lse_merge(M, S, __ldcg(part + at), __ldcg(part + static_cast<size_t>(splits) * B + at));
-      T += __ldcg(part + 2 * static_cast<size_t>(splits) * B + at);
-    }
-    const float l = M + logf(fmaxf(S, 1e-30f));
-    lse[row] = l;
-    nll[row] = l - T;
-  }
-  if (threadIdx.x == 0) counters[blockIdx.x] = 0;  // ready for the next launch
-}
 
 // ----------------------------------------------------- backward: candidates
 //
@@ -483,7 +290,7 @@ __device__ __forceinline__ void row_constants(const float4* Qb, const float* raw
 
 // For one pair: dlogit, and the chain rule from it back to p and |x|^2 (the
 // kernel needs no gradient of |q|^2 or c). The same expressions as
-// eval_logit and bwdq::pair_grad, with the per-row values precomputed.
+// bwdq::pair_logit and bwdq::pair_grad, with the per-row values precomputed.
 template <bool kTrue>
 __device__ __forceinline__ void pair_grad(float p, float xx, float b, bool is_target,
                                           float (*rowc)[kRows], int r, float scale,
@@ -831,35 +638,56 @@ __device__ __forceinline__ Query query_constants(float qq, float c, float l, flo
   return k;
 }
 
+// One pair's logit and the intermediates its gradient needs.
+struct Logit {
+  float A, D, num_sq, diff_sq, dn0, dn, z, at, block, logit;
+};
+
+// The logit of one pair (the header's expressions) with the per-query values
+// precomputed. The forward and backward_q both call it, so that from the
+// same p, |q|^2 and |x|^2 they compute the same logit, bit for bit.
+template <bool kTrue>
+__device__ __forceinline__ Logit pair_logit(float p, float xx, float b, const Query& k,
+                                            float scale, float margin) {
+  const float qq = k.qq, c = k.c, Bc = k.Bc;
+  Logit e;
+  e.A = 1.f - 2.f * c * p + c * xx;
+  e.D = 1.f - 2.f * c * p + (c * c) * qq * xx + kEps;
+  e.num_sq = e.A * e.A * qq - 2.f * e.A * Bc * p + Bc * Bc * xx;
+  // the proxy needs no IEEE division: its clamp caps the distance, while the
+  // true distance's artanh amplifies the rounding of diff_sq near the edge
+  e.diff_sq = kTrue ? fmaxf(e.num_sq, 0.f) / (e.D * e.D)
+                    : __fdividef(fmaxf(e.num_sq, 0.f), e.D * e.D);
+  float dist;
+  e.dn0 = e.dn = e.z = e.at = 0.f;
+  if (kTrue) {
+    e.dn0 = sqrtf(fmaxf(e.diff_sq, kEps * kEps));
+    e.dn = fminf(e.dn0, k.k2);
+    e.z = fminf(k.k0 * e.dn, 1.f - kEps);
+    e.at = atanhf(e.z);
+    dist = k.k1 * e.at;
+  } else {
+    dist = fminf(e.diff_sq, k.k0);
+  }
+  e.block = margin - dist;
+  e.logit = scale * e.block + b;
+  return e;
+}
+
 // For one pair: dlogit, block = margin - dist, and the chain rule from dlogit
-// back to p, |q|^2 and c (the kernel needs no gradient of |x|^2): eval_logit's
-// expressions and the derivative of each, with the per-query values
-// precomputed; the clamps pass no gradient where they bind.
+// back to p, |q|^2 and c (the kernel needs no gradient of |x|^2): the
+// derivative of each of pair_logit's expressions; the clamps pass no
+// gradient where they bind.
 template <bool kTrue>
 __device__ __forceinline__ void pair_grad(float p, float xx, float b, bool is_target,
                                           const Query& k, float scale, float margin,
                                           float& dlogit, float& block, float& gp, float& gqq,
                                           float& gc) {
   const float qq = k.qq, c = k.c, Bc = k.Bc;
-  const float A = 1.f - 2.f * c * p + c * xx;
-  const float D = 1.f - 2.f * c * p + (c * c) * qq * xx + kEps;
-  const float num_sq = A * A * qq - 2.f * A * Bc * p + Bc * Bc * xx;
-  // the proxy needs no IEEE division: its clamp caps the distance, while the
-  // true distance's artanh amplifies the rounding of diff_sq near the edge
-  const float diff_sq =
-      kTrue ? fmaxf(num_sq, 0.f) / (D * D) : __fdividef(fmaxf(num_sq, 0.f), D * D);
-  float dist, dn0 = 0.f, dn = 0.f, z = 0.f, at = 0.f;
-  if (kTrue) {
-    dn0 = sqrtf(fmaxf(diff_sq, kEps * kEps));
-    dn = fminf(dn0, k.k2);
-    z = fminf(k.k0 * dn, 1.f - kEps);
-    at = atanhf(z);
-    dist = k.k1 * at;
-  } else {
-    dist = fminf(diff_sq, k.k0);
-  }
-  block = margin - dist;
-  const float logit = scale * block + b;
+  const Logit e = pair_logit<kTrue>(p, xx, b, k, scale, margin);
+  const float A = e.A, D = e.D, num_sq = e.num_sq, diff_sq = e.diff_sq;
+  const float dn0 = e.dn0, dn = e.dn, z = e.z, at = e.at, logit = e.logit;
+  block = e.block;
   // expf on both distances: __expf's bias (~1e-6 of each weight) shows in
   // dscale, a sum over B x N pairs
   dlogit = k.g * (expf(logit - k.l) - (is_target ? 1.f : 0.f));
@@ -925,9 +753,10 @@ __device__ __forceinline__ void add4(float4& s, const float4& v) {
   s.w += v.w;
 }
 
-// bias of the candidate tile at col0 into s[kRows], zero past N; asynchronous.
-__device__ __forceinline__ void load_bias_async(float* s, const float* bias, int col0, int N) {
-  if (threadIdx.x < kRows) {
+// bias of the candidate tile at col0 into s[rows], zero past N; asynchronous.
+__device__ __forceinline__ void load_bias_async(float* s, const float* bias, int col0, int N,
+                                                int rows = kRows) {
+  if (static_cast<int>(threadIdx.x) < rows) {
     const bool ok = col0 + static_cast<int>(threadIdx.x) < N;
     bwdx::cp_async4(s + threadIdx.x, bias + (ok ? col0 + threadIdx.x : 0), ok);
   }
@@ -1030,8 +859,9 @@ __global__ void __launch_bounds__(bwdq::kThreads, 1)
   // dmargin: a shift of all of a query's logits leaves its NLL unchanged, so
   // sum_j dlogit_ij = g_i (sum_j softmax_ij - [target_i < N]) = g_i [target_i
   // is no candidate], counted once per query. Summing the B x N dlogits
-  // instead leaves the noise of the recomputed logits, which differ from the
-  // forward's by a few ulp (1e-4 at config 3's entity shape, against 0).
+  // instead leaves rounding noise: that of lse and of the sums, and, while the
+  // forward's logits differed from these by a few ulp, 1e-4 at config 3's
+  // entity shape, against 0.
   const float sum_g =
       er == 0 && rank == 0 && csplit == 0 && (kq.tgt < 0 || kq.tgt >= N) ? kq.g : 0.f;
   float4 acc[2][kCol4];
@@ -1343,9 +1173,292 @@ __global__ void __launch_bounds__(bwdq::kThreads, 1)
   }
 }
 
-size_t tile_smem_bytes(int d, int extra_floats) {
-  return (2 * static_cast<size_t>(kTile) * make_shape(d).ld4) * sizeof(float4) +
-         static_cast<size_t>(extra_floats) * sizeof(float);
+// ---------------------------------------------------------------- forward
+//
+// backward_q's walk without its dQ product. Per tile of kQueries queries,
+// `splits` blocks cut the candidate tiles. Each block loads its query tile
+// once, coalesced, into shared memory, takes |q|^2 from there and keeps its
+// queries in registers; it walks its candidate tiles of kRows rows,
+// double-buffered with cp.async, with one barrier per tile. It takes p,
+// |q|^2 and |x|^2 in backward_q's order and each logit through
+// bwdq::pair_logit, so the two kernels compute the same logits bit for bit.
+// Each chain thread works on one query and folds its candidates into a
+// running (max, sum-exp, target logit) in registers, rescaled once per tile;
+// the threads of a query merge in order, the block writes one partial per
+// query, and the last block of the query tile to finish (a counter) merges
+// the splits in split order into lse and nll, one round trip to L2 for up
+// to kBatch splits.
+
+namespace fwd {
+
+constexpr int kRows = 16;  // candidates per tile of a block's walk
+// queries per lane: one broadcast float4 of a candidate row feeds 4 kQL
+// FMAs. 2 (64 queries per block, two blocks per SM at <= 128 registers)
+// measured slower at config 3's entity shape (PERF.md).
+constexpr int kQL = 4;
+constexpr int kQueries = 32 * kQL;  // per block
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowStep = 8;  // candidate rows per step of the product
+constexpr int kBatch = 32;   // split partials loaded at once in the merge
+// row stride of the p partials [kWarps][queries][kLd]: float4-aligned, and
+// 80 bytes apart, so the 8 lanes of a quarter-warp hit distinct banks
+constexpr int kLd = kRows + 4;
+static_assert(kThreads == bwdx::kThreads, "tiles load through bwdx::load_tile_async");
+static_assert(kRowStep % 4 == 0, "the product stores its partials as float4s");
+
+// two candidate buffers and two of the per-warp p partials, which first
+// hold the query tile [kQueries][ld4]
+size_t smem_bytes(int d) {
+  const size_t ld4 = make_shape(d).ld4;
+  return 2 * kRows * ld4 * sizeof(float4) +
+         std::max(2 * static_cast<size_t>(kWarps) * kQueries * kLd * sizeof(float),
+                  kQueries * ld4 * sizeof(float4));
+}
+
+}  // namespace fwd
+
+// kCol4 = ceil(d / 32) float4 columns per warp, as in backward_q.
+template <bool kTrue, int kCol4>
+__global__ void __launch_bounds__(fwd::kThreads, 1)
+    ce_forward_kernel(const float* __restrict__ q, const float* __restrict__ x,
+                      const float* __restrict__ bias, const float* __restrict__ cq,
+                      const int* __restrict__ target, Scalars sc, float* __restrict__ part,
+                      float* __restrict__ nll, float* __restrict__ lse,
+                      int* __restrict__ counters, int B, int N, int d) {
+  using namespace fwd;
+  constexpr int kGroups = kThreads / kQueries;  // chain threads of one query
+  constexpr int kPairs = kRows / kGroups;       // pairs of a chain thread per tile
+  static_assert(kPairs % 4 == 0, "the chain loads its partials as float4s");
+  extern __shared__ float4 smem[];
+  __shared__ float bias_s[3][kRows], xx_s[2][kRows], qq_s[kQueries];
+  __shared__ int flag;
+  const Shape sh = make_shape(d);
+  float4* Xs = smem;  // two buffers of kRows rows
+  float* red = reinterpret_cast<float*>(Xs + 2 * kRows * sh.ld4);  // [2][kWarps][kQueries][kLd]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int qtile = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
+  const int row0 = qtile * kQueries;
+  const float scale = __ldg(sc.scale), margin = __ldg(sc.margin);
+
+  // this block's candidate tiles; the first and the query tile load together
+  const int c_tiles = (N + kRows - 1) / kRows;
+  const int per = (c_tiles + splits - 1) / splits;
+  const int t_begin = min(split * per, c_tiles), t_end = min(t_begin + per, c_tiles);
+  if (t_begin < t_end) {
+    bwdx::load_tile_async(Xs, x, t_begin * kRows, kRows, N, sh);
+    bwdq::load_bias_async(bias_s[0], bias, t_begin * kRows, N, kRows);
+  }
+  // the query tile, coalesced and read once, in the place of the p partials
+  const float4* Qs = reinterpret_cast<const float4*>(red);  // [kQueries][ld4]
+  bwdx::load_tile_async(reinterpret_cast<float4*>(red), q, row0, kQueries, B, sh);
+  bwdx::cp_async_commit();
+  bwdx::cp_async_wait_all();
+  __syncthreads();
+  {  // |q|^2 as backward_q takes it (the same values in the same order), warp
+     // w summing rows kPerWarp w .., eight at a time
+    constexpr int kPerWarp = kQueries / kWarps;
+    const float* qf = reinterpret_cast<const float*>(Qs);
+#pragma unroll
+    for (int h = 0; h < kPerWarp; h += 8) {
+      const int r0 = warp * kPerWarp + h;
+      float qq_r[8];
+      bwdq::warp_rows_sq<8>([&](int i, int k) { return qf[(r0 + i) * 4 * sh.ld4 + k]; }, d, 8,
+                            lane, qq_r);
+      if (lane < 8) {
+        float v = qq_r[0];
+#pragma unroll
+        for (int i = 1; i < 8; ++i)
+          if (lane == i) v = qq_r[i];
+        qq_s[r0 + lane] = v;
+      }
+    }
+  }
+  // queries lane + 32 c, float4 columns warp + 8 m: in registers for the
+  // whole walk (the product reads only candidate rows from shared memory,
+  // every lane of a warp the same float4); rows past B are zero
+  const bool last = warp + kWarps * (kCol4 - 1) < sh.d4;  // this warp has column kCol4 - 1
+  float4 qr[kQL][kCol4];
+#pragma unroll
+  for (int c = 0; c < kQL; ++c)
+#pragma unroll
+    for (int m = 0; m < kCol4; ++m) {
+      const int k = warp + kWarps * m;
+      qr[c][m] = k < sh.d4 ? Qs[(lane + 32 * c) * sh.ld4 + k] : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  __syncthreads();  // qq_s; Qs is no longer read
+  // the elementwise chain: query eq, candidate rows kPairs er + i; rows past
+  // B get c = 1 (they are not written)
+  const int eq = tid % kQueries, er = tid / kQueries;
+  const int qrow = row0 + eq;
+  const bool row_ok = qrow < B;
+  const bwdq::Query kq = bwdq::query_constants<kTrue>(
+      qq_s[eq], row_ok ? __ldg(cq + qrow) : 1.f, 0.f, 0.f, row_ok ? __ldg(target + qrow) : -1);
+  float m_run = neg_inf(), s_run = 0.f, t_run = 0.f;
+
+  // The walk over this block's candidate tiles: step t folds tile t - 1 (the
+  // chain) and takes the p partials of tile t (the product), with one barrier
+  // per step, so that warps done with the chain go on to the product while
+  // others finish it. The p partials and |x|^2 are double-buffered, the bias
+  // triple-buffered (tile t + 1's is in flight while the chain reads tile
+  // t - 1's).
+  for (int t = t_begin; t <= t_end; ++t) {
+    const int k = t - t_begin;
+    bwdx::cp_async_wait_all();
+    __syncthreads();  // tile t has landed; the product of tile t - 1 is done
+    if (t + 1 < t_end) {
+      bwdx::load_tile_async(Xs + ((k + 1) & 1) * kRows * sh.ld4, x, (t + 1) * kRows, kRows, N,
+                            sh);
+      bwdq::load_bias_async(bias_s[(k + 1) % 3], bias, (t + 1) * kRows, N, kRows);
+    }
+    bwdx::cp_async_commit();
+    if (t > t_begin) {  // the chain of tile t - 1
+      const float* red_t = red + ((k - 1) & 1) * kWarps * kQueries * kLd;
+      const float* xx_t = xx_s[(k - 1) & 1];
+      const float* bt = bias_s[(k - 1) % 3];
+      const int col0 = (t - 1) * kRows, r0 = kPairs * er;
+      // p of each pair: the warps' partials summed in warp order
+      float ps[kPairs];
+#pragma unroll
+      for (int i = 0; i < kPairs; ++i) ps[i] = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w)
+#pragma unroll
+        for (int h = 0; h < kPairs; h += 4) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(red_t + (w * kQueries + eq) * kLd + r0 + h);
+          ps[h] += v.x;
+          ps[h + 1] += v.y;
+          ps[h + 2] += v.z;
+          ps[h + 3] += v.w;
+        }
+      // without branches: candidates past N (x = 0, bias = 0) give finite
+      // logits that the select turns into -inf
+      float l[kPairs];
+#pragma unroll
+      for (int i = 0; i < kPairs; ++i) {
+        const int r = r0 + i;
+        const float p = ps[i];
+        const bwdq::Logit e = bwdq::pair_logit<kTrue>(p, xx_t[r], bt[r], kq, scale, margin);
+        const bool ok = col0 + r < N;
+        t_run += ok && col0 + r == kq.tgt ? e.logit : 0.f;
+        l[i] = ok ? e.logit : neg_inf();
+      }
+      float tile_max = l[0];
+#pragma unroll
+      for (int i = 1; i < kPairs; ++i) tile_max = fmaxf(tile_max, l[i]);
+      const float mx = fmaxf(m_run, tile_max);
+      const float ref = mx == neg_inf() ? 0.f : mx;  // no valid candidate yet: no exp(-inf - -inf)
+      // expf, not __expf: its bias (~1e-6 of each term) adds up over N candidates
+      float acc = s_run * expf(m_run - ref);
+#pragma unroll
+      for (int i = 0; i < kPairs; ++i) acc += expf(l[i] - ref);
+      s_run = acc;
+      m_run = mx;
+    }
+    if (t < t_end) {  // the product of tile t
+      const float4* Xb = Xs + (k & 1) * kRows * sh.ld4;
+      float* red_t = red + (k & 1) * kWarps * kQueries * kLd;
+      {  // |x|^2 of the tile's rows: warp w sums rows kPerWarp w .., lanes 0 .. kPerWarp - 1 store them
+        constexpr int kPerWarp = kRows / kWarps;
+        const float* xw = reinterpret_cast<const float*>(Xb + warp * kPerWarp * sh.ld4);
+        float xx_r[kPerWarp];
+        bwdq::warp_rows_sq<kPerWarp>([&](int i, int j) { return xw[i * 4 * sh.ld4 + j]; }, d,
+                                     kPerWarp, lane, xx_r);
+        float v = xx_r[0];
+#pragma unroll
+        for (int rr = 1; rr < kPerWarp; ++rr)
+          if (lane == rr) v = xx_r[rr];
+        if (lane < kPerWarp) xx_s[k & 1][warp * kPerWarp + lane] = v;
+      }
+      // this warp's share of p over its columns, kRowStep candidates at a time
+      for (int j0 = 0; j0 < kRows; j0 += kRowStep) {
+        float dot[kRowStep][kQL];
+#pragma unroll
+        for (int s = 0; s < kRowStep; ++s)
+#pragma unroll
+          for (int c = 0; c < kQL; ++c) dot[s][c] = 0.f;
+#pragma unroll
+        for (int m = 0; m < kCol4; ++m) {
+          if (m == kCol4 - 1 && !last) break;
+#pragma unroll
+          for (int s = 0; s < kRowStep; ++s) {
+            const float4 xv = Xb[(j0 + s) * sh.ld4 + warp + kWarps * m];
+#pragma unroll
+            for (int c = 0; c < kQL; ++c) {
+              float v = dot[s][c];
+              v = fmaf(xv.x, qr[c][m].x, v);
+              v = fmaf(xv.y, qr[c][m].y, v);
+              v = fmaf(xv.z, qr[c][m].z, v);
+              v = fmaf(xv.w, qr[c][m].w, v);
+              dot[s][c] = v;
+            }
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < kQL; ++c)
+#pragma unroll
+          for (int h = 0; h < kRowStep; h += 4)
+            *reinterpret_cast<float4*>(red_t + (warp * kQueries + lane + 32 * c) * kLd + j0 + h) =
+                make_float4(dot[h][c], dot[h + 1][c], dot[h + 2][c], dot[h + 3][c]);
+      }
+    }
+  }
+
+  // the chain threads of each query in order, then this split's partial
+  __syncthreads();  // the walk no longer reads red
+  red[er * kQueries + eq] = m_run;
+  red[(kGroups + er) * kQueries + eq] = s_run;
+  red[(2 * kGroups + er) * kQueries + eq] = t_run;
+  __syncthreads();
+  const size_t stride = static_cast<size_t>(splits) * B;  // floats per field of part
+  if (tid < kQueries && row_ok) {
+    float M = red[tid], S = red[kGroups * kQueries + tid], T = red[2 * kGroups * kQueries + tid];
+#pragma unroll
+    for (int g = 1; g < kGroups; ++g) {
+      lse_merge(M, S, red[g * kQueries + tid], red[(kGroups + g) * kQueries + tid]);
+      T += red[(2 * kGroups + g) * kQueries + tid];
+    }
+    float* mine = part + static_cast<size_t>(split) * B + qrow;
+    mine[0] = M;
+    mine[stride] = S;
+    mine[2 * stride] = T;
+  }
+
+  if (!last_to_finish(counters + qtile, splits, &flag)) return;
+  // the last block of this query tile: the splits in order, one thread a
+  // query, kBatch splits' loads in flight at once (one round trip to L2 for
+  // up to kBatch splits), each batch rescaled to its maximum
+  if (tid < kQueries && row_ok) {
+    const float* pm = part + qrow;
+    float M = neg_inf(), S = 0.f, T = 0.f;
+    for (int k0 = 0; k0 < splits; k0 += kBatch) {
+      float a[kBatch], b[kBatch], c[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const bool in = k0 + u < splits;
+        const size_t at = static_cast<size_t>(in ? k0 + u : 0) * B;
+        a[u] = in ? __ldcg(pm + at) : neg_inf();
+        b[u] = in ? __ldcg(pm + stride + at) : 0.f;
+        c[u] = in ? __ldcg(pm + 2 * stride + at) : 0.f;
+      }
+      float mx = M;
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) mx = fmaxf(mx, a[u]);
+      const float ref = mx == neg_inf() ? 0.f : mx;  // every split so far empty
+      S *= expf(M - ref);
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        S += b[u] * expf(a[u] - ref);
+        T += c[u];
+      }
+      M = mx;
+    }
+    const float l = M + logf(fmaxf(S, 1e-30f));
+    lse[qrow] = l;
+    nll[qrow] = l - T;
+  }
+  if (tid == 0) counters[qtile] = 0;  // ready for the next launch
 }
 
 template <typename Kernel>
@@ -1359,6 +1472,24 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 // Rows of q and x load as float4s: d a multiple of 4, both 16-byte aligned.
 bool float4_rows(const float* q, const float* x, int d) {
   return d % 4 == 0 && aligned16(q) && aligned16(x);
+}
+
+typedef void (*Forward)(const float*, const float*, const float*, const float*, const int*,
+                        Scalars, float*, float*, float*, int*, int, int, int);
+
+// The instance of the forward for width d (<= 256).
+template <bool kTrue>
+Forward forward_kernel(int d) {
+  switch ((d / 4 + fwd::kWarps - 1) / fwd::kWarps) {
+    case 1: return ce_forward_kernel<kTrue, 1>;
+    case 2: return ce_forward_kernel<kTrue, 2>;
+    case 3: return ce_forward_kernel<kTrue, 3>;
+    case 4: return ce_forward_kernel<kTrue, 4>;
+    case 5: return ce_forward_kernel<kTrue, 5>;
+    case 6: return ce_forward_kernel<kTrue, 6>;
+    case 7: return ce_forward_kernel<kTrue, 7>;
+    default: return ce_forward_kernel<kTrue, 8>;
+  }
 }
 
 typedef void (*BackwardX)(const float*, const float*, const float*, const float*, const int*,
@@ -1510,7 +1641,10 @@ extern "C" {
 // 4 and q and x are 16-byte aligned (else cudaErrorInvalidValue). `counters` are
 // int32 zeros that each launch leaves at zero again: q_tiles of them for the
 // forward, q_tiles + 1 for backward_q; launches sharing counters must not run
-// concurrently. backward_q launches `splits` clusters of `cluster` (1 to 16)
+// concurrently. The forward launches `splits` blocks per tile of 128
+// queries, which cut the 16-row candidate tiles evenly (a split past the
+// last tile is empty), with partials of (max, sum-exp, target logit)
+// [3, splits, B], and writes nll [B] and lse [B]. backward_q launches `splits` clusters of `cluster` (1 to 16)
 // blocks per 64 queries, with partials of dq [splits, B, d], of dqq and dc
 // [2, splits, B] and of dscale / dmargin [q_tiles * splits, 2]; backward_x uses
 // no counters: it launches clusters of `splits` (1 to 8) blocks, one cluster
@@ -1519,22 +1653,20 @@ extern "C" {
 int streaming_ce_forward(const float* q, const float* x, const float* bias, const float* cq,
                          const int* target, const float* scale, const float* margin, float* part,
                          float* nll, float* lse, int* counters, int B, int N, int d, int splits,
-                         int tiles_per_split, int true_dist, cudaStream_t stream) {
-  if (!float4_rows(q, x, d)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = tile_smem_bytes(d, 0);
-  const dim3 grid((B + kTile - 1) / kTile, splits);
-  const Scalars sc{scale, margin};
-  cudaError_t err;
-  if (true_dist) {
-    err = allow_smem(ce_forward_kernel<true>, smem);
-    if (err == cudaSuccess)
-      ce_forward_kernel<true><<<grid, kThreads, smem, stream>>>(
-          q, x, bias, cq, target, sc, part, nll, lse, counters, B, N, d, tiles_per_split);
-  } else {
-    err = allow_smem(ce_forward_kernel<false>, smem);
-    if (err == cudaSuccess)
-      ce_forward_kernel<false><<<grid, kThreads, smem, stream>>>(
-          q, x, bias, cq, target, sc, part, nll, lse, counters, B, N, d, tiles_per_split);
+                         int true_dist, cudaStream_t stream) {
+  if (!float4_rows(q, x, d) || splits < 1 || splits > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Forward kernel = true_dist ? forward_kernel<true>(d) : forward_kernel<false>(d);
+  const size_t smem = fwd::smem_bytes(d);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err == cudaSuccess) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((B + fwd::kQueries - 1) / fwd::kQueries, splits);
+    cfg.blockDim = dim3(fwd::kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    err = cudaLaunchKernelEx(&cfg, kernel, q, x, bias, cq, target, Scalars{scale, margin}, part,
+                             nll, lse, counters, B, N, d);
   }
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
@@ -1571,6 +1703,23 @@ int streaming_ce_backward_x(const float* q, const float* x, const float* bias, c
                 : launch_backward_x<false>(q, x, bias, cq, target, sc, lse, g, dx, dbias, B, N, d,
                                            splits, stream);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// The forward's queries per block, the blocks of it that fit on one SM at
+// width d, and the card's SMs.
+int streaming_ce_forward_occupancy(int d, int true_dist, int* queries, int* blocks_per_sm,
+                                   int* sms) {
+  if (d < 4 || d > 4 * kMaxD4) return static_cast<int>(cudaErrorInvalidValue);
+  const Forward kernel = true_dist ? forward_kernel<true>(d) : forward_kernel<false>(d);
+  *queries = fwd::kQueries;
+  const size_t smem = fwd::smem_bytes(d);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, fwd::kThreads, smem);
+  int device = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  return static_cast<int>(err);
 }
 
 // Blocks of the candidate-side backward that fit on one SM, and clusters of

@@ -32,15 +32,13 @@ import torch
 from regcn_torch.ops import cuda_build
 
 SCORE_EPS = 1e-6  # ref SCORE_SCALE_EPSILON
-TILE = 64  # queries and candidates per kernel tile
+TILE = 64  # queries and candidates per tile of the backward kernels' clusters
+FWD_ROWS = 16  # candidates per tile of the forward's walk
 BWD_X_ROWS = 32  # queries per tile of the candidate-side backward's walk
 BWD_Q_ROWS = 32  # candidates per tile of the query-side backward's walk
 MAX_CLUSTER = 8  # blocks of one candidate tile in the candidate-side backward
 MAX_CLUSTER_Q = 16  # blocks of one query tile in the query-side backward
 MAX_D = 256  # widest embedding the kernels take
-# forward blocks that fit on an SM (shared memory: ~105 KB at d = 200); its
-# splits are sized to fill the SMs in one wave
-_FWD_BLOCKS_PER_SM = 2
 _INT_MAX = 2**31 - 1
 
 
@@ -99,14 +97,15 @@ def streaming_nll_reference(q, x, bias, target, cq, scale, margin,
 def _kernel_lib() -> ctypes.CDLL:
     lib = cuda_build.load("streaming_ce")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.streaming_ce_forward.argtypes = [ptr] * 11 + [i32] * 6 + [ptr]
+    lib.streaming_ce_forward.argtypes = [ptr] * 11 + [i32] * 5 + [ptr]
     lib.streaming_ce_backward_q.argtypes = [ptr] * 17 + [i32] * 6 + [ptr]
     lib.streaming_ce_backward_x.argtypes = [ptr] * 11 + [i32] * 5 + [ptr]
+    lib.streaming_ce_forward_occupancy.argtypes = [i32] * 2 + [ptr] * 3
     lib.streaming_ce_backward_q_occupancy.argtypes = [i32] * 3 + [ptr] * 2
     lib.streaming_ce_backward_x_occupancy.argtypes = [i32] * 3 + [ptr] * 2
     for fn in (lib.streaming_ce_forward, lib.streaming_ce_backward_q,
-               lib.streaming_ce_backward_x, lib.streaming_ce_backward_q_occupancy,
-               lib.streaming_ce_backward_x_occupancy):
+               lib.streaming_ce_backward_x, lib.streaming_ce_forward_occupancy,
+               lib.streaming_ce_backward_q_occupancy, lib.streaming_ce_backward_x_occupancy):
         fn.restype = ctypes.c_int
     lib.streaming_ce_error_string.argtypes = [i32]
     lib.streaming_ce_error_string.restype = ctypes.c_char_p
@@ -139,33 +138,50 @@ def _counters_for(kernel: str, device: torch.device, n: int) -> torch.Tensor:
     return buf[_KERNEL_SLOT[kernel]]
 
 
-def _splits(tiles: int, other_tiles: int, blocks_per_sm: int, device: torch.device
-            ) -> Tuple[int, int]:
-    """(splits, tiles per split) of an axis of ``tiles`` tiles, with
-    ``other_tiles`` blocks along the other axis: as many splits as one
-    wave of ``blocks_per_sm`` blocks on every SM holds."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = min(tiles, max(1, blocks_per_sm * sms // other_tiles))
-    per = -(-tiles // want)
-    return -(-tiles // per), per
+@functools.cache
+def _forward_occupancy(device: torch.device, d: int, true_dist: bool) -> Tuple[int, int, int]:
+    """(queries per block, blocks per SM, SMs of the card) of the forward."""
+    queries, per_sm, sms = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = _kernel_lib().streaming_ce_forward_occupancy(
+            d, int(true_dist), ctypes.addressof(queries), ctypes.addressof(per_sm),
+            ctypes.addressof(sms))
+    _raise_on(err, "streaming_ce_forward_occupancy")
+    return queries.value, per_sm.value, sms.value
 
 
-def ce_forward(q, x, bias, cq, target, scale, margin, true_dist: bool):
-    """Launches the forward kernel: returns (nll [B], lse [B])."""
+def forward_plan(B: int, N: int, d: int, true_dist: bool, device: torch.device,
+                 splits: int = 0) -> dict:
+    """The forward's launch: per tile of ``queries`` queries (the kernel's
+    128), ``splits`` blocks that cut the 16-row candidate tiles evenly.
+    ``splits=0`` takes as many as one wave of resident blocks holds over the
+    query tiles, then the fewest that keep each block's share of tiles."""
+    queries, per_sm, sms = _forward_occupancy(device, d, true_dist)
+    q_tiles, c_tiles = -(-B // queries), -(-N // FWD_ROWS)
+    if not splits:
+        per = -(-c_tiles // min(c_tiles, max(1, per_sm * sms // q_tiles)))
+        splits = -(-c_tiles // per)
+    return dict(grid=q_tiles * splits, queries=queries, splits=splits, blocks_per_sm=per_sm,
+                candidate_tiles_per_block=-(-c_tiles // splits))
+
+
+def ce_forward(q, x, bias, cq, target, scale, margin, true_dist: bool, splits: int = 0):
+    """Launches the forward kernel: returns (nll [B], lse [B]). ``splits``
+    (blocks per query tile; 0 = chosen by :func:`forward_plan`) changes the
+    sums' order, not their terms."""
     B, d = q.shape
     N = x.shape[0]
-    q_tiles = -(-B // TILE)
-    splits, per = _splits(-(-N // TILE), q_tiles, _FWD_BLOCKS_PER_SM, q.device)
+    plan = forward_plan(B, N, d, true_dist, q.device, splits)
+    splits = plan["splits"]
     part = torch.empty((3, splits, B), dtype=torch.float32, device=q.device)
     nll = torch.empty(B, dtype=torch.float32, device=q.device)
     lse = torch.empty(B, dtype=torch.float32, device=q.device)
-    counters = _counters_for("forward", q.device, q_tiles)
+    counters = _counters_for("forward", q.device, -(-B // plan["queries"]))
     with torch.cuda.device(q.device):
         err = _kernel_lib().streaming_ce_forward(
             q.data_ptr(), x.data_ptr(), bias.data_ptr(), cq.data_ptr(), target.data_ptr(),
             scale.data_ptr(), margin.data_ptr(), part.data_ptr(), nll.data_ptr(),
-            lse.data_ptr(), counters.data_ptr(), B, N, d, splits, per, int(true_dist),
-            _stream(q))
+            lse.data_ptr(), counters.data_ptr(), B, N, d, splits, int(true_dist), _stream(q))
     _raise_on(err, "streaming_ce_forward")
     ce_forward.launches += 1
     return nll, lse

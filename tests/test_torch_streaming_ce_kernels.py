@@ -137,6 +137,26 @@ def test_backward_q_plan_picks_the_fewest_tiles_on_the_busiest_sm(monkeypatch, B
     assert (forced["cluster"], forced["splits"]) == (1, 3)
 
 
+@pytest.mark.parametrize("B, N, queries, per_sm, splits, want", [
+    (512, 7128, 128, 1, 0, 32), (512, 460, 128, 1, 0, 29), (512, 7128, 64, 2, 0, 32),
+    (1, 7128, 128, 1, 0, 112), (97, 65, 128, 1, 0, 5), (20000, 100, 128, 1, 0, 1),
+    (512, 7128, 128, 1, 3, 3)])
+def test_forward_plan_fills_the_sms_in_one_wave(monkeypatch, B, N, queries, per_sm, splits, want):
+    """The forward's launch, given the occupancy an H100 reports (132 SMs;
+    the kernel's queries per block and the blocks of it an SM holds): as
+    many splits per query tile as one wave of resident blocks holds, then
+    the fewest that keep each block's share of 16-row candidate tiles; an
+    explicit count is taken as it is. At config 3's entity shape 4 query
+    tiles of 128 x 32 splits fill 128 SMs, 14 tiles a block."""
+    monkeypatch.setattr(S, "_forward_occupancy", lambda dev, d, true: (queries, per_sm, 132))
+    plan = S.forward_plan(B, N, 200, False, torch.device("cpu"), splits)
+    c_tiles = -(-N // S.FWD_ROWS)
+    assert (plan["queries"], plan["splits"]) == (queries, want)
+    assert plan["grid"] == -(-B // queries) * want <= max(per_sm * 132, -(-B // queries))
+    assert plan["candidate_tiles_per_block"] == -(-c_tiles // want)
+    assert plan["blocks_per_sm"] == per_sm
+
+
 def _check_phase_builds(tool: str) -> None:
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
     module = __import__(tool)
@@ -157,6 +177,19 @@ def test_bwd_q_diagnosis_phase_builds_cut_the_kernel_source():
     """tools/ce_bwd_q_diagnosis.py --phases does the same for the query-side
     backward's walk."""
     _check_phase_builds("ce_bwd_q_diagnosis")
+
+
+def test_fwd_diagnosis_builds_cut_the_kernel_source():
+    """tools/ce_fwd_diagnosis.py --phases does the same for the forward's
+    walk; its probe build adds its stores to each of the three kernels, and
+    its 64-query build its two edits, each at one place."""
+    _check_phase_builds("ce_fwd_diagnosis")
+    import ce_fwd_diagnosis as tool
+    src = (Path(S.__file__).resolve().parent.parent / "csrc" / "streaming_ce.cu").read_text()
+    for edits, build in ((tool.PROBE, tool.probe_source()),
+                         (tool.QUERIES_64, tool.edited(tool.QUERIES_64))):
+        for old, new in edits.values():
+            assert src.count(old) == 1 and build.count(new) == 1, old
 
 
 @pytest.mark.parametrize("bad", ["f64_q", "short_bias", "strided_x", "cq_shape", "scale_shape",
@@ -284,6 +317,39 @@ def test_shapes_the_kernels_do_not_take_raise_on_cuda(cuda, shape):
         x = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(20, d)
     with pytest.raises(ValueError):
         S.streaming_nll(q, x, bias, target, cq, scale, margin)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("true", [False, True], ids=["proxy", "true_per_query_c"])
+def test_forward_at_every_split_count(cuda, true):
+    """nll and lse with the 63 candidate tiles of 16 cut over 1 to 66
+    splits, at B = 300 (no multiple of the query tile) and N = 993: the
+    last tile holds one candidate, which is a target, so in the last split
+    some chain threads see only masked candidates, and from 64 splits on
+    whole splits hold no candidate. Each within the plain version's
+    tolerance against float64, and bitwise repeatable."""
+    B, N, d = 300, 993, 200
+    q, x, bias, target, cq, scale, margin, _ = (
+        t.to(cuda) for t in make_case(B, N, d, true=true, per_query_c=true))
+    target = target.to(torch.int32)
+    want = {}
+    for dtype in (torch.float32, torch.float64):
+        a = [t.to(dtype) for t in (q, x, bias, cq, scale, margin)]
+        logits = S.distance_logits(a[0], a[1], a[3][:, None], bias=a[2], scale=a[4],
+                                   margin=a[5], true_dist=true)
+        lse = torch.logsumexp(logits, dim=1)
+        want[dtype] = (lse - logits.gather(1, target.long()[:, None])[:, 0], lse)
+    c_tiles = -(-N // S.FWD_ROWS)
+    for splits in range(1, c_tiles + 4):
+        first = S.ce_forward(q, x, bias, cq, target, scale, margin, true, splits)
+        second = S.ce_forward(q, x, bias, cq, target, scale, margin, true, splits)
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), splits
+        for name, got, plain, exact in zip(("nll", "lse"), first, want[torch.float32],
+                                           want[torch.float64]):
+            err = (got.double() - exact).abs().max().item()
+            plain_err = (plain.double() - exact).abs().max().item()
+            assert err <= max(NLL_TOL * max(1.0, exact.abs().max().item()), 2 * plain_err), \
+                f"{name} at {splits} splits: max err {err}, plain fp32 err {plain_err}"
 
 
 @pytest.mark.cuda
