@@ -45,20 +45,39 @@ Phases, each of which exits non-zero on failure:
    optimizer's update; (b) one full epoch with the config's
    dropouts, the kernels' launch counts reset just before and read just
    after (B2 forward and both backward kernels: 2 per step); (c) the
-   test split's four MRRs; (d) a few steps under torch.profiler.
+   test split's four MRRs; (d) a few steps under torch.profiler;
+7. config-1 training: RE-GCN config 1 as in phase 4, with its training
+   settings (dropouts 0.2, task weight 0.7, lr 1e-3, grad norm 1.0,
+   weight decay 1e-5), through ``regcn_torch.train.loop.Trainer``:
+   (a) 3 steps on the card, each checked against the CPU from the same
+   state (dropouts 0): the losses, every parameter's gradient, the new
+   BatchNorm statistics and the optimizer's update; (b) one full epoch
+   with the config's dropouts, the kernels' launch counts reset just
+   before and read just after (B1: 2 layers x the window's snapshots per
+   step; no B2 kernel); (c) 20 steady-state steps; (d) the test split's
+   four MRRs, the entity raw MRR above phase 4's random-init one; (e) a
+   checkpoint round trip: saved after the epoch, restored into a fresh
+   trainer, one step from each copy; (f) a few steps under
+   torch.profiler, with B1's forward and the scatter backward apart.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is ``{"kernels": [...]}``: each row's
+``launches`` is B1's on the config-1 test split or a B2 kernel's in the
+config-3 epoch, and ``launches_by_path`` holds its count on each path. The
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -66,7 +85,7 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from regcn_torch.config import ModelConfig, TrainConfig  # noqa: E402
+from regcn_torch.config import ExperimentConfig, ModelConfig, TrainConfig  # noqa: E402
 from regcn_torch.data.snapshots import (  # noqa: E402
     build_history,
     build_snapshot,
@@ -76,16 +95,21 @@ from regcn_torch.data.snapshots import (  # noqa: E402
 from regcn_torch.data.synthetic import generate  # noqa: E402
 from regcn_torch.hyperbolic.model import HyperbolicConfig  # noqa: E402
 from regcn_torch.hyperbolic.ops import exp_map_zero  # noqa: E402
-from regcn_torch.hyperbolic.train import HyperbolicTrainer, tree_leaves  # noqa: E402
+from regcn_torch.hyperbolic.train import HyperbolicTrainer  # noqa: E402
+from regcn_torch.models import decoders as model_decoders  # noqa: E402
+from regcn_torch.models import layers as model_layers  # noqa: E402
 from regcn_torch.models import recurrent  # noqa: E402
 from regcn_torch.ops import cuda_build  # noqa: E402
 from regcn_torch.ops import streaming_ce as ce  # noqa: E402
+from regcn_torch.ops.activations import RRELU_LOWER, RRELU_UPPER  # noqa: E402
 from regcn_torch.ops.rgcn_scatter import (  # noqa: E402
     rgcn_aggregate,
     scatter_add_sorted,
     scatter_add_sorted_reference,
 )
 from regcn_torch.train import loop  # noqa: E402
+from regcn_torch.train import state as train_state  # noqa: E402
+from regcn_torch.train.optim import tree_leaves  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -111,6 +135,11 @@ TRAIN_GRAD_TOL = 1e-4  # per parameter, relative to max(1, max|cpu grad|)
 # gradients: fp32 rounding of the clip norm and of m / sqrt(v) only, each
 # entry within this times max(1, |cpu parameter|)
 TRAIN_OPT_TOL = 1e-6
+# config 1's 3 steps: at most this share of the pre-activations at the
+# rrelu/relu kinks may take the other branch on the CPU than on the card
+# (1 to 3 of 59.6M entries on an H100); the CPU replays the card's
+# branches, so only a few entries within rounding of 0 may differ
+KINK_FLIP_SHARE = 1e-6
 PROFILE_STEPS = 20
 
 # Every kernel of the main path: its csrc source, the wrapper whose
@@ -373,7 +402,7 @@ def phase_kernels(data, N: int, R: int, d: int, dev: torch.device) -> dict:
         shapes=[dict(shape=label, **t) for label, t in shapes])}
 
 
-def phase_main_path(data, cfg: ModelConfig, tc: TrainConfig, dev: torch.device) -> dict:
+def phase_main_path(data, cfg: ModelConfig, tc: TrainConfig, dev: torch.device) -> tuple:
     params, state = recurrent.init_params(torch.Generator().manual_seed(SEED), cfg, device=dev)
     n_test = len(split_by_time(data.test))
     reset_launches()
@@ -425,7 +454,7 @@ def phase_main_path(data, cfg: ModelConfig, tc: TrainConfig, dev: torch.device) 
         print(f"[main] {name} scores {tuple(a.shape)} cuda vs cpu: max abs err {err:.3e} "
               f"(scale {scale:.3e})", flush=True)
     device_breakdown(params, state, cfg, tc, data, dev)
-    return launches
+    return launches, stats
 
 
 def device_breakdown(params, state, cfg, tc, data, dev) -> None:
@@ -641,11 +670,18 @@ def leaf_names(tree, prefix: str = "") -> list:
     return [prefix[:-1]]
 
 
+def state_leaves(state) -> list:
+    """Parameters, Adam moments and BatchNorm running statistics."""
+    ms = state.model_state
+    return (tree_leaves(state.params) + state.opt_state.mu + state.opt_state.nu
+            + tree_leaves(ms.bn_ob) + tree_leaves(ms.bn_rel))
+
+
 def copy_state_into(dst, src) -> None:
-    """Parameters and Adam moments of ``src`` into ``dst``, in place."""
+    """Parameters, Adam moments and BN statistics of ``src`` into ``dst``,
+    in place."""
     with torch.no_grad():
-        for a, b in zip(tree_leaves(dst.params) + dst.opt_state.mu + dst.opt_state.nu,
-                        tree_leaves(src.params) + src.opt_state.mu + src.opt_state.nu):
+        for a, b in zip(state_leaves(dst), state_leaves(src)):
             a.copy_(b)
     dst.opt_state.count, dst.step = src.opt_state.count, src.step
 
@@ -747,12 +783,17 @@ def phase_training(data, dev: torch.device) -> dict:
           + ", ".join(f"{k} {v.mrr:.6f}" for k, v in stats.items()), flush=True)
 
     # (d) where a step's time goes
-    train_profile(trainer, state, trainer.epoch_order(2)[:PROFILE_STEPS],
-                  trainer._curvature_max(2))
+    cmax = trainer._curvature_max(2)
+    train_profile("train step", lambda i: trainer.train_step(state, *trainer.window(i), cmax),
+                  trainer.epoch_order(2)[:PROFILE_STEPS])
     return launches
 
 
-def train_profile(trainer, state, order, cmax) -> None:
+def train_profile(label: str, step, order, scatter: bool = False) -> None:
+    """``step(i)`` for each i of ``order`` under torch.profiler: device busy
+    time by kernel against the wall time; with ``scatter``, B1's forward
+    kernel and the scatter's backward (``_ScatterAddSortedBackward``: the
+    plain-torch gather of the autograd Function) apart."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -760,20 +801,286 @@ def train_profile(trainer, state, order, cmax) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in order:
-            trainer.train_step(state, *trainer.window(i), cmax)
+            step(i)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     n = len(order)
-    kernels = sorted((e for e in prof.key_averages()
+    events = prof.key_averages()
+    kernels = sorted((e for e in events
                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                      key=lambda e: -e.self_device_time_total)
     busy_us = sum(e.self_device_time_total for e in kernels)
-    print(f"[profile] train step under torch.profiler: wall {wall_us / n / 1e3:.2f} ms, device "
+    print(f"[profile] {label} under torch.profiler: wall {wall_us / n / 1e3:.2f} ms, device "
           f"busy {busy_us / n / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f} %), "
           f"{sum(e.count for e in kernels) / n:.0f} kernels and copies per step", flush=True)
     for e in kernels[:10]:
         print(f"[profile]   {e.self_device_time_total / n:9.1f} us/step "
               f"{e.count / n:5.0f}x  {e.key[:90]}", flush=True)
+    if scatter:
+        fwd = [e for e in kernels if "scatter_sorted_kernel" in e.key]
+        bwd = [e for e in events if e.key == "_ScatterAddSortedBackward"]
+        check(fwd and bwd, "the profile shows no B1 forward kernel or no scatter backward")
+        fwd_us = sum(e.self_device_time_total for e in fwd)
+        bwd_us = sum(e.device_time_total for e in bwd)
+        print(f"[profile]   B1 forward: {fwd_us / n:.1f} us/step in "
+              f"{sum(e.count for e in fwd) / n:.0f} launches ({100 * fwd_us / busy_us:.1f} % of "
+              f"busy); scatter backward (gather): {bwd_us / n:.1f} us/step in "
+              f"{sum(e.count for e in bwd) / n:.0f} calls ({100 * bwd_us / busy_us:.1f} % of "
+              "busy)", flush=True)
+
+
+# ------------------------------------------------------- config-1 training
+
+NO_DROPOUT = dict(dropout=0.0, input_dropout=0.0, hidden_dropout=0.0, feat_dropout=0.0)
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over max(1, max |b|), ``b`` on the CPU."""
+    return (a.detach().cpu() - b.detach()).abs().max().item() / max(1.0, b.abs().max().item())
+
+
+class PinnedKinks:
+    """The branches RE-GCN takes at its activations' kinks, recorded on one
+    device and replayed on another: the UnionRGCN's fixed-slope rrelu and
+    the decoders' relu, patched in their modules. An fp32 pre-activation
+    within rounding of 0 may take the other branch on the other device,
+    and a few such entries among the ~20M of a step can move a gradient
+    by more than TRAIN_GRAD_TOL of its parameter's largest entry.
+    Replaying the card's branches on the CPU compares the two devices on
+    one branch of the function; ``flips`` counts the entries whose own
+    branch differed, which phase 7 holds to KINK_FLIP_SHARE of
+    ``entries``: pre-activations that went wrong on the card would show
+    there."""
+
+    def __init__(self):
+        self.masks = {"rrelu": [], "relu": []}
+        self.flips = self.entries = 0
+
+    @contextlib.contextmanager
+    def _patched(self, rrelu, relu):
+        saved = model_layers.rrelu, model_decoders.relu
+        model_layers.rrelu, model_decoders.relu = rrelu, relu
+        try:
+            yield
+        finally:
+            model_layers.rrelu, model_decoders.relu = saved
+
+    def record(self):
+        """Runs the model as it is and keeps each kink's branch."""
+        self.masks = {"rrelu": [], "relu": []}
+        rrelu, relu = model_layers.rrelu, model_decoders.relu
+
+        def rec_rrelu(x):
+            self.masks["rrelu"].append(x >= 0)
+            return rrelu(x)
+
+        def rec_relu(x):
+            self.masks["relu"].append(x > 0)
+            return relu(x)
+
+        return self._patched(rec_rrelu, rec_relu)
+
+    @contextlib.contextmanager
+    def replay(self):
+        """Takes the recorded branches, in the order they were recorded,
+        and checks that the replay passed every recorded kink."""
+        queues = {k: iter(v) for k, v in self.masks.items()}
+        slope = (RRELU_LOWER + RRELU_UPPER) / 2.0
+
+        def pinned(kind, x, own):
+            mask = next(queues[kind]).to(x.device)
+            self.flips += int((own != mask).sum())
+            self.entries += mask.numel()
+            return mask
+
+        def rep_rrelu(x):
+            return torch.where(pinned("rrelu", x, x >= 0), x, x * slope)
+
+        def rep_relu(x):
+            return torch.where(pinned("relu", x, x > 0), x, torch.zeros_like(x))
+
+        with self._patched(rep_rrelu, rep_relu):
+            yield
+        check(all(next(q, None) is None for q in queues.values()),
+              "the replay passed fewer activations than the recorded run")
+
+
+def config1_three_steps(data, cfg: ModelConfig, tc: TrainConfig, dev: torch.device) -> None:
+    """(a) 3 steps on the card; before each, the CPU takes the card's state
+    and both compute the step from it, the CPU on the card's branches at
+    the activations' kinks (PinnedKinks): the losses, each parameter's
+    gradient, the new BN statistics, and the optimizer's update given the
+    card's gradients; and the share of kink entries whose branch differed.
+    Printed, not checked: the global norm of the card's first gradients as
+    the card, the CPU in fp32 and float64 take it (the optimizer
+    accumulates it in float64)."""
+    t0 = time.perf_counter()
+    exp = ExperimentConfig(model=dataclasses.replace(cfg, **NO_DROPOUT), train=tc)
+    gpu = loop.Trainer(exp, data, device=dev)
+    cpu = loop.Trainer(exp, data, device="cpu")
+    s_gpu = gpu.init_state(SEED)
+    s_cpu = train_state.state_from(s_gpu.params, s_gpu.model_state, tc, SEED, "cpu")
+    names = leaf_names(s_gpu.params)
+    worst_grad = worst_bn = worst_opt = 0.0
+    kinks = PinnedKinks()
+    for step, i in enumerate(gpu.epoch_order(0)[:3]):
+        copy_state_into(s_cpu, s_gpu)
+        out = []
+        for tr, st, pin in ((gpu, s_gpu, kinks.record), (cpu, s_cpu, kinks.replay)):
+            with pin():
+                total, parts, new_bn = tr.loss(st, *tr.window(i))
+                grads = torch.autograd.grad(total, tree_leaves(st.params), allow_unused=True)
+            out.append(({k: float(v.detach()) for k, v in parts.items()}, grads, new_bn))
+        (l_gpu, g_gpu, bn_gpu), (l_cpu, g_cpu, bn_cpu) = out
+        if step == 0:
+            norms = (torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(g_gpu)))),
+                     torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
+                         [g.cpu() for g in g_gpu]))),
+                     torch.linalg.vector_norm(torch.stack([g.cpu().double().norm() for g in g_gpu])))
+            print("[train1] global norm of the first step's gradients: card fp32 "
+                  f"{norms[0].item():.7f}, cpu fp32 {norms[1].item():.7f}, float64 "
+                  f"{norms[2].item():.7f}", flush=True)
+        for k, b in l_cpu.items():
+            a = l_gpu[k]
+            check(math.isfinite(a) and abs(a - b) <= TRAIN_LOSS_RTOL * max(1.0, abs(b)),
+                  f"config 1, step on snapshot {i}: {k} loss cuda {a} vs cpu {b}")
+        for name, a, b in zip(names, g_gpu, g_cpu):
+            check(a is not None and b is not None, f"config 1, step on snapshot {i}: {name} has "
+                  "no gradient")
+            err = rel_err(a, b)
+            check(err <= TRAIN_GRAD_TOL, f"config 1, step on snapshot {i}: {name} gradient cuda "
+                  f"vs cpu {err:.3e} > {TRAIN_GRAD_TOL:.0e} of its largest entry")
+            worst_grad = max(worst_grad, err)
+        for bn in ("bn_ob", "bn_rel"):
+            for a, b in zip(tree_leaves(getattr(bn_gpu, bn)), tree_leaves(getattr(bn_cpu, bn))):
+                worst_bn = max(worst_bn, rel_err(a, b))
+        check(worst_bn <= TRAIN_GRAD_TOL, f"config 1, step on snapshot {i}: BN running "
+              f"statistics cuda vs cpu {worst_bn:.3e} > {TRAIN_GRAD_TOL:.0e}")
+        gpu.opt.step(tree_leaves(s_gpu.params), g_gpu, s_gpu.opt_state)
+        cpu.opt.step(tree_leaves(s_cpu.params), [g.cpu() for g in g_gpu], s_cpu.opt_state)
+        for name, a, b in zip(names, tree_leaves(s_gpu.params), tree_leaves(s_cpu.params)):
+            err = ((a.detach().cpu() - b.detach()).abs() / b.detach().abs().clamp(min=1.0)).max()
+            check(err.item() <= TRAIN_OPT_TOL, f"config 1, step on snapshot {i}: {name} after "
+                  f"the optimizer step cuda vs cpu {err.item():.3e} > {TRAIN_OPT_TOL:.0e}")
+            worst_opt = max(worst_opt, err.item())
+        s_gpu.model_state, s_cpu.model_state = bn_gpu, bn_cpu
+        s_gpu.step += 1
+        s_cpu.step += 1
+        print(f"[train1] step on snapshot {i}: losses cuda/cpu "
+              + ", ".join(f"{k} {l_gpu[k]:.6f}/{l_cpu[k]:.6f}" for k in l_gpu), flush=True)
+    check(kinks.flips <= KINK_FLIP_SHARE * kinks.entries, f"config 1, 3 steps: {kinks.flips} "
+          f"of {kinks.entries} pre-activations took the other branch at a kink on the cpu, over "
+          f"{KINK_FLIP_SHARE:.0e} of them")
+    print(f"[train1] (a) 3 steps cuda vs cpu from the same state, the cpu on the card's "
+          f"branches at the activations' kinks ({kinks.flips} of {kinks.entries} entries took "
+          f"the other branch on the cpu's own): every gradient within {worst_grad:.2e} of its "
+          f"parameter's largest entry (emb_rel, dynamic_emb and the RGCN weights through the "
+          f"scatter's backward), BN statistics within {worst_bn:.2e}, every parameter after the "
+          f"optimizer step within {worst_opt:.2e} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+
+def checkpoint_round_trip(trainer, state, exp: ExperimentConfig, data, dev) -> None:
+    """(e) The state saved after the epoch, restored into a fresh trainer:
+    every part equal; then one step from each copy, with the dropouts
+    drawn from the restored generator, in deterministic mode (the
+    relation context's index_add_ has float atomics otherwise)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as path:
+        train_state.save_checkpoint(path, state, {"epoch": 0})
+        mib = os.path.getsize(os.path.join(path, train_state.STATE_FILE)) / 2**20
+        fresh = loop.Trainer(exp, data, device=dev)
+        restored, meta = train_state.restore_checkpoint(path, fresh.init_state(SEED + 7))
+    check(meta == {"epoch": 0}, f"checkpoint meta {meta}")
+    same = all(torch.equal(a.detach(), b.detach())
+               for a, b in zip(state_leaves(state), state_leaves(restored)))
+    check(same and torch.equal(state.gen.get_state(), restored.gen.get_state())
+          and (state.step, state.opt_state.count) == (restored.step, restored.opt_state.count),
+          "the restored state differs from the saved one")
+    i = trainer.epoch_order(1)[0]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # cuBLAS: deterministic without a workspace setting
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            trainer.train_step(state, *trainer.window(i))
+            fresh.train_step(restored, *fresh.window(i))
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    worst = 0.0
+    for name, a, b in zip(leaf_names(state.params), tree_leaves(restored.params),
+                          tree_leaves(state.params)):
+        err = ((a.detach() - b.detach()).abs() / b.detach().abs().clamp(min=1.0)).max().item()
+        check(err <= TRAIN_OPT_TOL, f"checkpoint round trip: {name} after one step from each "
+              f"copy differs by {err:.3e} > {TRAIN_OPT_TOL:.0e}")
+        worst = max(worst, err)
+    print(f"[train1] (e) checkpoint round trip: {mib:.1f} MiB state.pt, every tensor, the "
+          f"generator, step {state.step - 1} restored exactly; one step from each copy: every "
+          f"parameter within {worst:.2e} ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def phase_config1_training(data, cfg: ModelConfig, tc: TrainConfig, dev: torch.device,
+                           random_init_mrr: float) -> dict:
+    config1_three_steps(data, cfg, tc, dev)
+
+    # (b) one full epoch with the config's dropouts, through the kernels
+    exp = ExperimentConfig(model=cfg, train=tc)
+    trainer = loop.Trainer(exp, data, device=dev)
+    state = trainer.init_state(SEED)
+    order = trainer.epoch_order(0)
+    expected = cfg.n_layers * sum(min(i, tc.train_history_len) for i in order)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = trainer.run_epoch(state, 0)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    launches = read_launches()
+    check(all(math.isfinite(v) for v in losses.values()), f"config-1 epoch losses {losses}")
+    check(all(launches[k] == 0 for k in CE_KERNELS), f"config-1 training launched a CE kernel: "
+          f"{launches}")
+    check(launches["rgcn_scatter_sorted"] == expected,
+          f"scatter kernel launched {launches['rgcn_scatter_sorted']} times in the config-1 "
+          f"epoch, expected {expected} = {cfg.n_layers} layers x the snapshots of the "
+          f"{len(order)} windows")
+    print(f"[train1] (b) epoch 0: {len(order)} steps in {epoch_s:.2f} s = "
+          f"{len(order) / epoch_s:.2f} snapshots/s (first epoch: includes building the "
+          f"{len(order)} windows); mean losses "
+          + ", ".join(f"{k} {v:.5f}" for k, v in losses.items()) + f"; launches {launches} "
+          f"({launches['rgcn_scatter_sorted'] / len(order):.2f} B1 launches per step)",
+          flush=True)
+
+    # (c) steady state: the next epoch's first steps, windows built; the
+    # state is copied so the checkpoint below holds the epoch's end
+    steady = train_state.copy_state(state)
+    order = trainer.epoch_order(1)[:PROFILE_STEPS]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in order:
+        trainer.train_step(steady, *trainer.window(i))
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t0
+    print(f"[train1] (c) steady state: {len(order)} steps in {steady_s:.3f} s = "
+          f"{len(order) / steady_s:.2f} snapshots/s, {steady_s / len(order) * 1e3:.2f} ms "
+          "per step", flush=True)
+
+    # (d) the test split after the epoch
+    t0 = time.perf_counter()
+    stats = trainer.test(state)
+    for key, st in stats.items():
+        check(math.isfinite(st.mrr) and 0.0 < st.mrr <= 1.0, f"{key} MRR {st.mrr} not in (0, 1]")
+    check(stats["ent_raw"].mrr > random_init_mrr, f"entity raw MRR {stats['ent_raw'].mrr:.6f} "
+          f"after an epoch is not above the random-init {random_init_mrr:.6f}")
+    print(f"[train1] (d) test split after one epoch ({time.perf_counter() - t0:.1f} s): MRR "
+          + ", ".join(f"{k} {v.mrr:.6f}" for k, v in stats.items())
+          + f" (random init: ent_raw {random_init_mrr:.6f})", flush=True)
+
+    checkpoint_round_trip(trainer, state, exp, data, dev)
+
+    # (f) where a step's time goes
+    train_profile("config-1 train step", lambda i: trainer.train_step(steady, *trainer.window(i)),
+                  trainer.epoch_order(2)[:PROFILE_STEPS], scatter=True)
+    return launches
 
 
 def main() -> None:
@@ -796,13 +1103,18 @@ def main() -> None:
     dev = torch.device("cuda")
     timing = timed("scatter kernel", phase_kernels, data, cfg.num_ents, cfg.num_rels,
                    cfg.h_dim, dev)
-    launches = timed("config-1 test split", phase_main_path, data, cfg, tc, dev)
+    launches, serving = timed("config-1 test split", phase_main_path, data, cfg, tc, dev)
+    by_path = {"config-1 test split": dict(launches)}
     timing.update(timed("streaming-CE kernels", phase_ce_kernels, cfg.num_ents, cfg.num_rels,
                         cfg.h_dim, dev))
-    train_launches = timed("config-3 training", phase_training, data, dev)
-    launches.update({k: train_launches[k] for k in CE_KERNELS})
+    by_path["config-3 training epoch"] = timed("config-3 training", phase_training, data, dev)
+    by_path["config-1 training epoch"] = timed(
+        "config-1 training", phase_config1_training, data, cfg, tc, dev, serving["ent_raw"].mrr)
+    launches.update({k: by_path["config-3 training epoch"][k] for k in CE_KERNELS})
     rows = [dict(name=k["name"], route=k["route"], source=k["source"], replaces=k["replaces"],
-                 launches=launches[k["name"]], **timing[k["name"]]) for k in KERNELS]
+                 launches=launches[k["name"]], **timing[k["name"]],
+                 launches_by_path={p: n[k["name"]] for p, n in by_path.items()})
+            for k in KERNELS]
     print(f"[phase] total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

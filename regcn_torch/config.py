@@ -64,3 +64,12 @@ class TrainConfig:
     edge_bucket: int = 1024
     triple_bucket: int = 512
     rc_bucket: int = 1024  # relation-context incidence pairs
+
+
+@dataclasses.dataclass(frozen=True)
+class ExperimentConfig:
+    """A model and its training (the ``model`` and ``train`` fields of
+    ``regcn_tpu/config.py:ExperimentConfig``)."""
+
+    model: ModelConfig
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)

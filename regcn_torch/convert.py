@@ -17,6 +17,11 @@ The port keeps the JAX layouts, so the conversion is a copy:
 list, the decoder dicts and the 0-d leaves (``log_c``,
 ``score_margin``, ``score_scale_raw``) become tensors of the same
 shapes, and ``HypModelState.radius_target`` comes along.
+
+:func:`train_state_from_jax` takes a whole ``regcn_tpu`` ``TrainState``
+(numpy leaves): its parameters and BN statistics as above, the Adam
+``count``/``mu``/``nu`` of its optax chain and its step, so that a run
+can continue mid-training in this package.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ import torch
 
 from regcn_torch.hyperbolic.model import HypModelState
 from regcn_torch.models.recurrent import ModelState
+from regcn_torch.train.optim import AdamState, tree_leaves
+from regcn_torch.train.state import TrainState
 
 
 def _tensor_tree(tree, device):
@@ -62,3 +69,46 @@ def hyperbolic_params_from_jax(
         radius_target=_tensor_tree(model_state_np.radius_target, device),
     )
     return _tensor_tree(params_np, device), state
+
+
+def _adam_state(opt_state):
+    """The member of a (nested tuple) optax chain state that has Adam's
+    ``count``, ``mu`` and ``nu``."""
+    if all(hasattr(opt_state, k) for k in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def _like(tree, template):
+    """``tree`` reordered as ``template``: the same keys, in its order
+    (JAX may hand back a dict with its keys sorted)."""
+    if isinstance(template, Mapping):
+        return {k: _like(tree[k], v) for k, v in template.items()}
+    if isinstance(template, list):
+        return [_like(t, v) for t, v in zip(tree, template)]
+    return tree
+
+
+def train_state_from_jax(jax_state, device="cuda", seed: int = 0) -> TrainState:
+    """A ``TrainState`` on ``device`` from a ``regcn_tpu`` ``TrainState``
+    with numpy leaves (``jax.tree.map(np.asarray, state)``). The dropout
+    generator, which JAX's PRNG key cannot seed alike, is seeded with
+    ``seed``."""
+    params, model_state = params_from_jax(jax_state.params, jax_state.model_state, device)
+    for t in tree_leaves(params):
+        t.requires_grad_(True)
+    adam = _adam_state(jax_state.opt_state)
+    if adam is None:
+        raise ValueError("the JAX optimizer state holds no Adam moments (count, mu, nu)")
+    moments = [tree_leaves(_like(_tensor_tree(m, device), params)) for m in (adam.mu, adam.nu)]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return TrainState(params=params,
+                      opt_state=AdamState(count=int(np.asarray(adam.count)), mu=moments[0],
+                                          nu=moments[1]),
+                      model_state=model_state, gen=gen, step=int(np.asarray(jax_state.step)))

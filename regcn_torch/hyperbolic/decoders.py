@@ -19,7 +19,7 @@ from typing import Dict
 import torch
 
 from regcn_torch.hyperbolic import ops as H
-from regcn_torch.hyperbolic.layers import _dropout
+from regcn_torch.ops.activations import inverted_dropout
 from regcn_torch.ops.streaming_ce import SCORE_EPS, distance_logits, streaming_nll
 
 Params = Dict[str, torch.Tensor]
@@ -136,7 +136,7 @@ def _reshape_tangent(params, x):
 def _roth_query(params, entity_embedding, rel_embedding, triples, c, dropout, gen, train):
     r_idx = triples[:, 1]
     s_emb = H.project_to_ball(entity_embedding.index_select(0, triples[:, 0]), c)
-    s_tan = _dropout(H.log_map_zero(s_emb, c), dropout, gen, train)
+    s_tan = inverted_dropout(H.log_map_zero(s_emb, c), dropout, gen, train)
     s_tan = _reshape_tangent(params, s_tan)
     rel = rel_embedding.index_select(0, r_idx)
     angles = rel @ params["rot_w"].T + params["rot_b"]
@@ -186,8 +186,8 @@ def init_roth_rel(gen: torch.Generator, num_rels_base, h_dim, init_scale=1e-3,
 
 
 def _roth_rel_query(params, entity_embedding, triples, c, dropout, gen, train):
-    s_tan = _dropout(H.log_map_zero(entity_embedding.index_select(0, triples[:, 0]), c),
-                     dropout, gen, train)
+    s_tan = inverted_dropout(H.log_map_zero(entity_embedding.index_select(0, triples[:, 0]), c),
+                             dropout, gen, train)
     s_tan = _reshape_tangent(params, s_tan)
     rot_s = H.exp_map_zero(givens_rotation(s_tan, params["global_rot"]), c)
     return H.mobius_add(-rot_s, entity_embedding.index_select(0, triples[:, 2]), c)

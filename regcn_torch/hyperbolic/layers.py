@@ -18,21 +18,13 @@ from typing import Dict, Optional
 import torch
 
 from regcn_torch.hyperbolic import ops as H
-from regcn_torch.ops.activations import rrelu
+from regcn_torch.ops.activations import inverted_dropout, rrelu
 from regcn_torch.utils.init import RELU_GAIN, xavier_uniform
 
 Params = Dict[str, torch.Tensor]
 
 CLAMP = 10.0  # tangent clamp
 ENCODERS = ("hyperbolic_uvrgcn", "fhnn", "lgcn", "hgat")
-
-
-def _dropout(x, rate: float, gen: Optional[torch.Generator], train: bool):
-    """Inverted dropout from ``gen`` (a generator on x's device)."""
-    if not train or rate <= 0.0 or gen is None:
-        return x
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def _dual_self_loop(params, h_tan, has_in_edge):
@@ -93,7 +85,7 @@ def lgcn_layer(params: Params, h_hyper: torch.Tensor, rel_emb: Optional[torch.Te
     # the eval-mode rrelu even while training: the reference calls
     # F.rrelu with its default training=False
     h_new = rrelu(h_new)
-    h_new = _dropout(h_new, dropout, gen, train)
+    h_new = inverted_dropout(h_new, dropout, gen, train)
     return H.exp_map_zero(h_new, c).to(h_hyper.dtype)
 
 

@@ -19,8 +19,6 @@ EST and TANS, the static graph, meshes and the boundary halo.
 
 from __future__ import annotations
 
-import copy
-import dataclasses
 import logging
 import random
 import time
@@ -32,11 +30,13 @@ import torch
 from regcn_torch.config import TrainConfig
 from regcn_torch.data.answers import build_answer_filters_by_time
 from regcn_torch.data.dataset import TKGData
-from regcn_torch.data.snapshots import build_history, pad_triples, split_by_time
+from regcn_torch.data.snapshots import split_by_time
 from regcn_torch.hyperbolic import model as hmodel
 from regcn_torch.hyperbolic.model import HyperbolicConfig, HypModelState
-from regcn_torch.hyperbolic.optim import AdamState, dual_optimizer
 from regcn_torch.train import loop, metrics
+from regcn_torch.train import state as train_state
+from regcn_torch.train.optim import tree_leaves
+from regcn_torch.train.state import TrainState, copy_state
 
 log = logging.getLogger(__name__)
 
@@ -72,35 +72,6 @@ def compute_radius_targets(
     return (radius_min + (radius_max - radius_min) * normed).astype(np.float32)
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
-def tree_leaves(tree) -> List[torch.Tensor]:
-    """The tensors of a nested dict/list, in a fixed order."""
-    if isinstance(tree, dict):
-        return [t for k in tree for t in tree_leaves(tree[k])]
-    if isinstance(tree, list):
-        return [t for v in tree for t in tree_leaves(v)]
-    return [tree]
-
-
-@dataclasses.dataclass
-class HypTrainState:
-    """Parameters (leaf tensors that require grad, updated in place), the
-    optimizer state, the model state, the dropout generator and the step."""
-
-    params: Dict
-    opt_state: AdamState
-    model_state: HypModelState
-    gen: torch.Generator
-    step: int = 0
-
-
 class HyperbolicTrainer:
     def __init__(self, cfg: HyperbolicConfig, tc: TrainConfig, data: TKGData, *,
                  curvature_warmup_epochs: int = 0, triple_batch_size: Optional[int] = None,
@@ -122,24 +93,18 @@ class HyperbolicTrainer:
         self.radius_target = compute_radius_targets(
             self.train_list, data.num_nodes, alpha=cfg.radius_alpha, beta=cfg.radius_beta,
             radius_min=cfg.radius_min, radius_max=cfg.radius_max)
-        self.opt = dual_optimizer(tc.lr, tc.grad_norm, tc.weight_decay, cfg.manifold_entities)
+        self.opt = train_state.make_optimizer(tc)
         self._windows: Dict = {}
 
     # ----------------------------------------------------------------- state
     def state_from(self, params, model_state: HypModelState, seed: Optional[int] = None
-                   ) -> HypTrainState:
+                   ) -> TrainState:
         """A fresh training state (zero Adam moments) around ``params``,
         copied onto the trainer's device."""
-        params = _tree_map(lambda t: t.detach().to(self.device, copy=True).requires_grad_(True),
-                           params)
-        model_state = HypModelState(bn_ob={}, bn_rel={},
-                                    radius_target=model_state.radius_target.to(self.device))
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(self.tc.seed + 1 if seed is None else seed)
-        return HypTrainState(params=params, opt_state=self.opt.init(tree_leaves(params)),
-                             model_state=model_state, gen=gen)
+        return train_state.state_from(params, model_state, self.tc,
+                                      self.tc.seed + 1 if seed is None else seed, self.device)
 
-    def init_state(self, seed: Optional[int] = None) -> HypTrainState:
+    def init_state(self, seed: Optional[int] = None) -> TrainState:
         """Random parameters from ``torch.Generator().manual_seed(seed)``
         (default ``tc.seed``), radius_static seeded with the radius targets."""
         seed = self.tc.seed if seed is None else seed
@@ -152,14 +117,8 @@ class HyperbolicTrainer:
         """(history, triples, mask) on the device for training snapshot i:
         the window is ``train_list[max(0, i - hlen):i]``; built once."""
         if i not in self._windows:
-            hlen = self.tc.train_history_len
-            hist = build_history(self.train_list[max(0, i - hlen):i], self.num_nodes,
-                                 self.num_rels, edge_bucket=self.tc.edge_bucket,
-                                 rc_bucket=self.tc.rc_bucket)
-            triples, mask = pad_triples(self.train_list[i], self.num_rels, self.tc.triple_bucket)
-            self._windows[i] = (hist.to(self.device),
-                                torch.from_numpy(triples).long().to(self.device),
-                                torch.from_numpy(mask).to(self.device))
+            self._windows[i] = loop.train_window(self.train_list, i, self.num_nodes,
+                                                 self.num_rels, self.tc, self.device)
         return self._windows[i]
 
     def _curvature_max(self, epoch: int) -> float:
@@ -173,7 +132,7 @@ class HyperbolicTrainer:
         return cfg.c + (cfg.curvature_max - cfg.c) * progress
 
     # ----------------------------------------------------------------- train
-    def loss(self, state: HypTrainState, history, triples, mask, cmax
+    def loss(self, state: TrainState, history, triples, mask, cmax
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(total, losses): total = tw * entity + (1 - tw) * relation +
         static + radius, with the dropouts of a training step."""
@@ -184,7 +143,7 @@ class HyperbolicTrainer:
                  + losses["static"] + losses["radius"])
         return total, losses
 
-    def train_step(self, state: HypTrainState, history, triples, mask, cmax
+    def train_step(self, state: TrainState, history, triples, mask, cmax
                    ) -> Dict[str, torch.Tensor]:
         """One optimizer step, in place on ``state``; returns the losses
         (0-d tensors on the device, not synchronised)."""
@@ -201,7 +160,7 @@ class HyperbolicTrainer:
         random.Random(self.tc.seed + epoch).shuffle(idx)
         return idx
 
-    def run_epoch(self, state: HypTrainState, epoch: int) -> Dict[str, float]:
+    def run_epoch(self, state: TrainState, epoch: int) -> Dict[str, float]:
         """One step per training snapshot; returns the mean losses."""
         cmax = self._curvature_max(epoch)
         order = self.epoch_order(epoch)
@@ -213,17 +172,17 @@ class HyperbolicTrainer:
         return dict(zip(LOSS_KEYS, means))
 
     # ------------------------------------------------------------------ eval
-    def evaluate(self, state: HypTrainState, history_list: Sequence[np.ndarray],
+    def evaluate(self, state: TrainState, history_list: Sequence[np.ndarray],
                  eval_list: Sequence[np.ndarray], ent_filters=None, rel_filters=None
                  ) -> Dict[str, metrics.RankStats]:
         return loop.evaluate(state.params, state.model_state, self.cfg, self.tc, history_list,
                              eval_list, ent_filters, rel_filters, self.device, hmodel.predict)
 
-    def test(self, state: HypTrainState) -> Dict[str, metrics.RankStats]:
+    def test(self, state: TrainState) -> Dict[str, metrics.RankStats]:
         return loop.test(state.params, state.model_state, self.cfg, self.tc, self.data,
                          self.device, hmodel.predict)
 
-    def fit(self, state: Optional[HypTrainState] = None, n_epochs: Optional[int] = None,
+    def fit(self, state: Optional[TrainState] = None, n_epochs: Optional[int] = None,
             patience: int = 20, selection_metric: str = "ent_raw"):
         """Training with early stopping on the validation split; returns
         (best state, info)."""
@@ -256,12 +215,3 @@ class HyperbolicTrainer:
         return best_state, {"best_valid_mrr_raw": best_mrr, "best_epoch": best_epoch,
                             "selection_metric": selection_metric, "history": rows}
 
-
-def copy_state(state: HypTrainState) -> HypTrainState:
-    """A deep copy whose tensors share nothing with ``state``."""
-    gen = torch.Generator(device=state.gen.device)
-    gen.set_state(state.gen.get_state())
-    with torch.no_grad():
-        return HypTrainState(
-            params=copy.deepcopy(state.params), opt_state=copy.deepcopy(state.opt_state),
-            model_state=copy.deepcopy(state.model_state), gen=gen, step=state.step)

@@ -1,28 +1,37 @@
 """Scoring decoders: ConvTransE (entities) and ConvTransR (relations).
 
-Counterparts of ``regcn_tpu/models/decoders.py``, eval path. Parity with
+Counterparts of ``regcn_tpu/models/decoders.py``. Parity with
 ref:src/decoder.py:55-100 (ConvTransE) and :10-52 (ConvTransR): tanh the
 entity table, stack [head; rel] (or [head; tail]) as a 2-channel
-length-d signal, BatchNorm -> Conv1d(2->C, k, same) -> BatchNorm -> relu
--> channel-major flatten -> Linear(C*d -> d) -> BatchNorm -> relu ->
-scores against all candidates in one [B,d]x[d,N] GEMM. BatchNorm uses
-the running statistics kept in the model state; the masked batch-stat
-BatchNorm of training belongs to the training path.
+length-d signal, BatchNorm -> dropout -> Conv1d(2->C, k, same) ->
+BatchNorm -> relu -> dropout -> channel-major flatten -> Linear(C*d -> d)
+-> dropout -> BatchNorm -> relu -> scores against all candidates in one
+[B,d]x[d,N] GEMM.
+
+In eval mode BatchNorm uses the running statistics of the model state.
+In train mode it normalises by the batch statistics of the real rows
+only (padded triples are masked out, as in the JAX package), with the
+*biased* variance both to normalise and in the running update; so it is
+written out rather than taken from ``F.batch_norm``, which can mask no
+row and updates ``running_var`` with the unbiased variance.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch import relu
 
+from regcn_torch.ops.activations import inverted_dropout
 from regcn_torch.utils.init import torch_linear_uniform
 
 Params = Dict[str, torch.Tensor]
 BNState = Dict[str, torch.Tensor]
 
 _BN_EPS = 1e-5
+_BN_MOMENTUM = 0.1
 
 
 def _init_bn(c: int) -> Tuple[Params, BNState]:
@@ -50,24 +59,78 @@ def init_convtrans(
     return params, state
 
 
-def _batch_norm(params: Params, state: BNState, x: torch.Tensor) -> torch.Tensor:
-    """Eval-mode BatchNorm1d over channel axis 1, from running statistics."""
+def _batch_norm(params: Params, state: BNState, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None, *, train: bool = False
+                ) -> Tuple[torch.Tensor, BNState]:
+    """BatchNorm1d over channel axis 1: (out, new running statistics).
+
+    In train mode the statistics are over the rows whose ``mask`` [B] is
+    non-zero (all rows without a mask); the new running statistics are
+    detached from the graph. In eval mode ``state`` comes back as it is."""
+    c = x.shape[1]
     shape = [1] * x.dim()
-    shape[1] = x.shape[1]
-    inv = torch.rsqrt(state["var"].reshape(shape) + _BN_EPS)
-    out = (x.float() - state["mean"].reshape(shape)) * inv * params["scale"].reshape(shape) \
+    shape[1] = c
+    x32 = x.float()  # statistics always accumulate in fp32
+    if train:
+        axes = [i for i in range(x.dim()) if i != 1]
+        if mask is not None:
+            mshape = [1] * x.dim()
+            mshape[0] = x.shape[0]
+            m = mask.float().reshape(mshape)
+            denom = torch.clamp(m.sum() * (x.numel() / (x.shape[0] * c)), min=1.0)
+            mean = torch.sum(x32 * m, dim=axes) / denom
+            var = torch.sum(m * (x32 - mean.reshape(shape)) ** 2, dim=axes) / denom
+        else:
+            mean = torch.mean(x32, dim=axes)
+            var = torch.var(x32, dim=axes, unbiased=False)
+        new_state = {
+            "mean": (1 - _BN_MOMENTUM) * state["mean"] + _BN_MOMENTUM * mean.detach(),
+            "var": (1 - _BN_MOMENTUM) * state["var"] + _BN_MOMENTUM * var.detach(),
+        }
+    else:
+        mean, var = state["mean"], state["var"]
+        new_state = state
+    inv = torch.rsqrt(var.reshape(shape) + _BN_EPS)
+    out = (x32 - mean.reshape(shape)) * inv * params["scale"].reshape(shape) \
         + params["bias"].reshape(shape)
-    return out.to(x.dtype)
+    return out.to(x.dtype), new_state
 
 
-def _convtrans_features(params: Params, state: BNState, stacked: torch.Tensor) -> torch.Tensor:
-    """[B, 2, d] stacked pair -> [B, d] query features."""
-    x = _batch_norm(params["bn0"], state["bn0"], stacked)
+def _convtrans_features(
+    params: Params,
+    state: BNState,
+    stacked: torch.Tensor,  # [B, 2, d]
+    mask: Optional[torch.Tensor],
+    *,
+    input_dropout: float,
+    hidden_dropout: float,
+    feat_dropout: float,
+    gen: Optional[torch.Generator],
+    train: bool,
+) -> Tuple[torch.Tensor, BNState]:
+    """[B, 2, d] stacked pair -> ([B, d] query features, new BN state)."""
+    new_state = dict(state)
+    x, new_state["bn0"] = _batch_norm(params["bn0"], state["bn0"], stacked, mask, train=train)
+    x = inverted_dropout(x, input_dropout, gen, train)
     x = F.conv1d(x, params["conv_w"], params["conv_b"], padding="same")
-    x = torch.relu(_batch_norm(params["bn1"], state["bn1"], x))
+    x, new_state["bn1"] = _batch_norm(params["bn1"], state["bn1"], x, mask, train=train)
+    x = inverted_dropout(relu(x), feat_dropout, gen, train)
     x = x.reshape(x.shape[0], -1)  # [B, C*d], channel-major like torch .view
-    x = F.linear(x, params["fc_w"], params["fc_b"])
-    return torch.relu(_batch_norm(params["bn2"], state["bn2"], x))
+    x = inverted_dropout(F.linear(x, params["fc_w"], params["fc_b"]), hidden_dropout, gen, train)
+    x, new_state["bn2"] = _batch_norm(params["bn2"], state["bn2"], x, mask, train=train)
+    return relu(x), new_state
+
+
+Scores = Union[torch.Tensor, Tuple[torch.Tensor, BNState]]
+
+
+def _score(params, state, stacked, candidates, mask, input_dropout, hidden_dropout,
+           feat_dropout, gen, train) -> Scores:
+    x, new_state = _convtrans_features(
+        params, state, stacked, mask, input_dropout=input_dropout,
+        hidden_dropout=hidden_dropout, feat_dropout=feat_dropout, gen=gen, train=train)
+    scores = x @ candidates.T
+    return (scores, new_state) if train else scores
 
 
 def convtranse_score(
@@ -76,11 +139,20 @@ def convtranse_score(
     embedding: torch.Tensor,  # [N, d] evolved entity embeddings
     rel_emb: torch.Tensor,  # [2R, d]
     triples: torch.Tensor,  # [B, 3] int (s, r, o), padded
-) -> torch.Tensor:
-    """Entity scores [B, N] (ref:src/decoder.py:78-100)."""
+    mask: Optional[torch.Tensor] = None,  # [B]
+    *,
+    input_dropout: float = 0.0,
+    hidden_dropout: float = 0.0,
+    feat_dropout: float = 0.0,
+    gen: Optional[torch.Generator] = None,
+    train: bool = False,
+) -> Scores:
+    """Entity scores [B, N] (ref:src/decoder.py:78-100); in train mode
+    (scores, new BN state), the dropouts drawn from ``gen``."""
     ent_all = torch.tanh(embedding)
     stacked = torch.stack([ent_all[triples[:, 0]], rel_emb[triples[:, 1]]], dim=1)
-    return _convtrans_features(params, state, stacked) @ ent_all.T
+    return _score(params, state, stacked, ent_all, mask, input_dropout, hidden_dropout,
+                  feat_dropout, gen, train)
 
 
 def convtransr_score(
@@ -89,8 +161,17 @@ def convtransr_score(
     embedding: torch.Tensor,
     rel_emb: torch.Tensor,  # [2R, d] candidates
     triples: torch.Tensor,  # [B, 3]
-) -> torch.Tensor:
-    """Relation scores [B, 2R] (ref:src/decoder.py:29-52)."""
+    mask: Optional[torch.Tensor] = None,
+    *,
+    input_dropout: float = 0.0,
+    hidden_dropout: float = 0.0,
+    feat_dropout: float = 0.0,
+    gen: Optional[torch.Generator] = None,
+    train: bool = False,
+) -> Scores:
+    """Relation scores [B, 2R] (ref:src/decoder.py:29-52); in train mode
+    (scores, new BN state)."""
     ent_all = torch.tanh(embedding)
     stacked = torch.stack([ent_all[triples[:, 0]], ent_all[triples[:, 2]]], dim=1)
-    return _convtrans_features(params, state, stacked) @ rel_emb.T
+    return _score(params, state, stacked, rel_emb, mask, input_dropout, hidden_dropout,
+                  feat_dropout, gen, train)

@@ -3,14 +3,16 @@
 Counterparts of ``regcn_tpu/models/layers.py``; the parameter
 dictionaries have the JAX package's keys and layouts (weights applied as
 ``x @ W``; GRU weights in torch's [3H, in] layout), so converted JAX
-parameters drop in unchanged. Eval mode only: dropout belongs to the
-training path.
+parameters drop in unchanged.
 
 - :func:`union_rgcn_layer` — parity with ref:rgcn/layers.py:182-279
   ``UnionRGCNLayer``: edge message ``(h_src + rel_emb[type]) @ W``,
   in-degree-normalised sum reduce, dual self-loop (``loop_w`` for nodes
   with incoming edges, ``evolve_loop_w`` for isolated ones), optional
-  sigmoid-gated skip connection, fixed-slope rrelu.
+  sigmoid-gated skip connection, fixed-slope rrelu, then dropout in
+  training. The rrelu keeps its fixed slope in training too: the
+  reference calls ``F.rrelu`` with its default ``training=False``
+  (ref:src/rrgcn.py:16), so no slope is ever sampled.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from typing import Dict, Optional
 import torch
 
 from regcn_torch.config import ModelConfig
-from regcn_torch.ops.activations import rrelu
+from regcn_torch.ops.activations import inverted_dropout, rrelu
 from regcn_torch.ops.rgcn_scatter import rgcn_aggregate
 from regcn_torch.utils.init import RELU_GAIN, gru_uniform, xavier_uniform
 
@@ -47,6 +49,9 @@ def union_rgcn_layer(
     snap,  # Snapshot of tensors (single step: no time axis)
     *,
     prev_h: Optional[torch.Tensor] = None,  # for skip connect (layer >= 1)
+    dropout: float = 0.0,
+    gen: Optional[torch.Generator] = None,
+    train: bool = False,
 ) -> torch.Tensor:
     node_repr = rgcn_aggregate(
         h, rel_emb, params["w_neighbor"], snap.src, snap.dst, snap.rel,
@@ -62,7 +67,7 @@ def union_rgcn_layer(
         # sigmoid-gated skip across layers (ref:rgcn/layers.py:234-245)
         gate = torch.sigmoid(prev_h @ params["skip_w"] + params["skip_b"])
         node_repr = gate * node_repr + (1.0 - gate) * prev_h
-    return rrelu(node_repr)
+    return inverted_dropout(rrelu(node_repr), dropout, gen, train)
 
 
 def init_rgcn_cell(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, list]:
@@ -74,13 +79,15 @@ def init_rgcn_cell(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, list]:
 
 
 def rgcn_cell(
-    params, h: torch.Tensor, rel_emb: torch.Tensor, snap, cfg: ModelConfig
+    params, h: torch.Tensor, rel_emb: torch.Tensor, snap, cfg: ModelConfig, *,
+    gen: Optional[torch.Generator] = None, train: bool = False,
 ) -> torch.Tensor:
     x = h
     prev = None
     for i, lp in enumerate(params["layers"]):
         sc_prev = prev if (cfg.skip_connect and i > 0) else None
-        prev, x = x, union_rgcn_layer(lp, x, rel_emb, snap, prev_h=sc_prev)
+        prev, x = x, union_rgcn_layer(lp, x, rel_emb, snap, prev_h=sc_prev,
+                                      dropout=cfg.dropout, gen=gen, train=train)
     return x
 
 

@@ -1,8 +1,12 @@
-"""RecurrentRGCN — the framework core model (eval path).
+"""RecurrentRGCN — the framework core model.
 
 Counterpart of ``regcn_tpu/models/recurrent.py`` (parity with
-ref:src/rrgcn.py:58-248). The JAX ``lax.scan`` over the history window
-is a Python loop over its T steps here.
+ref:src/rrgcn.py:58-248): the evolution, the training losses
+(:func:`get_loss`) and the eval-mode scores (:func:`predict`). The JAX
+``lax.scan`` over the history window is a Python loop over its T steps
+here. In training every dropout draws from one ``torch.Generator`` on
+the parameters' device; JAX's and torch's random streams differ, so the
+two packages agree step for step only with every dropout at 0.
 
 Evolution step (one snapshot):
   ctx[r]   = mean_{e incident to r} h[e]                  (segment mean)
@@ -16,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -77,7 +81,9 @@ def init_params(
     return tree_to(params, device), state
 
 
-def evolve(params: Params, cfg: ModelConfig, history) -> Tuple[torch.Tensor, torch.Tensor]:
+def evolve(params: Params, cfg: ModelConfig, history, *,
+           gen: Optional[torch.Generator] = None, train: bool = False
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the recurrent evolution over a stacked [T, ...] history window
     (a Snapshot of tensors). Returns (h_final [N, d], r_emb_final [2R, d])."""
     check_supported(cfg)
@@ -92,17 +98,64 @@ def evolve(params: Params, cfg: ModelConfig, history) -> Tuple[torch.Tensor, tor
         h0_new = gru_cell(params["gru"], torch.cat([emb_rel, ctx], dim=1), h0)
         if cfg.layer_norm:
             h0_new = l2_normalize(h0_new)
-        cur = rgcn_cell(params["rgcn"], h, h0_new, snap, cfg)
+        cur = rgcn_cell(params["rgcn"], h, h0_new, snap, cfg, gen=gen, train=train)
         if cfg.layer_norm:
             cur = l2_normalize(cur)
         gate = torch.sigmoid(h @ params["time_gate_w"] + params["time_gate_b"])
         h_new = gate * cur + (1.0 - gate) * h
-        # an empty (all-masked) snapshot is an identity step; decided on the
-        # device, so the loop never waits for the host
+        # an empty (all-masked) snapshot is an identity step, for autograd
+        # too; decided on the device, so the loop never waits for the host
         active = snap.edge_mask.max() > 0
         h = torch.where(active, h_new, h)
         h0 = torch.where(active, h0_new, h0)
     return h, h0
+
+
+def _masked_ce(scores: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy over the rows whose mask is set: fp32 logsumexp
+    minus the target logit, summed over real rows and divided by their
+    count (``F.cross_entropy``'s mean would count the padded rows)."""
+    scores = scores.float()
+    nll = torch.logsumexp(scores, dim=1) - scores.gather(1, labels[:, None])[:, 0]
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def get_loss(
+    params: Params,
+    state: ModelState,
+    cfg: ModelConfig,
+    history,
+    triples: torch.Tensor,  # [B, 3] padded, inverses already added
+    triple_mask: torch.Tensor,  # [B]
+    *,
+    gen: Optional[torch.Generator] = None,
+    train: bool = True,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], ModelState]:
+    """Entity + relation losses (ref:src/rrgcn.py:197-248):
+    (loss_ent, {"entity", "relation", "static"}, new ModelState). The
+    static loss is 0: the static graph is not ported. In train mode the
+    decoders' BatchNorms use the batch statistics of the real triples and
+    the new state holds their updated running statistics."""
+    check_supported(cfg)
+    h, r_emb = evolve(params, cfg, history, gen=gen, train=train)
+    pre_emb = l2_normalize(h) if cfg.layer_norm else h
+    zero = torch.zeros((), device=h.device)
+    losses = {"entity": zero, "relation": zero, "static": zero}
+    bn_ob, bn_rel = state.bn_ob, state.bn_rel
+    kw = dict(input_dropout=cfg.input_dropout, hidden_dropout=cfg.hidden_dropout,
+              feat_dropout=cfg.feat_dropout, gen=gen, train=train)
+    if cfg.entity_prediction:
+        out = decoders.convtranse_score(params["decoder_ob"], bn_ob, pre_emb, r_emb, triples,
+                                        triple_mask, **kw)
+        scores, bn_ob = out if train else (out, bn_ob)
+        losses["entity"] = _masked_ce(scores, triples[:, 2], triple_mask)
+    if cfg.relation_prediction:
+        # the candidates are the EVOLVED relation embeddings (ref:src/rrgcn.py:222)
+        out = decoders.convtransr_score(params["decoder_rel"], bn_rel, pre_emb, r_emb, triples,
+                                        triple_mask, **kw)
+        scores, bn_rel = out if train else (out, bn_rel)
+        losses["relation"] = _masked_ce(scores, triples[:, 1], triple_mask)
+    return losses["entity"], losses, ModelState(bn_ob=bn_ob, bn_rel=bn_rel)
 
 
 def predict(

@@ -1,6 +1,9 @@
-"""Activation functions matching the reference's torch semantics."""
+"""Activation functions matching the reference's torch semantics, and
+the inverted dropout of the training path."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -28,3 +31,18 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Te
     x32 = x.float()
     sq = torch.sum(x32 * x32, dim=dim, keepdim=True)
     return (x32 / torch.sqrt(torch.clamp(sq, min=eps * eps))).to(x.dtype)
+
+
+def inverted_dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator], train: bool
+                     ) -> torch.Tensor:
+    """Inverted dropout: keep each entry with probability ``1 - rate`` and
+    scale the survivors by ``1 / (1 - rate)``; the identity outside
+    training, at rate 0 or without a generator. The mask is drawn from
+    ``gen``, which must live on ``x``'s device."""
+    if not train or rate <= 0.0 or gen is None:
+        return x
+    if gen.device.type != x.device.type:
+        raise ValueError(f"dropout on a {x.device.type} tensor needs a generator on that "
+                         f"device, got one on {gen.device}")
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))

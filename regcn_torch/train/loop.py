@@ -1,29 +1,49 @@
-"""Evaluation loop: rolling-window raw/filtered MRR over a split.
+"""Training and evaluation drivers.
 
-Counterpart of the single-step branch of
-``regcn_tpu/train/loop.py:Trainer.evaluate`` and of ``Trainer.test``
-(ref:src/main.py:33-107): each eval snapshot is scored from the
-``test_history_len`` snapshots before it, then joins the window. The
-model's scores come from a ``predict`` function, RE-GCN's by default;
-the hyperbolic trainer passes ``regcn_torch.hyperbolic.model.predict``.
-Multi-step evaluation (``construct_snap``) is not ported yet.
+Counterpart of ``regcn_tpu/train/loop.py`` (ref:src/main.py:33-291).
+
+- :func:`rolling_ranks` / :func:`evaluate` / :func:`test`: the
+  single-step rolling-window evaluation, raw and filtered MRR over a
+  split. Each eval snapshot is scored from the ``test_history_len``
+  snapshots before it, then joins the window. The model's scores come
+  from a ``predict`` function, RE-GCN's by default; the hyperbolic
+  trainer passes ``regcn_torch.hyperbolic.model.predict``.
+- :class:`Trainer`: RE-GCN training, one optimizer step per training
+  snapshot in the order of ``Trainer.run_epoch_fused``; multi-step
+  evaluation, which feeds the top-k predictions back into the window
+  (:func:`construct_snap`, :func:`construct_snap_r`); and ``fit`` with
+  best and last checkpoints and resume.
+
+The JAX trainer runs an epoch as one fused ``lax.scan`` over a store
+front-padded with empty snapshots; here a Python loop takes the same
+steps in the same order. A window shorter than the history length is
+run as it is: the fused path's empty front snapshots are identity steps,
+so both give the same result.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence
+import logging
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from regcn_torch.config import TrainConfig
+from regcn_torch.config import ExperimentConfig, TrainConfig
 from regcn_torch.data.answers import AnswerFilter, build_answer_filters_by_time
 from regcn_torch.data.dataset import TKGData
 from regcn_torch.data.snapshots import build_history, pad_triples, split_by_time
 from regcn_torch.models import recurrent
 from regcn_torch.train import metrics
+from regcn_torch.train import state as train_state
+from regcn_torch.train.optim import tree_leaves
+from regcn_torch.train.state import TrainState
+
+log = logging.getLogger(__name__)
 
 RANK_KEYS = ("ent_raw", "ent_filter", "rel_raw", "rel_filter")
+LOSS_KEYS = ("entity", "relation", "static")
 
 # predict(params, model_state, cfg, history, triples [B,3], mask [B]) -> (ent [B,N], rel [B,2R])
 Predict = Callable[..., tuple]
@@ -118,3 +138,241 @@ def test(
         split_by_time(data.train) + split_by_time(data.valid), split_by_time(data.test),
         ent_f, rel_f, device, predict,
     )
+
+
+def train_window(train_list: Sequence[np.ndarray], i: int, num_nodes: int, num_rels: int,
+                 tc: TrainConfig, device) -> tuple:
+    """(history, triples, mask) on ``device`` for training snapshot ``i``:
+    the history is ``train_list[max(0, i - train_history_len):i]``."""
+    hist = build_history(train_list[max(0, i - tc.train_history_len):i], num_nodes, num_rels,
+                         edge_bucket=tc.edge_bucket, rc_bucket=tc.rc_bucket)
+    triples, mask = pad_triples(train_list[i], num_rels, tc.triple_bucket)
+    return (hist.to(device), torch.from_numpy(triples).long().to(device),
+            torch.from_numpy(mask).to(device))
+
+
+def construct_snap(triples: np.ndarray, num_rels: int, scores: np.ndarray, topk: int
+                   ) -> np.ndarray:
+    """Top-k entity predictions as a synthetic snapshot for multi-step
+    inference (ref:rgcn/utils.py:367-381)."""
+    top = np.argsort(-scores, axis=1)[:, :topk]
+    out = []
+    for i in range(len(triples)):
+        h, r = int(triples[i][0]), int(triples[i][1])
+        for idx in top[i]:
+            if r < num_rels:
+                out.append([h, r, int(idx)])
+            else:
+                out.append([int(idx), r - num_rels, h])
+    return np.asarray(out, dtype=np.int64)
+
+
+def construct_snap_r(triples: np.ndarray, num_rels: int, rel_scores: np.ndarray, topk: int
+                     ) -> np.ndarray:
+    """Relation-prediction variant (ref:rgcn/utils.py:383-405)."""
+    top = np.argsort(-rel_scores, axis=1)[:, :topk]
+    out = []
+    for i in range(len(triples)):
+        h, t = int(triples[i][0]), int(triples[i][2])
+        for idx in top[i]:
+            if idx < num_rels:
+                out.append([h, int(idx), t])
+            else:
+                out.append([t, int(idx) - num_rels, h])
+    return np.asarray(out, dtype=np.int64)
+
+
+class Trainer:
+    """RE-GCN training and evaluation on one device.
+
+    Not ported, and raising ``NotImplementedError``: a mesh,
+    ``dist_agg="halo"``, ``run_analysis``, ``dilate_len > 1`` and the
+    static graph (``use_static``)."""
+
+    def __init__(self, cfg: ExperimentConfig, data: TKGData, *, mesh=None,
+                 dist_agg: str = "gspmd", run_analysis: bool = False, device="cuda"):
+        if dist_agg not in ("gspmd", "halo"):
+            raise ValueError(f"dist_agg must be 'gspmd' or 'halo', got {dist_agg!r}")
+        if mesh is not None or dist_agg == "halo":
+            raise NotImplementedError("multi-device training (a mesh, dist_agg='halo') is not "
+                                      "ported yet")
+        if run_analysis:
+            raise NotImplementedError("run_analysis is not ported yet")
+        if cfg.train.dilate_len > 1:
+            raise NotImplementedError("dilated training snapshots (dilate_len > 1) are not "
+                                      "ported yet")
+        recurrent.check_supported(cfg.model)
+        self.cfg, self.data = cfg, data
+        self.device = torch.device(device)
+        self.num_rels, self.num_nodes = data.num_rels, data.num_nodes
+        self.train_list = split_by_time(data.train)
+        self.valid_list = split_by_time(data.valid)
+        self.test_list = split_by_time(data.test)
+        self.opt = train_state.make_optimizer(cfg.train)
+        self._windows: Dict[int, tuple] = {}
+
+    def init_state(self, seed: Optional[int] = None) -> TrainState:
+        """Random parameters from ``seed`` (default ``tc.seed``) on the
+        trainer's device."""
+        seed = self.cfg.train.seed if seed is None else seed
+        return train_state.create_train_state(seed, self.cfg.model, self.cfg.train, self.device)
+
+    # ------------------------------------------------------------------ data
+    def window(self, i: int) -> tuple:
+        """(history, triples, mask) of training snapshot ``i``, built once."""
+        if i not in self._windows:
+            self._windows[i] = train_window(self.train_list, i, self.num_nodes, self.num_rels,
+                                            self.cfg.train, self.device)
+        return self._windows[i]
+
+    # ----------------------------------------------------------------- train
+    def loss(self, state: TrainState, history, triples, mask):
+        """(total, losses, new ModelState) of a training step:
+        total = tw * entity + (1 - tw) * relation + static."""
+        _, losses, new_model_state = recurrent.get_loss(
+            state.params, state.model_state, self.cfg.model, history, triples, mask,
+            gen=state.gen, train=True)
+        tw = self.cfg.train.task_weight
+        total = tw * losses["entity"] + (1.0 - tw) * losses["relation"] + losses["static"]
+        return total, losses, new_model_state
+
+    def train_step(self, state: TrainState, history, triples, mask) -> Dict[str, torch.Tensor]:
+        """One optimizer step, in place on ``state``; returns the losses
+        (0-d tensors on the device, not synchronised)."""
+        total, losses, new_model_state = self.loss(state, history, triples, mask)
+        leaves = tree_leaves(state.params)
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        self.opt.step(leaves, grads, state.opt_state)
+        state.model_state = new_model_state
+        state.step += 1
+        return {k: v.detach() for k, v in losses.items()}
+
+    def epoch_order(self, epoch: int) -> List[int]:
+        """The training snapshots of an epoch in ``run_epoch_fused``'s order."""
+        order = np.arange(1, len(self.train_list), dtype=np.int32)
+        np.random.default_rng(self.cfg.train.seed + epoch).shuffle(order)
+        return order.tolist()
+
+    def run_epoch(self, state: TrainState, epoch: int) -> Dict[str, float]:
+        """One step per training snapshot; returns the mean losses (one
+        host sync per epoch)."""
+        order = self.epoch_order(epoch)
+        sums = torch.zeros(len(LOSS_KEYS), device=self.device)
+        for i in order:
+            losses = self.train_step(state, *self.window(i))
+            sums += torch.stack([losses[k] for k in LOSS_KEYS])
+        return dict(zip(LOSS_KEYS, (sums / max(len(order), 1)).tolist()))
+
+    # ------------------------------------------------------------------ eval
+    def evaluate(self, state: TrainState, history_list: Sequence[np.ndarray],
+                 eval_list: Sequence[np.ndarray],
+                 ent_filters: Optional[List[AnswerFilter]] = None,
+                 rel_filters: Optional[List[AnswerFilter]] = None,
+                 multi_step: bool = False, topk: int = 10, relation_evaluation: bool = False
+                 ) -> Dict[str, metrics.RankStats]:
+        """Rolling-window evaluation (ref:src/main.py:33-107). With
+        ``multi_step`` each snapshot's top-k predictions, of entities or
+        with ``relation_evaluation`` of relations, take the oldest
+        snapshot's place in the window instead of the snapshot itself."""
+        mc, tc = self.cfg.model, self.cfg.train
+        if not multi_step:
+            return evaluate(state.params, state.model_state, mc, tc, history_list, eval_list,
+                            ent_filters, rel_filters, self.device)
+        window = list(history_list[-tc.test_history_len:])
+        ranks: Dict[str, List[np.ndarray]] = {k: [] for k in RANK_KEYS}
+        for t, snap in enumerate(eval_list):
+            history = build_history(window, self.num_nodes, self.num_rels,
+                                    edge_bucket=tc.edge_bucket, rc_bucket=tc.rc_bucket)
+            triples, mask = pad_triples(snap, self.num_rels, tc.triple_bucket)
+            valid = mask > 0
+            tq = triples[valid]
+            with torch.inference_mode():
+                s_ob, s_rel = recurrent.predict(
+                    state.params, state.model_state, mc, history.to(self.device),
+                    torch.from_numpy(triples).long().to(self.device))
+            # the dense scores go to the host, in float64 as in the JAX loop
+            s_ob = s_ob.cpu().numpy().astype(np.float64)[valid]
+            s_rel = s_rel.cpu().numpy().astype(np.float64)[valid]
+            ranks["ent_raw"].append(metrics.ranks_from_scores(s_ob, tq[:, 2]))
+            ranks["ent_filter"].append(metrics.filtered_ranks(
+                s_ob, tq[:, [0, 1]], tq[:, 2], ent_filters[t] if ent_filters else None))
+            ranks["rel_raw"].append(metrics.ranks_from_scores(s_rel, tq[:, 1]))
+            ranks["rel_filter"].append(metrics.filtered_ranks(
+                s_rel, tq[:, [0, 2]], tq[:, 1], rel_filters[t] if rel_filters else None))
+            if relation_evaluation:
+                pred = construct_snap_r(tq, self.num_rels, s_rel, topk)
+            else:
+                pred = construct_snap(tq, self.num_rels, s_ob, topk)
+            if len(pred):
+                window.pop(0)
+                window.append(pred)
+        return {k: metrics.stat_ranks(v) for k, v in ranks.items()}
+
+    def test(self, state: TrainState, multi_step: bool = False, topk: int = 10,
+             relation_evaluation: bool = False) -> Dict[str, metrics.RankStats]:
+        """The test split, with train + valid as its history."""
+        ent_f = build_answer_filters_by_time(self.data.test, self.num_rels, False)
+        rel_f = build_answer_filters_by_time(self.data.test, self.num_rels, True)
+        return self.evaluate(state, self.train_list + self.valid_list, self.test_list, ent_f,
+                             rel_f, multi_step=multi_step, topk=topk,
+                             relation_evaluation=relation_evaluation)
+
+    # ------------------------------------------------------------------- fit
+    def fit(self, state: Optional[TrainState] = None, checkpoint_path: Optional[str] = None,
+            log_every: int = 1, resume: bool = False, selection_metric: str = "ent_raw"
+            ) -> Tuple[TrainState, Dict]:
+        """``tc.n_epochs`` epochs with best-on-valid selection
+        (ref:src/main.py:211-279); returns (best state, info).
+
+        The valid split is evaluated every ``tc.evaluate_every`` epochs; the
+        best state by ``selection_metric`` ("ent_raw" or "rel_raw") is kept
+        as a copy and, with ``checkpoint_path``, saved at the root of it on
+        each improvement, while ``<path>/last`` takes the state after every
+        epoch. ``resume=True`` continues from the checkpoint there, if any:
+        parameters, Adam moments, BN statistics, the dropout generator and
+        the step, from the epoch after the saved one. ``info`` holds
+        ``best_valid_mrr_raw`` (the selection metric's best value),
+        ``selection_metric`` and ``history``, a row per evaluated epoch."""
+        tc = self.cfg.train
+        if selection_metric not in ("ent_raw", "rel_raw"):
+            raise ValueError(f"selection_metric must be 'ent_raw' or 'rel_raw', got "
+                             f"{selection_metric!r}")
+        start_epoch, best_mrr, best_epoch = 0, 0.0, -1
+        state = state or self.init_state()
+        if resume and train_state.has_resumable_checkpoint(checkpoint_path):
+            state, start_epoch, best_mrr, best_epoch = train_state.restore_for_resume(
+                checkpoint_path, state)
+            log.info("resumed from %s at epoch %d (best MRR %.4f @ %d)", checkpoint_path,
+                     start_epoch, best_mrr, best_epoch)
+        ent_f = build_answer_filters_by_time(self.data.valid, self.num_rels, False)
+        rel_f = build_answer_filters_by_time(self.data.valid, self.num_rels, True)
+        best_state = train_state.copy_state(state)
+        rows = []
+        for epoch in range(start_epoch, tc.n_epochs):
+            t0 = time.perf_counter()
+            losses = self.run_epoch(state, epoch)
+            dt = time.perf_counter() - t0
+            if epoch % log_every == 0:
+                log.info("epoch %04d | loss e/r/s: %.4f/%.4f/%.4f | %.1fs", epoch,
+                         losses["entity"], losses["relation"], losses["static"], dt)
+            if epoch % tc.evaluate_every == 0:
+                stats = self.evaluate(state, self.train_list, self.valid_list, ent_f, rel_f)
+                mrr = stats[selection_metric].mrr
+                rows.append({"epoch": epoch, "losses": losses,
+                             "valid_mrr_raw": stats["ent_raw"].mrr,
+                             "valid_mrr_filter": stats["ent_filter"].mrr, "epoch_time_s": dt})
+                log.info("epoch %04d | valid %s MRR %.4f | ent raw/filt %.4f/%.4f (best %.4f)",
+                         epoch, selection_metric, mrr, stats["ent_raw"].mrr,
+                         stats["ent_filter"].mrr, best_mrr)
+                if mrr > best_mrr:
+                    best_mrr, best_epoch = mrr, epoch
+                    best_state = train_state.copy_state(state)
+                    if checkpoint_path:
+                        train_state.save_checkpoint(checkpoint_path, state,
+                                                    {"epoch": epoch, "mrr": mrr})
+            # every epoch, evaluated or not, so resume never re-runs one
+            if checkpoint_path:
+                train_state.save_last_checkpoint(checkpoint_path, state, epoch, best_mrr,
+                                                 best_epoch)
+        return best_state, {"best_valid_mrr_raw": best_mrr, "selection_metric": selection_metric,
+                            "history": rows}

@@ -22,6 +22,19 @@ def ranks_from_scores(scores: np.ndarray, targets: np.ndarray) -> np.ndarray:
     return 1 + np.sum(scores > tgt, axis=1).astype(np.int64)
 
 
+def filtered_ranks(scores: np.ndarray, queries: np.ndarray, targets: np.ndarray,
+                   answer_filter) -> np.ndarray:
+    """Host ranks after squashing the other known answers of each query
+    (``queries`` [B, 2] are the filter keys) to FILTER_VALUE."""
+    if answer_filter is None:
+        return ranks_from_scores(scores, targets)
+    rows, cols = answer_filter.mask_coo(queries, targets)
+    if len(rows):
+        scores = scores.copy()
+        scores[rows, cols] = FILTER_VALUE
+    return ranks_from_scores(scores, targets)
+
+
 def device_ranks(scores: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """[B] ranks on the scores' device: 1 + #(strictly greater)."""
     tgt = scores.gather(1, targets[:, None])

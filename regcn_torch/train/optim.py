@@ -1,7 +1,7 @@
-"""The Euclidean branch of the hyperbolic trainer's optimizer.
+"""The optimizer both trainers use, and the parameter-tree helpers.
 
-Counterpart of ``regcn_tpu/hyperbolic/optim.py:dual_optimizer`` with
-``manifold_entities=False``: the optax chain
+Counterpart of the optax chain of ``regcn_tpu/train/state.py:make_optimizer``
+(and of the Euclidean branch of ``regcn_tpu/hyperbolic/optim.py``):
 ``clip_by_global_norm(grad_norm) -> add_decayed_weights(weight_decay) ->
 adam(lr)``, on a flat list of parameter tensors, in place. It is written
 out rather than taken from ``torch.nn.utils.clip_grad_norm_`` and
@@ -14,15 +14,34 @@ move the trajectory:
   updates every leaf, so a leaf without a gradient here gets a zero
   gradient, then its weight decay and its Adam step.
 
-Riemannian Adam for entities stored on the ball is not ported yet.
+Parameters are nested dicts and lists of tensors; :func:`tree_leaves`
+fixes the order in which the optimizer's moments follow them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
+
+
+def tree_map(fn: Callable, tree):
+    """``fn`` applied to every tensor of a nested dict/list."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a nested dict/list, in a fixed order."""
+    if isinstance(tree, dict):
+        return [t for k in tree for t in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [t for v in tree for t in tree_leaves(v)]
+    return [tree]
 
 
 @dataclasses.dataclass
@@ -53,11 +72,17 @@ class EuclideanAdam:
         parameters together, where one op per tensor would be hundreds."""
         params = list(params)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        # the global norm accumulated in float64: torch's fp32 norm on the
+        # CPU sums millions of squares one after another and loses digits
+        # the card's keeps, so the clip factor, and with it every update
+        # whose gradient nearly cancels its weight decay, would differ
+        # between devices
+        g_norm = torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads, 2, dtype=torch.float64)))
         # optax: keep the grads while the norm is below the limit, else
         # g / norm * limit; decided on the device
         factor = torch.where(g_norm < self.grad_norm, torch.ones_like(g_norm),
-                             self.grad_norm / g_norm)
+                             self.grad_norm / g_norm).float()
         grads = torch._foreach_mul(grads, factor)
         torch._foreach_add_(grads, params, alpha=self.weight_decay)
         state.count += 1
@@ -71,11 +96,3 @@ class EuclideanAdam:
         update = torch._foreach_div(state.mu, 1.0 - self.b1 ** state.count)
         torch._foreach_div_(update, denom)
         torch._foreach_add_(params, update, alpha=-self.lr)
-
-
-def dual_optimizer(lr: float, grad_norm: float = 1.0, weight_decay: float = 1e-5,
-                   manifold_entities: bool = False) -> EuclideanAdam:
-    if manifold_entities:
-        raise NotImplementedError(
-            "manifold_entities (Riemannian Adam on the ball) is not ported yet (ROADMAP A6)")
-    return EuclideanAdam(lr, grad_norm, weight_decay)

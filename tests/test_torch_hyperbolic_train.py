@@ -31,8 +31,8 @@ from regcn_torch.config import TrainConfig
 from regcn_torch.convert import hyperbolic_params_from_jax
 from regcn_torch.data.synthetic import generate
 from regcn_torch.hyperbolic import model as PM
-from regcn_torch.hyperbolic.optim import EuclideanAdam, dual_optimizer
-from regcn_torch.hyperbolic.train import HyperbolicTrainer, tree_leaves
+from regcn_torch.hyperbolic.train import HyperbolicTrainer
+from regcn_torch.train.optim import EuclideanAdam, tree_leaves
 
 TINY = dict(num_ents=40, num_rels=5, num_snaps=10, triples_per_snap=30, split=(6, 2, 2))
 STEPS = 3
@@ -145,7 +145,8 @@ def test_unported_options_raise(data, unported):
         elif unported == "dilate_len":
             HyperbolicTrainer(pcfg, dataclasses.replace(ptc, dilate_len=2), data, device="cpu")
         else:
-            dual_optimizer(1e-3, manifold_entities=True)
+            HyperbolicTrainer(dataclasses.replace(pcfg, manifold_entities=True), ptc, data,
+                              device="cpu")
 
 
 def optax_steps(params, grads_per_step, lr, grad_norm, wd):

@@ -51,6 +51,14 @@ def test_port_imports_with_jax_blocked():
 def test_the_hyperbolic_slice_is_covered():
     """The modules of the hyperbolic slice are among the files checked above."""
     checked = {str(p.relative_to(ROOT)) for p in PORT_FILES}
-    for name in ("ops", "decoders", "layers", "model", "optim", "train"):
+    for name in ("ops", "decoders", "layers", "model", "train"):
         assert f"regcn_torch/hyperbolic/{name}.py" in checked
     assert "regcn_torch/ops/streaming_ce.py" in checked
+
+
+def test_the_training_slice_is_covered():
+    """The modules of RE-GCN training are among the files checked above."""
+    checked = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for name in ("train/loop", "train/state", "train/optim", "train/metrics", "models/recurrent",
+                 "models/decoders", "models/layers", "ops/activations", "convert"):
+        assert f"regcn_torch/{name}.py" in checked
