@@ -51,14 +51,29 @@ Phases, each of which exits non-zero on failure:
    weight decay 1e-5), through ``regcn_torch.train.loop.Trainer``:
    (a) 3 steps on the card, each checked against the CPU from the same
    state (dropouts 0): the losses, every parameter's gradient, the new
-   BatchNorm statistics and the optimizer's update; (b) one full epoch
+   BatchNorm statistics and the optimizer's update, the cpu on the card's
+   branches at the rrelu/relu kinks; (b) one full epoch
    with the config's dropouts, the kernels' launch counts reset just
    before and read just after (B1: 2 layers x the window's snapshots per
    step; no B2 kernel); (c) 20 steady-state steps; (d) the test split's
    four MRRs, the entity raw MRR above phase 4's random-init one; (e) a
    checkpoint round trip: saved after the epoch, restored into a fresh
    trainer, one step from each copy; (f) a few steps under
-   torch.profiler, with B1's forward and the scatter backward apart.
+   torch.profiler, with B1's forward and the scatter backward apart;
+8. hyperbolic headline training: uvrgcn + tangent ConvTransE/R (h=200,
+   2 layers, history 3, c=0.01 fixed, dropouts 0.2, residual radius
+   evolution, radius supervision, layer norm, fp32; buckets of 128)
+   through ``regcn_torch.hyperbolic.train.HyperbolicTrainer``: (a) 3 steps
+   cuda vs cpu as in phase 7, the cpu also on the card's signs of
+   r_src - r_dst in the radius weight, and B1's edge-weight gradient dw
+   compared inside them; (b) one epoch through ``fit(checkpoint_path)``,
+   the launch counts reset just before the epoch and read just after (B1:
+   2 layers x the window's snapshots per step, 1812 at this data; no B2
+   kernel); (c) ``fit(resume=True)`` in a fresh trainer restores it
+   exactly, one step from each copy; (d) 20 steady steps; (e) the test
+   split at random init and after the epoch, 6 B1 launches per snapshot,
+   the entity raw MRR above the random-init one; (f) a profile of a step,
+   with B1's forward and the scatter backward apart.
 
 The line before the last is ``{"kernels": [...]}``: each row's
 ``launches`` is B1's on the config-1 test split or a B2 kernel's in the
@@ -93,13 +108,14 @@ from regcn_torch.data.snapshots import (  # noqa: E402
     split_by_time,
 )
 from regcn_torch.data.synthetic import generate  # noqa: E402
+from regcn_torch.hyperbolic import layers as hyp_layers  # noqa: E402
 from regcn_torch.hyperbolic.model import HyperbolicConfig  # noqa: E402
 from regcn_torch.hyperbolic.ops import exp_map_zero  # noqa: E402
 from regcn_torch.hyperbolic.train import HyperbolicTrainer  # noqa: E402
 from regcn_torch.models import decoders as model_decoders  # noqa: E402
 from regcn_torch.models import layers as model_layers  # noqa: E402
 from regcn_torch.models import recurrent  # noqa: E402
-from regcn_torch.ops import cuda_build  # noqa: E402
+from regcn_torch.ops import cuda_build, rgcn_scatter  # noqa: E402
 from regcn_torch.ops import streaming_ce as ce  # noqa: E402
 from regcn_torch.ops.activations import RRELU_LOWER, RRELU_UPPER  # noqa: E402
 from regcn_torch.ops.rgcn_scatter import (  # noqa: E402
@@ -140,6 +156,10 @@ TRAIN_OPT_TOL = 1e-6
 # (1 to 3 of 59.6M entries on an H100); the CPU replays the card's
 # branches, so only a few entries within rounding of 0 may differ
 KINK_FLIP_SHARE = 1e-6
+# the uvrgcn's radius weight exp(-γ|r_src - r_dst|): the sign of r_src -
+# r_dst may differ between the devices only where the two radii (0.5 to
+# ~3.2) agree within rounding, ~40 fp32 ulps at radius 3
+ABS_TIE_TOL = 1e-5
 PROFILE_STEPS = 20
 
 # Every kernel of the main path: its csrc source, the wrapper whose
@@ -706,7 +726,7 @@ def phase_training(data, dev: torch.device) -> dict:
         copy_state_into(s_cpu, s_gpu)
         grads, losses = [], []
         for tr, st in ((gpu, s_gpu), (cpu, s_cpu)):
-            total, parts = tr.loss(st, *tr.window(i), cmax)
+            total, parts, _ = tr.loss(st, *tr.window(i), cmax)
             grads.append(torch.autograd.grad(total, tree_leaves(st.params), allow_unused=True))
             losses.append({k: float(v.detach()) for k, v in parts.items()})
         for k, b in losses[1].items():
@@ -840,35 +860,45 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 class PinnedKinks:
-    """The branches RE-GCN takes at its activations' kinks, recorded on one
-    device and replayed on another: the UnionRGCN's fixed-slope rrelu and
-    the decoders' relu, patched in their modules. An fp32 pre-activation
-    within rounding of 0 may take the other branch on the other device,
-    and a few such entries among the ~20M of a step can move a gradient
-    by more than TRAIN_GRAD_TOL of its parameter's largest entry.
-    Replaying the card's branches on the CPU compares the two devices on
-    one branch of the function; ``flips`` counts the entries whose own
-    branch differed, which phase 7 holds to KINK_FLIP_SHARE of
-    ``entries``: pre-activations that went wrong on the card would show
-    there."""
+    """The branches a model takes at its kinks, recorded on one device and
+    replayed on another: the UnionRGCN layers' fixed-slope rrelu (RE-GCN's
+    and the hyperbolic uvrgcn's), the decoders' relu, and the sign of
+    r_src - r_dst in the uvrgcn's radius weight exp(-γ|r_src - r_dst|),
+    each patched by its name in its module. An fp32 value within rounding
+    of 0 may take the other branch on the other device, and a few such
+    entries among the ~20M of a step can move a gradient by more than
+    TRAIN_GRAD_TOL of its parameter's largest entry. Replaying the card's
+    branches on the CPU compares the two devices on one branch of the
+    function. ``flips`` counts, per kind, the entries whose own branch
+    differed, which the training phases hold to KINK_FLIP_SHARE of
+    ``entries`` for the activations: pre-activations that went wrong on
+    the card would show there. Radii tie by construction (entities of
+    one radius target), so there ``abs_flip_max``, the largest |r_src -
+    r_dst| of a flipped edge, is held to ABS_TIE_TOL instead."""
+
+    KINDS = ("rrelu", "relu", "abs")
 
     def __init__(self):
-        self.masks = {"rrelu": [], "relu": []}
-        self.flips = self.entries = 0
+        self.masks = {k: [] for k in self.KINDS}
+        self.flips = {k: 0 for k in self.KINDS}
+        self.entries = {k: 0 for k in self.KINDS}
+        self.abs_flip_max = 0.0
 
     @contextlib.contextmanager
-    def _patched(self, rrelu, relu):
-        saved = model_layers.rrelu, model_decoders.relu
-        model_layers.rrelu, model_decoders.relu = rrelu, relu
+    def _patched(self, rrelu, relu, abs_diff):
+        saved = model_layers.rrelu, hyp_layers.rrelu, model_decoders.relu, hyp_layers._abs_diff
+        model_layers.rrelu = hyp_layers.rrelu = rrelu
+        model_decoders.relu, hyp_layers._abs_diff = relu, abs_diff
         try:
             yield
         finally:
-            model_layers.rrelu, model_decoders.relu = saved
+            (model_layers.rrelu, hyp_layers.rrelu, model_decoders.relu,
+             hyp_layers._abs_diff) = saved
 
     def record(self):
         """Runs the model as it is and keeps each kink's branch."""
-        self.masks = {"rrelu": [], "relu": []}
-        rrelu, relu = model_layers.rrelu, model_decoders.relu
+        self.masks = {k: [] for k in self.KINDS}
+        rrelu, relu, abs_diff = model_layers.rrelu, model_decoders.relu, hyp_layers._abs_diff
 
         def rec_rrelu(x):
             self.masks["rrelu"].append(x >= 0)
@@ -878,7 +908,11 @@ class PinnedKinks:
             self.masks["relu"].append(x > 0)
             return relu(x)
 
-        return self._patched(rec_rrelu, rec_relu)
+        def rec_abs(a, b):
+            self.masks["abs"].append(a - b >= 0)
+            return abs_diff(a, b)
+
+        return self._patched(rec_rrelu, rec_relu, rec_abs)
 
     @contextlib.contextmanager
     def replay(self):
@@ -889,8 +923,8 @@ class PinnedKinks:
 
         def pinned(kind, x, own):
             mask = next(queues[kind]).to(x.device)
-            self.flips += int((own != mask).sum())
-            self.entries += mask.numel()
+            self.flips[kind] += int((own != mask).sum())
+            self.entries[kind] += mask.numel()
             return mask
 
         def rep_rrelu(x):
@@ -899,85 +933,147 @@ class PinnedKinks:
         def rep_relu(x):
             return torch.where(pinned("relu", x, x > 0), x, torch.zeros_like(x))
 
-        with self._patched(rep_rrelu, rep_relu):
+        def rep_abs(a, b):
+            d = a - b
+            mask = pinned("abs", d, d >= 0)
+            flipped = d.detach()[mask != (d >= 0)]
+            if flipped.numel():
+                self.abs_flip_max = max(self.abs_flip_max, flipped.abs().max().item())
+            return torch.where(mask, d, -d)
+
+        with self._patched(rep_rrelu, rep_relu, rep_abs):
             yield
         check(all(next(q, None) is None for q in queues.values()),
               "the replay passed fewer activations than the recorded run")
 
+    def check(self, tag: str) -> str:
+        """Fails if too many activation entries flipped, or a radius sign
+        flipped away from a tie; returns a summary."""
+        flips = self.flips["rrelu"] + self.flips["relu"]
+        entries = self.entries["rrelu"] + self.entries["relu"]
+        check(flips <= KINK_FLIP_SHARE * entries, f"{tag}: {flips} of {entries} "
+              f"pre-activations took the other branch at a kink on the cpu, over "
+              f"{KINK_FLIP_SHARE:.0e} of them")
+        check(self.abs_flip_max <= ABS_TIE_TOL, f"{tag}: r_src - r_dst took the other sign on "
+              f"the cpu at |r_src - r_dst| = {self.abs_flip_max:.3e} > {ABS_TIE_TOL:.0e}")
+        text = f"{flips} of {entries} activation entries"
+        if self.entries["abs"]:
+            text += (f", {self.flips['abs']} of {self.entries['abs']} radius-weight signs (at "
+                     f"|r_src - r_dst| <= {self.abs_flip_max:.2e})")
+        return text + " took the other branch on the cpu's own"
 
-def config1_three_steps(data, cfg: ModelConfig, tc: TrainConfig, dev: torch.device) -> None:
-    """(a) 3 steps on the card; before each, the CPU takes the card's state
-    and both compute the step from it, the CPU on the card's branches at
-    the activations' kinks (PinnedKinks): the losses, each parameter's
-    gradient, the new BN statistics, and the optimizer's update given the
-    card's gradients; and the share of kink entries whose branch differed.
-    Printed, not checked: the global norm of the card's first gradients as
-    the card, the CPU in fp32 and float64 take it (the optimizer
-    accumulates it in float64)."""
+
+class DwRecorder:
+    """Keeps the edge-weight gradient dw of each call of the scatter's
+    backward (``rgcn_scatter.scatter_add_sorted_backward``, patched in its
+    module), in the order autograd runs them."""
+
+    def __init__(self):
+        self.seen = []
+
+    @contextlib.contextmanager
+    def recording(self):
+        backward = rgcn_scatter.scatter_add_sorted_backward
+
+        def rec(*args, **kw):
+            dmsg, dw = backward(*args, **kw)
+            if dw is not None:
+                self.seen.append(dw.detach())
+            return dmsg, dw
+
+        rgcn_scatter.scatter_add_sorted_backward = rec
+        try:
+            yield
+        finally:
+            rgcn_scatter.scatter_add_sorted_backward = backward
+
+
+def three_steps(tag: str, gpu, cpu, s_gpu, s_cpu, order, *loss_args) -> None:
+    """(a) of the training phases: 3 steps on the card; before each, the
+    CPU takes the card's state and both compute the step from it, the CPU
+    on the card's branches at the kinks (PinnedKinks): the losses, each
+    parameter's gradient, the new BN statistics, B1's edge-weight gradient
+    dw where the weight needs one, and the optimizer's update given the
+    card's gradients. Printed, not checked: the global norm of the card's
+    first gradients as the card, the CPU in fp32 and float64 take it (the
+    optimizer accumulates it in float64)."""
     t0 = time.perf_counter()
-    exp = ExperimentConfig(model=dataclasses.replace(cfg, **NO_DROPOUT), train=tc)
-    gpu = loop.Trainer(exp, data, device=dev)
-    cpu = loop.Trainer(exp, data, device="cpu")
-    s_gpu = gpu.init_state(SEED)
-    s_cpu = train_state.state_from(s_gpu.params, s_gpu.model_state, tc, SEED, "cpu")
     names = leaf_names(s_gpu.params)
-    worst_grad = worst_bn = worst_opt = 0.0
+    worst_grad = worst_bn = worst_opt = worst_dw = 0.0
+    n_dw = 0
     kinks = PinnedKinks()
-    for step, i in enumerate(gpu.epoch_order(0)[:3]):
+    for step, i in enumerate(order):
         copy_state_into(s_cpu, s_gpu)
         out = []
         for tr, st, pin in ((gpu, s_gpu, kinks.record), (cpu, s_cpu, kinks.replay)):
-            with pin():
-                total, parts, new_bn = tr.loss(st, *tr.window(i))
+            dws = DwRecorder()
+            with pin(), dws.recording():
+                total, parts, new_bn = tr.loss(st, *tr.window(i), *loss_args)
                 grads = torch.autograd.grad(total, tree_leaves(st.params), allow_unused=True)
-            out.append(({k: float(v.detach()) for k, v in parts.items()}, grads, new_bn))
-        (l_gpu, g_gpu, bn_gpu), (l_cpu, g_cpu, bn_cpu) = out
+            out.append(({k: float(v.detach()) for k, v in parts.items()}, grads, new_bn,
+                        dws.seen))
+        (l_gpu, g_gpu, bn_gpu, dw_gpu), (l_cpu, g_cpu, bn_cpu, dw_cpu) = out
         if step == 0:
             norms = (torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(g_gpu)))),
                      torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
                          [g.cpu() for g in g_gpu]))),
                      torch.linalg.vector_norm(torch.stack([g.cpu().double().norm() for g in g_gpu])))
-            print("[train1] global norm of the first step's gradients: card fp32 "
+            print(f"[{tag}] global norm of the first step's gradients: card fp32 "
                   f"{norms[0].item():.7f}, cpu fp32 {norms[1].item():.7f}, float64 "
                   f"{norms[2].item():.7f}", flush=True)
         for k, b in l_cpu.items():
             a = l_gpu[k]
             check(math.isfinite(a) and abs(a - b) <= TRAIN_LOSS_RTOL * max(1.0, abs(b)),
-                  f"config 1, step on snapshot {i}: {k} loss cuda {a} vs cpu {b}")
+                  f"{tag}, step on snapshot {i}: {k} loss cuda {a} vs cpu {b}")
         for name, a, b in zip(names, g_gpu, g_cpu):
-            check(a is not None and b is not None, f"config 1, step on snapshot {i}: {name} has "
+            check(a is not None and b is not None, f"{tag}, step on snapshot {i}: {name} has "
                   "no gradient")
             err = rel_err(a, b)
-            check(err <= TRAIN_GRAD_TOL, f"config 1, step on snapshot {i}: {name} gradient cuda "
+            check(err <= TRAIN_GRAD_TOL, f"{tag}, step on snapshot {i}: {name} gradient cuda "
                   f"vs cpu {err:.3e} > {TRAIN_GRAD_TOL:.0e} of its largest entry")
             worst_grad = max(worst_grad, err)
+        check(len(dw_gpu) == len(dw_cpu), f"{tag}, step on snapshot {i}: {len(dw_gpu)} dw on "
+              f"the card, {len(dw_cpu)} on the cpu")
+        for a, b in zip(dw_gpu, dw_cpu):
+            err = rel_err(a, b)
+            check(err <= TRAIN_GRAD_TOL, f"{tag}, step on snapshot {i}: B1's dw cuda vs cpu "
+                  f"{err:.3e} > {TRAIN_GRAD_TOL:.0e} of its largest entry")
+            worst_dw = max(worst_dw, err)
+        n_dw += len(dw_gpu)
         for bn in ("bn_ob", "bn_rel"):
             for a, b in zip(tree_leaves(getattr(bn_gpu, bn)), tree_leaves(getattr(bn_cpu, bn))):
                 worst_bn = max(worst_bn, rel_err(a, b))
-        check(worst_bn <= TRAIN_GRAD_TOL, f"config 1, step on snapshot {i}: BN running "
+        check(worst_bn <= TRAIN_GRAD_TOL, f"{tag}, step on snapshot {i}: BN running "
               f"statistics cuda vs cpu {worst_bn:.3e} > {TRAIN_GRAD_TOL:.0e}")
         gpu.opt.step(tree_leaves(s_gpu.params), g_gpu, s_gpu.opt_state)
         cpu.opt.step(tree_leaves(s_cpu.params), [g.cpu() for g in g_gpu], s_cpu.opt_state)
         for name, a, b in zip(names, tree_leaves(s_gpu.params), tree_leaves(s_cpu.params)):
             err = ((a.detach().cpu() - b.detach()).abs() / b.detach().abs().clamp(min=1.0)).max()
-            check(err.item() <= TRAIN_OPT_TOL, f"config 1, step on snapshot {i}: {name} after "
+            check(err.item() <= TRAIN_OPT_TOL, f"{tag}, step on snapshot {i}: {name} after "
                   f"the optimizer step cuda vs cpu {err.item():.3e} > {TRAIN_OPT_TOL:.0e}")
             worst_opt = max(worst_opt, err.item())
         s_gpu.model_state, s_cpu.model_state = bn_gpu, bn_cpu
         s_gpu.step += 1
         s_cpu.step += 1
-        print(f"[train1] step on snapshot {i}: losses cuda/cpu "
+        print(f"[{tag}] step on snapshot {i}: losses cuda/cpu "
               + ", ".join(f"{k} {l_gpu[k]:.6f}/{l_cpu[k]:.6f}" for k in l_gpu), flush=True)
-    check(kinks.flips <= KINK_FLIP_SHARE * kinks.entries, f"config 1, 3 steps: {kinks.flips} "
-          f"of {kinks.entries} pre-activations took the other branch at a kink on the cpu, over "
-          f"{KINK_FLIP_SHARE:.0e} of them")
-    print(f"[train1] (a) 3 steps cuda vs cpu from the same state, the cpu on the card's "
-          f"branches at the activations' kinks ({kinks.flips} of {kinks.entries} entries took "
-          f"the other branch on the cpu's own): every gradient within {worst_grad:.2e} of its "
-          f"parameter's largest entry (emb_rel, dynamic_emb and the RGCN weights through the "
-          f"scatter's backward), BN statistics within {worst_bn:.2e}, every parameter after the "
-          f"optimizer step within {worst_opt:.2e} ({time.perf_counter() - t0:.1f} s)",
+    flips = kinks.check(tag)
+    dw_text = f", B1's dw in {n_dw} backward calls within {worst_dw:.2e}" if n_dw else ""
+    print(f"[{tag}] (a) 3 steps cuda vs cpu from the same state, the cpu on the card's branches "
+          f"at the kinks ({flips}): every gradient within {worst_grad:.2e} of its parameter's "
+          f"largest entry{dw_text}, BN statistics within {worst_bn:.2e}, every parameter after "
+          f"the optimizer step within {worst_opt:.2e} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
+
+
+def config1_three_steps(data, cfg: ModelConfig, tc: TrainConfig, dev: torch.device) -> None:
+    """(a) config 1's 3 steps, cuda against cpu (``three_steps``)."""
+    exp = ExperimentConfig(model=dataclasses.replace(cfg, **NO_DROPOUT), train=tc)
+    gpu = loop.Trainer(exp, data, device=dev)
+    cpu = loop.Trainer(exp, data, device="cpu")
+    s_gpu = gpu.init_state(SEED)
+    s_cpu = train_state.state_from(s_gpu.params, s_gpu.model_state, tc, SEED, "cpu")
+    three_steps("train1", gpu, cpu, s_gpu, s_cpu, gpu.epoch_order(0)[:3])
 
 
 def checkpoint_round_trip(trainer, state, exp: ExperimentConfig, data, dev) -> None:
@@ -1083,6 +1179,183 @@ def phase_config1_training(data, cfg: ModelConfig, tc: TrainConfig, dev: torch.d
     return launches
 
 
+# ------------------------------------------------- hyperbolic headline
+
+def headline_config(data, **kw) -> HyperbolicConfig:
+    """The hyperbolic headline at full width: the reference's logged
+    configuration, ``bench.py:bench_hyperbolic``'s and the CLI's hyperbolic
+    default (uvrgcn + tangent ConvTransE/R, h=200, 2 layers, c=0.01 fixed,
+    dropouts 0.2, residual radius evolution, radius supervision, layer
+    norm), in fp32."""
+    return HyperbolicConfig(num_ents=data.num_nodes, num_rels=data.num_rels, h_dim=200,
+                            n_layers=2, encoder="hyperbolic_uvrgcn",
+                            decoder="hyperbolic_convtranse", c=0.01, **kw)
+
+
+def counted_test(trainer, state, expected: int, label: str) -> tuple:
+    """The test split with the launch counts reset just before and read
+    just after: (stats, launches, seconds); B1 exactly ``expected`` times,
+    no B2 kernel."""
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = trainer.test(state)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    for key, st in stats.items():
+        check(math.isfinite(st.mrr) and 0.0 < st.mrr <= 1.0, f"{label}: {key} MRR {st.mrr} not "
+              "in (0, 1]")
+    check(launches["rgcn_scatter_sorted"] == expected and
+          all(launches[k] == 0 for k in CE_KERNELS),
+          f"{label}: launches {launches}, expected {expected} of the scatter kernel and no CE "
+          "kernel")
+    return stats, launches, seconds
+
+
+def phase_headline_training(data, tc: TrainConfig, dev: torch.device) -> dict:
+    """The hyperbolic headline through ``HyperbolicTrainer``: (a) 3 steps
+    cuda vs cpu (``three_steps``, dropouts 0), B1's dw among the checks;
+    (b) one epoch through ``fit(checkpoint_path)``, the launch counts reset
+    just before ``run_epoch`` and read just after (B1: 2 layers x the
+    window's snapshots per step); (c) the checkpoint restored by
+    ``fit(resume=True)`` in a fresh trainer, every part equal, one step
+    from each copy; (d) 20 steady steps; (e) the test split at random
+    init and after the epoch (B1 6 times per snapshot), the entity raw MRR
+    above the random-init one; (f) a profile of a step, B1's forward and
+    the scatter backward apart."""
+    gpu = HyperbolicTrainer(headline_config(data, **NO_DROPOUT), tc, data, device=dev)
+    cpu = HyperbolicTrainer(headline_config(data, **NO_DROPOUT), tc, data, device="cpu")
+    s_gpu = gpu.init_state(SEED)
+    s_cpu = cpu.state_from(s_gpu.params, s_gpu.model_state)
+    three_steps("headline", gpu, cpu, s_gpu, s_cpu, gpu.epoch_order(0)[:3],
+                gpu._curvature_max(0))
+    del gpu, cpu, s_gpu, s_cpu
+
+    cfg = headline_config(data)
+    trainer = HyperbolicTrainer(cfg, tc, data, device=dev)
+    state = trainer.init_state(SEED)
+    n_test = len(trainer.test_list)
+    test_launches = cfg.n_layers * tc.test_history_len * n_test
+    init_stats, _, init_s = counted_test(trainer, state, test_launches, "headline at init")
+    print(f"[headline] test split at random init ({init_s:.1f} s): MRR "
+          + ", ".join(f"{k} {v.mrr:.6f}" for k, v in init_stats.items()), flush=True)
+
+    # (b) the epoch, inside fit with a checkpoint
+    order = trainer.epoch_order(0)
+    expected = cfg.n_layers * sum(min(i, tc.train_history_len) for i in order)
+    epoch = {}
+    run_epoch = trainer.run_epoch
+
+    def counted_epoch(st, e):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_epoch(st, e)
+        torch.cuda.synchronize()
+        epoch.update(seconds=time.perf_counter() - t0, launches=read_launches())
+        return out
+
+    trainer.run_epoch = counted_epoch
+    with tempfile.TemporaryDirectory() as path:
+        _, info = trainer.fit(state=state, n_epochs=1, checkpoint_path=path)
+        trainer.run_epoch = run_epoch
+        launches, row = epoch["launches"], info["history"][0]
+        check(all(math.isfinite(v) for v in row["losses"].values()),
+              f"headline epoch losses {row['losses']}")
+        check(all(launches[k] == 0 for k in CE_KERNELS), f"the headline launched a CE kernel: "
+              f"{launches}")
+        check(launches["rgcn_scatter_sorted"] == expected,
+              f"scatter kernel launched {launches['rgcn_scatter_sorted']} times in the headline "
+              f"epoch, expected {expected} = {cfg.n_layers} layers x the snapshots of the "
+              f"{len(order)} windows")
+        print(f"[headline] (b) epoch 0 in fit: {len(order)} steps in {epoch['seconds']:.2f} s = "
+              f"{len(order) / epoch['seconds']:.2f} snapshots/s (first epoch: includes building "
+              f"the {len(order)} windows); mean losses "
+              + ", ".join(f"{k} {v:.5f}" for k, v in row["losses"].items())
+              + f"; valid ent raw MRR {row['valid_mrr_raw']:.6f}; launches {launches} "
+              f"({launches['rgcn_scatter_sorted'] / len(order):.2f} B1 launches per step)",
+              flush=True)
+        headline_resume(trainer, state, info, path, cfg, tc, data, dev)
+
+    # (d) steady state on a copy: the next epoch's first steps, windows built
+    steady = train_state.copy_state(state)
+    cmax = trainer._curvature_max(1)
+    order = trainer.epoch_order(1)[:PROFILE_STEPS]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in order:
+        trainer.train_step(steady, *trainer.window(i), cmax)
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t0
+    print(f"[headline] (d) steady state: {len(order)} steps in {steady_s:.3f} s = "
+          f"{len(order) / steady_s:.2f} snapshots/s, {steady_s / len(order) * 1e3:.2f} ms "
+          "per step", flush=True)
+
+    # (e) the test split after the epoch
+    stats, test_counts, test_s = counted_test(trainer, state, test_launches, "headline")
+    check(stats["ent_raw"].mrr > init_stats["ent_raw"].mrr,
+          f"headline entity raw MRR {stats['ent_raw'].mrr:.6f} after an epoch is not above the "
+          f"random-init {init_stats['ent_raw'].mrr:.6f}")
+    print(f"[headline] (e) test split after one epoch ({test_s:.1f} s, "
+          f"{test_s / n_test * 1e3:.2f} ms per snapshot, {test_counts['rgcn_scatter_sorted']} B1 "
+          "launches): MRR " + ", ".join(f"{k} {v.mrr:.6f}" for k, v in stats.items())
+          + f" (random init: ent_raw {init_stats['ent_raw'].mrr:.6f})", flush=True)
+
+    # (f) where a step's time goes
+    cmax = trainer._curvature_max(2)
+    train_profile("headline train step",
+                  lambda i: trainer.train_step(steady, *trainer.window(i), cmax),
+                  trainer.epoch_order(2)[:PROFILE_STEPS], scatter=True)
+    return {"headline training epoch": launches, "headline test split": test_counts}
+
+
+def headline_resume(trainer, state, info, path: str, cfg, tc, data, dev) -> None:
+    """(c) ``fit(resume=True, n_epochs=1)`` in a fresh trainer restores the
+    checkpoint of the epoch (``<path>/last``) and runs no epoch: every
+    tensor, the generator and the step equal the trained state's, on the
+    card; then one step from each copy, in deterministic mode (the
+    relation context's index_add_ has float atomics otherwise)."""
+    t0 = time.perf_counter()
+    mib = os.path.getsize(os.path.join(path, "last", train_state.STATE_FILE)) / 2**20
+    fresh = HyperbolicTrainer(cfg, tc, data, device=dev)
+    restored, info2 = fresh.fit(state=fresh.init_state(SEED + 7), n_epochs=1,
+                                checkpoint_path=path, resume=True)
+    check(info2["history"] == [] and info2["best_valid_mrr_raw"] == info["best_valid_mrr_raw"],
+          f"resume ran an epoch or lost the best MRR: {info2}")
+    same = all(torch.equal(a.detach(), b.detach())
+               for a, b in zip(state_leaves(state), state_leaves(restored)))
+    check(same and torch.equal(state.gen.get_state(), restored.gen.get_state())
+          and (state.step, state.opt_state.count) == (restored.step, restored.opt_state.count)
+          and torch.equal(state.model_state.radius_target, restored.model_state.radius_target),
+          "the restored state differs from the trained one")
+    check(all(t.device.type == "cuda" for t in state_leaves(restored)),
+          "the restored state is not on the card")
+    i = trainer.epoch_order(1)[0]
+    cmax = trainer._curvature_max(1)
+    stepped = train_state.copy_state(state)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # cuBLAS: deterministic without a workspace setting
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            trainer.train_step(stepped, *trainer.window(i), cmax)
+            fresh.train_step(restored, *fresh.window(i), cmax)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    worst = 0.0
+    for name, a, b in zip(leaf_names(state.params), tree_leaves(restored.params),
+                          tree_leaves(stepped.params)):
+        err = ((a.detach() - b.detach()).abs() / b.detach().abs().clamp(min=1.0)).max().item()
+        check(err <= TRAIN_OPT_TOL, f"headline checkpoint round trip: {name} after one step "
+              f"from each copy differs by {err:.3e} > {TRAIN_OPT_TOL:.0e}")
+        worst = max(worst, err)
+    print(f"[headline] (c) checkpoint round trip through fit(checkpoint_path) and "
+          f"fit(resume=True): {mib:.1f} MiB last/state.pt, every tensor, the generator, step "
+          f"{state.step} restored exactly on the card; one step from each copy: every "
+          f"parameter within {worst:.2e} ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     seconds = {}
@@ -1110,6 +1383,8 @@ def main() -> None:
     by_path["config-3 training epoch"] = timed("config-3 training", phase_training, data, dev)
     by_path["config-1 training epoch"] = timed(
         "config-1 training", phase_config1_training, data, cfg, tc, dev, serving["ent_raw"].mrr)
+    headline = timed("hyperbolic headline training", phase_headline_training, data, tc, dev)
+    by_path.update(headline)
     launches.update({k: by_path["config-3 training epoch"][k] for k in CE_KERNELS})
     rows = [dict(name=k["name"], route=k["route"], source=k["source"], replaces=k["replaces"],
                  launches=launches[k["name"]], **timing[k["name"]],

@@ -14,14 +14,15 @@ The port keeps the JAX layouts, so the conversion is a copy:
 
 :func:`hyperbolic_params_from_jax` does the same for the pytree of
 ``regcn_tpu.hyperbolic.model.init_params``: the nested ``rgcn.layers``
-list, the decoder dicts and the 0-d leaves (``log_c``,
-``score_margin``, ``score_scale_raw``) become tensors of the same
-shapes, and ``HypModelState.radius_target`` comes along.
+list (LGCN's or the uvrgcn's keys), the decoder dicts, the ConvTrans
+decoders' BN trees and the 0-d leaves (``log_c``, ``score_margin``,
+``score_scale_raw``) become tensors of the same shapes, and
+``HypModelState.radius_target`` comes along.
 
 :func:`train_state_from_jax` takes a whole ``regcn_tpu`` ``TrainState``
-(numpy leaves): its parameters and BN statistics as above, the Adam
-``count``/``mu``/``nu`` of its optax chain and its step, so that a run
-can continue mid-training in this package.
+or hyperbolic ``HypTrainState`` (numpy leaves): its parameters and BN
+statistics as above, the Adam ``count``/``mu``/``nu`` of its optax chain
+and its step, so that a run can continue mid-training in this package.
 """
 
 from __future__ import annotations
@@ -95,11 +96,13 @@ def _like(tree, template):
 
 
 def train_state_from_jax(jax_state, device="cuda", seed: int = 0) -> TrainState:
-    """A ``TrainState`` on ``device`` from a ``regcn_tpu`` ``TrainState``
-    with numpy leaves (``jax.tree.map(np.asarray, state)``). The dropout
-    generator, which JAX's PRNG key cannot seed alike, is seeded with
-    ``seed``."""
-    params, model_state = params_from_jax(jax_state.params, jax_state.model_state, device)
+    """A ``TrainState`` on ``device`` from a ``regcn_tpu`` ``TrainState`` or
+    ``HypTrainState`` (its model state has a ``radius_target``) with numpy
+    leaves (``jax.tree.map(np.asarray, state)``). The dropout generator,
+    which JAX's PRNG key cannot seed alike, is seeded with ``seed``."""
+    hyperbolic = hasattr(jax_state.model_state, "radius_target")
+    convert = hyperbolic_params_from_jax if hyperbolic else params_from_jax
+    params, model_state = convert(jax_state.params, jax_state.model_state, device)
     for t in tree_leaves(params):
         t.requires_grad_(True)
     adam = _adam_state(jax_state.opt_state)

@@ -1,28 +1,36 @@
-"""Hyperbolic distance decoders: RotH and RotH-Rel.
+"""Hyperbolic decoders: RotH and RotH-Rel, and the tangent ConvTransE / R.
 
-Counterpart of ``regcn_tpu/hyperbolic/decoders.py`` for the decoders the
-hyperbolic config-3 slice runs. Scores come from the Möbius-difference
-distance of a query to every candidate, from one [B,d]x[d,N] product
-(:func:`regcn_torch.ops.streaming_ce.distance_logits`). The training
-loss :func:`dist_ce_loss` is kernel B2 on a CUDA tensor and its plain
-version on a CPU tensor (:func:`regcn_torch.ops.streaming_ce.streaming_nll`).
+Counterpart of ``regcn_tpu/hyperbolic/decoders.py`` for the decoders of
+the two hyperbolic configurations this package runs:
 
-MuRP, AttH, DistMult, ComplEx and the tangent ConvTransE/R decoders are
-not ported yet (ROADMAP A6, A8): their entry points raise.
+- RotH / RotH-Rel (config 3): scores come from the Möbius-difference
+  distance of a query to every candidate, from one [B,d]x[d,N] product
+  (:func:`regcn_torch.ops.streaming_ce.distance_logits`). The training
+  loss :func:`dist_ce_loss` is kernel B2 on a CUDA tensor and its plain
+  version on a CPU tensor (:func:`regcn_torch.ops.streaming_ce.streaming_nll`).
+- the tangent ConvTransE / ConvTransR of the headline (uvrgcn): the
+  Euclidean decoders' pipeline (``regcn_torch/models/decoders.py``: masked
+  batch-statistics BN in training, three dropout sites) on the leaky-tanh
+  tangent table, scored with one plain GEMM plus a candidate bias ``b``.
+
+MuRP, AttH, DistMult and ComplEx are not ported yet (ROADMAP A.7): their
+entry points raise.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
 from regcn_torch.hyperbolic import ops as H
+from regcn_torch.models import decoders as euclidean_decoders
 from regcn_torch.ops.activations import inverted_dropout
 from regcn_torch.ops.streaming_ce import SCORE_EPS, distance_logits, streaming_nll
 
 Params = Dict[str, torch.Tensor]
+BNState = euclidean_decoders.BNState
 
 REL_C_EPS = 1e-5  # ref REL_CURVATURE_EPSILON
 REL_C_MARGIN = 0.999
@@ -98,6 +106,63 @@ def _relation_curvature(params, r_idx, c, warmup_max=None):
 
 def _uniform(gen, shape, bound):
     return torch.empty(shape).uniform_(-bound, bound, generator=gen)
+
+
+# ---------------------------------------------------- tangent ConvTransE / R
+
+def init_hyperbolic_convtranse(gen: torch.Generator, num_entities, h_dim, channels=50, kernel=3
+                               ) -> Tuple[Params, BNState]:
+    """The Euclidean ConvTransE's parameters and BN state, plus a bias ``b``
+    over the entity candidates."""
+    params, bn_state = euclidean_decoders.init_convtrans(gen, h_dim, channels, kernel)
+    params["b"] = torch.zeros(num_entities)
+    return params, bn_state
+
+
+def init_hyperbolic_convtransr(gen: torch.Generator, num_rels_total, h_dim, channels=50,
+                               kernel=3) -> Tuple[Params, BNState]:
+    """As :func:`init_hyperbolic_convtranse`, ``b`` over the 2R relations."""
+    params, bn_state = euclidean_decoders.init_convtrans(gen, h_dim, channels, kernel)
+    params["b"] = torch.zeros(num_rels_total)
+    return params, bn_state
+
+
+def _leaky_tanh(x: torch.Tensor) -> torch.Tensor:
+    """0.9 tanh(x) + 0.1 x, the 'leaky tanh' of the tangent decoders."""
+    return 0.9 * torch.tanh(x) + 0.1 * x
+
+
+def _convtrans_score(params, bn_state, stacked, candidates, mask, dropouts, gen, train):
+    x, new_bn = euclidean_decoders._convtrans_features(
+        params, bn_state, stacked, mask, input_dropout=dropouts[0], hidden_dropout=dropouts[1],
+        feat_dropout=dropouts[2], gen=gen, train=train)
+    return x @ candidates.T + params["b"], new_bn
+
+
+def hyperbolic_convtranse_score(params, bn_state, entity_embedding, rel_embedding, triples, c,
+                                mask=None, *, dropouts=(0.0, 0.0, 0.0), gen=None, train=False,
+                                ent_tan=None) -> Tuple[torch.Tensor, BNState]:
+    """(entity scores [B, N], new BN state) on tangent embeddings. ``ent_tan``,
+    if given, is the leaky-tanh tangent table, shared by both decoders;
+    otherwise it is derived from the ball points ``entity_embedding``.
+    ``dropouts`` are (input, hidden, feat), drawn from ``gen`` in training."""
+    if ent_tan is None:
+        ent_tan = _leaky_tanh(H.log_map_zero(entity_embedding, c))
+    stacked = torch.stack([ent_tan.index_select(0, triples[:, 0]),
+                           rel_embedding.index_select(0, triples[:, 1])], dim=1)
+    return _convtrans_score(params, bn_state, stacked, ent_tan, mask, dropouts, gen, train)
+
+
+def hyperbolic_convtransr_score(params, bn_state, entity_embedding, rel_embedding, triples, c,
+                                mask=None, *, dropouts=(0.0, 0.0, 0.0), gen=None, train=False,
+                                ent_tan=None) -> Tuple[torch.Tensor, BNState]:
+    """(relation scores [B, 2R], new BN state); the candidates are the
+    evolved relation embeddings."""
+    if ent_tan is None:
+        ent_tan = _leaky_tanh(H.log_map_zero(entity_embedding, c))
+    stacked = torch.stack([ent_tan.index_select(0, triples[:, 0]),
+                           ent_tan.index_select(0, triples[:, 2])], dim=1)
+    return _convtrans_score(params, bn_state, stacked, rel_embedding, mask, dropouts, gen, train)
 
 
 # ----------------------------------------------------------------- RotH
@@ -217,9 +282,7 @@ def _not_ported(name: str, item: str):
     return fn
 
 
-init_murp = murp_score = murp_loss = _not_ported("MuRP", "A8")
-init_atth = atth_score = atth_loss = _not_ported("AttH", "A8")
-distmult_score = _not_ported("DistMult", "A8")
-complex_score = _not_ported("ComplEx", "A8")
-hyperbolic_convtranse_score = _not_ported("tangent ConvTransE", "A6")
-hyperbolic_convtransr_score = _not_ported("tangent ConvTransR", "A6")
+init_murp = murp_score = murp_loss = _not_ported("MuRP", "A.7")
+init_atth = atth_score = atth_loss = _not_ported("AttH", "A.7")
+distmult_score = _not_ported("DistMult", "A.7")
+complex_score = _not_ported("ComplEx", "A.7")

@@ -1,14 +1,24 @@
-"""Hyperbolic GNN encoder layers: the LGCN encoder.
+"""Hyperbolic GNN encoder layers: LGCN and the tangent-space UnionRGCN.
 
-Counterpart of ``regcn_tpu/hyperbolic/layers.py`` for ``lgcn``: a
-block-decomposed tangent transform per relation, messages mapped to the
-hyperboloid and aggregated per destination as weighted Lorentz
-centroids, a dual self-loop, an optional gated skip, ±10 tangent
-clamps and the fixed-slope rrelu. The parameter dictionaries have the
-JAX package's keys and layouts.
+Counterpart of ``regcn_tpu/hyperbolic/layers.py`` for two encoders:
 
-The other encoders (``hyperbolic_uvrgcn``, ``fhnn``, ``hgat``) and the
-multi-device halo aggregation are not ported yet (ROADMAP A6, A8, A12).
+- ``lgcn``: a block-decomposed tangent transform per relation, messages
+  mapped to the hyperboloid and aggregated per destination as weighted
+  Lorentz centroids, a dual self-loop, an optional gated skip, ±10
+  tangent clamps and the fixed-slope rrelu;
+- ``hyperbolic_uvrgcn`` on its tangent carry (:func:`union_layer_tangent`,
+  :func:`uvrgcn_cell_tangent`): the UnionRGCN message
+  ``(v_src + rel) @ W`` weighted by ``exp(-γ|r_src - r_dst|)`` of the
+  points' radii and summed per destination by kernel B1
+  (``regcn_torch/ops/rgcn_scatter.py``), the same self-loop, skip, clamps
+  and rrelu.
+
+The parameter dictionaries have the JAX package's keys and layouts.
+
+Not ported yet, and raising: the uvrgcn's ball-space layer
+(``hyperbolic_union_layer``, which only ``evolve(tangent_fast=False)``
+reaches; ROADMAP A.3b), the ``fhnn`` and ``hgat`` encoders (A.7) and the
+multi-device halo aggregation (A.11).
 """
 
 from __future__ import annotations
@@ -18,7 +28,9 @@ from typing import Dict, Optional
 import torch
 
 from regcn_torch.hyperbolic import ops as H
+from regcn_torch.models.layers import init_union_rgcn_layer
 from regcn_torch.ops.activations import inverted_dropout, rrelu
+from regcn_torch.ops.rgcn_scatter import rgcn_aggregate
 from regcn_torch.utils.init import RELU_GAIN, xavier_uniform
 
 Params = Dict[str, torch.Tensor]
@@ -89,17 +101,77 @@ def lgcn_layer(params: Params, h_hyper: torch.Tensor, rel_emb: Optional[torch.Te
     return H.exp_map_zero(h_new, c).to(h_hyper.dtype)
 
 
-def _check_encoder(encoder: str) -> None:
+PORTED = ("hyperbolic_uvrgcn", "lgcn")  # the uvrgcn on its tangent carry only
+
+
+def _abs_diff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| with derivative +1 where a == b, as ``jax.grad(jnp.abs)(0.)``
+    is; torch's ``abs`` has 0 there. Every self-edge sits at that tie, and
+    so does every edge between two entities of bitwise-equal radius."""
+    d = a - b
+    return torch.where(d >= 0, d, -d)
+
+
+def union_layer_tangent(params: Params, v: torch.Tensor, rel_emb: torch.Tensor, snap, c, *,
+                        prev_v: Optional[torch.Tensor] = None, radius_gamma: float = 1.0,
+                        dropout: float = 0.0, gen: Optional[torch.Generator] = None,
+                        train: bool = False) -> torch.Tensor:
+    """One UnionRGCN layer on tangent vectors v [N, d] (``v = log_0`` of the
+    ball points); returns the raw tangent output, which the caller clamps
+    with :func:`H.clamp_tangent_norm`. The radius weight of each edge
+    requires grad through v, so B1's backward computes its ``dw``."""
+    radius = H.radius_from_tangent(v, c)
+    rw = torch.exp(-radius_gamma * _abs_diff(radius.index_select(0, snap.src),
+                                             radius.index_select(0, snap.dst)))
+    h_new = rgcn_aggregate(v, rel_emb, params["w_neighbor"], snap.src, snap.dst, snap.rel,
+                           snap.edge_mask, snap.in_deg_norm, dst_sorted=snap.dst_sorted,
+                           edge_weight=rw)
+    h_new = torch.clamp(h_new, -CLAMP, CLAMP)
+
+    if "loop_w" in params:
+        loop = _dual_self_loop(params, v, snap.has_in_edge)
+    if prev_v is not None and "skip_w" in params:
+        gate = torch.sigmoid(prev_v @ params["skip_w"] + params["skip_b"])
+        if "loop_w" in params:
+            h_new = h_new + loop
+        h_new = gate * h_new + (1 - gate) * prev_v
+    elif "loop_w" in params:
+        h_new = h_new + loop
+
+    h_new = torch.clamp(h_new, -CLAMP, CLAMP)
+    return inverted_dropout(rrelu(h_new), dropout, gen, train)
+
+
+def uvrgcn_cell_tangent(params, v: torch.Tensor, rel_emb: torch.Tensor, snap, c, *,
+                        radius_gamma: float = 1.0, dropout: float = 0.0,
+                        gen: Optional[torch.Generator] = None, train: bool = False
+                        ) -> torch.Tensor:
+    """The uvrgcn layer stack on the tangent carry; between layers (and
+    after the last) the norm clamp that stands for the ball path's
+    exp_0 -> project -> log_0."""
+    x, prev = v, None
+    for i, lp in enumerate(params["layers"]):
+        new_x = union_layer_tangent(lp, x, rel_emb, snap, c, prev_v=prev if i > 0 else None,
+                                    radius_gamma=radius_gamma, dropout=dropout, gen=gen,
+                                    train=train)
+        prev, x = x, H.clamp_tangent_norm(new_x, c)
+    return x
+
+
+def _check_encoder(encoder: str, ported=PORTED) -> None:
     if encoder not in ENCODERS:
         raise ValueError(f"unknown encoder {encoder!r}; known: {ENCODERS}")
-    if encoder != "lgcn":
-        raise NotImplementedError(f"the {encoder} encoder is not ported yet (ROADMAP A6/A8)")
+    if encoder not in ported:
+        raise NotImplementedError(f"the {encoder} encoder is not ported yet (ROADMAP A.7)")
 
 
 def init_encoder_cell(gen: torch.Generator, encoder: str, h_dim: int, num_rels_total: int,
                       n_layers: int, n_bases: int = -1, num_heads: int = 4,
                       self_loop: bool = True, skip_connect: bool = False) -> Dict[str, list]:
     _check_encoder(encoder)
+    if encoder == "hyperbolic_uvrgcn":
+        return {"layers": [init_union_rgcn_layer(gen, h_dim, self_loop, skip_connect and i > 0)
+                           for i in range(n_layers)]}
     return {"layers": [
         init_lgcn_layer(gen, h_dim, num_rels_total, n_bases, self_loop, skip_connect and i > 0)
         for i in range(n_layers)
@@ -110,7 +182,12 @@ def encoder_cell(params, encoder: str, h_hyper: torch.Tensor, rel_emb: torch.Ten
                  *, n_bases: int = -1, num_heads: int = 4, radius_gamma: float = 1.0,
                  dropout: float = 0.0, gen: Optional[torch.Generator] = None,
                  train: bool = False, impl: str = "xla") -> torch.Tensor:
-    _check_encoder(encoder)
+    """The ball-space layer stack (``evolve``'s path for LGCN)."""
+    if encoder == "hyperbolic_uvrgcn":
+        raise NotImplementedError("the uvrgcn's ball-space layer (hyperbolic_union_layer) is "
+                                  "not ported yet (ROADMAP A.3b); evolve runs it on its "
+                                  "tangent carry")
+    _check_encoder(encoder, ("lgcn",))
     if impl != "xla":
         raise NotImplementedError(f"encoder impl {impl!r} (halo / pallas) is not ported yet")
     x, prev = h_hyper, None

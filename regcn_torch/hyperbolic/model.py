@@ -1,9 +1,12 @@
 """Hyperbolic recurrent RGCN: the model core of the hyperbolic slice.
 
-Counterpart of ``regcn_tpu/hyperbolic/model.py`` on its ball-space path
-(``evolve`` lines 322-367) for the LGCN encoder and the RotH / RotH-Rel
-decoders. The JAX ``lax.scan`` over the history window is a Python loop
-over its T steps. One evolution step (snapshot t):
+Counterpart of ``regcn_tpu/hyperbolic/model.py`` for two configurations:
+LGCN + RotH / RotH-Rel (config 3) on the ball-space path (``evolve``
+lines 322-367), and the headline, hyperbolic UnionRGCN + tangent
+ConvTransE / ConvTransR, on the tangent-carry path (``_evolve_tangent``,
+which JAX's ``evolve`` picks for this encoder). The JAX ``lax.scan`` over
+the history window is a Python loop over its T steps. One evolution
+step (snapshot t), on the ball:
 
   ctx  = segment-mean of log_0(h) over relation incidence
   h0   = GRUCell([emb_rel ; ctx], h0)                 (tangent, L2-normalised)
@@ -11,12 +14,16 @@ over its T steps. One evolution step (snapshot t):
   h    = exp_0(gate * log_0(cur) + (1-gate) * log_0(h))   (±10 clamps)
   h    = radius evolution towards the static radius   (or apply_radius)
 
+and on the tangent carry v = log_0(h), where every exp_0/log_0 pair of
+the ball path becomes a norm clamp (``clamp_tangent_norm``) and the radii
+come from v (``radius_from_tangent``, ``apply_radius_tangent``).
+
 The curvature is fixed, or learned as clamp(exp(log_c), c_min, c_max),
 with c_max a warmup schedule that the trainer passes in.
 
 Not ported yet, and raising: the static graph, EST, entities stored on
-the ball (Riemannian Adam), bf16, the uvrgcn tangent-carry path and the
-other encoders and decoders (ROADMAP A6-A9).
+the ball (Riemannian Adam), bf16 and the other encoder and decoder
+pairs (ROADMAP A.3b, A.5-A.8).
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from regcn_torch.hyperbolic import decoders as HD
 from regcn_torch.hyperbolic import layers as HL
 from regcn_torch.hyperbolic import ops as H
 from regcn_torch.models.layers import gru_cell, init_gru_cell
-from regcn_torch.models.recurrent import tree_to
+from regcn_torch.models.recurrent import _masked_ce, tree_to
 from regcn_torch.ops.activations import l2_normalize
 from regcn_torch.ops.segment import masked_segment_mean
 from regcn_torch.utils.init import xavier_normal, xavier_uniform
@@ -41,6 +48,8 @@ Params = Dict[str, Any]
 CLAMP = 10.0
 ENCODERS = HL.ENCODERS
 DECODERS = ("hyperbolic_convtranse", "murp", "roth", "atth")
+# (encoder, decoder) pairs this package runs
+PORTED = (("lgcn", "roth"), ("hyperbolic_uvrgcn", "hyperbolic_convtranse"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,8 +113,9 @@ class HyperbolicConfig:
 
 @dataclasses.dataclass
 class HypModelState:
-    """Non-parameter state: decoder BN stats (none for RotH) and the
-    radius-target buffer, which weight decay never touches."""
+    """Non-parameter state: the ConvTrans decoders' BN running statistics
+    (empty for RotH) and the radius-target buffer, which weight decay never
+    touches."""
 
     bn_ob: Any
     bn_rel: Any
@@ -118,17 +128,16 @@ def check_supported(cfg: HyperbolicConfig) -> None:
         "use_static": "the static graph (ROADMAP A7)",
         "use_est": "EST (ROADMAP A9)",
         "use_time_aware_negative": "TANS negatives (ROADMAP A9)",
-        "manifold_entities": "entities on the ball with Riemannian Adam (ROADMAP A6)",
+        "manifold_entities": "entities on the ball with Riemannian Adam (ROADMAP A.3b)",
     }
     for flag, what in unported.items():
         if getattr(cfg, flag):
             raise NotImplementedError(f"{flag}: {what} is not ported yet")
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(f"compute dtype {cfg.compute_dtype!r}: only float32 is ported")
-    if cfg.encoder != "lgcn":
-        raise NotImplementedError(f"the {cfg.encoder} encoder is not ported yet (ROADMAP A6/A8)")
-    if cfg.decoder != "roth":
-        raise NotImplementedError(f"the {cfg.decoder} decoder is not ported yet (ROADMAP A6/A8)")
+    if (cfg.encoder, cfg.decoder) not in PORTED:
+        raise NotImplementedError(f"the {cfg.encoder} encoder with the {cfg.decoder} decoder is "
+                                  f"not ported yet (ROADMAP A.7); ported: {PORTED}")
     if cfg.impl != "xla":
         raise NotImplementedError(f"impl {cfg.impl!r} is not ported yet")
 
@@ -159,14 +168,22 @@ def init_params(gen: torch.Generator, cfg: HyperbolicConfig, radius_target=None,
           if radius_target is not None
           else torch.full((cfg.num_ents,), 0.5 * (cfg.radius_min + cfg.radius_max)))
     params["radius_static"] = rt.clone()
-    params["decoder_ob"] = HD.init_roth(
-        gen, cfg.num_ents, cfg.num_rels_total, d, cfg.c, cfg.hyp_init_scale,
-        cfg.use_entity_bias, cfg.use_rel_curvature,
-        score_scale_init=cfg.hyp_score_scale_init, score_margin_init=cfg.hyp_score_margin_init)
-    params["decoder_rel"] = HD.init_roth_rel(
-        gen, cfg.num_rels, d, cfg.hyp_init_scale,
-        score_scale_init=cfg.hyp_score_scale_init, score_margin_init=cfg.hyp_score_margin_init)
-    state = HypModelState(bn_ob={}, bn_rel={}, radius_target=rt.to(device))
+    bn_ob = bn_rel = {}
+    if cfg.decoder == "hyperbolic_convtranse":
+        params["decoder_ob"], bn_ob = HD.init_hyperbolic_convtranse(gen, cfg.num_ents, d)
+        params["decoder_rel"], bn_rel = HD.init_hyperbolic_convtransr(gen, cfg.num_rels_total, d)
+    else:
+        params["decoder_ob"] = HD.init_roth(
+            gen, cfg.num_ents, cfg.num_rels_total, d, cfg.c, cfg.hyp_init_scale,
+            cfg.use_entity_bias, cfg.use_rel_curvature,
+            score_scale_init=cfg.hyp_score_scale_init,
+            score_margin_init=cfg.hyp_score_margin_init)
+        params["decoder_rel"] = HD.init_roth_rel(
+            gen, cfg.num_rels, d, cfg.hyp_init_scale,
+            score_scale_init=cfg.hyp_score_scale_init,
+            score_margin_init=cfg.hyp_score_margin_init)
+    state = HypModelState(bn_ob=tree_to(bn_ob, device), bn_rel=tree_to(bn_rel, device),
+                          radius_target=rt.to(device))
     return tree_to(params, device), state
 
 
@@ -202,7 +219,9 @@ def evolve(params: Params, cfg: HyperbolicConfig, history, *,
            gen: Optional[torch.Generator] = None, train: bool = False,
            curvature_max=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Runs the evolution over a stacked [T, ...] history window (a
-    Snapshot of tensors). Returns (h ball points [N, d], h0 [2R, d])."""
+    Snapshot of tensors). Returns (h ball points [N, d], h0 [2R, d]).
+    The uvrgcn encoder runs on its tangent carry, as JAX's
+    ``evolve(tangent_fast=None)`` picks for it."""
     check_supported(cfg)
     c = get_curvature(params, cfg, curvature_max)
     emb = params["dynamic_emb"]
@@ -210,6 +229,9 @@ def evolve(params: Params, cfg: HyperbolicConfig, history, *,
     static_radius = _static_radius(params, cfg, c)
     h = H.apply_radius(h, static_radius, c)
     emb_rel = params["emb_rel"]
+    if cfg.encoder == "hyperbolic_uvrgcn":
+        return _evolve_tangent(params, cfg, history, h, emb_rel, static_radius, c, gen=gen,
+                               train=train)
     h0 = emb_rel
     for t in range(history.src.shape[0]):
         snap = history.step(t)
@@ -241,10 +263,40 @@ def evolve(params: Params, cfg: HyperbolicConfig, history, *,
     return h, h0
 
 
-def _final_embedding(h, cfg, c):
-    if cfg.layer_norm:
-        return H.exp_map_zero(l2_normalize(H.log_map_zero(h, c)), c)
-    return h
+def _evolve_tangent(params, cfg, history, h_init, emb_rel, static_radius, c, *, gen, train):
+    """The evolution with its carry in tangent space, v = log_0(h) exactly
+    (eps clamps included): each exp_0 -> project -> log_0 of the ball path
+    is one ``clamp_tangent_norm``, and the ball point is made once, at the
+    end."""
+    v, h0 = H.log_map_zero(h_init, c), emb_rel
+    for t in range(history.src.shape[0]):
+        snap = history.step(t)
+        ctx = masked_segment_mean(v.index_select(0, snap.rc_ent), snap.rc_rel, snap.rc_mask,
+                                  cfg.num_rels_total)
+        h0_new = gru_cell(params["gru"], torch.cat([emb_rel, ctx], dim=1), h0)
+        if cfg.layer_norm:
+            h0_new = l2_normalize(h0_new)
+        cur = HL.uvrgcn_cell_tangent(params["rgcn"], v, h0_new, snap, c,
+                                     radius_gamma=cfg.radius_msg_gamma, dropout=cfg.dropout,
+                                     gen=gen, train=train)
+        # the ball path projects (the cell's last clamp), tangent-normalises,
+        # then clips: unit rows make the clip a no-op
+        cur_tan = l2_normalize(cur) if cfg.layer_norm else torch.clamp(cur, -CLAMP, CLAMP)
+        prev_tan = torch.clamp(v, -CLAMP, CLAMP)
+        gate = torch.sigmoid(prev_tan @ params["time_gate_w"] + params["time_gate_b"])
+        v_new = H.clamp_tangent_norm(gate * cur_tan + (1.0 - gate) * prev_tan, c)
+        if cfg.use_residual_evolution:
+            delta = (v_new @ params["radius_mlp_w"].T + params["radius_mlp_b"])[..., 0]
+            delta = torch.clamp(delta, -cfg.radius_epsilon, cfg.radius_epsilon)
+            base = (cfg.radius_anchor_beta * static_radius
+                    + (1.0 - cfg.radius_anchor_beta) * H.radius_from_tangent(v_new, c))
+            v_new = H.apply_radius_tangent(v_new, base + delta, c)
+        else:
+            v_new = H.apply_radius_tangent(v_new, static_radius, c)
+        active = snap.edge_mask.max() > 0
+        v = torch.where(active, v_new, v)
+        h0 = torch.where(active, h0_new, h0)
+    return H.exp_map_zero(v, c), h0
 
 
 def radius_supervision_loss(params, state: HypModelState, cfg, triples, mask, c):
@@ -256,38 +308,84 @@ def radius_supervision_loss(params, state: HypModelState, cfg, triples, mask, c)
     return cfg.radius_lambda * torch.sum(diff_sq) / torch.clamp(torch.sum(present), min=1.0)
 
 
-def entity_scores(params, state, cfg, pre_emb, r_emb, triples, c, *, gen=None, train=False):
+def _decoder_dropouts(cfg):
+    return (cfg.input_dropout, cfg.hidden_dropout, cfg.feat_dropout)
+
+
+def entity_scores(params, state, cfg, pre_emb, r_emb, triples, mask, c, *, gen=None,
+                  train=False, ent_tan=None) -> Tuple[torch.Tensor, Any]:
+    """(entity scores [B, N], new ``bn_ob``; the old one for RotH)."""
+    if cfg.decoder == "hyperbolic_convtranse":
+        return HD.hyperbolic_convtranse_score(
+            params["decoder_ob"], state.bn_ob, pre_emb, r_emb, triples, c, mask,
+            dropouts=_decoder_dropouts(cfg), gen=gen, train=train, ent_tan=ent_tan)
     return HD.roth_score(params["decoder_ob"], pre_emb, r_emb, triples, c,
-                         dropout=cfg.input_dropout, gen=gen, train=train)
+                         dropout=cfg.input_dropout, gen=gen, train=train), state.bn_ob
 
 
-def relation_scores(params, state, cfg, pre_emb, r_emb, triples, c, *, gen=None, train=False):
+def relation_scores(params, state, cfg, pre_emb, r_emb, triples, mask, c, *, gen=None,
+                    train=False, ent_tan=None) -> Tuple[torch.Tensor, Any]:
+    """(relation scores [B, 2R], new ``bn_rel``; the old one for RotH-Rel)."""
+    if cfg.decoder == "hyperbolic_convtranse":
+        return HD.hyperbolic_convtransr_score(
+            params["decoder_rel"], state.bn_rel, pre_emb, r_emb, triples, c, mask,
+            dropouts=_decoder_dropouts(cfg), gen=gen, train=train, ent_tan=ent_tan)
     return HD.roth_rel_score(params["decoder_rel"], pre_emb, r_emb, triples, c,
-                             dropout=cfg.input_dropout, gen=gen, train=train)
+                             dropout=cfg.input_dropout, gen=gen, train=train), state.bn_rel
+
+
+def _decoder_inputs(h, cfg, c):
+    """(ball points for the decoders, the ConvTrans decoders' shared
+    leaky-tanh tangent table or None), as JAX's ``get_loss`` and
+    ``predict`` make them."""
+    pre_tan = H.log_map_zero(h, c)
+    if cfg.layer_norm:
+        pre_tan = l2_normalize(pre_tan)
+    ent_tan = None
+    if cfg.decoder == "hyperbolic_convtranse":
+        ent_tan = HD._leaky_tanh(H.clamp_tangent_norm(pre_tan, c))
+    return H.exp_map_zero(pre_tan, c), ent_tan
 
 
 def get_loss(params: Params, state: HypModelState, cfg: HyperbolicConfig, history,
              triples: torch.Tensor, triple_mask: torch.Tensor, *,
              gen: Optional[torch.Generator] = None, train: bool = True,
-             curvature_max=None) -> Dict[str, torch.Tensor]:
-    """The entity, relation, static and radius losses (0-d tensors).
+             curvature_max=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], HypModelState]:
+    """(loss_ent, {"entity", "relation", "static", "radius"}, new
+    HypModelState): the losses are 0-d tensors, the new state holds the
+    ConvTrans decoders' updated BN running statistics in train mode.
 
     ``triples`` [B, 3] with inverses, padded; ``triple_mask`` [B]."""
     c = get_curvature(params, cfg, curvature_max)
     h, r_emb = evolve(params, cfg, history, gen=gen, train=train, curvature_max=curvature_max)
-    pre_emb = _final_embedding(h, cfg, c)
+    pre_emb, ent_tan = _decoder_inputs(h, cfg, c)
     zero = torch.zeros((), device=h.device)
     losses = {"entity": zero, "relation": zero, "static": zero}
+    bn_ob, bn_rel = state.bn_ob, state.bn_rel
+    convtrans = cfg.decoder == "hyperbolic_convtranse"
     if cfg.entity_prediction:
-        losses["entity"] = HD.roth_loss(
-            params["decoder_ob"], pre_emb, r_emb, triples, c, mask=triple_mask,
-            dropout=cfg.input_dropout, gen=gen, train=train, rel_curvature_max=curvature_max)
+        if convtrans:
+            scores, bn_ob = entity_scores(params, state, cfg, pre_emb, r_emb, triples,
+                                          triple_mask, c, gen=gen, train=train, ent_tan=ent_tan)
+            losses["entity"] = _masked_ce(scores, triples[:, 2], triple_mask)
+        else:
+            losses["entity"] = HD.roth_loss(
+                params["decoder_ob"], pre_emb, r_emb, triples, c, mask=triple_mask,
+                dropout=cfg.input_dropout, gen=gen, train=train,
+                rel_curvature_max=curvature_max)
     if cfg.relation_prediction:
-        losses["relation"] = HD.roth_rel_loss(
-            params["decoder_rel"], pre_emb, r_emb, triples, c, mask=triple_mask,
-            dropout=cfg.input_dropout, gen=gen, train=train)
+        if convtrans:
+            scores, bn_rel = relation_scores(params, state, cfg, pre_emb, r_emb, triples,
+                                             triple_mask, c, gen=gen, train=train,
+                                             ent_tan=ent_tan)
+            losses["relation"] = _masked_ce(scores, triples[:, 1], triple_mask)
+        else:
+            losses["relation"] = HD.roth_rel_loss(
+                params["decoder_rel"], pre_emb, r_emb, triples, c, mask=triple_mask,
+                dropout=cfg.input_dropout, gen=gen, train=train)
     losses["radius"] = radius_supervision_loss(params, state, cfg, triples, triple_mask, c)
-    return losses
+    new_state = HypModelState(bn_ob=bn_ob, bn_rel=bn_rel, radius_target=state.radius_target)
+    return losses["entity"], losses, new_state
 
 
 def predict(params: Params, state: HypModelState, cfg: HyperbolicConfig, history,
@@ -295,6 +393,7 @@ def predict(params: Params, state: HypModelState, cfg: HyperbolicConfig, history
     """Eval-mode scores: (entity [B, N], relation [B, 2R])."""
     c = get_curvature(params, cfg)
     h, r_emb = evolve(params, cfg, history)
-    emb = _final_embedding(h, cfg, c)
-    return (entity_scores(params, state, cfg, emb, r_emb, triples, c),
-            relation_scores(params, state, cfg, emb, r_emb, triples, c))
+    emb, ent_tan = _decoder_inputs(h, cfg, c)
+    kw = dict(ent_tan=ent_tan)
+    return (entity_scores(params, state, cfg, emb, r_emb, triples, triple_mask, c, **kw)[0],
+            relation_scores(params, state, cfg, emb, r_emb, triples, triple_mask, c, **kw)[0])

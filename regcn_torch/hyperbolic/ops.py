@@ -156,6 +156,27 @@ def clamp_tangent_norm(v: torch.Tensor, c, eps: float = EPS) -> torch.Tensor:
     return (v32 * (minimum(vn, bound) / vn)).to(v.dtype)
 
 
+def radius_from_tangent(v: torch.Tensor, c, eps: float = EPS) -> torch.Tensor:
+    """get_radius(exp_0(v)) without materialising the ball point: [...]."""
+    sqrt_c = sqrt(c)
+    vn = _norm(v.float(), keepdim=False, eps=eps)
+    r = torch.tanh(sqrt_c * vn) / sqrt_c
+    return maximum(minimum(r, 1.0 / sqrt_c - 2.0 * eps), eps).to(v.dtype)
+
+
+def apply_radius_tangent(v: torch.Tensor, radius, c, eps: float = EPS) -> torch.Tensor:
+    """log_0(apply_radius(exp_0(v), radius)): the tangent norm that puts
+    the ball point exactly at ``radius``, direction preserved."""
+    radius = _t(radius, v)
+    if radius.dim() == v.dim() - 1:
+        radius = radius[..., None]
+    sqrt_c = sqrt(c)
+    radius = clip(radius.float(), eps, 1.0 / sqrt_c - eps)
+    target_vn = torch.atanh(minimum(sqrt_c * radius, 1.0 - eps)) / sqrt_c
+    v32 = v.float()
+    return (v32 / _norm(v32, eps=eps) * target_vn).to(v.dtype)
+
+
 # ------------------------------------------------ Lorentz / hyperboloid model
 
 def lorentz_inner(x: torch.Tensor, y: torch.Tensor, keepdim: bool = False) -> torch.Tensor:

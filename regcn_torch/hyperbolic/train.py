@@ -1,11 +1,13 @@
 """Hyperbolic training: the trainer of the hyperbolic slice.
 
 Counterpart of ``regcn_tpu/hyperbolic/train.py`` for the configurations
-this package runs (LGCN + RotH, fixed or learned curvature with its
-warmup, radius supervision): degree/frequency radius targets, one
-optimizer step per training snapshot in the JAX trainer's shuffled
-order, rolling-window raw and filtered evaluation, and ``fit`` with
-patience and the best state kept.
+this package runs (LGCN + RotH, and the headline uvrgcn + tangent
+ConvTransE / R; fixed or learned curvature with its warmup, radius
+supervision): degree/frequency radius targets, one optimizer step per
+training snapshot in the JAX trainer's shuffled order, the decoders' BN
+running statistics carried from step to step, rolling-window raw and
+filtered evaluation (single- or multi-step), and ``fit`` with patience,
+the best state kept, best and ``last/`` checkpoints and resume.
 
 The JAX trainer runs an epoch as one fused ``lax.scan`` over a store
 front-padded with empty snapshots; here a Python loop takes the same
@@ -13,8 +15,9 @@ steps in the same order. A window shorter than the history length is
 run as it is: the fused path's empty front snapshots are identity steps,
 so both give the same result.
 
-Not ported yet, and raising: triple mini-batching (``triple_batch_size``),
-EST and TANS, the static graph, meshes and the boundary halo.
+Not ported yet, and raising: triple mini-batching (``triple_batch_size``)
+and ``--run-analysis`` (ROADMAP A.3b), EST and TANS, the static graph,
+meshes and the boundary halo.
 """
 
 from __future__ import annotations
@@ -133,24 +136,26 @@ class HyperbolicTrainer:
 
     # ----------------------------------------------------------------- train
     def loss(self, state: TrainState, history, triples, mask, cmax
-             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """(total, losses): total = tw * entity + (1 - tw) * relation +
-        static + radius, with the dropouts of a training step."""
-        losses = hmodel.get_loss(state.params, state.model_state, self.cfg, history, triples,
-                                 mask, gen=state.gen, train=True, curvature_max=cmax)
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], HypModelState]:
+        """(total, losses, new HypModelState): total = tw * entity + (1 - tw)
+        * relation + static + radius, with the dropouts of a training step."""
+        _, losses, new_model_state = hmodel.get_loss(
+            state.params, state.model_state, self.cfg, history, triples, mask, gen=state.gen,
+            train=True, curvature_max=cmax)
         tw = self.tc.task_weight
         total = (tw * losses["entity"] + (1.0 - tw) * losses["relation"]
                  + losses["static"] + losses["radius"])
-        return total, losses
+        return total, losses, new_model_state
 
     def train_step(self, state: TrainState, history, triples, mask, cmax
                    ) -> Dict[str, torch.Tensor]:
         """One optimizer step, in place on ``state``; returns the losses
         (0-d tensors on the device, not synchronised)."""
-        total, losses = self.loss(state, history, triples, mask, cmax)
+        total, losses, new_model_state = self.loss(state, history, triples, mask, cmax)
         leaves = tree_leaves(state.params)
         grads = torch.autograd.grad(total, leaves, allow_unused=True)
         self.opt.step(leaves, grads, state.opt_state)
+        state.model_state = new_model_state
         state.step += 1
         return {k: v.detach() for k, v in losses.items()}
 
@@ -173,28 +178,47 @@ class HyperbolicTrainer:
 
     # ------------------------------------------------------------------ eval
     def evaluate(self, state: TrainState, history_list: Sequence[np.ndarray],
-                 eval_list: Sequence[np.ndarray], ent_filters=None, rel_filters=None
+                 eval_list: Sequence[np.ndarray], ent_filters=None, rel_filters=None,
+                 multi_step: bool = False, topk: int = 10, relation_evaluation: bool = False
                  ) -> Dict[str, metrics.RankStats]:
         return loop.evaluate(state.params, state.model_state, self.cfg, self.tc, history_list,
-                             eval_list, ent_filters, rel_filters, self.device, hmodel.predict)
+                             eval_list, ent_filters, rel_filters, self.device, hmodel.predict,
+                             multi_step, topk, relation_evaluation)
 
-    def test(self, state: TrainState) -> Dict[str, metrics.RankStats]:
+    def test(self, state: TrainState, multi_step: bool = False, topk: int = 10,
+             relation_evaluation: bool = False) -> Dict[str, metrics.RankStats]:
+        """The test split, with train + valid as its history; ``multi_step``
+        feeds the top-k predictions back (ref:hyperbolic_main.py:135-142)."""
         return loop.test(state.params, state.model_state, self.cfg, self.tc, self.data,
-                         self.device, hmodel.predict)
+                         self.device, hmodel.predict, multi_step, topk, relation_evaluation)
 
     def fit(self, state: Optional[TrainState] = None, n_epochs: Optional[int] = None,
-            patience: int = 20, selection_metric: str = "ent_raw"):
+            patience: int = 20, checkpoint_path: Optional[str] = None, resume: bool = False,
+            selection_metric: str = "ent_raw"):
         """Training with early stopping on the validation split; returns
-        (best state, info)."""
+        (best state, info).
+
+        With ``checkpoint_path`` the best state is saved at its root on each
+        improvement and the state after every epoch under ``<path>/last``;
+        ``resume=True`` continues from there, if a checkpoint exists:
+        parameters, Adam moments, BN statistics, the dropout generator, the
+        step, the best MRR and the patience count (epochs since the best)."""
         if selection_metric not in ("ent_raw", "rel_raw"):
             raise ValueError(f"selection_metric must be 'ent_raw' or 'rel_raw', got "
                              f"{selection_metric!r}")
         state = state or self.init_state()
+        start_epoch, best_mrr, best_epoch = 0, 0.0, -1
+        if resume and train_state.has_resumable_checkpoint(checkpoint_path):
+            state, start_epoch, best_mrr, best_epoch = train_state.restore_for_resume(
+                checkpoint_path, state)
+            log.info("resumed from %s at epoch %d (best MRR %.4f @ %d)", checkpoint_path,
+                     start_epoch, best_mrr, best_epoch)
         ent_f = build_answer_filters_by_time(self.data.valid, self.num_rels, False)
         rel_f = build_answer_filters_by_time(self.data.valid, self.num_rels, True)
-        best_state, best_mrr, best_epoch, bad_epochs = copy_state(state), 0.0, -1, 0
+        best_state = copy_state(state)
+        bad_epochs = max(0, start_epoch - 1 - best_epoch) if best_epoch >= 0 else 0
         rows = []
-        for epoch in range(n_epochs or self.tc.n_epochs):
+        for epoch in range(start_epoch, n_epochs or self.tc.n_epochs):
             t0 = time.perf_counter()
             losses = self.run_epoch(state, epoch)
             dt = time.perf_counter() - t0
@@ -207,11 +231,16 @@ class HyperbolicTrainer:
                      selection_metric, mrr, dt)
             if mrr > best_mrr:
                 best_mrr, best_state, best_epoch, bad_epochs = mrr, copy_state(state), epoch, 0
+                if checkpoint_path:
+                    train_state.save_checkpoint(checkpoint_path, state,
+                                                {"epoch": epoch, "mrr": mrr})
             else:
                 bad_epochs += 1
+            if checkpoint_path:
+                train_state.save_last_checkpoint(checkpoint_path, state, epoch, best_mrr,
+                                                 best_epoch)
             if bad_epochs >= patience:
                 log.info("early stop at epoch %d (patience %d)", epoch, patience)
                 break
         return best_state, {"best_valid_mrr_raw": best_mrr, "best_epoch": best_epoch,
                             "selection_metric": selection_metric, "history": rows}
-

@@ -5,7 +5,7 @@ the Pallas scatter in ``regcn_tpu/ops/pallas_rgcn.py``. Per snapshot
 graph with E directed edges over N entities,
 
     msg_e = (H[src_e] + Rel[rel_e]) @ W            # one [E,d]x[d,d] GEMM
-    out_v = in_deg_norm_v * sum_{e: dst_e=v} mask_e * msg_e
+    out_v = in_deg_norm_v * sum_{e: dst_e=v} mask_e * w_e * msg_e   # w_e = 1 unless given
 
 The GEMM is ``torch.matmul`` (the JAX package also leaves it to XLA
 outside its kernel). The scatter is the hand-written CUDA kernel
@@ -204,21 +204,25 @@ def rgcn_aggregate(
     in_deg_norm: torch.Tensor,  # [N] float
     *,
     dst_sorted: bool,
+    edge_weight: Optional[torch.Tensor] = None,  # [E] float, multiplies the mask
 ) -> torch.Tensor:
-    """Returns [N, d] aggregated neighborhood messages.
+    """Returns [N, d] aggregated neighborhood messages, each edge's
+    message scaled by ``edge_mask`` (times ``edge_weight`` where given:
+    the hyperbolic uvrgcn's radius weight, which may require grad).
 
     ``dst_sorted=True`` (the edge order of build_snapshot, Snapshot.dst_sorted)
     feeds the edges to the kernel as they are; otherwise they are sorted
-    by key first.
+    by key first, their weights with them.
     """
     n = h.shape[0]
     # masked edges carry key n. The padded tail stores dst=0, so raw dst is
     # not monotone: keying the mask first keeps the keys ascending.
     keys = torch.where(edge_mask > 0, dst, n).to(torch.int32)
+    w = edge_mask if edge_weight is None else edge_weight * edge_mask
     if not dst_sorted:
         order = torch.argsort(keys, stable=True)
-        src, rel, keys, edge_mask = src[order], rel[order], keys[order], edge_mask[order]
+        src, rel, keys, w = src[order], rel[order], keys[order], w[order]
     msg = (h[src] + rel_emb[rel]) @ weight
-    agg = scatter_add_sorted(msg, keys, n, edge_weight=edge_mask.contiguous(),
+    agg = scatter_add_sorted(msg, keys, n, edge_weight=w.contiguous(),
                              row_scale=in_deg_norm.contiguous())
     return agg.to(h.dtype)

@@ -5,13 +5,13 @@ Counterpart of ``regcn_tpu/train/loop.py`` (ref:src/main.py:33-291).
 - :func:`rolling_ranks` / :func:`evaluate` / :func:`test`: the
   single-step rolling-window evaluation, raw and filtered MRR over a
   split. Each eval snapshot is scored from the ``test_history_len``
-  snapshots before it, then joins the window. The model's scores come
-  from a ``predict`` function, RE-GCN's by default; the hyperbolic
-  trainer passes ``regcn_torch.hyperbolic.model.predict``.
+  snapshots before it, then joins the window. With ``multi_step``
+  (:func:`multi_step_ranks`) the snapshot's top-k predictions join the
+  window instead (:func:`construct_snap`, :func:`construct_snap_r`). The
+  model's scores come from a ``predict`` function, RE-GCN's by default;
+  the hyperbolic trainer passes ``regcn_torch.hyperbolic.model.predict``.
 - :class:`Trainer`: RE-GCN training, one optimizer step per training
-  snapshot in the order of ``Trainer.run_epoch_fused``; multi-step
-  evaluation, which feeds the top-k predictions back into the window
-  (:func:`construct_snap`, :func:`construct_snap_r`); and ``fit`` with
+  snapshot in the order of ``Trainer.run_epoch_fused``, and ``fit`` with
   best and last checkpoints and resume.
 
 The JAX trainer runs an epoch as one fused ``lax.scan`` over a store
@@ -100,6 +100,55 @@ def rolling_ranks(
     return ranks
 
 
+def multi_step_ranks(
+    params,
+    model_state,
+    cfg,
+    tc: TrainConfig,
+    history_list: Sequence[np.ndarray],
+    eval_list: Sequence[np.ndarray],
+    ent_filters: Optional[List[AnswerFilter]] = None,
+    rel_filters: Optional[List[AnswerFilter]] = None,
+    device="cuda",
+    predict: Predict = regcn_predict,
+    topk: int = 10,
+    relation_evaluation: bool = False,
+) -> Dict[str, List[np.ndarray]]:
+    """Multi-step evaluation (ref:src/main.py:33-107): as
+    :func:`rolling_ranks`, but each snapshot's top-k predictions, of
+    entities or with ``relation_evaluation`` of relations, take the oldest
+    snapshot's place in the window instead of the snapshot itself."""
+    window = list(history_list[-tc.test_history_len:])
+    ranks: Dict[str, List[np.ndarray]] = {k: [] for k in RANK_KEYS}
+    for t, snap in enumerate(eval_list):
+        history = build_history(window, cfg.num_ents, cfg.num_rels,
+                                edge_bucket=tc.edge_bucket, rc_bucket=tc.rc_bucket)
+        triples, mask = pad_triples(snap, cfg.num_rels, tc.triple_bucket)
+        valid = mask > 0
+        tq = triples[valid]
+        with torch.inference_mode():
+            s_ob, s_rel = predict(params, model_state, cfg, history.to(device),
+                                  torch.from_numpy(triples).long().to(device),
+                                  torch.from_numpy(mask).to(device))
+        # the dense scores go to the host, in float64 as in the JAX loop
+        s_ob = s_ob.cpu().numpy().astype(np.float64)[valid]
+        s_rel = s_rel.cpu().numpy().astype(np.float64)[valid]
+        ranks["ent_raw"].append(metrics.ranks_from_scores(s_ob, tq[:, 2]))
+        ranks["ent_filter"].append(metrics.filtered_ranks(
+            s_ob, tq[:, [0, 1]], tq[:, 2], ent_filters[t] if ent_filters else None))
+        ranks["rel_raw"].append(metrics.ranks_from_scores(s_rel, tq[:, 1]))
+        ranks["rel_filter"].append(metrics.filtered_ranks(
+            s_rel, tq[:, [0, 2]], tq[:, 1], rel_filters[t] if rel_filters else None))
+        if relation_evaluation:
+            pred = construct_snap_r(tq, cfg.num_rels, s_rel, topk)
+        else:
+            pred = construct_snap(tq, cfg.num_rels, s_ob, topk)
+        if len(pred):
+            window.pop(0)
+            window.append(pred)
+    return ranks
+
+
 def evaluate(
     params,
     model_state,
@@ -111,10 +160,19 @@ def evaluate(
     rel_filters: Optional[List[AnswerFilter]] = None,
     device="cuda",
     predict: Predict = regcn_predict,
+    multi_step: bool = False,
+    topk: int = 10,
+    relation_evaluation: bool = False,
 ) -> Dict[str, metrics.RankStats]:
-    """Rolling-window evaluation: ``RANK_KEYS`` -> RankStats."""
-    ranks = rolling_ranks(params, model_state, cfg, tc, history_list, eval_list,
-                          ent_filters, rel_filters, device, predict)
+    """Rolling-window evaluation, single-step or with ``multi_step``
+    (:func:`multi_step_ranks`): ``RANK_KEYS`` -> RankStats."""
+    if multi_step:
+        ranks = multi_step_ranks(params, model_state, cfg, tc, history_list, eval_list,
+                                 ent_filters, rel_filters, device, predict, topk,
+                                 relation_evaluation)
+    else:
+        ranks = rolling_ranks(params, model_state, cfg, tc, history_list, eval_list,
+                              ent_filters, rel_filters, device, predict)
     return {k: metrics.stat_ranks(v) for k, v in ranks.items()}
 
 
@@ -126,6 +184,9 @@ def test(
     data: TKGData,
     device="cuda",
     predict: Predict = regcn_predict,
+    multi_step: bool = False,
+    topk: int = 10,
+    relation_evaluation: bool = False,
 ) -> Dict[str, metrics.RankStats]:
     """Test-split evaluation (``Trainer.test``): history = train + valid,
     eval = test, with per-timestamp answer filters of the test split."""
@@ -136,7 +197,7 @@ def test(
     return evaluate(
         params, model_state, cfg, tc,
         split_by_time(data.train) + split_by_time(data.valid), split_by_time(data.test),
-        ent_f, rel_f, device, predict,
+        ent_f, rel_f, device, predict, multi_step, topk, relation_evaluation,
     )
 
 
@@ -270,43 +331,12 @@ class Trainer:
                  rel_filters: Optional[List[AnswerFilter]] = None,
                  multi_step: bool = False, topk: int = 10, relation_evaluation: bool = False
                  ) -> Dict[str, metrics.RankStats]:
-        """Rolling-window evaluation (ref:src/main.py:33-107). With
-        ``multi_step`` each snapshot's top-k predictions, of entities or
-        with ``relation_evaluation`` of relations, take the oldest
-        snapshot's place in the window instead of the snapshot itself."""
-        mc, tc = self.cfg.model, self.cfg.train
-        if not multi_step:
-            return evaluate(state.params, state.model_state, mc, tc, history_list, eval_list,
-                            ent_filters, rel_filters, self.device)
-        window = list(history_list[-tc.test_history_len:])
-        ranks: Dict[str, List[np.ndarray]] = {k: [] for k in RANK_KEYS}
-        for t, snap in enumerate(eval_list):
-            history = build_history(window, self.num_nodes, self.num_rels,
-                                    edge_bucket=tc.edge_bucket, rc_bucket=tc.rc_bucket)
-            triples, mask = pad_triples(snap, self.num_rels, tc.triple_bucket)
-            valid = mask > 0
-            tq = triples[valid]
-            with torch.inference_mode():
-                s_ob, s_rel = recurrent.predict(
-                    state.params, state.model_state, mc, history.to(self.device),
-                    torch.from_numpy(triples).long().to(self.device))
-            # the dense scores go to the host, in float64 as in the JAX loop
-            s_ob = s_ob.cpu().numpy().astype(np.float64)[valid]
-            s_rel = s_rel.cpu().numpy().astype(np.float64)[valid]
-            ranks["ent_raw"].append(metrics.ranks_from_scores(s_ob, tq[:, 2]))
-            ranks["ent_filter"].append(metrics.filtered_ranks(
-                s_ob, tq[:, [0, 1]], tq[:, 2], ent_filters[t] if ent_filters else None))
-            ranks["rel_raw"].append(metrics.ranks_from_scores(s_rel, tq[:, 1]))
-            ranks["rel_filter"].append(metrics.filtered_ranks(
-                s_rel, tq[:, [0, 2]], tq[:, 1], rel_filters[t] if rel_filters else None))
-            if relation_evaluation:
-                pred = construct_snap_r(tq, self.num_rels, s_rel, topk)
-            else:
-                pred = construct_snap(tq, self.num_rels, s_ob, topk)
-            if len(pred):
-                window.pop(0)
-                window.append(pred)
-        return {k: metrics.stat_ranks(v) for k, v in ranks.items()}
+        """Rolling-window evaluation (ref:src/main.py:33-107), single-step
+        or multi-step (:func:`multi_step_ranks`)."""
+        return evaluate(state.params, state.model_state, self.cfg.model, self.cfg.train,
+                        history_list, eval_list, ent_filters, rel_filters, self.device,
+                        multi_step=multi_step, topk=topk,
+                        relation_evaluation=relation_evaluation)
 
     def test(self, state: TrainState, multi_step: bool = False, topk: int = 10,
              relation_evaluation: bool = False) -> Dict[str, metrics.RankStats]:

@@ -197,8 +197,8 @@ def test_get_loss_and_every_gradient_match_jax(data, learn_curvature):
     leaves = tree_leaves(cp)
     for p in leaves:
         p.requires_grad_(True)
-    losses = PM.get_loss(cp, cs, pcfg, pt_hist, torch.from_numpy(triples).long(),
-                         torch.from_numpy(mask), train=True, curvature_max=cmax)
+    _, losses, _ = PM.get_loss(cp, cs, pcfg, pt_hist, torch.from_numpy(triples).long(),
+                               torch.from_numpy(mask), train=True, curvature_max=cmax)
     for k in ("entity", "relation", "static", "radius"):
         close(losses[k], want_losses[k], msg=k)
     assert float(losses["entity"]) > 0 and float(losses["relation"]) > 0
@@ -256,7 +256,7 @@ def test_predict_matches_jax(data):
 
 @pytest.mark.parametrize("unported", [
     dict(use_static=True), dict(use_est=True), dict(manifold_entities=True),
-    dict(compute_dtype="bfloat16"), dict(encoder="hyperbolic_uvrgcn"), dict(decoder="atth"),
+    dict(compute_dtype="bfloat16"), dict(encoder="fhnn"), dict(decoder="atth"),
     dict(use_time_aware_negative=True)])
 def test_unported_configs_raise(data, unported):
     _, pcfg = configs(data, **unported)
