@@ -73,12 +73,28 @@ Phases, each of which exits non-zero on failure:
    exactly, one step from each copy; (d) 20 steady steps; (e) the test
    split at random init and after the epoch, 6 B1 launches per snapshot,
    the entity raw MRR above the random-init one; (f) a profile of a step,
-   with B1's forward and the scatter backward apart.
+   with B1's forward and the scatter backward apart;
+9. config-4 training: BASELINE.json config 4, uvrgcn + AttH / AttH-Rel
+   (h=200, 2 layers, history 3, c=0.01 learned, a curvature per relation,
+   an entity bias, dropouts 0.2, fp32; buckets of 128), the first path
+   that runs B1 and B2 in one step, B2's entity loss on the true distance
+   with per-query curvature: (a) 3 steps cuda vs cpu as in phase 8, the
+   gradients of log_c, rel_curvature_raw (B2's dc) and entity_bias (B2's
+   dbias) printed apart; B2's three kernels timed at config 4's entity
+   shape on that distance; (b) one epoch through ``fit``, the launch
+   counts reset just before the epoch and read just after (B1 1812, each
+   B2 kernel 2 per step, 606 at this data); (c) 20 steady steps; (d) the
+   test split at random init and after the epoch (B1 6 launches per
+   snapshot, no B2), the entity raw MRR above the random-init one; (e) a
+   profile of a step, with B1's forward, the scatter backward and the
+   three B2 kernels apart.
 
 The line before the last is ``{"kernels": [...]}``: each row's
 ``launches`` is B1's on the config-1 test split or a B2 kernel's in the
-config-3 epoch, and ``launches_by_path`` holds its count on each path. The
-last line is ``{"ok": true, "device": {...}}``.
+config-3 epoch, and ``launches_by_path`` holds its count on each path;
+B1's ``shapes`` holds its times at three shapes, each B2 kernel's its
+times at config 4's entity shape on the true distance. The last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -109,6 +125,7 @@ from regcn_torch.data.snapshots import (  # noqa: E402
 )
 from regcn_torch.data.synthetic import generate  # noqa: E402
 from regcn_torch.hyperbolic import layers as hyp_layers  # noqa: E402
+from regcn_torch.hyperbolic.decoders import REL_C_EPS  # noqa: E402
 from regcn_torch.hyperbolic.model import HyperbolicConfig  # noqa: E402
 from regcn_torch.hyperbolic.ops import exp_map_zero  # noqa: E402
 from regcn_torch.hyperbolic.train import HyperbolicTrainer  # noqa: E402
@@ -144,6 +161,13 @@ CE_GRAD_TOL = 1e-4  # each gradient entry sums thousands of cancelling terms
 # products, read off the kernels' source: ~30 for a logit, ~90 for a logit,
 # its softmax weight and the chain rule back to p, |q|^2, |x|^2 and c
 CE_FWD_OPS, CE_BWD_OPS = 30, 90
+# the same on the true distance, off ``pair_logit`` and the two
+# ``pair_grad`` of streaming_ce.cu, each arithmetic operation,
+# comparison-select, square root, artanh, exp and division counted once:
+# ~33 for the logit and ~5 for the running softmax; the query side's chain
+# back to p, |q|^2 and c ~72 more, the candidate side's back to p and |x|^2
+# ~42 more
+CE_TRUE_OPS = {"streaming_ce_fwd": 38, "streaming_ce_bwd_q": 110, "streaming_ce_bwd_x": 80}
 # training path, CUDA against CPU from the same parameters (dropouts 0)
 TRAIN_LOSS_RTOL = 1e-4  # fp32 sums in another order on each side
 TRAIN_GRAD_TOL = 1e-4  # per parameter, relative to max(1, max|cpu grad|)
@@ -506,11 +530,11 @@ def device_breakdown(params, state, cfg, tc, data, dev) -> None:
 # ------------------------------------------------------- streaming CE (B2)
 
 def ce_case(B, N, d, dev, *, true=False, per_query_c=False, near_edge=False, masked=False,
-            seed=SEED):
+            seed=SEED, c_low=0.005):
     """Inputs of the streaming CE on ``dev`` from a seeded numpy generator:
-    ball points for c = 0.01 (per-query curvatures at most 0.999 c, as the
-    relation-curvature clamp bounds them), targets in the last partial
-    tile, an upstream gradient g that is 0 on a masked query tail."""
+    ball points for c = 0.01 (per-query curvatures from ``c_low`` to 0.999
+    c, as the relation-curvature clamp bounds them), targets in the last
+    partial tile, an upstream gradient g that is 0 on a masked query tail."""
     rng = np.random.default_rng(seed)
     c = 0.01
 
@@ -527,7 +551,7 @@ def ce_case(B, N, d, dev, *, true=False, per_query_c=False, near_edge=False, mas
         q[:8], x[:8], x[8:16] = 9.995 * u, -9.995 * u, -12.0 * u
     target = rng.integers(0, N, B)
     target[:4] = N - 1 - np.arange(4)
-    cq = (rng.uniform(0.005, 0.999 * c, B) if per_query_c else np.full(B, c)).astype(np.float32)
+    cq = (rng.uniform(c_low, 0.999 * c, B) if per_query_c else np.full(B, c)).astype(np.float32)
     g = rng.random(B).astype(np.float32)
     if masked:
         g[B - B // 5:] = 0.0
@@ -550,21 +574,26 @@ def ce_run(fn, a, dtype=torch.float32):
     return nll.detach(), dict(zip(CE_INPUTS, grads))
 
 
-def ce_bound_ms(B, N, d) -> dict:
+def ce_bound_ms(B, N, d, true: bool = False) -> dict:
     """Least time of each kernel: each input read once, each output
     written once, over HBM; the q.x products (and the dq or dx product of
-    the backward kernels) plus the elementwise work over fp32 peak."""
+    the backward kernels) plus the elementwise work of the distance over
+    fp32 peak."""
     def bound(nbytes, flops):
         by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
         return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
+    ops = (CE_TRUE_OPS if true else
+           {"streaming_ce_fwd": CE_FWD_OPS, "streaming_ce_bwd_q": CE_BWD_OPS,
+            "streaming_ce_bwd_x": CE_BWD_OPS})
     inputs = 4 * (B * d + N * d + N + 3 * B + 2)  # q, x, bias, cq, target, scale, margin
     return {
-        "streaming_ce_fwd": bound(inputs + 4 * 2 * B, 2 * B * N * d + CE_FWD_OPS * B * N),
+        "streaming_ce_fwd": bound(inputs + 4 * 2 * B,
+                                  2 * B * N * d + ops["streaming_ce_fwd"] * B * N),
         "streaming_ce_bwd_q": bound(inputs + 4 * 2 * B + 4 * (B * d + B + 2),
-                                    4 * B * N * d + CE_BWD_OPS * B * N),
+                                    4 * B * N * d + ops["streaming_ce_bwd_q"] * B * N),
         "streaming_ce_bwd_x": bound(inputs + 4 * 2 * B + 4 * (N * d + N),
-                                    4 * B * N * d + CE_BWD_OPS * B * N),
+                                    4 * B * N * d + ops["streaming_ce_bwd_x"] * B * N),
     }
 
 
@@ -601,7 +630,7 @@ def ce_times(a) -> dict:
         # the plain backward's share: forward + gradients, less the forward
         plain_ms = plain_fwd if not wrt else device_time_ms(lambda: plain(wrt)) - plain_fwd
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=device_time_ms(lib))
-    for name, (bound_ms, bound_by) in ce_bound_ms(B, N, q.shape[1]).items():
+    for name, (bound_ms, bound_by) in ce_bound_ms(B, N, q.shape[1], true).items():
         out[name].update(bound_ms=bound_ms, bound_by=bound_by)
     return out
 
@@ -809,11 +838,12 @@ def phase_training(data, dev: torch.device) -> dict:
     return launches
 
 
-def train_profile(label: str, step, order, scatter: bool = False) -> None:
+def train_profile(label: str, step, order, scatter: bool = False, ce: bool = False) -> None:
     """``step(i)`` for each i of ``order`` under torch.profiler: device busy
     time by kernel against the wall time; with ``scatter``, B1's forward
     kernel and the scatter's backward (``_ScatterAddSortedBackward``: the
-    plain-torch gather of the autograd Function) apart."""
+    plain-torch gather of the autograd Function) apart; with ``ce``, the
+    three B2 kernels apart."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -847,6 +877,17 @@ def train_profile(label: str, step, order, scatter: bool = False) -> None:
               f"busy); scatter backward (gather): {bwd_us / n:.1f} us/step in "
               f"{sum(e.count for e in bwd) / n:.0f} calls ({100 * bwd_us / busy_us:.1f} % of "
               "busy)", flush=True)
+    if ce:
+        parts, total_us = [], 0.0
+        for name in ("ce_forward_kernel", "ce_backward_q_kernel", "ce_backward_x_kernel"):
+            found = [e for e in kernels if name in e.key]
+            check(bool(found), f"the profile shows no {name}")
+            us = sum(e.self_device_time_total for e in found)
+            total_us += us
+            parts.append(f"{name} {us / n:.1f} us/step in {sum(e.count for e in found) / n:.0f} "
+                         "launches")
+        print("[profile]   B2: " + ", ".join(parts) + f"; together {total_us / n:.1f} us/step "
+              f"({100 * total_us / busy_us:.1f} % of busy)", flush=True)
 
 
 # ------------------------------------------------------- config-1 training
@@ -996,10 +1037,13 @@ def three_steps(tag: str, gpu, cpu, s_gpu, s_cpu, order, *loss_args) -> None:
     dw where the weight needs one, and the optimizer's update given the
     card's gradients. Printed, not checked: the global norm of the card's
     first gradients as the card, the CPU in fp32 and float64 take it (the
-    optimizer accumulates it in float64)."""
+    optimizer accumulates it in float64). Returns, per parameter, its
+    gradient's worst error over the steps relative to its largest entry,
+    and that largest entry."""
     t0 = time.perf_counter()
     names = leaf_names(s_gpu.params)
     worst_grad = worst_bn = worst_opt = worst_dw = 0.0
+    by_name = {n: (0.0, 0.0) for n in names}
     n_dw = 0
     kinks = PinnedKinks()
     for step, i in enumerate(order):
@@ -1032,6 +1076,8 @@ def three_steps(tag: str, gpu, cpu, s_gpu, s_cpu, order, *loss_args) -> None:
             check(err <= TRAIN_GRAD_TOL, f"{tag}, step on snapshot {i}: {name} gradient cuda "
                   f"vs cpu {err:.3e} > {TRAIN_GRAD_TOL:.0e} of its largest entry")
             worst_grad = max(worst_grad, err)
+            by_name[name] = (max(by_name[name][0], err),
+                             max(by_name[name][1], b.abs().max().item()))
         check(len(dw_gpu) == len(dw_cpu), f"{tag}, step on snapshot {i}: {len(dw_gpu)} dw on "
               f"the card, {len(dw_cpu)} on the cpu")
         for a, b in zip(dw_gpu, dw_cpu):
@@ -1064,6 +1110,7 @@ def three_steps(tag: str, gpu, cpu, s_gpu, s_cpu, order, *loss_args) -> None:
           f"largest entry{dw_text}, BN statistics within {worst_bn:.2e}, every parameter after "
           f"the optimizer step within {worst_opt:.2e} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
+    return by_name
 
 
 def config1_three_steps(data, cfg: ModelConfig, tc: TrainConfig, dev: torch.device) -> None:
@@ -1213,6 +1260,30 @@ def counted_test(trainer, state, expected: int, label: str) -> tuple:
     return stats, launches, seconds
 
 
+def fit_one_counted_epoch(trainer, state, **fit_kw) -> tuple:
+    """``trainer.fit(state, n_epochs=1, **fit_kw)`` with the launch counts
+    reset just before its ``run_epoch`` and read just after: (fit's info,
+    {"seconds", "launches"} of the epoch)."""
+    epoch = {}
+    run_epoch = trainer.run_epoch
+
+    def counted_epoch(st, e):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_epoch(st, e)
+        torch.cuda.synchronize()
+        epoch.update(seconds=time.perf_counter() - t0, launches=read_launches())
+        return out
+
+    trainer.run_epoch = counted_epoch
+    try:
+        _, info = trainer.fit(state=state, n_epochs=1, **fit_kw)
+    finally:
+        trainer.run_epoch = run_epoch
+    return info, epoch
+
+
 def phase_headline_training(data, tc: TrainConfig, dev: torch.device) -> dict:
     """The hyperbolic headline through ``HyperbolicTrainer``: (a) 3 steps
     cuda vs cpu (``three_steps``, dropouts 0), B1's dw among the checks;
@@ -1244,22 +1315,8 @@ def phase_headline_training(data, tc: TrainConfig, dev: torch.device) -> dict:
     # (b) the epoch, inside fit with a checkpoint
     order = trainer.epoch_order(0)
     expected = cfg.n_layers * sum(min(i, tc.train_history_len) for i in order)
-    epoch = {}
-    run_epoch = trainer.run_epoch
-
-    def counted_epoch(st, e):
-        reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = run_epoch(st, e)
-        torch.cuda.synchronize()
-        epoch.update(seconds=time.perf_counter() - t0, launches=read_launches())
-        return out
-
-    trainer.run_epoch = counted_epoch
     with tempfile.TemporaryDirectory() as path:
-        _, info = trainer.fit(state=state, n_epochs=1, checkpoint_path=path)
-        trainer.run_epoch = run_epoch
+        info, epoch = fit_one_counted_epoch(trainer, state, checkpoint_path=path)
         launches, row = epoch["launches"], info["history"][0]
         check(all(math.isfinite(v) for v in row["losses"].values()),
               f"headline epoch losses {row['losses']}")
@@ -1356,6 +1413,126 @@ def headline_resume(trainer, state, info, path: str, cfg, tc, data, dev) -> None
           f"parameter within {worst:.2e} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+# ------------------------------------------------------- config-4 training
+
+B2_LEAVES = {"log_c": "log_c (every map of the model, and B2's dc where a relation's clamp "
+                      "binds at 0.999 c)",
+             "decoder_ob.rel_curvature_raw": "rel_curvature_raw (B2's dc)",
+             "decoder_ob.entity_bias": "entity_bias (B2's dbias)"}
+
+
+def config4(data, **kw) -> HyperbolicConfig:
+    """BASELINE.json config 4 at full width, as ``tools/bench_configs.py``
+    runs it: uvrgcn + AttH / AttH-Rel (h=200, 2 layers, history 3), c=0.01
+    learned with no warmup, a curvature per relation, an entity bias, and
+    the CLI's defaults otherwise (dropouts 0.2, residual radius evolution,
+    radius supervision, layer norm), in fp32."""
+    return HyperbolicConfig(num_ents=data.num_nodes, num_rels=data.num_rels, h_dim=200,
+                            n_layers=2, encoder="hyperbolic_uvrgcn", decoder="atth", c=0.01,
+                            learn_curvature=True, use_rel_curvature=True, use_entity_bias=True,
+                            **kw)
+
+
+def phase_config4_training(data, tc: TrainConfig, dev: torch.device) -> tuple:
+    """Config 4 through ``HyperbolicTrainer``: (a) 3 steps cuda vs cpu
+    (``three_steps``, dropouts 0), the gradients that B2's dc and dbias
+    feed printed apart; B2's three kernels timed at config 4's entity shape
+    on the true distance with per-query curvature; (b) one epoch through
+    ``fit``, the launch counts reset just before ``run_epoch`` and read
+    just after (B1: 2 layers x the window's snapshots per step; each B2
+    kernel twice per step, entity and relation loss); (c) 20 steady steps;
+    (d) the test split at random init and after the epoch (B1 6 times per
+    snapshot, no B2: eval scores are the plain distance logits), the
+    entity raw MRR above the random-init one; (e) a profile of a step, B1's
+    forward, the scatter backward and the three B2 kernels apart. Returns
+    ({path: launches}, B2's times at the config-4 entity shape)."""
+    gpu = HyperbolicTrainer(config4(data, **NO_DROPOUT), tc, data, device=dev)
+    cpu = HyperbolicTrainer(config4(data, **NO_DROPOUT), tc, data, device="cpu")
+    s_gpu = gpu.init_state(SEED)
+    s_cpu = cpu.state_from(s_gpu.params, s_gpu.model_state)
+    worst = three_steps("config4", gpu, cpu, s_gpu, s_cpu, gpu.epoch_order(0)[:3],
+                        gpu._curvature_max(0))
+    for name, what in B2_LEAVES.items():
+        err, largest = worst[name]
+        check(largest > 0, f"config 4: {name} got no gradient in the 3 steps")
+        print(f"[config4] (a) gradient of {what}: cuda vs cpu within {err:.3e} of its largest "
+              f"entry {largest:.6e}", flush=True)
+    del gpu, cpu, s_gpu, s_cpu
+
+    cfg = config4(data)
+    trainer = HyperbolicTrainer(cfg, tc, data, device=dev)
+    state = trainer.init_state(SEED)
+    N, d = cfg.num_ents, cfg.h_dim
+    order = trainer.epoch_order(0)
+    batches = sorted({trainer.window(i)[1].shape[0] for i in order})
+    B = 512
+    label = f"config-4 entity B={B} N={N} d={d} true distance, per-query c"
+    times = ce_times(ce_case(B, N, d, dev, true=True, per_query_c=True, c_low=REL_C_EPS))
+    for name, row in times.items():
+        row["shape"] = label
+        print(f"[config4] {name} at the {label} in [{REL_C_EPS:g}, 0.999 c]: kernel "
+              f"{row['ms'] * 1e3:.2f} us, "
+              f"plain {row['plain_ms'] * 1e3:.2f} us, matmul {row['library_ms'] * 1e3:.2f} us, "
+              f"bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})", flush=True)
+
+    n_test = len(trainer.test_list)
+    test_launches = cfg.n_layers * tc.test_history_len * n_test
+    init_stats, _, init_s = counted_test(trainer, state, test_launches, "config 4 at init")
+    print(f"[config4] test split at random init ({init_s:.1f} s): MRR "
+          + ", ".join(f"{k} {v.mrr:.6f}" for k, v in init_stats.items()), flush=True)
+
+    # (b) the epoch, inside fit
+    expected = cfg.n_layers * sum(min(i, tc.train_history_len) for i in order)
+    info, epoch = fit_one_counted_epoch(trainer, state)
+    launches, row = epoch["launches"], info["history"][0]
+    check(all(math.isfinite(v) for v in row["losses"].values()),
+          f"config-4 epoch losses {row['losses']}")
+    check(launches["rgcn_scatter_sorted"] == expected,
+          f"scatter kernel launched {launches['rgcn_scatter_sorted']} times in the config-4 "
+          f"epoch, expected {expected} = {cfg.n_layers} layers x the snapshots of the "
+          f"{len(order)} windows")
+    for k in CE_KERNELS:
+        check(launches[k] == 2 * len(order), f"{k} launched {launches[k]} times in the config-4 "
+              f"epoch of {len(order)} steps, expected {2 * len(order)} (entity + relation loss "
+              "per step)")
+    print(f"[config4] (b) epoch 0 in fit: {len(order)} steps in {epoch['seconds']:.2f} s = "
+          f"{len(order) / epoch['seconds']:.2f} snapshots/s (first epoch: includes building "
+          f"the {len(order)} windows; padded triple batches {batches}); mean losses "
+          + ", ".join(f"{k} {v:.5f}" for k, v in row["losses"].items())
+          + f"; valid ent raw MRR {row['valid_mrr_raw']:.6f}; launches {launches}", flush=True)
+
+    # (c) steady state on a copy: the next epoch's first steps, windows built
+    steady = train_state.copy_state(state)
+    cmax = trainer._curvature_max(1)
+    steady_order = trainer.epoch_order(1)[:PROFILE_STEPS]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in steady_order:
+        trainer.train_step(steady, *trainer.window(i), cmax)
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t0
+    print(f"[config4] (c) steady state: {len(steady_order)} steps in {steady_s:.3f} s = "
+          f"{len(steady_order) / steady_s:.2f} snapshots/s, "
+          f"{steady_s / len(steady_order) * 1e3:.2f} ms per step", flush=True)
+
+    # (d) the test split after the epoch
+    stats, test_counts, test_s = counted_test(trainer, state, test_launches, "config 4")
+    check(stats["ent_raw"].mrr > init_stats["ent_raw"].mrr,
+          f"config-4 entity raw MRR {stats['ent_raw'].mrr:.6f} after an epoch is not above the "
+          f"random-init {init_stats['ent_raw'].mrr:.6f}")
+    print(f"[config4] (d) test split after one epoch ({test_s:.1f} s, "
+          f"{test_s / n_test * 1e3:.2f} ms per snapshot, {test_counts['rgcn_scatter_sorted']} B1 "
+          "launches, no B2): MRR " + ", ".join(f"{k} {v.mrr:.6f}" for k, v in stats.items())
+          + f" (random init: ent_raw {init_stats['ent_raw'].mrr:.6f})", flush=True)
+
+    # (e) where a step's time goes
+    cmax = trainer._curvature_max(2)
+    train_profile("config-4 train step",
+                  lambda i: trainer.train_step(steady, *trainer.window(i), cmax),
+                  trainer.epoch_order(2)[:PROFILE_STEPS], scatter=True, ce=True)
+    return {"config-4 training epoch": launches, "config-4 test split": test_counts}, times
+
+
 def main() -> None:
     t_start = time.perf_counter()
     seconds = {}
@@ -1385,7 +1562,12 @@ def main() -> None:
         "config-1 training", phase_config1_training, data, cfg, tc, dev, serving["ent_raw"].mrr)
     headline = timed("hyperbolic headline training", phase_headline_training, data, tc, dev)
     by_path.update(headline)
+    config4_paths, config4_times = timed("config-4 training", phase_config4_training, data, tc,
+                                         dev)
+    by_path.update(config4_paths)
     launches.update({k: by_path["config-3 training epoch"][k] for k in CE_KERNELS})
+    for k in CE_KERNELS:
+        timing[k]["shapes"] = [config4_times[k]]
     rows = [dict(name=k["name"], route=k["route"], source=k["source"], replaces=k["replaces"],
                  launches=launches[k["name"]], **timing[k["name"]],
                  launches_by_path={p: n[k["name"]] for p, n in by_path.items()})

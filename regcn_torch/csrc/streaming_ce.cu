@@ -87,7 +87,15 @@
 //   registers of the same shape;
 // - the elementwise chain has no branches (masked pairs give finite values
 //   that are dropped), so a thread's 8 pairs interleave; the proxy, whose
-//   clamp caps the distance, uses the fast division and exponential.
+//   clamp caps the distance, uses the fast division and exponential;
+// - |x|^2 is summed in the forward's and backward_q's order, not from the
+//   registers' column slices: p, |q|^2 and |x|^2 are then the same floats in
+//   all three kernels, and so is each logit. Next to a candidate (a query
+//   within ~1e-4 of it, as training drives a query towards its target) the
+//   true distance's expansion cancels terms of ~|x|^2 down to rounding
+//   noise, and a |x|^2 one ulp apart moved that pair's softmax weight away
+//   from the forward's lse: on an H100, dx of such a target missed float64
+//   by 1.4e-4 of 1.2, five times the plain version's miss.
 //
 // backward_q is the same design with q and x swapped; its v2 (one 64 x 64
 // tile pair at a time from shared memory, like the forward's v2) had the same
@@ -393,25 +401,41 @@ __global__ void __launch_bounds__(bwdx::kThreads, 1)
 #pragma unroll
   for (int c = 0; c < 2; ++c) {
     const int cand = col0 + lane + 32 * c;
-    float xxp = 0.f;
 #pragma unroll
     for (int m = 0; m < kCol4; ++m) {
       const int k = warp + kWarps * m;
       xr[c][m] = make_float4(0.f, 0.f, 0.f, 0.f);
       if (cand < N && k < sh.d4) xr[c][m] = __ldg(x4 + static_cast<size_t>(cand) * sh.d4 + k);
-      xxp = fmaf(xr[c][m].x, xr[c][m].x, xxp);
-      xxp = fmaf(xr[c][m].y, xr[c][m].y, xxp);
-      xxp = fmaf(xr[c][m].z, xr[c][m].z, xxp);
-      xxp = fmaf(xr[c][m].w, xr[c][m].w, xxp);
     }
-    red[warp * kCands + lane + 32 * c] = xxp;
+  }
+  // |x|^2 of the tile's candidates in the forward's and backward_q's order
+  // (warp_row_sq: lane-strided, then a butterfly; warp w takes candidates
+  // 8w .. 8w + 7), so that the three kernels take each pair's logit from the
+  // same p, |q|^2 and |x|^2. Next to a candidate the distance's expansion
+  // cancels terms of ~|x|^2 down to rounding noise, and a |x|^2 one ulp
+  // apart moves that pair's logit, and its softmax weight, away from the
+  // logits the forward took lse over.
+#pragma unroll
+  for (int i = 0; i < kCands / kWarps; ++i) {
+    const int e = warp * (kCands / kWarps) + i;
+    const float* row = x + static_cast<size_t>(col0 + e) * d;
+    float v[4 * kMaxD4 / 32];  // every load issued before the first add
+#pragma unroll
+    for (int j = 0; j < 4 * kMaxD4 / 32; ++j) {
+      const int k = lane + 32 * j;
+      v[j] = col0 + e < N && k < d ? __ldg(row + k) : 0.f;
+    }
+    float acc = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4 * kMaxD4 / 32; ++j) acc = fmaf(v[j], v[j], acc);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane == 0) red[e] = acc;
   }
   __syncthreads();
   // the elementwise chain: candidate ec, rows er + 4 i
   const int ec = tid % kCands, er = tid / kCands;
-  float xx = 0.f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) xx += red[w * kCands + ec];
+  const float xx = red[ec];
   const bool col_ok = col0 + ec < N;
   const float bv = col_ok ? __ldg(bias + col0 + ec) : 0.f;
   float sum_xx = 0.f, sum_g = 0.f;

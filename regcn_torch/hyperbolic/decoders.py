@@ -1,20 +1,23 @@
-"""Hyperbolic decoders: RotH and RotH-Rel, and the tangent ConvTransE / R.
+"""Hyperbolic decoders: MuRP, RotH and AttH (each with its relation
+variant), the tangent ConvTransE / R, DistMult and ComplEx.
 
-Counterpart of ``regcn_tpu/hyperbolic/decoders.py`` for the decoders of
-the two hyperbolic configurations this package runs:
+Counterpart of ``regcn_tpu/hyperbolic/decoders.py``:
 
-- RotH / RotH-Rel (config 3): scores come from the Möbius-difference
-  distance of a query to every candidate, from one [B,d]x[d,N] product
-  (:func:`regcn_torch.ops.streaming_ce.distance_logits`). The training
-  loss :func:`dist_ce_loss` is kernel B2 on a CUDA tensor and its plain
-  version on a CPU tensor (:func:`regcn_torch.ops.streaming_ce.streaming_nll`).
+- the distance decoders MuRP / MuRP-Rel, RotH / RotH-Rel (config 3) and
+  AttH / AttH-Rel (config 4): each builds a query on the ball and scores it
+  by the Möbius-difference distance to every candidate, from one
+  [B,d]x[d,N] product (:func:`regcn_torch.ops.streaming_ce.distance_logits`).
+  The training loss :func:`dist_ce_loss` is kernel B2 on a CUDA tensor and
+  its plain version on a CPU tensor
+  (:func:`regcn_torch.ops.streaming_ce.streaming_nll`). The entity
+  decoders score on the true distance under a per-relation curvature when
+  they learn one (``rel_curvature_raw``), else on the proxy distance;
 - the tangent ConvTransE / ConvTransR of the headline (uvrgcn): the
   Euclidean decoders' pipeline (``regcn_torch/models/decoders.py``: masked
   batch-statistics BN in training, three dropout sites) on the leaky-tanh
-  tangent table, scored with one plain GEMM plus a candidate bias ``b``.
-
-MuRP, AttH, DistMult and ComplEx are not ported yet (ROADMAP A.7): their
-entry points raise.
+  tangent table, scored with one plain GEMM plus a candidate bias ``b``;
+- DistMult and ComplEx: tangent scores, one plain GEMM each. The JAX
+  model calls neither; they are here because the JAX package has them.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from regcn_torch.hyperbolic import ops as H
 from regcn_torch.models import decoders as euclidean_decoders
 from regcn_torch.ops.activations import inverted_dropout
 from regcn_torch.ops.streaming_ce import SCORE_EPS, distance_logits, streaming_nll
+from regcn_torch.utils.init import xavier_uniform
 
 Params = Dict[str, torch.Tensor]
 BNState = euclidean_decoders.BNState
@@ -35,6 +39,7 @@ BNState = euclidean_decoders.BNState
 REL_C_EPS = 1e-5  # ref REL_CURVATURE_EPSILON
 REL_C_MARGIN = 0.999
 REL_C_INIT_RATIO = 0.95
+
 
 def softplus_inverse(x: float, eps: float = 1e-12) -> float:
     return math.log(max(math.exp(float(x)) - 1.0, eps))
@@ -83,14 +88,33 @@ def dist_ce_loss(query, candidates, target, c, *, mask=None, candidate_bias=None
 
 # ------------------------------------------------------- Givens primitives
 
-def givens_rotation(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
-    """Pairwise 2-D rotations. x [B,d], angles [B,d/2] or [d/2]."""
+def _pairwise(x: torch.Tensor, angles: torch.Tensor, reflect: bool) -> torch.Tensor:
     if angles.dim() == 1:
         angles = angles[None, :].expand(x.shape[0], -1)
     x1, x2 = x[:, 0::2], x[:, 1::2]
     ca, sa = torch.cos(angles), torch.sin(angles)
-    return torch.stack([ca * x1 - sa * x2, sa * x1 + ca * x2], dim=2).reshape(x.shape)
+    if reflect:
+        out = (ca * x1 + sa * x2, sa * x1 - ca * x2)
+    else:
+        out = (ca * x1 - sa * x2, sa * x1 + ca * x2)
+    return torch.stack(out, dim=2).reshape(x.shape)
 
+
+def givens_rotation(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Pairwise 2-D rotations. x [B,d], angles [B,d/2] or [d/2]."""
+    return _pairwise(x, angles, reflect=False)
+
+
+def givens_reflection(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Pairwise 2-D reflections: o1 = cos x1 + sin x2, o2 = sin x1 - cos x2."""
+    return _pairwise(x, angles, reflect=True)
+
+
+def _uniform(gen, shape, bound):
+    return torch.empty(shape).uniform_(-bound, bound, generator=gen)
+
+
+# ---------------------------------------------- distance decoders' common parts
 
 def _score_scale(params):
     return torch.nn.functional.softplus(params["score_scale_raw"]) + SCORE_EPS
@@ -104,8 +128,80 @@ def _relation_curvature(params, r_idx, c, warmup_max=None):
     return clamp_relation_curvature(raw, c, warmup_max)
 
 
-def _uniform(gen, shape, bound):
-    return torch.empty(shape).uniform_(-bound, bound, generator=gen)
+def _entity_extras(p: Params, num_entities, num_rels_total, c_init, use_entity_bias,
+                   use_rel_curvature, score_scale_init, score_margin_init) -> Params:
+    """The entity decoders' score scale and margin, then, as configured, the
+    candidate bias and the per-relation curvature (softplus-parametrised,
+    starting at 0.95 c)."""
+    p["score_scale_raw"] = torch.tensor(float(score_scale_init))
+    p["score_margin"] = torch.tensor(float(score_margin_init))
+    if use_entity_bias:
+        p["entity_bias"] = torch.zeros(num_entities)
+    if use_rel_curvature:
+        theta = softplus_inverse(max(c_init * REL_C_INIT_RATIO, REL_C_EPS))
+        p["rel_curvature_raw"] = torch.full((num_rels_total,), theta)
+    return p
+
+
+def _distance_args(params, triples, c, rel_curvature_max, use_hyperbolic_distance=None):
+    """The entity decoders' scoring arguments: the candidate bias, scale,
+    margin and the query's relation curvature, on the true distance when
+    the curvature is learned (unless ``use_hyperbolic_distance`` says)."""
+    if use_hyperbolic_distance is None:
+        use_hyperbolic_distance = "rel_curvature_raw" in params
+    return dict(candidate_bias=params.get("entity_bias"), score_scale=_score_scale(params),
+                score_margin=params["score_margin"],
+                query_curvature=_relation_curvature(params, triples[:, 1], c, rel_curvature_max),
+                use_hyperbolic_distance=use_hyperbolic_distance)
+
+
+def _entity_scores(params, query, entity_embedding, triples, c, rel_curvature_max,
+                   use_hyperbolic_distance=None):
+    """[B, N] scores of ``query`` against every entity; with an entity bias,
+    the subject's bias is added to its whole row, as JAX's eval does."""
+    scores = dist_score(query, entity_embedding, c,
+                        **_distance_args(params, triples, c, rel_curvature_max,
+                                         use_hyperbolic_distance))
+    if "entity_bias" in params:
+        scores = scores + params["entity_bias"][triples[:, 0]][:, None]
+    return scores
+
+
+def _entity_loss(params, query, entity_embedding, triples, c, mask, rel_curvature_max):
+    """The entity CE over every candidate; the subject's row-constant bias
+    cancels in it."""
+    return dist_ce_loss(query, entity_embedding, triples[:, 2], c, mask=mask,
+                        **_distance_args(params, triples, c, rel_curvature_max))
+
+
+def _relation_args(params):
+    """The relation decoders' bias over the 2R relations, and their scale
+    and margin where they have them (MuRP-Rel has neither)."""
+    return dict(candidate_bias=params["rel_bias"],
+                score_scale=_score_scale(params) if "score_scale_raw" in params else None,
+                score_margin=params.get("score_margin", 0.0))
+
+
+def _relation_scores(params, query, rel_embedding, c):
+    return dist_score(query, H.exp_map_zero(rel_embedding, c), c, **_relation_args(params))
+
+
+def _relation_loss(params, query, rel_embedding, triples, c, mask):
+    return dist_ce_loss(query, H.exp_map_zero(rel_embedding, c), triples[:, 1], c, mask=mask,
+                        **_relation_args(params))
+
+
+def _translate(params, rel, mixed, c):
+    """mobius_add(mixed, exp_0(rel @ trans_w.T + trans_b)), both projected
+    to the ball: the entity decoders' relation translation."""
+    t_r = H.exp_map_zero(rel @ params["trans_w"].T + params["trans_b"], c)
+    return H.mobius_add(H.project_to_ball(mixed, c), H.project_to_ball(t_r, c), c)
+
+
+def _subject_tangent(entity_embedding, triples, c, dropout, gen, train):
+    """log_0 of the projected subjects, with the input dropout."""
+    s_emb = H.project_to_ball(entity_embedding.index_select(0, triples[:, 0]), c)
+    return inverted_dropout(H.log_map_zero(s_emb, c), dropout, gen, train)
 
 
 # ---------------------------------------------------- tangent ConvTransE / R
@@ -165,13 +261,82 @@ def hyperbolic_convtransr_score(params, bn_state, entity_embedding, rel_embeddin
     return _convtrans_score(params, bn_state, stacked, rel_embedding, mask, dropouts, gen, train)
 
 
+# ----------------------------------------------------------------- MuRP
+
+def init_murp(gen: torch.Generator, num_entities, num_rels_total, h_dim, c_init=0.01,
+              init_scale=1e-3, use_entity_bias=False, use_rel_curvature=False,
+              score_scale_init=1.0, score_margin_init=1.0) -> Params:
+    p: Params = {
+        "rot_w": _uniform(gen, (h_dim, h_dim), init_scale),
+        "rot_b": torch.zeros(h_dim),
+        "trans_w": _uniform(gen, (h_dim, h_dim), init_scale),
+        "trans_b": torch.zeros(h_dim),
+    }
+    return _entity_extras(p, num_entities, num_rels_total, c_init, use_entity_bias,
+                          use_rel_curvature, score_scale_init, score_margin_init)
+
+
+def _murp_query(params, entity_embedding, rel_embedding, triples, c, dropout, gen, train):
+    """Diagonal scaling of the subject's tangent, then the translation."""
+    rel = rel_embedding.index_select(0, triples[:, 1])
+    rot = rel @ params["rot_w"].T + params["rot_b"]
+    s_tan = _subject_tangent(entity_embedding, triples, c, dropout, gen, train)
+    return _translate(params, rel, H.exp_map_zero(rot * s_tan, c), c)
+
+
+def murp_score(params, entity_embedding, rel_embedding, triples, c, *, dropout=0.0, gen=None,
+               train=False, rel_curvature_max=None, use_hyperbolic_distance=None):
+    query = _murp_query(params, entity_embedding, rel_embedding, triples, c, dropout, gen, train)
+    return _entity_scores(params, query, entity_embedding, triples, c, rel_curvature_max,
+                          use_hyperbolic_distance)
+
+
+def murp_loss(params, entity_embedding, rel_embedding, triples, c, *, mask=None, dropout=0.0,
+              gen=None, train=True, rel_curvature_max=None):
+    query = _murp_query(params, entity_embedding, rel_embedding, triples, c, dropout, gen, train)
+    return _entity_loss(params, query, entity_embedding, triples, c, mask, rel_curvature_max)
+
+
+def init_murp_rel(gen: torch.Generator, num_rels_base, h_dim) -> Params:
+    return {
+        "w_s": xavier_uniform(gen, (h_dim, h_dim)),
+        "w_o": xavier_uniform(gen, (h_dim, h_dim)),
+        "rel_bias": torch.zeros(num_rels_base * 2),
+    }
+
+
+def _murp_rel_query(params, entity_embedding, triples, c, dropout, gen, train):
+    """exp_0(s_tan @ w_s + o_tan @ w_o); the dropouts drawn s first, then o."""
+    s_tan = H.log_map_zero(entity_embedding.index_select(0, triples[:, 0]), c)
+    o_tan = H.log_map_zero(entity_embedding.index_select(0, triples[:, 2]), c)
+    s_tan = inverted_dropout(s_tan, dropout, gen, train)
+    o_tan = inverted_dropout(o_tan, dropout, gen, train)
+    return H.exp_map_zero(s_tan @ params["w_s"] + o_tan @ params["w_o"], c)
+
+
+def murp_rel_score(params, entity_embedding, rel_embedding, triples, c, *, dropout=0.0,
+                   gen=None, train=False):
+    query = _murp_rel_query(params, entity_embedding, triples, c, dropout, gen, train)
+    return _relation_scores(params, query, rel_embedding, c)
+
+
+def murp_rel_loss(params, entity_embedding, rel_embedding, triples, c, *, mask=None,
+                  dropout=0.0, gen=None, train=True):
+    query = _murp_rel_query(params, entity_embedding, triples, c, dropout, gen, train)
+    return _relation_loss(params, query, rel_embedding, triples, c, mask)
+
+
 # ----------------------------------------------------------------- RotH
+
+def _check_even(h_dim):
+    if h_dim % 2:
+        raise ValueError(f"h_dim must be even for the Givens pairs; got {h_dim}")
+
 
 def init_roth(gen: torch.Generator, num_entities, num_rels_total, h_dim, c_init=0.01,
               init_scale=1e-3, use_entity_bias=False, use_rel_curvature=False,
               score_scale_init=1.0, score_margin_init=1.0) -> Params:
-    if h_dim % 2:
-        raise ValueError(f"h_dim must be even for the Givens rotation; got {h_dim}")
+    _check_even(h_dim)
     p: Params = {
         "rot_w": _uniform(gen, (h_dim // 2, h_dim), init_scale),
         "rot_b": torch.zeros(h_dim // 2),
@@ -181,15 +346,9 @@ def init_roth(gen: torch.Generator, num_entities, num_rels_total, h_dim, c_init=
         "reshape_b1": torch.zeros(h_dim),
         "reshape_w2": _uniform(gen, (h_dim, h_dim), init_scale),
         "reshape_b2": torch.zeros(h_dim),
-        "score_scale_raw": torch.tensor(float(score_scale_init)),
-        "score_margin": torch.tensor(float(score_margin_init)),
     }
-    if use_entity_bias:
-        p["entity_bias"] = torch.zeros(num_entities)
-    if use_rel_curvature:
-        theta = softplus_inverse(max(c_init * REL_C_INIT_RATIO, REL_C_EPS))
-        p["rel_curvature_raw"] = torch.full((num_rels_total,), theta)
-    return p
+    return _entity_extras(p, num_entities, num_rels_total, c_init, use_entity_bias,
+                          use_rel_curvature, score_scale_init, score_margin_init)
 
 
 def _reshape_tangent(params, x):
@@ -199,55 +358,43 @@ def _reshape_tangent(params, x):
 
 
 def _roth_query(params, entity_embedding, rel_embedding, triples, c, dropout, gen, train):
-    r_idx = triples[:, 1]
-    s_emb = H.project_to_ball(entity_embedding.index_select(0, triples[:, 0]), c)
-    s_tan = inverted_dropout(H.log_map_zero(s_emb, c), dropout, gen, train)
-    s_tan = _reshape_tangent(params, s_tan)
-    rel = rel_embedding.index_select(0, r_idx)
+    rel = rel_embedding.index_select(0, triples[:, 1])
+    s_tan = _reshape_tangent(params, _subject_tangent(entity_embedding, triples, c, dropout, gen,
+                                                      train))
     angles = rel @ params["rot_w"].T + params["rot_b"]
-    rot_s = H.exp_map_zero(givens_rotation(s_tan, angles), c)
-    t_r = H.exp_map_zero(rel @ params["trans_w"].T + params["trans_b"], c)
-    return H.mobius_add(H.project_to_ball(rot_s, c), H.project_to_ball(t_r, c), c)
-
-
-def _roth_distance_args(params, triples, c, rel_curvature_max):
-    return dict(candidate_bias=params.get("entity_bias"), score_scale=_score_scale(params),
-                score_margin=params["score_margin"],
-                query_curvature=_relation_curvature(params, triples[:, 1], c, rel_curvature_max),
-                use_hyperbolic_distance="rel_curvature_raw" in params)
+    return _translate(params, rel, H.exp_map_zero(givens_rotation(s_tan, angles), c), c)
 
 
 def roth_score(params, entity_embedding, rel_embedding, triples, c, *, dropout=0.0, gen=None,
                train=False, rel_curvature_max=None):
     query = _roth_query(params, entity_embedding, rel_embedding, triples, c, dropout, gen, train)
-    scores = dist_score(query, entity_embedding, c,
-                        **_roth_distance_args(params, triples, c, rel_curvature_max))
-    if "entity_bias" in params:
-        scores = scores + params["entity_bias"][triples[:, 0]][:, None]
-    return scores
+    return _entity_scores(params, query, entity_embedding, triples, c, rel_curvature_max)
 
 
 def roth_loss(params, entity_embedding, rel_embedding, triples, c, *, mask=None, dropout=0.0,
               gen=None, train=True, rel_curvature_max=None):
     query = _roth_query(params, entity_embedding, rel_embedding, triples, c, dropout, gen, train)
-    return dist_ce_loss(query, entity_embedding, triples[:, 2], c, mask=mask,
-                        **_roth_distance_args(params, triples, c, rel_curvature_max))
+    return _entity_loss(params, query, entity_embedding, triples, c, mask, rel_curvature_max)
+
+
+def _relation_extras(p: Params, num_rels_base, score_scale_init, score_margin_init) -> Params:
+    p["rel_bias"] = torch.zeros(num_rels_base * 2)
+    p["score_scale_raw"] = torch.tensor(float(score_scale_init))
+    p["score_margin"] = torch.tensor(float(score_margin_init))
+    return p
 
 
 def init_roth_rel(gen: torch.Generator, num_rels_base, h_dim, init_scale=1e-3,
                   score_scale_init=1.0, score_margin_init=1.0) -> Params:
-    if h_dim % 2:
-        raise ValueError(f"h_dim must be even for the Givens rotation; got {h_dim}")
-    return {
+    _check_even(h_dim)
+    p: Params = {
         "global_rot": _uniform(gen, (h_dim // 2,), math.pi),
         "reshape_w1": _uniform(gen, (h_dim, h_dim), init_scale),
         "reshape_b1": torch.zeros(h_dim),
         "reshape_w2": _uniform(gen, (h_dim, h_dim), init_scale),
         "reshape_b2": torch.zeros(h_dim),
-        "rel_bias": torch.zeros(num_rels_base * 2),
-        "score_scale_raw": torch.tensor(float(score_scale_init)),
-        "score_margin": torch.tensor(float(score_margin_init)),
     }
+    return _relation_extras(p, num_rels_base, score_scale_init, score_margin_init)
 
 
 def _roth_rel_query(params, entity_embedding, triples, c, dropout, gen, train):
@@ -261,28 +408,120 @@ def _roth_rel_query(params, entity_embedding, triples, c, dropout, gen, train):
 def roth_rel_score(params, entity_embedding, rel_embedding, triples, c, *, dropout=0.0,
                    gen=None, train=False):
     query = _roth_rel_query(params, entity_embedding, triples, c, dropout, gen, train)
-    return dist_score(query, H.exp_map_zero(rel_embedding, c), c,
-                      candidate_bias=params["rel_bias"], score_scale=_score_scale(params),
-                      score_margin=params["score_margin"])
+    return _relation_scores(params, query, rel_embedding, c)
 
 
 def roth_rel_loss(params, entity_embedding, rel_embedding, triples, c, *, mask=None,
                   dropout=0.0, gen=None, train=True):
     query = _roth_rel_query(params, entity_embedding, triples, c, dropout, gen, train)
-    return dist_ce_loss(query, H.exp_map_zero(rel_embedding, c), triples[:, 1], c, mask=mask,
-                        candidate_bias=params["rel_bias"], score_scale=_score_scale(params),
-                        score_margin=params["score_margin"])
+    return _relation_loss(params, query, rel_embedding, triples, c, mask)
 
 
-def _not_ported(name: str, item: str):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(f"the {name} decoder is not ported yet (ROADMAP {item})")
+# ----------------------------------------------------------------- AttH
 
-    fn.__name__ = name
-    return fn
+def init_atth(gen: torch.Generator, num_entities, num_rels_total, h_dim, c_init=0.01,
+              init_scale=1e-3, use_entity_bias=False, use_rel_curvature=False,
+              score_scale_init=1.0, score_margin_init=1.0) -> Params:
+    _check_even(h_dim)
+    p: Params = {
+        "rot_w": _uniform(gen, (h_dim // 2, h_dim), init_scale),
+        "rot_b": torch.zeros(h_dim // 2),
+        "ref_w": _uniform(gen, (h_dim // 2, h_dim), init_scale),
+        "ref_b": torch.zeros(h_dim // 2),
+        "trans_w": _uniform(gen, (h_dim, h_dim), init_scale),
+        "trans_b": torch.zeros(h_dim),
+        "attn_w": _uniform(gen, (2 * h_dim, h_dim), init_scale),
+        "attn_b": torch.zeros(2 * h_dim),
+    }
+    return _entity_extras(p, num_entities, num_rels_total, c_init, use_entity_bias,
+                          use_rel_curvature, score_scale_init, score_margin_init)
 
 
-init_murp = murp_score = murp_loss = _not_ported("MuRP", "A.7")
-init_atth = atth_score = atth_loss = _not_ported("AttH", "A.7")
-distmult_score = _not_ported("DistMult", "A.7")
-complex_score = _not_ported("ComplEx", "A.7")
+def _attention_mix(rot_s, ref_s, a, c):
+    """exp_0 of the attention-weighted rotation and reflection."""
+    return H.exp_map_zero(a * rot_s + (1.0 - a) * ref_s, c)
+
+
+def _atth_query(params, entity_embedding, rel_embedding, triples, c, dropout, gen, train):
+    """The subject's rotation and reflection by its relation, mixed by
+    sigmoid(<attn_w_r, [s_tan, rel_r]>), then the translation."""
+    rel = rel_embedding.index_select(0, triples[:, 1])
+    s_tan = _subject_tangent(entity_embedding, triples, c, dropout, gen, train)
+    rot_s = givens_rotation(s_tan, rel @ params["rot_w"].T + params["rot_b"])
+    ref_s = givens_reflection(s_tan, rel @ params["ref_w"].T + params["ref_b"])
+    attn_w = rel @ params["attn_w"].T + params["attn_b"]
+    a = torch.sigmoid(torch.sum(attn_w * torch.cat([s_tan, rel], dim=-1), dim=-1, keepdim=True))
+    return _translate(params, rel, _attention_mix(rot_s, ref_s, a, c), c)
+
+
+def atth_score(params, entity_embedding, rel_embedding, triples, c, *, dropout=0.0, gen=None,
+               train=False, rel_curvature_max=None):
+    query = _atth_query(params, entity_embedding, rel_embedding, triples, c, dropout, gen, train)
+    return _entity_scores(params, query, entity_embedding, triples, c, rel_curvature_max)
+
+
+def atth_loss(params, entity_embedding, rel_embedding, triples, c, *, mask=None, dropout=0.0,
+              gen=None, train=True, rel_curvature_max=None):
+    query = _atth_query(params, entity_embedding, rel_embedding, triples, c, dropout, gen, train)
+    return _entity_loss(params, query, entity_embedding, triples, c, mask, rel_curvature_max)
+
+
+def init_atth_rel(gen: torch.Generator, num_rels_base, h_dim, init_scale=1e-3,
+                  score_scale_init=1.0, score_margin_init=1.0) -> Params:
+    _check_even(h_dim)
+    p: Params = {
+        "global_rot": _uniform(gen, (h_dim // 2,), math.pi),
+        "global_ref": _uniform(gen, (h_dim // 2,), math.pi),
+        "attn_weight": _uniform(gen, (2 * h_dim,), init_scale),
+    }
+    return _relation_extras(p, num_rels_base, score_scale_init, score_margin_init)
+
+
+def _atth_rel_query(params, entity_embedding, triples, c, dropout, gen, train):
+    """The subject's global rotation and reflection, mixed by
+    sigmoid(<attn_weight, [s_tan, o_tan]>), Möbius-subtracted from the
+    object."""
+    obj = entity_embedding.index_select(0, triples[:, 2])
+    s_tan = H.log_map_zero(entity_embedding.index_select(0, triples[:, 0]), c)
+    o_tan = H.log_map_zero(obj, c)
+    s_tan = inverted_dropout(s_tan, dropout, gen, train)
+    rot_s = givens_rotation(s_tan, params["global_rot"])
+    ref_s = givens_reflection(s_tan, params["global_ref"])
+    a = torch.sigmoid(torch.cat([s_tan, o_tan], dim=-1) @ params["attn_weight"])[:, None]
+    return H.mobius_add(-_attention_mix(rot_s, ref_s, a, c), obj, c)
+
+
+def atth_rel_score(params, entity_embedding, rel_embedding, triples, c, *, dropout=0.0,
+                   gen=None, train=False):
+    query = _atth_rel_query(params, entity_embedding, triples, c, dropout, gen, train)
+    return _relation_scores(params, query, rel_embedding, c)
+
+
+def atth_rel_loss(params, entity_embedding, rel_embedding, triples, c, *, mask=None,
+                  dropout=0.0, gen=None, train=True):
+    query = _atth_rel_query(params, entity_embedding, triples, c, dropout, gen, train)
+    return _relation_loss(params, query, rel_embedding, triples, c, mask)
+
+
+# ------------------------------------------------ DistMult / ComplEx (tangent)
+
+def distmult_score(entity_embedding, rel_embedding, triples, c, *, dropout=0.0, gen=None,
+                   train=False):
+    """[B, N] bilinear tangent scores <s ⊙ r, e> against every entity."""
+    ent_tan = inverted_dropout(H.log_map_zero(entity_embedding, c), dropout, gen, train)
+    s = ent_tan.index_select(0, triples[:, 0])
+    return (s * rel_embedding.index_select(0, triples[:, 1])) @ ent_tan.T
+
+
+def complex_score(entity_embedding, rel_embedding, triples, c, *, dropout=0.0, gen=None,
+                  train=False):
+    """[B, N] ComplEx scores Re<s ⊙ r, conj(e)> with the tangent's halves as
+    real and imaginary parts: [Re(s r), Im(s r)] against [e_re, e_im], which
+    is the tangent table itself."""
+    ent_tan = inverted_dropout(H.log_map_zero(entity_embedding, c), dropout, gen, train)
+    half = ent_tan.shape[-1] // 2
+    s = ent_tan.index_select(0, triples[:, 0])
+    r = rel_embedding.index_select(0, triples[:, 1])
+    s_re, s_im, r_re, r_im = s[:, :half], s[:, half:], r[:, :half], r[:, half:]
+    sr = torch.cat([s_re * r_re - s_im * r_im, s_re * r_im + s_im * r_re], dim=-1)
+    return sr @ ent_tan.T

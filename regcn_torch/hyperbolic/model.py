@@ -1,12 +1,13 @@
 """Hyperbolic recurrent RGCN: the model core of the hyperbolic slice.
 
-Counterpart of ``regcn_tpu/hyperbolic/model.py`` for two configurations:
-LGCN + RotH / RotH-Rel (config 3) on the ball-space path (``evolve``
-lines 322-367), and the headline, hyperbolic UnionRGCN + tangent
-ConvTransE / ConvTransR, on the tangent-carry path (``_evolve_tangent``,
-which JAX's ``evolve`` picks for this encoder). The JAX ``lax.scan`` over
-the history window is a Python loop over its T steps. One evolution
-step (snapshot t), on the ball:
+Counterpart of ``regcn_tpu/hyperbolic/model.py`` for the LGCN and the
+hyperbolic UnionRGCN encoders with each of the four decoders (tangent
+ConvTransE / R, MuRP, RotH, AttH, each entity decoder with its relation
+variant). As in JAX, the encoder alone picks the evolution path: the
+LGCN runs on the ball (``evolve`` lines 322-367), the uvrgcn on the
+tangent carry (``_evolve_tangent``, which JAX's ``evolve`` picks for this
+encoder). The JAX ``lax.scan`` over the history window is a Python loop
+over its T steps. One evolution step (snapshot t), on the ball:
 
   ctx  = segment-mean of log_0(h) over relation incidence
   h0   = GRUCell([emb_rel ; ctx], h0)                 (tangent, L2-normalised)
@@ -19,11 +20,12 @@ the ball path becomes a norm clamp (``clamp_tangent_norm``) and the radii
 come from v (``radius_from_tangent``, ``apply_radius_tangent``).
 
 The curvature is fixed, or learned as clamp(exp(log_c), c_min, c_max),
-with c_max a warmup schedule that the trainer passes in.
+with c_max a warmup schedule that the trainer passes in; the entity
+decoders may learn a curvature per relation below it.
 
-Not ported yet, and raising: the static graph, EST, entities stored on
-the ball (Riemannian Adam), bf16 and the other encoder and decoder
-pairs (ROADMAP A.3b, A.5-A.8).
+Not ported yet, and raising: the fhnn and hgat encoders (ROADMAP A.7),
+the static graph (A.6), EST and TANS (A.8), entities stored on the ball
+with Riemannian Adam (A.3b) and bf16 (A.5).
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ CLAMP = 10.0
 ENCODERS = HL.ENCODERS
 DECODERS = ("hyperbolic_convtranse", "murp", "roth", "atth")
 # (encoder, decoder) pairs this package runs
-PORTED = (("lgcn", "roth"), ("hyperbolic_uvrgcn", "hyperbolic_convtranse"))
+PORTED = tuple((e, d) for e in ("lgcn", "hyperbolic_uvrgcn") for d in DECODERS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,8 +116,8 @@ class HyperbolicConfig:
 @dataclasses.dataclass
 class HypModelState:
     """Non-parameter state: the ConvTrans decoders' BN running statistics
-    (empty for RotH) and the radius-target buffer, which weight decay never
-    touches."""
+    (empty for the distance decoders) and the radius-target buffer, which
+    weight decay never touches."""
 
     bn_ob: Any
     bn_rel: Any
@@ -125,16 +127,17 @@ class HypModelState:
 def check_supported(cfg: HyperbolicConfig) -> None:
     """Raises for the configurations this package does not run yet."""
     unported = {
-        "use_static": "the static graph (ROADMAP A7)",
-        "use_est": "EST (ROADMAP A9)",
-        "use_time_aware_negative": "TANS negatives (ROADMAP A9)",
+        "use_static": "the static graph (ROADMAP A.6)",
+        "use_est": "EST (ROADMAP A.8)",
+        "use_time_aware_negative": "TANS negatives (ROADMAP A.8)",
         "manifold_entities": "entities on the ball with Riemannian Adam (ROADMAP A.3b)",
     }
     for flag, what in unported.items():
         if getattr(cfg, flag):
             raise NotImplementedError(f"{flag}: {what} is not ported yet")
     if cfg.compute_dtype != "float32":
-        raise NotImplementedError(f"compute dtype {cfg.compute_dtype!r}: only float32 is ported")
+        raise NotImplementedError(f"compute dtype {cfg.compute_dtype!r}: only float32 is ported "
+                                  "(ROADMAP A.5)")
     if (cfg.encoder, cfg.decoder) not in PORTED:
         raise NotImplementedError(f"the {cfg.encoder} encoder with the {cfg.decoder} decoder is "
                                   f"not ported yet (ROADMAP A.7); ported: {PORTED}")
@@ -169,19 +172,21 @@ def init_params(gen: torch.Generator, cfg: HyperbolicConfig, radius_target=None,
           else torch.full((cfg.num_ents,), 0.5 * (cfg.radius_min + cfg.radius_max)))
     params["radius_static"] = rt.clone()
     bn_ob = bn_rel = {}
+    scores = dict(score_scale_init=cfg.hyp_score_scale_init,
+                  score_margin_init=cfg.hyp_score_margin_init)
+    entity = (cfg.num_ents, cfg.num_rels_total, d, cfg.c, cfg.hyp_init_scale,
+              cfg.use_entity_bias, cfg.use_rel_curvature)
     if cfg.decoder == "hyperbolic_convtranse":
         params["decoder_ob"], bn_ob = HD.init_hyperbolic_convtranse(gen, cfg.num_ents, d)
         params["decoder_rel"], bn_rel = HD.init_hyperbolic_convtransr(gen, cfg.num_rels_total, d)
+    elif cfg.decoder == "murp":
+        params["decoder_ob"] = HD.init_murp(gen, *entity, **scores)
+        params["decoder_rel"] = HD.init_murp_rel(gen, cfg.num_rels, d)
     else:
-        params["decoder_ob"] = HD.init_roth(
-            gen, cfg.num_ents, cfg.num_rels_total, d, cfg.c, cfg.hyp_init_scale,
-            cfg.use_entity_bias, cfg.use_rel_curvature,
-            score_scale_init=cfg.hyp_score_scale_init,
-            score_margin_init=cfg.hyp_score_margin_init)
-        params["decoder_rel"] = HD.init_roth_rel(
-            gen, cfg.num_rels, d, cfg.hyp_init_scale,
-            score_scale_init=cfg.hyp_score_scale_init,
-            score_margin_init=cfg.hyp_score_margin_init)
+        init_ob, init_rel = {"roth": (HD.init_roth, HD.init_roth_rel),
+                             "atth": (HD.init_atth, HD.init_atth_rel)}[cfg.decoder]
+        params["decoder_ob"] = init_ob(gen, *entity, **scores)
+        params["decoder_rel"] = init_rel(gen, cfg.num_rels, d, cfg.hyp_init_scale, **scores)
     state = HypModelState(bn_ob=tree_to(bn_ob, device), bn_rel=tree_to(bn_rel, device),
                           radius_target=rt.to(device))
     return tree_to(params, device), state
@@ -312,26 +317,38 @@ def _decoder_dropouts(cfg):
     return (cfg.input_dropout, cfg.hidden_dropout, cfg.feat_dropout)
 
 
+ENTITY_SCORES = {"murp": HD.murp_score, "roth": HD.roth_score, "atth": HD.atth_score}
+RELATION_SCORES = {"murp": HD.murp_rel_score, "roth": HD.roth_rel_score,
+                   "atth": HD.atth_rel_score}
+ENTITY_LOSSES = {"murp": HD.murp_loss, "roth": HD.roth_loss, "atth": HD.atth_loss}
+RELATION_LOSSES = {"murp": HD.murp_rel_loss, "roth": HD.roth_rel_loss,
+                   "atth": HD.atth_rel_loss}
+
+
 def entity_scores(params, state, cfg, pre_emb, r_emb, triples, mask, c, *, gen=None,
                   train=False, ent_tan=None) -> Tuple[torch.Tensor, Any]:
-    """(entity scores [B, N], new ``bn_ob``; the old one for RotH)."""
+    """(entity scores [B, N], new ``bn_ob``; the old one for the distance
+    decoders)."""
     if cfg.decoder == "hyperbolic_convtranse":
         return HD.hyperbolic_convtranse_score(
             params["decoder_ob"], state.bn_ob, pre_emb, r_emb, triples, c, mask,
             dropouts=_decoder_dropouts(cfg), gen=gen, train=train, ent_tan=ent_tan)
-    return HD.roth_score(params["decoder_ob"], pre_emb, r_emb, triples, c,
-                         dropout=cfg.input_dropout, gen=gen, train=train), state.bn_ob
+    return ENTITY_SCORES[cfg.decoder](params["decoder_ob"], pre_emb, r_emb, triples, c,
+                                      dropout=cfg.input_dropout, gen=gen,
+                                      train=train), state.bn_ob
 
 
 def relation_scores(params, state, cfg, pre_emb, r_emb, triples, mask, c, *, gen=None,
                     train=False, ent_tan=None) -> Tuple[torch.Tensor, Any]:
-    """(relation scores [B, 2R], new ``bn_rel``; the old one for RotH-Rel)."""
+    """(relation scores [B, 2R], new ``bn_rel``; the old one for the
+    distance decoders)."""
     if cfg.decoder == "hyperbolic_convtranse":
         return HD.hyperbolic_convtransr_score(
             params["decoder_rel"], state.bn_rel, pre_emb, r_emb, triples, c, mask,
             dropouts=_decoder_dropouts(cfg), gen=gen, train=train, ent_tan=ent_tan)
-    return HD.roth_rel_score(params["decoder_rel"], pre_emb, r_emb, triples, c,
-                             dropout=cfg.input_dropout, gen=gen, train=train), state.bn_rel
+    return RELATION_SCORES[cfg.decoder](params["decoder_rel"], pre_emb, r_emb, triples, c,
+                                        dropout=cfg.input_dropout, gen=gen,
+                                        train=train), state.bn_rel
 
 
 def _decoder_inputs(h, cfg, c):
@@ -369,7 +386,7 @@ def get_loss(params: Params, state: HypModelState, cfg: HyperbolicConfig, histor
                                           triple_mask, c, gen=gen, train=train, ent_tan=ent_tan)
             losses["entity"] = _masked_ce(scores, triples[:, 2], triple_mask)
         else:
-            losses["entity"] = HD.roth_loss(
+            losses["entity"] = ENTITY_LOSSES[cfg.decoder](
                 params["decoder_ob"], pre_emb, r_emb, triples, c, mask=triple_mask,
                 dropout=cfg.input_dropout, gen=gen, train=train,
                 rel_curvature_max=curvature_max)
@@ -380,7 +397,7 @@ def get_loss(params: Params, state: HypModelState, cfg: HyperbolicConfig, histor
                                              ent_tan=ent_tan)
             losses["relation"] = _masked_ce(scores, triples[:, 1], triple_mask)
         else:
-            losses["relation"] = HD.roth_rel_loss(
+            losses["relation"] = RELATION_LOSSES[cfg.decoder](
                 params["decoder_rel"], pre_emb, r_emb, triples, c, mask=triple_mask,
                 dropout=cfg.input_dropout, gen=gen, train=train)
     losses["radius"] = radius_supervision_loss(params, state, cfg, triples, triple_mask, c)

@@ -1,9 +1,11 @@
 """Hyperbolic training: the trainer of the hyperbolic slice.
 
 Counterpart of ``regcn_tpu/hyperbolic/train.py`` for the configurations
-this package runs (LGCN + RotH, and the headline uvrgcn + tangent
-ConvTransE / R; fixed or learned curvature with its warmup, radius
-supervision): degree/frequency radius targets, one optimizer step per
+this package runs (the LGCN or the uvrgcn encoder with any of the four
+decoders: among them config 3, LGCN + RotH; config 4, uvrgcn + AttH with
+learned and per-relation curvature and an entity bias; the headline,
+uvrgcn + tangent ConvTransE / R; fixed or learned curvature with its
+warmup, radius supervision): degree/frequency radius targets, one optimizer step per
 training snapshot in the JAX trainer's shuffled order, the decoders' BN
 running statistics carried from step to step, rolling-window raw and
 filtered evaluation (single- or multi-step), and ``fit`` with patience,

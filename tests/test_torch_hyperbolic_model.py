@@ -256,18 +256,12 @@ def test_predict_matches_jax(data):
 
 @pytest.mark.parametrize("unported", [
     dict(use_static=True), dict(use_est=True), dict(manifold_entities=True),
-    dict(compute_dtype="bfloat16"), dict(encoder="fhnn"), dict(decoder="atth"),
+    dict(compute_dtype="bfloat16"), dict(encoder="fhnn"), dict(encoder="hgat"),
     dict(use_time_aware_negative=True)])
 def test_unported_configs_raise(data, unported):
     _, pcfg = configs(data, **unported)
     with pytest.raises(NotImplementedError):
         PM.init_params(torch.Generator().manual_seed(0), pcfg, device="cpu")
-
-
-@pytest.mark.parametrize("fn", ["init_murp", "atth_loss", "distmult_score", "complex_score"])
-def test_unported_decoders_raise(fn):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(PD, fn)()
 
 
 def test_config_defaults_equal_jax():

@@ -42,9 +42,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def make_case(B, N, d, *, true=False, per_query_c=False, near_edge=False, seed=0):
+def make_case(B, N, d, *, true=False, per_query_c=False, near_edge=False, seed=0, c_low=0.005):
     """(q, x, bias, target, cq, scale, margin, g) as CPU tensors, q and x
-    ball points from a seeded numpy generator; g is an upstream gradient."""
+    ball points from a seeded numpy generator; g is an upstream gradient;
+    per-query curvatures are drawn from [c_low, 0.999 c]."""
     rng = np.random.default_rng(seed)
     q = PH.exp_map_zero(torch.from_numpy(rng.normal(size=(B, d)).astype(np.float32) * 0.4), C)
     x = PH.exp_map_zero(torch.from_numpy(rng.normal(size=(N, d)).astype(np.float32) * 0.4), C)
@@ -58,7 +59,7 @@ def make_case(B, N, d, *, true=False, per_query_c=False, near_edge=False, seed=0
     target[:k] = N - 1 - torch.arange(k)  # targets in the last, partial tile
     # per-query curvatures as clamp_relation_curvature bounds them: at most
     # 0.999 c, so the points stay inside every query's ball
-    cq = (torch.from_numpy(rng.uniform(0.005, 0.999 * C, B).astype(np.float32)) if per_query_c
+    cq = (torch.from_numpy(rng.uniform(c_low, 0.999 * C, B).astype(np.float32)) if per_query_c
           else torch.full((B,), C))
     return (q, x, torch.from_numpy((rng.normal(size=N) * 0.1).astype(np.float32)), target, cq,
             torch.tensor(1.3), torch.tensor(0.7), torch.from_numpy(rng.random(B).astype(np.float32)))
@@ -234,20 +235,17 @@ CUDA_CASES = {
 }
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(CUDA_CASES))
-def test_kernels_match_plain_version(cuda, name):
-    B, N, d, true, per_query_c, edge, masked = CUDA_CASES[name]
-    case = make_case(B, N, d, true=true, per_query_c=per_query_c, near_edge=edge)
-    if masked:  # a zero-gradient padded tail, as the masked mean gives it
-        case[-1][B - B // 5:] = 0.0
+def assert_kernels_match_float64(case, true, device, masked):
+    """The kernels' NLL and six gradients against the plain version in
+    float64, within the file's tolerances; one launch of each kernel."""
+    B = case[0].shape[0]
     before = (S.ce_forward.launches, S.ce_backward_q.launches, S.ce_backward_x.launches)
-    got, got_g = run(S.streaming_nll, case, true, cuda)
+    got, got_g = run(S.streaming_nll, case, true, device)
     after = (S.ce_forward.launches, S.ce_backward_q.launches, S.ce_backward_x.launches)
     assert after == tuple(b + 1 for b in before)
-    plain, plain_g = run(S.streaming_nll_reference, case, true, cuda)
+    plain, plain_g = run(S.streaming_nll_reference, case, true, device)
     case64 = [t.double() if t.is_floating_point() else t for t in case]
-    exact, exact_g = run(S.streaming_nll_reference, case64, true, cuda)
+    exact, exact_g = run(S.streaming_nll_reference, case64, true, device)
     torch.cuda.synchronize()
     assert got.shape == (B,) and torch.isfinite(got).all()
     for n, a, p, e, tol in zip(("nll",) + NAMES, [got] + got_g, [plain] + plain_g,
@@ -259,6 +257,50 @@ def test_kernels_match_plain_version(cuda, name):
             f"{n}: max err {err}, plain fp32 err {plain_err}"
     if masked:
         assert torch.count_nonzero(got_g[0][B - B // 5:]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CUDA_CASES))
+def test_kernels_match_plain_version(cuda, name):
+    B, N, d, true, per_query_c, edge, masked = CUDA_CASES[name]
+    case = make_case(B, N, d, true=true, per_query_c=per_query_c, near_edge=edge)
+    if masked:  # a zero-gradient padded tail, as the masked mean gives it
+        case[-1][B - B // 5:] = 0.0
+    assert_kernels_match_float64(case, true, cuda, masked)
+
+
+def config4_entity_case(seed=4):
+    """BASELINE config 4's entity loss: B = 512 queries against N = 7128
+    entities at d = 200 on the true distance, each query under its
+    relation's curvature anywhere in the clamp's range [REL_C_EPS, 0.999 c],
+    a nonzero entity bias, and the padded tail of the triple batch."""
+    case = make_case(512, 7128, 200, true=True, per_query_c=True, c_low=PD.REL_C_EPS, seed=seed)
+    case[-1][512 - 512 // 5:] = 0.0
+    assert case[4].min() < 1e-4 and case[2].abs().max() > 0
+    return case
+
+
+@pytest.mark.cuda
+def test_kernels_at_config4_entity_shape(cuda):
+    assert_kernels_match_float64(config4_entity_case(), True, cuda, True)
+
+
+@pytest.mark.cuda
+def test_kernels_next_to_a_candidate_at_config4_entity_shape(cuda):
+    """Config 4's entity case with 16 queries ~1e-4 from their target, as
+    training drives a query towards its target. There the distance's
+    expansion cancels terms of ~10 down to a diff_sq of ~1e-8, so the three
+    kernels must take each pair's logit from the same p, |q|^2 and |x|^2:
+    with |x|^2 summed in another order than the forward's, the candidate-
+    side backward's dx of those targets missed float64 by 1.44e-4 on an
+    H100, against a limit of 1.22e-4 (the plain version's miss 2.8e-5)."""
+    case = config4_entity_case()
+    q, x, target = case[0], case[1], case[3]
+    rng = np.random.default_rng(5)
+    q[:16] = PH.project_to_ball(
+        x[target[:16]] + torch.from_numpy(rng.normal(size=(16, 200)).astype(np.float32)) * 1e-5,
+        C)
+    assert_kernels_match_float64(case, True, cuda, True)
 
 
 @pytest.mark.cuda
