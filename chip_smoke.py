@@ -87,11 +87,23 @@ Phases, each of which exits non-zero on failure:
    test split at random init and after the epoch (B1 6 launches per
    snapshot, no B2), the entity raw MRR above the random-init one; (e) a
    profile of a step, with B1's forward, the scatter backward and the
-   three B2 kernels apart.
+   three B2 kernels apart;
+10. config-5 training: BASELINE.json config 5, the headline with EST
+   (H-PES memories, alpha 0.2; ETNR retrieval of K = 32 events; the QCHHE
+   GRU) and TANS negatives, on synthetic-gdelt (seed 123, GDELT's 7691
+   entities, 240 relations and 700 triples a snapshot, the time axis cut
+   to 365 snapshots split 304/30/31), through phase 8's steps: (a) 3 steps
+   cuda vs cpu, the cpu also on the card's branches at H-TDP's relu, the
+   H-PES memories compared after each device's writeback; (b) one epoch
+   through ``fit(checkpoint_path)`` (B1 1812, no B2); (c) the resume, the
+   H-PES memories among the tensors restored exactly; (d) 20 steady
+   steps; (e) the test split at random init and after the epoch (B1 186);
+   (f) a profile of a step.
 
 The line before the last is ``{"kernels": [...]}``: each row's
 ``launches`` is B1's on the config-1 test split or a B2 kernel's in the
-config-3 epoch, and ``launches_by_path`` holds its count on each path;
+config-3 epoch, and ``launches_by_path`` holds its count on each path
+(config 5's among them);
 B1's ``shapes`` holds its times at three shapes, each B2 kernel's its
 times at config 4's entity shape on the true distance. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -124,6 +136,7 @@ from regcn_torch.data.snapshots import (  # noqa: E402
     split_by_time,
 )
 from regcn_torch.data.synthetic import generate  # noqa: E402
+from regcn_torch.hyperbolic import est as hyp_est  # noqa: E402
 from regcn_torch.hyperbolic import layers as hyp_layers  # noqa: E402
 from regcn_torch.hyperbolic.decoders import REL_C_EPS  # noqa: E402
 from regcn_torch.hyperbolic.model import HyperbolicConfig  # noqa: E402
@@ -185,6 +198,9 @@ KINK_FLIP_SHARE = 1e-6
 # ~3.2) agree within rounding, ~40 fp32 ulps at radius 3
 ABS_TIE_TOL = 1e-5
 PROFILE_STEPS = 20
+# parameters that no loss reads: the H-PES gate, which only the writeback
+# after the backward reads (JAX's gradient of each is 0)
+NO_GRAD = {"est.slow_threshold", "est.slow_scale"}
 
 # Every kernel of the main path: its csrc source, the wrapper whose
 # ``launches`` counts it, and the TPU kernel it replaces.
@@ -720,15 +736,17 @@ def leaf_names(tree, prefix: str = "") -> list:
 
 
 def state_leaves(state) -> list:
-    """Parameters, Adam moments and BatchNorm running statistics."""
+    """Parameters, Adam moments, BatchNorm running statistics and, with
+    EST, the H-PES memories."""
     ms = state.model_state
+    est = [] if state.est_state is None else [state.est_state.fast, state.est_state.slow]
     return (tree_leaves(state.params) + state.opt_state.mu + state.opt_state.nu
-            + tree_leaves(ms.bn_ob) + tree_leaves(ms.bn_rel))
+            + tree_leaves(ms.bn_ob) + tree_leaves(ms.bn_rel) + est)
 
 
 def copy_state_into(dst, src) -> None:
-    """Parameters, Adam moments and BN statistics of ``src`` into ``dst``,
-    in place."""
+    """Parameters, Adam moments, BN statistics and H-PES memories of
+    ``src`` into ``dst``, in place."""
     with torch.no_grad():
         for a, b in zip(state_leaves(dst), state_leaves(src)):
             a.copy_(b)
@@ -755,7 +773,7 @@ def phase_training(data, dev: torch.device) -> dict:
         copy_state_into(s_cpu, s_gpu)
         grads, losses = [], []
         for tr, st in ((gpu, s_gpu), (cpu, s_cpu)):
-            total, parts, _ = tr.loss(st, *tr.window(i), cmax)
+            total, parts, *_ = tr.loss(st, *tr.window(i), cmax)
             grads.append(torch.autograd.grad(total, tree_leaves(st.params), allow_unused=True))
             losses.append({k: float(v.detach()) for k, v in parts.items()})
         for k, b in losses[1].items():
@@ -903,9 +921,9 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
 class PinnedKinks:
     """The branches a model takes at its kinks, recorded on one device and
     replayed on another: the UnionRGCN layers' fixed-slope rrelu (RE-GCN's
-    and the hyperbolic uvrgcn's), the decoders' relu, and the sign of
-    r_src - r_dst in the uvrgcn's radius weight exp(-γ|r_src - r_dst|),
-    each patched by its name in its module. An fp32 value within rounding
+    and the hyperbolic uvrgcn's), the decoders' and EST's H-TDP relu, and
+    the sign of r_src - r_dst in the uvrgcn's radius weight
+    exp(-γ|r_src - r_dst|), each patched by its name in its module. An fp32 value within rounding
     of 0 may take the other branch on the other device, and a few such
     entries among the ~20M of a step can move a gradient by more than
     TRAIN_GRAD_TOL of its parameter's largest entry. Replaying the card's
@@ -927,13 +945,15 @@ class PinnedKinks:
 
     @contextlib.contextmanager
     def _patched(self, rrelu, relu, abs_diff):
-        saved = model_layers.rrelu, hyp_layers.rrelu, model_decoders.relu, hyp_layers._abs_diff
+        saved = (model_layers.rrelu, hyp_layers.rrelu, model_decoders.relu, hyp_est.relu,
+                 hyp_layers._abs_diff)
         model_layers.rrelu = hyp_layers.rrelu = rrelu
-        model_decoders.relu, hyp_layers._abs_diff = relu, abs_diff
+        model_decoders.relu = hyp_est.relu = relu
+        hyp_layers._abs_diff = abs_diff
         try:
             yield
         finally:
-            (model_layers.rrelu, hyp_layers.rrelu, model_decoders.relu,
+            (model_layers.rrelu, hyp_layers.rrelu, model_decoders.relu, hyp_est.relu,
              hyp_layers._abs_diff) = saved
 
     def record(self):
@@ -1034,15 +1054,16 @@ def three_steps(tag: str, gpu, cpu, s_gpu, s_cpu, order, *loss_args) -> None:
     CPU takes the card's state and both compute the step from it, the CPU
     on the card's branches at the kinks (PinnedKinks): the losses, each
     parameter's gradient, the new BN statistics, B1's edge-weight gradient
-    dw where the weight needs one, and the optimizer's update given the
-    card's gradients. Printed, not checked: the global norm of the card's
-    first gradients as the card, the CPU in fp32 and float64 take it (the
-    optimizer accumulates it in float64). Returns, per parameter, its
-    gradient's worst error over the steps relative to its largest entry,
-    and that largest entry."""
+    dw where the weight needs one, with EST the H-PES memories after each
+    device's writeback from its own step, and the optimizer's update given
+    the card's gradients. Printed, not checked: the global norm of the
+    card's first gradients as the card, the CPU in fp32 and float64 take
+    it (the optimizer accumulates it in float64). Returns, per parameter,
+    its gradient's worst error over the steps relative to its largest
+    entry, and that largest entry."""
     t0 = time.perf_counter()
     names = leaf_names(s_gpu.params)
-    worst_grad = worst_bn = worst_opt = worst_dw = 0.0
+    worst_grad = worst_bn = worst_opt = worst_dw = worst_est = 0.0
     by_name = {n: (0.0, 0.0) for n in names}
     n_dw = 0
     kinks = PinnedKinks()
@@ -1051,17 +1072,21 @@ def three_steps(tag: str, gpu, cpu, s_gpu, s_cpu, order, *loss_args) -> None:
         out = []
         for tr, st, pin in ((gpu, s_gpu, kinks.record), (cpu, s_cpu, kinks.replay)):
             dws = DwRecorder()
+            est_args = tr.est_window(i) if st.est_state is not None else ()
             with pin(), dws.recording():
-                total, parts, new_bn = tr.loss(st, *tr.window(i), *loss_args)
+                total, parts, new_bn, *aux = tr.loss(st, *tr.window(i), *loss_args, *est_args)
                 grads = torch.autograd.grad(total, tree_leaves(st.params), allow_unused=True)
+            if st.est_state is not None:
+                tr.est_update(st, *tr.window(i)[1:], aux[0])
             out.append(({k: float(v.detach()) for k, v in parts.items()}, grads, new_bn,
                         dws.seen))
         (l_gpu, g_gpu, bn_gpu, dw_gpu), (l_cpu, g_cpu, bn_cpu, dw_cpu) = out
         if step == 0:
-            norms = (torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(g_gpu)))),
+            some = [g for g in g_gpu if g is not None]
+            norms = (torch.linalg.vector_norm(torch.stack(torch._foreach_norm(some))),
                      torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
-                         [g.cpu() for g in g_gpu]))),
-                     torch.linalg.vector_norm(torch.stack([g.cpu().double().norm() for g in g_gpu])))
+                         [g.cpu() for g in some]))),
+                     torch.linalg.vector_norm(torch.stack([g.cpu().double().norm() for g in some])))
             print(f"[{tag}] global norm of the first step's gradients: card fp32 "
                   f"{norms[0].item():.7f}, cpu fp32 {norms[1].item():.7f}, float64 "
                   f"{norms[2].item():.7f}", flush=True)
@@ -1070,6 +1095,9 @@ def three_steps(tag: str, gpu, cpu, s_gpu, s_cpu, order, *loss_args) -> None:
             check(math.isfinite(a) and abs(a - b) <= TRAIN_LOSS_RTOL * max(1.0, abs(b)),
                   f"{tag}, step on snapshot {i}: {k} loss cuda {a} vs cpu {b}")
         for name, a, b in zip(names, g_gpu, g_cpu):
+            if name in NO_GRAD:
+                check(a is None and b is None, f"{tag}: {name} got a gradient")
+                continue
             check(a is not None and b is not None, f"{tag}, step on snapshot {i}: {name} has "
                   "no gradient")
             err = rel_err(a, b)
@@ -1091,8 +1119,15 @@ def three_steps(tag: str, gpu, cpu, s_gpu, s_cpu, order, *loss_args) -> None:
                 worst_bn = max(worst_bn, rel_err(a, b))
         check(worst_bn <= TRAIN_GRAD_TOL, f"{tag}, step on snapshot {i}: BN running "
               f"statistics cuda vs cpu {worst_bn:.3e} > {TRAIN_GRAD_TOL:.0e}")
+        if s_gpu.est_state is not None:
+            for memory in ("fast", "slow"):
+                err = rel_err(getattr(s_gpu.est_state, memory), getattr(s_cpu.est_state, memory))
+                check(err <= TRAIN_GRAD_TOL, f"{tag}, step on snapshot {i}: the H-PES {memory} "
+                      f"memory after the writeback cuda vs cpu {err:.3e} > {TRAIN_GRAD_TOL:.0e}")
+                worst_est = max(worst_est, err)
         gpu.opt.step(tree_leaves(s_gpu.params), g_gpu, s_gpu.opt_state)
-        cpu.opt.step(tree_leaves(s_cpu.params), [g.cpu() for g in g_gpu], s_cpu.opt_state)
+        cpu.opt.step(tree_leaves(s_cpu.params), [None if g is None else g.cpu() for g in g_gpu],
+                     s_cpu.opt_state)
         for name, a, b in zip(names, tree_leaves(s_gpu.params), tree_leaves(s_cpu.params)):
             err = ((a.detach().cpu() - b.detach()).abs() / b.detach().abs().clamp(min=1.0)).max()
             check(err.item() <= TRAIN_OPT_TOL, f"{tag}, step on snapshot {i}: {name} after "
@@ -1105,11 +1140,13 @@ def three_steps(tag: str, gpu, cpu, s_gpu, s_cpu, order, *loss_args) -> None:
               + ", ".join(f"{k} {l_gpu[k]:.6f}/{l_cpu[k]:.6f}" for k in l_gpu), flush=True)
     flips = kinks.check(tag)
     dw_text = f", B1's dw in {n_dw} backward calls within {worst_dw:.2e}" if n_dw else ""
+    est_text = ("" if s_gpu.est_state is None else
+                f", the H-PES memories after each writeback within {worst_est:.2e}")
     print(f"[{tag}] (a) 3 steps cuda vs cpu from the same state, the cpu on the card's branches "
           f"at the kinks ({flips}): every gradient within {worst_grad:.2e} of its parameter's "
-          f"largest entry{dw_text}, BN statistics within {worst_bn:.2e}, every parameter after "
-          f"the optimizer step within {worst_opt:.2e} ({time.perf_counter() - t0:.1f} s)",
-          flush=True)
+          f"largest entry{dw_text}, BN statistics within {worst_bn:.2e}{est_text}, every "
+          f"parameter after the optimizer step within {worst_opt:.2e} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
     return by_name
 
 
@@ -1284,32 +1321,35 @@ def fit_one_counted_epoch(trainer, state, **fit_kw) -> tuple:
     return info, epoch
 
 
-def phase_headline_training(data, tc: TrainConfig, dev: torch.device) -> dict:
-    """The hyperbolic headline through ``HyperbolicTrainer``: (a) 3 steps
-    cuda vs cpu (``three_steps``, dropouts 0), B1's dw among the checks;
-    (b) one epoch through ``fit(checkpoint_path)``, the launch counts reset
-    just before ``run_epoch`` and read just after (B1: 2 layers x the
-    window's snapshots per step); (c) the checkpoint restored by
-    ``fit(resume=True)`` in a fresh trainer, every part equal, one step
-    from each copy; (d) 20 steady steps; (e) the test split at random
-    init and after the epoch (B1 6 times per snapshot), the entity raw MRR
-    above the random-init one; (f) a profile of a step, B1's forward and
-    the scatter backward apart."""
-    gpu = HyperbolicTrainer(headline_config(data, **NO_DROPOUT), tc, data, device=dev)
-    cpu = HyperbolicTrainer(headline_config(data, **NO_DROPOUT), tc, data, device="cpu")
+def phase_headline_training(data, tc: TrainConfig, dev: torch.device, config=None,
+                            tag: str = "headline") -> dict:
+    """The hyperbolic headline through ``HyperbolicTrainer`` (or, with
+    ``config`` and ``tag``, another configuration on its encoder and
+    decoders, config 5 with EST): (a) 3 steps cuda vs cpu
+    (``three_steps``, dropouts 0), B1's dw and the H-PES memories among the
+    checks; (b) one epoch through ``fit(checkpoint_path)``, the launch
+    counts reset just before ``run_epoch`` and read just after (B1: 2
+    layers x the window's snapshots per step); (c) the checkpoint restored
+    by ``fit(resume=True)`` in a fresh trainer, every part equal, one step
+    from each copy; (d) 20 steady steps; (e) the test split at random init
+    and after the epoch (B1 6 times per snapshot), the entity raw MRR above
+    the random-init one; (f) a profile of a step, B1's forward and the
+    scatter backward apart."""
+    config = config or headline_config
+    gpu = HyperbolicTrainer(config(data, **NO_DROPOUT), tc, data, device=dev)
+    cpu = HyperbolicTrainer(config(data, **NO_DROPOUT), tc, data, device="cpu")
     s_gpu = gpu.init_state(SEED)
     s_cpu = cpu.state_from(s_gpu.params, s_gpu.model_state)
-    three_steps("headline", gpu, cpu, s_gpu, s_cpu, gpu.epoch_order(0)[:3],
-                gpu._curvature_max(0))
+    three_steps(tag, gpu, cpu, s_gpu, s_cpu, gpu.epoch_order(0)[:3], gpu._curvature_max(0))
     del gpu, cpu, s_gpu, s_cpu
 
-    cfg = headline_config(data)
+    cfg = config(data)
     trainer = HyperbolicTrainer(cfg, tc, data, device=dev)
     state = trainer.init_state(SEED)
     n_test = len(trainer.test_list)
     test_launches = cfg.n_layers * tc.test_history_len * n_test
-    init_stats, _, init_s = counted_test(trainer, state, test_launches, "headline at init")
-    print(f"[headline] test split at random init ({init_s:.1f} s): MRR "
+    init_stats, _, init_s = counted_test(trainer, state, test_launches, f"{tag} at init")
+    print(f"[{tag}] test split at random init ({init_s:.1f} s): MRR "
           + ", ".join(f"{k} {v.mrr:.6f}" for k, v in init_stats.items()), flush=True)
 
     # (b) the epoch, inside fit with a checkpoint
@@ -1319,21 +1359,21 @@ def phase_headline_training(data, tc: TrainConfig, dev: torch.device) -> dict:
         info, epoch = fit_one_counted_epoch(trainer, state, checkpoint_path=path)
         launches, row = epoch["launches"], info["history"][0]
         check(all(math.isfinite(v) for v in row["losses"].values()),
-              f"headline epoch losses {row['losses']}")
-        check(all(launches[k] == 0 for k in CE_KERNELS), f"the headline launched a CE kernel: "
+              f"{tag} epoch losses {row['losses']}")
+        check(all(launches[k] == 0 for k in CE_KERNELS), f"{tag} launched a CE kernel: "
               f"{launches}")
         check(launches["rgcn_scatter_sorted"] == expected,
-              f"scatter kernel launched {launches['rgcn_scatter_sorted']} times in the headline "
+              f"scatter kernel launched {launches['rgcn_scatter_sorted']} times in the {tag} "
               f"epoch, expected {expected} = {cfg.n_layers} layers x the snapshots of the "
               f"{len(order)} windows")
-        print(f"[headline] (b) epoch 0 in fit: {len(order)} steps in {epoch['seconds']:.2f} s = "
+        print(f"[{tag}] (b) epoch 0 in fit: {len(order)} steps in {epoch['seconds']:.2f} s = "
               f"{len(order) / epoch['seconds']:.2f} snapshots/s (first epoch: includes building "
               f"the {len(order)} windows); mean losses "
               + ", ".join(f"{k} {v:.5f}" for k, v in row["losses"].items())
               + f"; valid ent raw MRR {row['valid_mrr_raw']:.6f}; launches {launches} "
               f"({launches['rgcn_scatter_sorted'] / len(order):.2f} B1 launches per step)",
               flush=True)
-        headline_resume(trainer, state, info, path, cfg, tc, data, dev)
+        headline_resume(trainer, state, info, path, cfg, tc, data, dev, tag)
 
     # (d) steady state on a copy: the next epoch's first steps, windows built
     steady = train_state.copy_state(state)
@@ -1342,32 +1382,33 @@ def phase_headline_training(data, tc: TrainConfig, dev: torch.device) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in order:
-        trainer.train_step(steady, *trainer.window(i), cmax)
+        trainer.train_step(steady, *trainer.window(i), cmax, *trainer.est_window(i))
     torch.cuda.synchronize()
     steady_s = time.perf_counter() - t0
-    print(f"[headline] (d) steady state: {len(order)} steps in {steady_s:.3f} s = "
+    print(f"[{tag}] (d) steady state: {len(order)} steps in {steady_s:.3f} s = "
           f"{len(order) / steady_s:.2f} snapshots/s, {steady_s / len(order) * 1e3:.2f} ms "
           "per step", flush=True)
 
     # (e) the test split after the epoch
-    stats, test_counts, test_s = counted_test(trainer, state, test_launches, "headline")
+    stats, test_counts, test_s = counted_test(trainer, state, test_launches, tag)
     check(stats["ent_raw"].mrr > init_stats["ent_raw"].mrr,
-          f"headline entity raw MRR {stats['ent_raw'].mrr:.6f} after an epoch is not above the "
+          f"{tag} entity raw MRR {stats['ent_raw'].mrr:.6f} after an epoch is not above the "
           f"random-init {init_stats['ent_raw'].mrr:.6f}")
-    print(f"[headline] (e) test split after one epoch ({test_s:.1f} s, "
+    print(f"[{tag}] (e) test split after one epoch ({test_s:.1f} s, "
           f"{test_s / n_test * 1e3:.2f} ms per snapshot, {test_counts['rgcn_scatter_sorted']} B1 "
           "launches): MRR " + ", ".join(f"{k} {v.mrr:.6f}" for k, v in stats.items())
           + f" (random init: ent_raw {init_stats['ent_raw'].mrr:.6f})", flush=True)
 
     # (f) where a step's time goes
     cmax = trainer._curvature_max(2)
-    train_profile("headline train step",
-                  lambda i: trainer.train_step(steady, *trainer.window(i), cmax),
+    train_profile(f"{tag} train step",
+                  lambda i: trainer.train_step(steady, *trainer.window(i), cmax,
+                                               *trainer.est_window(i)),
                   trainer.epoch_order(2)[:PROFILE_STEPS], scatter=True)
-    return {"headline training epoch": launches, "headline test split": test_counts}
+    return {f"{tag} training epoch": launches, f"{tag} test split": test_counts}
 
 
-def headline_resume(trainer, state, info, path: str, cfg, tc, data, dev) -> None:
+def headline_resume(trainer, state, info, path: str, cfg, tc, data, dev, tag: str) -> None:
     """(c) ``fit(resume=True, n_epochs=1)`` in a fresh trainer restores the
     checkpoint of the epoch (``<path>/last``) and runs no epoch: every
     tensor, the generator and the step equal the trained state's, on the
@@ -1395,8 +1436,8 @@ def headline_resume(trainer, state, info, path: str, cfg, tc, data, dev) -> None
         warnings.simplefilter("ignore")  # cuBLAS: deterministic without a workspace setting
         torch.use_deterministic_algorithms(True, warn_only=True)
         try:
-            trainer.train_step(stepped, *trainer.window(i), cmax)
-            fresh.train_step(restored, *fresh.window(i), cmax)
+            trainer.train_step(stepped, *trainer.window(i), cmax, *trainer.est_window(i))
+            fresh.train_step(restored, *fresh.window(i), cmax, *fresh.est_window(i))
             torch.cuda.synchronize()
         finally:
             torch.use_deterministic_algorithms(False)
@@ -1404,13 +1445,40 @@ def headline_resume(trainer, state, info, path: str, cfg, tc, data, dev) -> None
     for name, a, b in zip(leaf_names(state.params), tree_leaves(restored.params),
                           tree_leaves(stepped.params)):
         err = ((a.detach() - b.detach()).abs() / b.detach().abs().clamp(min=1.0)).max().item()
-        check(err <= TRAIN_OPT_TOL, f"headline checkpoint round trip: {name} after one step "
+        check(err <= TRAIN_OPT_TOL, f"{tag} checkpoint round trip: {name} after one step "
               f"from each copy differs by {err:.3e} > {TRAIN_OPT_TOL:.0e}")
         worst = max(worst, err)
-    print(f"[headline] (c) checkpoint round trip through fit(checkpoint_path) and "
+    if state.est_state is not None:
+        for memory in ("fast", "slow"):
+            a, b = getattr(restored.est_state, memory), getattr(stepped.est_state, memory)
+            err = ((a - b).abs() / b.abs().clamp(min=1.0)).max().item()
+            check(err <= TRAIN_OPT_TOL, f"{tag} checkpoint round trip: the H-PES {memory} "
+                  f"memory after one step from each copy differs by {err:.3e}")
+            worst = max(worst, err)
+    print(f"[{tag}] (c) checkpoint round trip through fit(checkpoint_path) and "
           f"fit(resume=True): {mib:.1f} MiB last/state.pt, every tensor, the generator, step "
           f"{state.step} restored exactly on the card; one step from each copy: every "
-          f"parameter within {worst:.2e} ({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"parameter{' and H-PES memory' if state.est_state is not None else ''} within "
+          f"{worst:.2e} ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+# ------------------------------------------------------- config-5 training
+
+def config5(data, **kw) -> HyperbolicConfig:
+    """BASELINE.json config 5 at full width, as ``tools/bench_configs.py``
+    runs it: the headline (uvrgcn + tangent ConvTransE/R, h=200, 2 layers,
+    history 3, c=0.01 fixed) with EST (H-PES memories with alpha 0.2, ETNR
+    retrieval of K = 32 events, the QCHHE GRU) and TANS negatives, the
+    CLI's defaults otherwise (dropouts 0.2), in fp32."""
+    return headline_config(data, use_est=True, est_encoder="gru", est_history_len=32,
+                           est_state_alpha=0.2, use_time_aware_negative=True, **kw)
+
+
+def gdelt_data():
+    """synthetic-gdelt (GDELT's 7691 entities, 240 relations and 700
+    triples a snapshot) with its time axis cut to 365 snapshots split
+    304 / 30 / 31, the other paths' 303 training steps."""
+    return generate("synthetic-gdelt", seed=SEED, num_snaps=365, split=(304, 30, 31))
 
 
 # ------------------------------------------------------- config-4 training
@@ -1565,6 +1633,8 @@ def main() -> None:
     config4_paths, config4_times = timed("config-4 training", phase_config4_training, data, tc,
                                          dev)
     by_path.update(config4_paths)
+    by_path.update(timed("config-5 training", phase_headline_training, gdelt_data(), tc, dev,
+                         config5, "config5"))
     launches.update({k: by_path["config-3 training epoch"][k] for k in CE_KERNELS})
     for k in CE_KERNELS:
         timing[k]["shapes"] = [config4_times[k]]

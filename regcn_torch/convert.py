@@ -17,12 +17,16 @@ The port keeps the JAX layouts, so the conversion is a copy:
 list (LGCN's or the uvrgcn's keys), the decoder dicts, the ConvTrans
 decoders' BN trees and the 0-d leaves (``log_c``, ``score_margin``,
 ``score_scale_raw``) become tensors of the same shapes, and
-``HypModelState.radius_target`` comes along.
+``HypModelState.radius_target`` comes along; with EST the ``est`` subtree
+(its 0-d gate leaves, the nested ``qchhe_gru`` or ``qchhe_transformer``)
+converts the same way.
 
 :func:`train_state_from_jax` takes a whole ``regcn_tpu`` ``TrainState``
 or hyperbolic ``HypTrainState`` (numpy leaves): its parameters and BN
-statistics as above, the Adam ``count``/``mu``/``nu`` of its optax chain
-and its step, so that a run can continue mid-training in this package.
+statistics as above, the Adam ``count``/``mu``/``nu`` of its optax chain,
+its step and, from a ``HypTrainState`` with EST, its ``ESTState`` (the
+H-PES ``fast`` and ``slow`` memories), so that a run can continue
+mid-training in this package.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from typing import Any, Mapping, Tuple
 import numpy as np
 import torch
 
+from regcn_torch.hyperbolic.est import ESTState
 from regcn_torch.hyperbolic.model import HypModelState
 from regcn_torch.models.recurrent import ModelState
 from regcn_torch.train.optim import AdamState, tree_leaves
@@ -111,7 +116,11 @@ def train_state_from_jax(jax_state, device="cuda", seed: int = 0) -> TrainState:
     moments = [tree_leaves(_like(_tensor_tree(m, device), params)) for m in (adam.mu, adam.nu)]
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    est = getattr(jax_state, "est_state", None)
+    if est is not None:
+        est = ESTState(fast=_tensor_tree(est.fast, device), slow=_tensor_tree(est.slow, device))
     return TrainState(params=params,
                       opt_state=AdamState(count=int(np.asarray(adam.count)), mu=moments[0],
                                           nu=moments[1]),
-                      model_state=model_state, gen=gen, step=int(np.asarray(jax_state.step)))
+                      model_state=model_state, gen=gen, step=int(np.asarray(jax_state.step)),
+                      est_state=est)

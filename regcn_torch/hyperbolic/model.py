@@ -23,9 +23,15 @@ The curvature is fixed, or learned as clamp(exp(log_c), c_min, c_max),
 with c_max a warmup schedule that the trainer passes in; the entity
 decoders may learn a curvature per relation below it.
 
+With ``use_est`` (``regcn_torch/hyperbolic/est.py``) the initial points
+take the H-PES slow memory before the evolution, and the query heads' rows
+of the final table are enriched from their retrieved event histories
+before the decoders; with ``use_time_aware_negative`` the other true
+tails of each training query are squashed out of its entity scores.
+
 Not ported yet, and raising: the fhnn and hgat encoders (ROADMAP A.7),
-the static graph (A.6), EST and TANS (A.8), entities stored on the ball
-with Riemannian Adam (A.3b) and bf16 (A.5).
+the static graph (A.6), entities stored on the ball with Riemannian Adam
+(A.3b) and bf16 (A.5).
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from regcn_torch.hyperbolic import decoders as HD
+from regcn_torch.hyperbolic import est
 from regcn_torch.hyperbolic import layers as HL
 from regcn_torch.hyperbolic import ops as H
 from regcn_torch.models.layers import gru_cell, init_gru_cell
@@ -128,8 +135,6 @@ def check_supported(cfg: HyperbolicConfig) -> None:
     """Raises for the configurations this package does not run yet."""
     unported = {
         "use_static": "the static graph (ROADMAP A.6)",
-        "use_est": "EST (ROADMAP A.8)",
-        "use_time_aware_negative": "TANS negatives (ROADMAP A.8)",
         "manifold_entities": "entities on the ball with Riemannian Adam (ROADMAP A.3b)",
     }
     for flag, what in unported.items():
@@ -187,6 +192,8 @@ def init_params(gen: torch.Generator, cfg: HyperbolicConfig, radius_target=None,
                              "atth": (HD.init_atth, HD.init_atth_rel)}[cfg.decoder]
         params["decoder_ob"] = init_ob(gen, *entity, **scores)
         params["decoder_rel"] = init_rel(gen, cfg.num_rels, d, cfg.hyp_init_scale, **scores)
+    if cfg.use_est:
+        params["est"] = est.init_est_params(gen, cfg)
     state = HypModelState(bn_ob=tree_to(bn_ob, device), bn_rel=tree_to(bn_rel, device),
                           radius_target=rt.to(device))
     return tree_to(params, device), state
@@ -221,18 +228,22 @@ def _radius_evolution(params, cfg, x, static_radius, c):
 
 
 def evolve(params: Params, cfg: HyperbolicConfig, history, *,
-           gen: Optional[torch.Generator] = None, train: bool = False,
-           curvature_max=None) -> Tuple[torch.Tensor, torch.Tensor]:
+           est_slow_state: Optional[torch.Tensor] = None, gen: Optional[torch.Generator] = None,
+           train: bool = False, curvature_max=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Runs the evolution over a stacked [T, ...] history window (a
     Snapshot of tensors). Returns (h ball points [N, d], h0 [2R, d]).
     The uvrgcn encoder runs on its tangent carry, as JAX's
-    ``evolve(tangent_fast=None)`` picks for it."""
+    ``evolve(tangent_fast=None)`` picks for it. With ``use_est``, the H-PES
+    slow memory ``est_slow_state`` [N, d] is injected into the initial
+    points."""
     check_supported(cfg)
     c = get_curvature(params, cfg, curvature_max)
     emb = params["dynamic_emb"]
     h = H.exp_map_zero(l2_normalize(emb) if cfg.layer_norm else emb, c)
     static_radius = _static_radius(params, cfg, c)
     h = H.apply_radius(h, static_radius, c)
+    if cfg.use_est and est_slow_state is not None:
+        h = est.inject_slow_state(params["est"], h, est_slow_state, c)
     emb_rel = params["emb_rel"]
     if cfg.encoder == "hyperbolic_uvrgcn":
         return _evolve_tangent(params, cfg, history, h, emb_rel, static_radius, c, gen=gen,
@@ -364,18 +375,47 @@ def _decoder_inputs(h, cfg, c):
     return H.exp_map_zero(pre_tan, c), ent_tan
 
 
-def get_loss(params: Params, state: HypModelState, cfg: HyperbolicConfig, history,
-             triples: torch.Tensor, triple_mask: torch.Tensor, *,
-             gen: Optional[torch.Generator] = None, train: bool = True,
-             curvature_max=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], HypModelState]:
-    """(loss_ent, {"entity", "relation", "static", "radius"}, new
-    HypModelState): the losses are 0-d tensors, the new state holds the
-    ConvTrans decoders' updated BN running statistics in train mode.
+def _enrich(params, cfg, est_inputs, emb, ent_tan, triples, r_emb, c):
+    """EST's enrichment of the decoders' table ``emb`` from ``est_inputs``
+    (the ESTState, the RetrievalBatch of the batch's heads): (the enriched
+    table, the ConvTrans decoders' leaky-tanh tangent table of it where
+    ``ent_tan`` was one, the fused tangent rows [B, d]). JAX lets each
+    ConvTrans decoder derive the tangent table from the enriched one; it
+    is derived here once for both."""
+    emb, ctx = est.enrich_embeddings(params["est"], cfg, emb, triples, est_inputs[1], c,
+                                     est_inputs[0].slow, params["dynamic_emb"], r_emb,
+                                     return_ctx_tangent=True)
+    if ent_tan is not None:
+        ent_tan = HD._leaky_tanh(H.log_map_zero(emb, c))
+    return emb, ent_tan, ctx
 
-    ``triples`` [B, 3] with inverses, padded; ``triple_mask`` [B]."""
+
+def get_loss(params: Params, state: HypModelState, cfg: HyperbolicConfig, history,
+             triples: torch.Tensor, triple_mask: torch.Tensor, *, est_inputs=None,
+             tans_mask_coo=None, gen: Optional[torch.Generator] = None, train: bool = True,
+             curvature_max=None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], HypModelState, Dict[str, Any]]:
+    """(loss_ent, {"entity", "relation", "static", "radius"}, new
+    HypModelState, aux): the losses are 0-d tensors, the new state holds the
+    ConvTrans decoders' updated BN running statistics in train mode, and
+    ``aux`` the decoders' table ``pre_emb``, the ``curvature`` and, where
+    EST enriched the table, the fused tangent rows ``est_ctx_tan`` [B, d]
+    for the H-PES writeback.
+
+    ``triples`` [B, 3] with inverses, padded; ``triple_mask`` [B].
+    ``est_inputs``: (ESTState, RetrievalBatch or None) with ``use_est``.
+    ``tans_mask_coo``: (rows, cols) of entity scores squashed to -1e9 in
+    training with ``use_time_aware_negative`` (rows >= B are padding)."""
     c = get_curvature(params, cfg, curvature_max)
-    h, r_emb = evolve(params, cfg, history, gen=gen, train=train, curvature_max=curvature_max)
+    slow = est_inputs[0].slow if cfg.use_est and est_inputs is not None else None
+    h, r_emb = evolve(params, cfg, history, est_slow_state=slow, gen=gen, train=train,
+                      curvature_max=curvature_max)
     pre_emb, ent_tan = _decoder_inputs(h, cfg, c)
+    aux: Dict[str, Any] = {}
+    if slow is not None and est_inputs[1] is not None:
+        pre_emb, ent_tan, aux["est_ctx_tan"] = _enrich(params, cfg, est_inputs, pre_emb, ent_tan,
+                                                       triples, r_emb, c)
+    aux.update(pre_emb=pre_emb, curvature=c)
     zero = torch.zeros((), device=h.device)
     losses = {"entity": zero, "relation": zero, "static": zero}
     bn_ob, bn_rel = state.bn_ob, state.bn_rel
@@ -384,6 +424,8 @@ def get_loss(params: Params, state: HypModelState, cfg: HyperbolicConfig, histor
         if convtrans:
             scores, bn_ob = entity_scores(params, state, cfg, pre_emb, r_emb, triples,
                                           triple_mask, c, gen=gen, train=train, ent_tan=ent_tan)
+            if cfg.use_time_aware_negative and tans_mask_coo is not None and train:
+                scores = est.squash_entries(scores, *tans_mask_coo)
             losses["entity"] = _masked_ce(scores, triples[:, 2], triple_mask)
         else:
             losses["entity"] = ENTITY_LOSSES[cfg.decoder](
@@ -402,15 +444,20 @@ def get_loss(params: Params, state: HypModelState, cfg: HyperbolicConfig, histor
                 dropout=cfg.input_dropout, gen=gen, train=train)
     losses["radius"] = radius_supervision_loss(params, state, cfg, triples, triple_mask, c)
     new_state = HypModelState(bn_ob=bn_ob, bn_rel=bn_rel, radius_target=state.radius_target)
-    return losses["entity"], losses, new_state
+    return losses["entity"], losses, new_state, aux
 
 
 def predict(params: Params, state: HypModelState, cfg: HyperbolicConfig, history,
-            triples: torch.Tensor, triple_mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Eval-mode scores: (entity [B, N], relation [B, 2R])."""
+            triples: torch.Tensor, triple_mask=None, *, est_inputs=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eval-mode scores: (entity [B, N], relation [B, 2R]); ``est_inputs``
+    as in :func:`get_loss`."""
     c = get_curvature(params, cfg)
-    h, r_emb = evolve(params, cfg, history)
+    slow = est_inputs[0].slow if cfg.use_est and est_inputs is not None else None
+    h, r_emb = evolve(params, cfg, history, est_slow_state=slow)
     emb, ent_tan = _decoder_inputs(h, cfg, c)
+    if slow is not None and est_inputs[1] is not None:
+        emb, ent_tan, _ = _enrich(params, cfg, est_inputs, emb, ent_tan, triples, r_emb, c)
     kw = dict(ent_tan=ent_tan)
     return (entity_scores(params, state, cfg, emb, r_emb, triples, triple_mask, c, **kw)[0],
             relation_scores(params, state, cfg, emb, r_emb, triples, triple_mask, c, **kw)[0])

@@ -4,12 +4,22 @@ Counterpart of ``regcn_tpu/hyperbolic/train.py`` for the configurations
 this package runs (the LGCN or the uvrgcn encoder with any of the four
 decoders: among them config 3, LGCN + RotH; config 4, uvrgcn + AttH with
 learned and per-relation curvature and an entity bias; the headline,
-uvrgcn + tangent ConvTransE / R; fixed or learned curvature with its
-warmup, radius supervision): degree/frequency radius targets, one optimizer step per
+uvrgcn + tangent ConvTransE / R; config 5, the headline with EST and TANS
+negatives; fixed or learned curvature with its warmup, radius
+supervision): degree/frequency radius targets, one optimizer step per
 training snapshot in the JAX trainer's shuffled order, the decoders' BN
 running statistics carried from step to step, rolling-window raw and
 filtered evaluation (single- or multi-step), and ``fit`` with patience,
 the best state kept, best and ``last/`` checkpoints and resume.
+
+EST (``use_est``): the trainer indexes the training snapshots' events
+(``est.TemporalIndex``); a training step on snapshot i takes the
+retrieval batch of its heads at time i and then writes the H-PES memories
+back, an eval snapshot t the batch at ``time_offset + t`` (the valid
+split follows the training snapshots, the test split both). TANS
+(``use_time_aware_negative``): each training step squashes the other
+true tails, over the training snapshots, of its queries. Both inputs of
+a training window are built once, like the window.
 
 The JAX trainer runs an epoch as one fused ``lax.scan`` over a store
 front-padded with empty snapshots; here a Python loop takes the same
@@ -18,8 +28,8 @@ run as it is: the fused path's empty front snapshots are identity steps,
 so both give the same result.
 
 Not ported yet, and raising: triple mini-batching (``triple_batch_size``)
-and ``--run-analysis`` (ROADMAP A.3b), EST and TANS, the static graph,
-meshes and the boundary halo.
+and ``--run-analysis`` (ROADMAP A.3b), the static graph, meshes and the
+boundary halo.
 """
 
 from __future__ import annotations
@@ -35,8 +45,10 @@ import torch
 from regcn_torch.config import TrainConfig
 from regcn_torch.data.answers import build_answer_filters_by_time
 from regcn_torch.data.dataset import TKGData
-from regcn_torch.data.snapshots import split_by_time
+from regcn_torch.data.snapshots import pad_triples, split_by_time
+from regcn_torch.hyperbolic import est
 from regcn_torch.hyperbolic import model as hmodel
+from regcn_torch.hyperbolic import ops as H
 from regcn_torch.hyperbolic.model import HyperbolicConfig, HypModelState
 from regcn_torch.train import loop, metrics
 from regcn_torch.train import state as train_state
@@ -98,16 +110,26 @@ class HyperbolicTrainer:
         self.radius_target = compute_radius_targets(
             self.train_list, data.num_nodes, alpha=cfg.radius_alpha, beta=cfg.radius_beta,
             radius_min=cfg.radius_min, radius_max=cfg.radius_max)
+        self.temporal_index = self.true_tails = None
+        if cfg.use_est:
+            self.temporal_index = est.TemporalIndex(cfg.est_history_len)
+            self.temporal_index.build(self.train_list, self.num_rels)
+        if cfg.use_time_aware_negative:
+            self.true_tails = est.build_true_tails_dict(self.train_list, self.num_rels)
         self.opt = train_state.make_optimizer(tc)
         self._windows: Dict = {}
+        self._est_windows: Dict = {}
 
     # ----------------------------------------------------------------- state
     def state_from(self, params, model_state: HypModelState, seed: Optional[int] = None
                    ) -> TrainState:
-        """A fresh training state (zero Adam moments) around ``params``,
-        copied onto the trainer's device."""
-        return train_state.state_from(params, model_state, self.tc,
-                                      self.tc.seed + 1 if seed is None else seed, self.device)
+        """A fresh training state (zero Adam moments; with EST, zero H-PES
+        memories) around ``params``, copied onto the trainer's device."""
+        state = train_state.state_from(params, model_state, self.tc,
+                                       self.tc.seed + 1 if seed is None else seed, self.device)
+        if self.cfg.use_est:
+            state.est_state = est.init_est_state(self.cfg.num_ents, self.cfg.h_dim, self.device)
+        return state
 
     def init_state(self, seed: Optional[int] = None) -> TrainState:
         """Random parameters from ``torch.Generator().manual_seed(seed)``
@@ -126,6 +148,33 @@ class HyperbolicTrainer:
                                                  self.num_rels, self.tc, self.device)
         return self._windows[i]
 
+    def est_window(self, i: int) -> tuple:
+        """(retrieval batch, TANS COO) on the device for training snapshot i,
+        each None where the config does without; built once."""
+        if i not in self._est_windows:
+            triples, mask = pad_triples(self.train_list[i], self.num_rels, self.tc.triple_bucket)
+            rb = tans = None
+            if self.temporal_index is not None:
+                rb = est.RetrievalBatch.query(self.temporal_index, triples, mask, i, self.device)
+            if self.true_tails is not None:
+                tans = tuple(torch.from_numpy(a).to(self.device)
+                             for a in est.tans_mask_coo(triples, mask, self.true_tails))
+            self._est_windows[i] = (rb, tans)
+        return self._est_windows[i]
+
+    def _eval_inputs(self, state: TrainState, time_offset: int):
+        """``step_inputs`` of the rolling evaluation: EST's retrieval batch of
+        eval snapshot t at ``time_offset + t``; None without EST."""
+        if self.temporal_index is None:
+            return None
+
+        def inputs(t, triples, mask):
+            rb = est.RetrievalBatch.query(self.temporal_index, triples, mask, time_offset + t,
+                                          self.device)
+            return {"est_inputs": (state.est_state, rb)}
+
+        return inputs
+
     def _curvature_max(self, epoch: int) -> float:
         """Warmup schedule for the curvature's upper bound."""
         cfg = self.cfg
@@ -137,25 +186,45 @@ class HyperbolicTrainer:
         return cfg.c + (cfg.curvature_max - cfg.c) * progress
 
     # ----------------------------------------------------------------- train
-    def loss(self, state: TrainState, history, triples, mask, cmax
-             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], HypModelState]:
-        """(total, losses, new HypModelState): total = tw * entity + (1 - tw)
-        * relation + static + radius, with the dropouts of a training step."""
-        _, losses, new_model_state = hmodel.get_loss(
-            state.params, state.model_state, self.cfg, history, triples, mask, gen=state.gen,
-            train=True, curvature_max=cmax)
+    def loss(self, state: TrainState, history, triples, mask, cmax, rb=None, tans=None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], HypModelState, Dict]:
+        """(total, losses, new HypModelState, aux of ``get_loss``): total = tw *
+        entity + (1 - tw) * relation + static + radius, with the dropouts of
+        a training step; ``rb`` and ``tans`` as ``est_window`` gives them."""
+        est_inputs = (state.est_state, rb) if (self.cfg.use_est and rb is not None) else None
+        _, losses, new_model_state, aux = hmodel.get_loss(
+            state.params, state.model_state, self.cfg, history, triples, mask,
+            est_inputs=est_inputs, tans_mask_coo=tans, gen=state.gen, train=True,
+            curvature_max=cmax)
         tw = self.tc.task_weight
         total = (tw * losses["entity"] + (1.0 - tw) * losses["relation"]
                  + losses["static"] + losses["radius"])
-        return total, losses, new_model_state
+        return total, losses, new_model_state, aux
 
-    def train_step(self, state: TrainState, history, triples, mask, cmax
+    def est_update(self, state: TrainState, triples, mask, aux) -> None:
+        """The H-PES writeback of a step into ``state.est_state``, from the
+        fused context rows of its forward (the unenriched rows without a
+        retrieval batch) and the gate parameters as they were in that
+        forward; a no-op without EST."""
+        if state.est_state is None:
+            return
+        ctx = aux.get("est_ctx_tan")
+        if ctx is None:
+            ctx = H.log_map_zero(aux["pre_emb"].index_select(0, triples[:, 0]), aux["curvature"])
+        state.est_state = est.update_states(state.params["est"], state.est_state, triples[:, 0],
+                                            mask, ctx, self.cfg.est_state_alpha)
+
+    def train_step(self, state: TrainState, history, triples, mask, cmax, rb=None, tans=None
                    ) -> Dict[str, torch.Tensor]:
         """One optimizer step, in place on ``state``; returns the losses
-        (0-d tensors on the device, not synchronised)."""
-        total, losses, new_model_state = self.loss(state, history, triples, mask, cmax)
+        (0-d tensors on the device, not synchronised). The H-PES writeback
+        runs before the optimizer's in-place step, so it reads the gate
+        parameters of the forward, as JAX's ``update_states`` does."""
+        total, losses, new_model_state, aux = self.loss(state, history, triples, mask, cmax, rb,
+                                                        tans)
         leaves = tree_leaves(state.params)
         grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        self.est_update(state, triples, mask, aux)
         self.opt.step(leaves, grads, state.opt_state)
         state.model_state = new_model_state
         state.step += 1
@@ -173,7 +242,7 @@ class HyperbolicTrainer:
         order = self.epoch_order(epoch)
         sums = torch.zeros(len(LOSS_KEYS), device=self.device)
         for i in order:
-            losses = self.train_step(state, *self.window(i), cmax)
+            losses = self.train_step(state, *self.window(i), cmax, *self.est_window(i))
             sums += torch.stack([losses[k] for k in LOSS_KEYS])
         means = (sums / max(len(order), 1)).tolist()  # one sync per epoch
         return dict(zip(LOSS_KEYS, means))
@@ -181,18 +250,22 @@ class HyperbolicTrainer:
     # ------------------------------------------------------------------ eval
     def evaluate(self, state: TrainState, history_list: Sequence[np.ndarray],
                  eval_list: Sequence[np.ndarray], ent_filters=None, rel_filters=None,
-                 multi_step: bool = False, topk: int = 10, relation_evaluation: bool = False
-                 ) -> Dict[str, metrics.RankStats]:
+                 time_offset: int = 0, multi_step: bool = False, topk: int = 10,
+                 relation_evaluation: bool = False) -> Dict[str, metrics.RankStats]:
+        """Rolling-window evaluation of ``eval_list``, whose first snapshot
+        is at time ``time_offset`` (EST retrieves the events before it)."""
         return loop.evaluate(state.params, state.model_state, self.cfg, self.tc, history_list,
                              eval_list, ent_filters, rel_filters, self.device, hmodel.predict,
-                             multi_step, topk, relation_evaluation)
+                             multi_step, topk, relation_evaluation,
+                             self._eval_inputs(state, time_offset))
 
     def test(self, state: TrainState, multi_step: bool = False, topk: int = 10,
              relation_evaluation: bool = False) -> Dict[str, metrics.RankStats]:
         """The test split, with train + valid as its history; ``multi_step``
         feeds the top-k predictions back (ref:hyperbolic_main.py:135-142)."""
         return loop.test(state.params, state.model_state, self.cfg, self.tc, self.data,
-                         self.device, hmodel.predict, multi_step, topk, relation_evaluation)
+                         self.device, hmodel.predict, multi_step, topk, relation_evaluation,
+                         self._eval_inputs(state, len(self.train_list) + len(self.valid_list)))
 
     def fit(self, state: Optional[TrainState] = None, n_epochs: Optional[int] = None,
             patience: int = 20, checkpoint_path: Optional[str] = None, resume: bool = False,
@@ -204,7 +277,8 @@ class HyperbolicTrainer:
         improvement and the state after every epoch under ``<path>/last``;
         ``resume=True`` continues from there, if a checkpoint exists:
         parameters, Adam moments, BN statistics, the dropout generator, the
-        step, the best MRR and the patience count (epochs since the best)."""
+        step, the H-PES memories, the best MRR and the patience count
+        (epochs since the best)."""
         if selection_metric not in ("ent_raw", "rel_raw"):
             raise ValueError(f"selection_metric must be 'ent_raw' or 'rel_raw', got "
                              f"{selection_metric!r}")
@@ -224,7 +298,8 @@ class HyperbolicTrainer:
             t0 = time.perf_counter()
             losses = self.run_epoch(state, epoch)
             dt = time.perf_counter() - t0
-            stats = self.evaluate(state, self.train_list, self.valid_list, ent_f, rel_f)
+            stats = self.evaluate(state, self.train_list, self.valid_list, ent_f, rel_f,
+                                  time_offset=len(self.train_list))
             mrr = stats[selection_metric].mrr
             rows.append({"epoch": epoch, "losses": losses, "valid_mrr_raw": stats["ent_raw"].mrr,
                          "epoch_time_s": dt})

@@ -105,8 +105,14 @@ def gru_cell(params: Params, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """torch GRUCell semantics: r/z gates then candidate with reset on h.
 
     Gate order r, z, n, as in ``torch.nn.GRUCell``."""
-    gi = torch.nn.functional.linear(x, params["w_ih"], params["b_ih"])
-    gh = torch.nn.functional.linear(h, params["w_hh"], params["b_hh"])
+    return gru_gates(torch.nn.functional.linear(x, params["w_ih"], params["b_ih"]),
+                     torch.nn.functional.linear(h, params["w_hh"], params["b_hh"]), h)
+
+
+def gru_gates(gi: torch.Tensor, gh: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """The GRU update from its two projections, ``gi = x W_ih^T + b_ih`` and
+    ``gh = h W_hh^T + b_hh``: a recurrence over a sequence projects all of
+    its inputs in one product and calls this per step."""
     i_r, i_z, i_n = gi.chunk(3, dim=-1)
     h_r, h_z, h_n = gh.chunk(3, dim=-1)
     r = torch.sigmoid(i_r + h_r)

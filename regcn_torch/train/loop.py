@@ -9,7 +9,9 @@ Counterpart of ``regcn_tpu/train/loop.py`` (ref:src/main.py:33-291).
   (:func:`multi_step_ranks`) the snapshot's top-k predictions join the
   window instead (:func:`construct_snap`, :func:`construct_snap_r`). The
   model's scores come from a ``predict`` function, RE-GCN's by default;
-  the hyperbolic trainer passes ``regcn_torch.hyperbolic.model.predict``.
+  the hyperbolic trainer passes ``regcn_torch.hyperbolic.model.predict``,
+  and with ``step_inputs`` the keyword arguments it takes at each eval
+  snapshot (EST's retrieval batch at that snapshot's time).
 - :class:`Trainer`: RE-GCN training, one optimizer step per training
   snapshot in the order of ``Trainer.run_epoch_fused``, and ``fit`` with
   best and last checkpoints and resume.
@@ -45,8 +47,11 @@ log = logging.getLogger(__name__)
 RANK_KEYS = ("ent_raw", "ent_filter", "rel_raw", "rel_filter")
 LOSS_KEYS = ("entity", "relation", "static")
 
-# predict(params, model_state, cfg, history, triples [B,3], mask [B]) -> (ent [B,N], rel [B,2R])
+# predict(params, model_state, cfg, history, triples [B,3], mask [B], **step_inputs)
+#   -> (ent [B,N], rel [B,2R])
 Predict = Callable[..., tuple]
+# step_inputs(t, triples [B,3], mask [B]) -> predict's keyword arguments at eval snapshot t
+StepInputs = Optional[Callable[[int, np.ndarray, np.ndarray], dict]]
 
 
 def regcn_predict(params, model_state, cfg, history, triples, mask):
@@ -66,6 +71,7 @@ def rolling_ranks(
     rel_filters: Optional[List[AnswerFilter]] = None,
     device="cuda",
     predict: Predict = regcn_predict,
+    step_inputs: StepInputs = None,
 ) -> Dict[str, List[np.ndarray]]:
     """Per eval snapshot, the ranks of its real queries under each of
     ``RANK_KEYS`` (entity/relation, raw/filtered)."""
@@ -84,7 +90,8 @@ def rolling_ranks(
         er, ec, rr, rc = (torch.from_numpy(a).to(device) for a in (er, ec, rr, rc))
         trip = torch.from_numpy(triples).long().to(device)
         s_ob, s_rel = predict(params, model_state, cfg, history, trip,
-                              torch.from_numpy(mask).to(device))
+                              torch.from_numpy(mask).to(device),
+                              **(step_inputs(t, triples, mask) if step_inputs else {}))
         step = torch.stack([
             metrics.device_ranks(s_ob, trip[:, 2]),
             metrics.device_filtered_ranks(s_ob, trip[:, 2], er, ec),
@@ -113,6 +120,7 @@ def multi_step_ranks(
     predict: Predict = regcn_predict,
     topk: int = 10,
     relation_evaluation: bool = False,
+    step_inputs: StepInputs = None,
 ) -> Dict[str, List[np.ndarray]]:
     """Multi-step evaluation (ref:src/main.py:33-107): as
     :func:`rolling_ranks`, but each snapshot's top-k predictions, of
@@ -129,7 +137,8 @@ def multi_step_ranks(
         with torch.inference_mode():
             s_ob, s_rel = predict(params, model_state, cfg, history.to(device),
                                   torch.from_numpy(triples).long().to(device),
-                                  torch.from_numpy(mask).to(device))
+                                  torch.from_numpy(mask).to(device),
+                                  **(step_inputs(t, triples, mask) if step_inputs else {}))
         # the dense scores go to the host, in float64 as in the JAX loop
         s_ob = s_ob.cpu().numpy().astype(np.float64)[valid]
         s_rel = s_rel.cpu().numpy().astype(np.float64)[valid]
@@ -163,16 +172,17 @@ def evaluate(
     multi_step: bool = False,
     topk: int = 10,
     relation_evaluation: bool = False,
+    step_inputs: StepInputs = None,
 ) -> Dict[str, metrics.RankStats]:
     """Rolling-window evaluation, single-step or with ``multi_step``
     (:func:`multi_step_ranks`): ``RANK_KEYS`` -> RankStats."""
     if multi_step:
         ranks = multi_step_ranks(params, model_state, cfg, tc, history_list, eval_list,
                                  ent_filters, rel_filters, device, predict, topk,
-                                 relation_evaluation)
+                                 relation_evaluation, step_inputs)
     else:
         ranks = rolling_ranks(params, model_state, cfg, tc, history_list, eval_list,
-                              ent_filters, rel_filters, device, predict)
+                              ent_filters, rel_filters, device, predict, step_inputs)
     return {k: metrics.stat_ranks(v) for k, v in ranks.items()}
 
 
@@ -187,6 +197,7 @@ def test(
     multi_step: bool = False,
     topk: int = 10,
     relation_evaluation: bool = False,
+    step_inputs: StepInputs = None,
 ) -> Dict[str, metrics.RankStats]:
     """Test-split evaluation (``Trainer.test``): history = train + valid,
     eval = test, with per-timestamp answer filters of the test split."""
@@ -197,7 +208,7 @@ def test(
     return evaluate(
         params, model_state, cfg, tc,
         split_by_time(data.train) + split_by_time(data.valid), split_by_time(data.test),
-        ent_f, rel_f, device, predict, multi_step, topk, relation_evaluation,
+        ent_f, rel_f, device, predict, multi_step, topk, relation_evaluation, step_inputs,
     )
 
 

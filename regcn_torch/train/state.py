@@ -3,8 +3,9 @@
 Counterpart of ``regcn_tpu/train/state.py``. The train state holds the
 parameters (leaf tensors that require grad, updated in place), the
 optimizer's moments, the decoders' BatchNorm running statistics, the
-dropout generator and the step; a checkpoint holds all of it, so
-training resumes exactly where it stopped.
+dropout generator, the step and, for a hyperbolic model with EST, the
+H-PES memories; a checkpoint holds all of it, so training resumes exactly
+where it stopped.
 
 Layout, as in the JAX package: ``<path>/state.pt`` (``torch.save`` of
 the state) and ``<path>/meta.json``; ``fit`` keeps the best state at the
@@ -37,13 +38,15 @@ STATE_FILE, META_FILE = "state.pt", "meta.json"
 class TrainState:
     """The state of both trainers: RE-GCN's (``model_state`` a
     ``recurrent.ModelState``) and the hyperbolic one's (a
-    ``hyperbolic.model.HypModelState``)."""
+    ``hyperbolic.model.HypModelState``, and with EST an ``est_state``, the
+    ``hyperbolic.est.ESTState`` of JAX's ``HypTrainState``)."""
 
     params: Dict[str, Any]
     opt_state: AdamState
     model_state: Any  # a dataclass of tensor trees: BN running statistics and buffers
     gen: torch.Generator  # the dropout generator, on the parameters' device
     step: int = 0
+    est_state: Any = None  # a dataclass of tensors, or None
 
 
 def make_optimizer(tc: TrainConfig) -> EuclideanAdam:
@@ -85,7 +88,8 @@ def copy_state(state: TrainState) -> TrainState:
     with torch.no_grad():
         return dataclasses.replace(
             state, params=copy.deepcopy(state.params), opt_state=copy.deepcopy(state.opt_state),
-            model_state=copy.deepcopy(state.model_state), gen=gen)
+            model_state=copy.deepcopy(state.model_state), gen=gen,
+            est_state=copy.deepcopy(state.est_state))
 
 
 def _write(path: str, write) -> None:
@@ -106,6 +110,7 @@ def save_checkpoint(path: str, state: TrainState, meta: Optional[Dict[str, Any]]
         "model_state": _fields(state.model_state),
         "gen": state.gen.get_state(),
         "step": state.step,
+        "est_state": None if state.est_state is None else _fields(state.est_state),
     }
     _write(os.path.join(path, STATE_FILE), lambda f: torch.save(blob, f))
 
@@ -124,6 +129,8 @@ def restore_checkpoint(path: str, template: TrainState) -> Tuple[TrainState, Dic
     got, want = tree_leaves(blob["params"]), tree_leaves(template.params)
     if [t.shape for t in got] != [t.shape for t in want]:
         raise ValueError(f"checkpoint {path} holds parameters of other shapes than the model's")
+    if (blob.get("est_state") is None) != (template.est_state is None):
+        raise ValueError(f"checkpoint {path} and the model differ in holding an EST state")
     gen = torch.Generator(device=device)
     gen.set_state(blob["gen"].cpu())
     opt = blob["opt_state"]
@@ -131,7 +138,9 @@ def restore_checkpoint(path: str, template: TrainState) -> Tuple[TrainState, Dic
         params=tree_map(lambda t: t.requires_grad_(True), blob["params"]),
         opt_state=AdamState(count=int(opt["count"]), mu=opt["mu"], nu=opt["nu"]),
         model_state=type(template.model_state)(**blob["model_state"]),
-        gen=gen, step=int(blob["step"]))
+        gen=gen, step=int(blob["step"]),
+        est_state=(None if template.est_state is None
+                   else type(template.est_state)(**blob["est_state"])))
     meta = {}
     meta_path = os.path.join(path, META_FILE)
     if os.path.exists(meta_path):

@@ -197,7 +197,7 @@ def test_get_loss_and_every_gradient_match_jax(data, learn_curvature):
     leaves = tree_leaves(cp)
     for p in leaves:
         p.requires_grad_(True)
-    _, losses, _ = PM.get_loss(cp, cs, pcfg, pt_hist, torch.from_numpy(triples).long(),
+    _, losses, _, _ = PM.get_loss(cp, cs, pcfg, pt_hist, torch.from_numpy(triples).long(),
                                torch.from_numpy(mask), train=True, curvature_max=cmax)
     for k in ("entity", "relation", "static", "radius"):
         close(losses[k], want_losses[k], msg=k)
@@ -255,9 +255,8 @@ def test_predict_matches_jax(data):
 
 
 @pytest.mark.parametrize("unported", [
-    dict(use_static=True), dict(use_est=True), dict(manifold_entities=True),
-    dict(compute_dtype="bfloat16"), dict(encoder="fhnn"), dict(encoder="hgat"),
-    dict(use_time_aware_negative=True)])
+    dict(use_static=True), dict(manifold_entities=True),
+    dict(compute_dtype="bfloat16"), dict(encoder="fhnn"), dict(encoder="hgat")])
 def test_unported_configs_raise(data, unported):
     _, pcfg = configs(data, **unported)
     with pytest.raises(NotImplementedError):

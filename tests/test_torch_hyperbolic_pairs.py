@@ -168,7 +168,7 @@ def test_pair_get_loss_and_every_gradient_match_jax(data, encoder, decoder):
     leaves = tree_leaves(cp)
     for p in leaves:
         p.requires_grad_(True)
-    _, losses, _ = PM.get_loss(cp, cs, pcfg, pt_hist, torch.from_numpy(triples).long(),
+    _, losses, _, _ = PM.get_loss(cp, cs, pcfg, pt_hist, torch.from_numpy(triples).long(),
                                torch.from_numpy(mask), train=True, curvature_max=cmax)
     for k in ("entity", "relation", "static", "radius"):
         close(losses[k], want[k], msg=k)

@@ -397,8 +397,8 @@ def test_get_loss_matches_jax(data, learn_curvature):
     want_grads, (want_losses, want_state) = jax.grad(jax_fn, has_aux=True)(jp)
     for p in tree_leaves(cp):
         p.requires_grad_(True)
-    loss_ent, losses, new_state = PM.get_loss(cp, cs, pcfg, pt_hist, t(triples).long(),
-                                              t(mask), train=True)
+    loss_ent, losses, new_state, _ = PM.get_loss(cp, cs, pcfg, pt_hist, t(triples).long(),
+                                                 t(mask), train=True)
     assert loss_ent is losses["entity"]
     for k in ("entity", "relation", "static", "radius"):
         close(losses[k], want_losses[k], msg=k)

@@ -51,7 +51,7 @@ def test_port_imports_with_jax_blocked():
 def test_the_hyperbolic_slice_is_covered():
     """The modules of the hyperbolic slice are among the files checked above."""
     checked = {str(p.relative_to(ROOT)) for p in PORT_FILES}
-    for name in ("ops", "decoders", "layers", "model", "train"):
+    for name in ("ops", "decoders", "layers", "model", "train", "est", "gru"):
         assert f"regcn_torch/hyperbolic/{name}.py" in checked
     assert "regcn_torch/ops/streaming_ce.py" in checked
 
