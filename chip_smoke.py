@@ -98,12 +98,39 @@ Phases, each of which exits non-zero on failure:
    through ``fit(checkpoint_path)`` (B1 1812, no B2); (c) the resume, the
    H-PES memories among the tensors restored exactly; (d) 20 steady
    steps; (e) the test split at random init and after the epoch (B1 186);
-   (f) a profile of a step.
+   (f) a profile of a step;
+11. config-2 training: BASELINE.json config 2, RE-GCN with the static
+   entity-word graph (a block-diagonal RGCN layer over entities and words
+   starts the evolution; an angular constraint ties each step to it;
+   n_bases 100, static weight 0.5, angle 10, discount 1), h=200, 2
+   layers, history 3, dropouts 0.2, on synthetic-icews18 (seed 123,
+   ICEWS18's 23033 entities, 256 relations and 1200 triples a snapshot,
+   240/30/34 snapshots, 3 static links an entity) through
+   ``loop.Trainer``: (a) 3 steps cuda vs cpu, the static loss among the
+   losses, the cpu on the card's branches at every rrelu (the static
+   layer's too); (b) one epoch through ``fit(checkpoint_path)`` (B1 1428,
+   no B2); (c) the resume; (d) 20 steady steps and their peak memory; (e)
+   the test split at random init and after the epoch (B1 204); (f) a
+   profile of a step, and the static layer profiled alone with its share
+   of the step's device time;
+12. the hyperbolic headline with the static graph on the same data: (a) 3
+   steps cuda vs cpu with B1's dw; (b) one epoch through ``fit`` (B1
+   1428); (e) the test split (B1 204);
+13. the rest of the hyperbolic trainer on synthetic-icews14s, the
+   headline with its entities on the ball and Riemannian Adam
+   (``manifold_entities``): (a) 3 snapshots cuda vs cpu in triple batches
+   of 256 rows in each mode (``accumulate``, ``per_chunk``), the
+   Riemannian moments and the retracted entity table compared after each
+   optimizer step; (b) one ``accumulate`` epoch, B1 exactly 2 layers x
+   each window's snapshots x its non-empty chunks; (c) both trainers'
+   ``analysis_record`` on the card and the CPU; (d) 3 windows through
+   ``evolve(tangent_fast=False)``, the uvrgcn's ball-space layer on B1
+   (2 launches per window snapshot), cuda vs cpu with every gradient.
 
 The line before the last is ``{"kernels": [...]}``: each row's
 ``launches`` is B1's on the config-1 test split or a B2 kernel's in the
 config-3 epoch, and ``launches_by_path`` holds its count on each path
-(config 5's among them);
+(config 5's and phases 11-13's among them);
 B1's ``shapes`` holds its times at three shapes, each B2 kernel's its
 times at config 4's entity shape on the true distance. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -138,6 +165,7 @@ from regcn_torch.data.snapshots import (  # noqa: E402
 from regcn_torch.data.synthetic import generate  # noqa: E402
 from regcn_torch.hyperbolic import est as hyp_est  # noqa: E402
 from regcn_torch.hyperbolic import layers as hyp_layers  # noqa: E402
+from regcn_torch.hyperbolic import model as hyp_model  # noqa: E402
 from regcn_torch.hyperbolic.decoders import REL_C_EPS  # noqa: E402
 from regcn_torch.hyperbolic.model import HyperbolicConfig  # noqa: E402
 from regcn_torch.hyperbolic.ops import exp_map_zero  # noqa: E402
@@ -856,9 +884,10 @@ def phase_training(data, dev: torch.device) -> dict:
     return launches
 
 
-def train_profile(label: str, step, order, scatter: bool = False, ce: bool = False) -> None:
+def train_profile(label: str, step, order, scatter: bool = False, ce: bool = False) -> float:
     """``step(i)`` for each i of ``order`` under torch.profiler: device busy
-    time by kernel against the wall time; with ``scatter``, B1's forward
+    time by kernel against the wall time (returned: busy us per step); with
+    ``scatter``, B1's forward
     kernel and the scatter's backward (``_ScatterAddSortedBackward``: the
     plain-torch gather of the autograd Function) apart; with ``ce``, the
     three B2 kernels apart."""
@@ -906,6 +935,7 @@ def train_profile(label: str, step, order, scatter: bool = False, ce: bool = Fal
                          "launches")
         print("[profile]   B2: " + ", ".join(parts) + f"; together {total_us / n:.1f} us/step "
               f"({100 * total_us / busy_us:.1f} % of busy)", flush=True)
+    return busy_us / n
 
 
 # ------------------------------------------------------- config-1 training
@@ -1297,8 +1327,15 @@ def counted_test(trainer, state, expected: int, label: str) -> tuple:
     return stats, launches, seconds
 
 
+def one_epoch(trainer) -> dict:
+    """``fit``'s keyword for one epoch: the hyperbolic trainer takes
+    ``n_epochs``; RE-GCN's ``Trainer`` runs its config's, which the phases
+    set to 1."""
+    return {} if isinstance(trainer, loop.Trainer) else {"n_epochs": 1}
+
+
 def fit_one_counted_epoch(trainer, state, **fit_kw) -> tuple:
-    """``trainer.fit(state, n_epochs=1, **fit_kw)`` with the launch counts
+    """``trainer.fit(state, **fit_kw)`` for one epoch with the launch counts
     reset just before its ``run_epoch`` and read just after: (fit's info,
     {"seconds", "launches"} of the epoch)."""
     epoch = {}
@@ -1315,7 +1352,7 @@ def fit_one_counted_epoch(trainer, state, **fit_kw) -> tuple:
 
     trainer.run_epoch = counted_epoch
     try:
-        _, info = trainer.fit(state=state, n_epochs=1, **fit_kw)
+        _, info = trainer.fit(state=state, **one_epoch(trainer), **fit_kw)
     finally:
         trainer.run_epoch = run_epoch
     return info, epoch
@@ -1373,7 +1410,10 @@ def phase_headline_training(data, tc: TrainConfig, dev: torch.device, config=Non
               + f"; valid ent raw MRR {row['valid_mrr_raw']:.6f}; launches {launches} "
               f"({launches['rgcn_scatter_sorted'] / len(order):.2f} B1 launches per step)",
               flush=True)
-        headline_resume(trainer, state, info, path, cfg, tc, data, dev, tag)
+        cmax = trainer._curvature_max(1)
+        headline_resume(trainer, HyperbolicTrainer(cfg, tc, data, device=dev), state, info,
+                        path, tag, lambda tr, st, i: tr.train_step(st, *tr.window(i), cmax,
+                                                                   *tr.est_window(i)))
 
     # (d) steady state on a copy: the next epoch's first steps, windows built
     steady = train_state.copy_state(state)
@@ -1408,36 +1448,36 @@ def phase_headline_training(data, tc: TrainConfig, dev: torch.device, config=Non
     return {f"{tag} training epoch": launches, f"{tag} test split": test_counts}
 
 
-def headline_resume(trainer, state, info, path: str, cfg, tc, data, dev, tag: str) -> None:
-    """(c) ``fit(resume=True, n_epochs=1)`` in a fresh trainer restores the
-    checkpoint of the epoch (``<path>/last``) and runs no epoch: every
-    tensor, the generator and the step equal the trained state's, on the
-    card; then one step from each copy, in deterministic mode (the
-    relation context's index_add_ has float atomics otherwise)."""
+def headline_resume(trainer, fresh, state, info, path: str, tag: str, step) -> None:
+    """(c) ``fit(resume=True)`` for one epoch in ``fresh``, a new trainer of
+    the same configuration, restores the checkpoint of the epoch
+    (``<path>/last``) and runs no epoch: every tensor, the generator and the
+    step equal the trained state's, on the card; then one step from each
+    copy (``step(trainer, state, i)``), in deterministic mode (the relation
+    context's index_add_ has float atomics otherwise)."""
     t0 = time.perf_counter()
     mib = os.path.getsize(os.path.join(path, "last", train_state.STATE_FILE)) / 2**20
-    fresh = HyperbolicTrainer(cfg, tc, data, device=dev)
-    restored, info2 = fresh.fit(state=fresh.init_state(SEED + 7), n_epochs=1,
+    restored, info2 = fresh.fit(state=fresh.init_state(SEED + 7), **one_epoch(fresh),
                                 checkpoint_path=path, resume=True)
     check(info2["history"] == [] and info2["best_valid_mrr_raw"] == info["best_valid_mrr_raw"],
           f"resume ran an epoch or lost the best MRR: {info2}")
     same = all(torch.equal(a.detach(), b.detach())
                for a, b in zip(state_leaves(state), state_leaves(restored)))
+    radius = [getattr(st.model_state, "radius_target", None) for st in (state, restored)]
     check(same and torch.equal(state.gen.get_state(), restored.gen.get_state())
           and (state.step, state.opt_state.count) == (restored.step, restored.opt_state.count)
-          and torch.equal(state.model_state.radius_target, restored.model_state.radius_target),
+          and (radius[0] is None or torch.equal(*radius)),
           "the restored state differs from the trained one")
     check(all(t.device.type == "cuda" for t in state_leaves(restored)),
           "the restored state is not on the card")
     i = trainer.epoch_order(1)[0]
-    cmax = trainer._curvature_max(1)
     stepped = train_state.copy_state(state)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")  # cuBLAS: deterministic without a workspace setting
         torch.use_deterministic_algorithms(True, warn_only=True)
         try:
-            trainer.train_step(stepped, *trainer.window(i), cmax, *trainer.est_window(i))
-            fresh.train_step(restored, *fresh.window(i), cmax, *fresh.est_window(i))
+            step(trainer, stepped, i)
+            step(fresh, restored, i)
             torch.cuda.synchronize()
         finally:
             torch.use_deterministic_algorithms(False)
@@ -1601,6 +1641,443 @@ def phase_config4_training(data, tc: TrainConfig, dev: torch.device) -> tuple:
     return {"config-4 training epoch": launches, "config-4 test split": test_counts}, times
 
 
+# ------------------------------------------------------- config-2 training
+
+def icews18_data():
+    """synthetic-icews18 (ICEWS18's 23033 entities, 256 relations and 1200
+    triples a snapshot, 240 / 30 / 34 snapshots) with its static
+    entity-word graph: 3 links from each entity, inverse edges added."""
+    return generate("synthetic-icews18", seed=SEED, with_static=True)
+
+
+def config2(data, **kw) -> ModelConfig:
+    """BASELINE.json config 2 at full width, as ``tools/bench_configs.py``
+    runs it: RE-GCN (h=200, 2 UnionRGCN layers, history 3, ConvTransE/R)
+    with the static graph's constraint (n_bases 100, static weight 0.5,
+    angle 10, discount 1), the defaults otherwise (dropouts 0.2, layer
+    norm), in fp32."""
+    return ModelConfig(num_ents=data.num_nodes, num_rels=data.num_rels, h_dim=200, n_layers=2,
+                       use_static=True, num_static_rels=data.num_static_rels,
+                       num_words=data.num_words, **kw)
+
+
+def static_layer_profile(tag: str, params, cfg, snap, step_busy_us: float) -> None:
+    """The static layer alone (``_static_init``: the block weights' gather,
+    the block product, the index_add_ over destinations, rrelu and the
+    L2 norm, then its backward into ``words_emb``, ``dynamic_emb`` and the
+    block weights) under torch.profiler: its kernels, and its device time
+    against a training step's busy time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    leaves = [params["dynamic_emb"], params["words_emb"], params["static_rgcn"]["weight"]]
+
+    def fwd_bwd():
+        out = recurrent._static_init(params, cfg, snap)
+        torch.autograd.grad(out.sum(), leaves)
+
+    fwd_bwd()
+    torch.cuda.synchronize()
+    reps = 5
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fwd_bwd()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                     key=lambda e: -e.self_device_time_total)
+    busy_us = sum(e.self_device_time_total for e in kernels) / reps
+    print(f"[{tag}] (f) the static layer alone ({int(snap.edge_mask.sum())} edges over "
+          f"{snap.in_deg_norm.shape[0]} nodes, forward and backward): {busy_us:.1f} us of device "
+          f"time, {100 * busy_us / step_busy_us:.1f} % of a training step's busy "
+          f"{step_busy_us:.1f} us", flush=True)
+    for e in kernels[:8]:
+        print(f"[{tag}]   {e.self_device_time_total / reps:9.1f} us {e.count / reps:4.0f}x  "
+              f"{e.key[:90]}", flush=True)
+
+
+def phase_config2_training(data, dev: torch.device) -> dict:
+    """BASELINE config 2 through ``loop.Trainer``: (a) 3 steps cuda vs cpu
+    (``three_steps``, dropouts 0), the static loss among the losses and
+    the gradients of ``words_emb`` and ``static_rgcn.weight`` printed
+    apart, the cpu on the card's branches at every rrelu, the static
+    layer's included; (b) one epoch through ``fit(checkpoint_path)``, the
+    launch counts reset just before ``run_epoch`` and read just after (B1:
+    2 layers x the window's snapshots per step, 1428 at this data; no B2);
+    (c) ``fit(resume=True)`` in a fresh trainer restores it exactly; (d) 20
+    steady steps and their peak memory; (e) the test split at random init
+    and after the epoch (B1 6 times per snapshot, 204), the entity raw MRR
+    above the random-init one; (f) a profile of a step, B1's forward and
+    the scatter backward apart, and the static layer profiled alone."""
+    tag = "config2"
+    tc = TrainConfig(train_history_len=3, test_history_len=3, edge_bucket=128, rc_bucket=128,
+                     triple_bucket=128, n_epochs=1)
+    exp = ExperimentConfig(model=config2(data, **NO_DROPOUT), train=tc)
+    gpu = loop.Trainer(exp, data, device=dev)
+    cpu = loop.Trainer(exp, data, device="cpu")
+    s_gpu = gpu.init_state(SEED)
+    s_cpu = train_state.state_from(s_gpu.params, s_gpu.model_state, tc, SEED, "cpu")
+    worst = three_steps(tag, gpu, cpu, s_gpu, s_cpu, gpu.epoch_order(0)[:3])
+    # dynamic_emb feeds only the words' rows of the static layer, which the
+    # model drops, so its gradient is 0 here, as in JAX and the reference
+    for name in ("words_emb", "static_rgcn.weight"):
+        err, largest = worst[name]
+        check(largest > 0, f"{tag}: {name} got no gradient in the 3 steps")
+        print(f"[{tag}] (a) gradient of {name}: cuda vs cpu within {err:.3e} of its largest "
+              f"entry {largest:.6e}", flush=True)
+    print(f"[{tag}] static graph: {gpu.static_snap.num_edges} edges (inverses included) over "
+          f"{data.num_nodes} entities and {data.num_words} words, "
+          f"{2 * data.num_static_rels} relation ids", flush=True)
+    del gpu, cpu, s_gpu, s_cpu
+
+    exp = ExperimentConfig(model=config2(data), train=tc)
+    cfg = exp.model
+    trainer = loop.Trainer(exp, data, device=dev)
+    state = trainer.init_state(SEED)
+    n_test = len(trainer.test_list)
+    test_launches = cfg.n_layers * tc.test_history_len * n_test
+    init_stats, _, init_s = counted_test(trainer, state, test_launches, f"{tag} at init")
+    print(f"[{tag}] test split at random init ({init_s:.1f} s): MRR "
+          + ", ".join(f"{k} {v.mrr:.6f}" for k, v in init_stats.items()), flush=True)
+
+    # (b) the epoch, inside fit with a checkpoint; (c) its resume
+    order = trainer.epoch_order(0)
+    expected = cfg.n_layers * sum(min(i, tc.train_history_len) for i in order)
+    with tempfile.TemporaryDirectory() as path:
+        info, epoch = fit_one_counted_epoch(trainer, state, checkpoint_path=path)
+        launches, row = epoch["launches"], info["history"][0]
+        check(all(math.isfinite(v) for v in row["losses"].values()) and row["losses"]["static"] > 0,
+              f"{tag} epoch losses {row['losses']}")
+        check(all(launches[k] == 0 for k in CE_KERNELS), f"{tag} launched a CE kernel: {launches}")
+        check(launches["rgcn_scatter_sorted"] == expected,
+              f"scatter kernel launched {launches['rgcn_scatter_sorted']} times in the {tag} "
+              f"epoch, expected {expected} = {cfg.n_layers} layers x the snapshots of the "
+              f"{len(order)} windows")
+        print(f"[{tag}] (b) epoch 0 in fit: {len(order)} steps in {epoch['seconds']:.2f} s = "
+              f"{len(order) / epoch['seconds']:.2f} snapshots/s (first epoch: includes building "
+              f"the {len(order)} windows); mean losses "
+              + ", ".join(f"{k} {v:.5f}" for k, v in row["losses"].items())
+              + f"; valid ent raw MRR {row['valid_mrr_raw']:.6f}; launches {launches} "
+              f"({launches['rgcn_scatter_sorted'] / len(order):.2f} B1 launches per step)",
+              flush=True)
+        headline_resume(trainer, loop.Trainer(exp, data, device=dev), state, info, path, tag,
+                        lambda tr, st, i: tr.train_step(st, *tr.window(i)))
+
+    # (d) steady state on a copy: the next epoch's first steps, windows built
+    steady = train_state.copy_state(state)
+    steady_order = trainer.epoch_order(1)[:PROFILE_STEPS]
+    trainer.window(steady_order[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mib = torch.cuda.memory_allocated() / 2**20
+    t0 = time.perf_counter()
+    for i in steady_order:
+        trainer.train_step(steady, *trainer.window(i))
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t0
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    print(f"[{tag}] (d) steady state: {len(steady_order)} steps in {steady_s:.3f} s = "
+          f"{len(steady_order) / steady_s:.2f} snapshots/s, "
+          f"{steady_s / len(steady_order) * 1e3:.2f} ms per step; peak "
+          f"torch.cuda.max_memory_allocated {peak_mib:.1f} MiB ({base_mib:.1f} MiB allocated "
+          "before the steps)", flush=True)
+
+    # (e) the test split after the epoch
+    stats, test_counts, test_s = counted_test(trainer, state, test_launches, tag)
+    check(stats["ent_raw"].mrr > init_stats["ent_raw"].mrr,
+          f"{tag} entity raw MRR {stats['ent_raw'].mrr:.6f} after an epoch is not above the "
+          f"random-init {init_stats['ent_raw'].mrr:.6f}")
+    print(f"[{tag}] (e) test split after one epoch ({test_s:.1f} s, "
+          f"{test_s / n_test * 1e3:.2f} ms per snapshot, {test_counts['rgcn_scatter_sorted']} B1 "
+          "launches): MRR " + ", ".join(f"{k} {v.mrr:.6f}" for k, v in stats.items())
+          + f" (random init: ent_raw {init_stats['ent_raw'].mrr:.6f})", flush=True)
+
+    # (f) where a step's time goes, and the static layer's share of it
+    busy = train_profile(f"{tag} train step",
+                         lambda i: trainer.train_step(steady, *trainer.window(i)),
+                         trainer.epoch_order(2)[:PROFILE_STEPS], scatter=True)
+    static_layer_profile(tag, steady.params, cfg, trainer.static_snap, busy)
+    return {"config-2 training epoch": launches, "config-2 test split": test_counts}
+
+
+def phase_static_headline(data, dev: torch.device) -> dict:
+    """The hyperbolic headline with the static graph (``--add-static-graph``)
+    on config 2's data, through ``HyperbolicTrainer``: (a) 3 steps cuda vs
+    cpu (``three_steps``), the static loss among the losses, B1's dw among
+    the checks; (b) one epoch through ``fit`` (B1 1428, no B2); (e) the test
+    split after it (B1 204)."""
+    tag = "static headline"
+    tc = TrainConfig(train_history_len=3, test_history_len=3, edge_bucket=128, rc_bucket=128,
+                     triple_bucket=128)
+    static = dict(use_static=True, num_static_rels=data.num_static_rels,
+                  num_words=data.num_words)
+    gpu = HyperbolicTrainer(headline_config(data, **static, **NO_DROPOUT), tc, data, device=dev)
+    cpu = HyperbolicTrainer(headline_config(data, **static, **NO_DROPOUT), tc, data,
+                            device="cpu")
+    s_gpu = gpu.init_state(SEED)
+    s_cpu = cpu.state_from(s_gpu.params, s_gpu.model_state)
+    worst = three_steps(tag, gpu, cpu, s_gpu, s_cpu, gpu.epoch_order(0)[:3],
+                        gpu._curvature_max(0))
+    for name in ("words_emb", "static_rgcn.weight"):
+        check(worst[name][1] > 0, f"{tag}: {name} got no gradient in the 3 steps")
+    del gpu, cpu, s_gpu, s_cpu
+
+    cfg = headline_config(data, **static)
+    trainer = HyperbolicTrainer(cfg, tc, data, device=dev)
+    state = trainer.init_state(SEED)
+    order = trainer.epoch_order(0)
+    expected = cfg.n_layers * sum(min(i, tc.train_history_len) for i in order)
+    info, epoch = fit_one_counted_epoch(trainer, state)
+    launches, row = epoch["launches"], info["history"][0]
+    check(all(math.isfinite(v) for v in row["losses"].values()) and row["losses"]["static"] > 0,
+          f"{tag} epoch losses {row['losses']}")
+    check(launches["rgcn_scatter_sorted"] == expected
+          and all(launches[k] == 0 for k in CE_KERNELS),
+          f"{tag} epoch launches {launches}, expected {expected} of the scatter kernel and no "
+          "CE kernel")
+    print(f"[{tag}] (b) epoch 0 in fit: {len(order)} steps in {epoch['seconds']:.2f} s = "
+          f"{len(order) / epoch['seconds']:.2f} snapshots/s (first epoch: includes building the "
+          f"{len(order)} windows); mean losses "
+          + ", ".join(f"{k} {v:.5f}" for k, v in row["losses"].items())
+          + f"; valid ent raw MRR {row['valid_mrr_raw']:.6f}; launches {launches}", flush=True)
+    n_test = len(trainer.test_list)
+    stats, test_counts, test_s = counted_test(
+        trainer, state, cfg.n_layers * tc.test_history_len * n_test, tag)
+    print(f"[{tag}] (e) test split after one epoch ({test_s:.1f} s, "
+          f"{test_s / n_test * 1e3:.2f} ms per snapshot, {test_counts['rgcn_scatter_sorted']} B1 "
+          "launches): MRR " + ", ".join(f"{k} {v.mrr:.6f}" for k, v in stats.items()),
+          flush=True)
+    return {"static headline training epoch": launches, "static headline test split": test_counts}
+
+
+# ----------------------------------------- the rest of the hyperbolic trainer
+
+TRIPLE_BATCH = 256
+
+
+def chunked_three_steps(tag: str, gpu, cpu, s_gpu, s_cpu, order, cmax) -> None:
+    """(a) of phase 13: 3 snapshots' steps with triple batching on the card
+    in ``gpu.triple_batch_mode``; the CPU takes the card's state before
+    each optimizer step and computes each chunk from it, on the card's
+    branches at the kinks: the chunk's losses and gradients (in mode
+    ``accumulate`` also their sums over the snapshot); then both devices'
+    optimizers step with the card's gradients, and every parameter (the
+    entity table retracted on the ball among them) and the Riemannian Adam
+    moments of the entity table are compared."""
+    t0 = time.perf_counter()
+    mode = gpu.triple_batch_mode
+    names = leaf_names(s_gpu.params)
+    k_ball = names.index("dynamic_emb")
+    check(s_gpu.opt_state.manifold[k_ball] and sum(s_gpu.opt_state.manifold) == 1,
+          f"{tag}: the optimizer state does not mark the entity table alone for Riemannian Adam")
+    kinks = PinnedKinks()
+    worst_grad = worst_opt = worst_moment = 0.0
+    n_steps = n_chunks = 0
+
+    def opt_steps(grads):
+        nonlocal worst_opt, worst_moment, n_steps
+        gpu.opt.step(tree_leaves(s_gpu.params), grads, s_gpu.opt_state)
+        cpu.opt.step(tree_leaves(s_cpu.params), [None if g is None else g.cpu() for g in grads],
+                     s_cpu.opt_state)
+        for name, a, b in zip(names, tree_leaves(s_gpu.params), tree_leaves(s_cpu.params)):
+            err = ((a.detach().cpu() - b.detach()).abs() / b.detach().abs().clamp(min=1.0)).max()
+            check(err.item() <= TRAIN_OPT_TOL, f"{tag} ({mode}), snapshot {i}: {name} after the "
+                  f"optimizer step cuda vs cpu {err.item():.3e} > {TRAIN_OPT_TOL:.0e}")
+            worst_opt = max(worst_opt, err.item())
+        for moment in ("mu", "nu"):
+            err = rel_err(getattr(s_gpu.opt_state, moment)[k_ball],
+                          getattr(s_cpu.opt_state, moment)[k_ball])
+            check(err <= TRAIN_OPT_TOL, f"{tag} ({mode}), snapshot {i}: the entity table's "
+                  f"Riemannian {moment} cuda vs cpu {err:.3e} > {TRAIN_OPT_TOL:.0e}")
+            worst_moment = max(worst_moment, err)
+        radius = torch.linalg.vector_norm(s_gpu.params["dynamic_emb"], dim=-1).max().item()
+        check(radius < 1.0 / math.sqrt(gpu.cfg.c), f"{tag}: an entity left the ball ({radius})")
+        n_steps += 1
+
+    def compare(a_list, b_list, what):
+        nonlocal worst_grad
+        for name, a, b in zip(names, a_list, b_list):
+            check((a is None) == (b is None), f"{tag}: {name} has a gradient on one device only")
+            if a is not None:
+                err = rel_err(a, b)
+                check(err <= TRAIN_GRAD_TOL, f"{tag} ({mode}), snapshot {i}: {name} {what} cuda "
+                      f"vs cpu {err:.3e} > {TRAIN_GRAD_TOL:.0e} of its largest entry")
+                worst_grad = max(worst_grad, err)
+
+    for i in order:
+        pairs = list(zip(gpu.chunks(i), cpu.chunks(i)))
+        check(len(pairs) >= 2, f"{tag}: snapshot {i} is not cut into chunks of {TRIPLE_BATCH}")
+        copy_state_into(s_cpu, s_gpu)
+        sums = [None, None]
+        for c_gpu, c_cpu in pairs:
+            if mode == "per_chunk":
+                copy_state_into(s_cpu, s_gpu)
+            out = []
+            for tr, st, chunk, pin in ((gpu, s_gpu, c_gpu, kinks.record),
+                                       (cpu, s_cpu, c_cpu, kinks.replay)):
+                with pin():
+                    total, parts, new_bn, _ = tr.loss(st, tr.window(i)[0], *chunk[:2], cmax,
+                                                      *chunk[2:])
+                    grads = torch.autograd.grad(total, tree_leaves(st.params), allow_unused=True)
+                st.model_state = new_bn
+                out.append(({k: float(v.detach()) for k, v in parts.items()}, grads))
+            (l_gpu, g_gpu), (l_cpu, g_cpu) = out
+            for k, b in l_cpu.items():
+                a = l_gpu[k]
+                check(math.isfinite(a) and abs(a - b) <= TRAIN_LOSS_RTOL * max(1.0, abs(b)),
+                      f"{tag} ({mode}), snapshot {i}: {k} loss cuda {a} vs cpu {b}")
+            compare(g_gpu, g_cpu, "chunk gradient")
+            n_chunks += 1
+            if mode == "per_chunk":
+                opt_steps(g_gpu)
+                continue
+            sums = [g if s is None else [x if y is None else (y if x is None else x + y)
+                                         for x, y in zip(s, g)]
+                    for s, g in zip(sums, (g_gpu, g_cpu))]
+        if mode == "accumulate":
+            compare(sums[0], sums[1], "summed gradient")
+            opt_steps(sums[0])
+    print(f"[{tag}] (a) {mode}: {len(order)} snapshots in {n_chunks} chunks of "
+          f"{TRIPLE_BATCH} rows, {n_steps} optimizer steps, cuda vs cpu from the same state, the "
+          f"cpu on the card's branches at the kinks ({kinks.check(tag)}): every chunk's "
+          f"gradient{' and each snapshot sum' if mode == 'accumulate' else ''} within "
+          f"{worst_grad:.2e} of its parameter's largest entry, every parameter after the "
+          f"optimizer step within {worst_opt:.2e}, the entity table's Riemannian moments within "
+          f"{worst_moment:.2e} ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def analysis_records(tag: str, gpu, cpu, s_gpu, s_cpu, *args) -> None:
+    """(c) of phase 13: ``analysis_record`` on the card and on the CPU from
+    the same state: the default record (the 10 largest gradient norms),
+    finite; then with every parameter's norm kept (``gradient_stats`` with
+    a ``top_k`` past the parameter count: the 10 largest can swap places at
+    a near tie), the same keys on both devices, each within TRAIN_GRAD_TOL
+    of max(1, the CPU's value)."""
+    module = sys.modules[type(gpu).__module__]
+    record = gpu.analysis_record(s_gpu, *args)
+    check(all(math.isfinite(v) for v in record.values())
+          and sum(k.startswith("[") for k in record) == 10,
+          f"{tag}: analysis record {record}")
+    stats = module.gradient_stats
+    module.gradient_stats = lambda *a, **kw: stats(*a, top_k=10**6, **kw)
+    try:
+        full = [tr.analysis_record(st, *args) for tr, st in ((gpu, s_gpu), (cpu, s_cpu))]
+    finally:
+        module.gradient_stats = stats
+    check(set(full[0]) == set(full[1]) and all(math.isfinite(v) for v in full[0].values()),
+          f"{tag}: the card's analysis record has other keys than the cpu's")
+    worst = max(abs(full[0][k] - v) / max(1.0, abs(v)) for k, v in full[1].items())
+    check(worst <= TRAIN_GRAD_TOL, f"{tag}: analysis record cuda vs cpu {worst:.3e}")
+    print(f"[{tag}] (c) analysis_record: {len(record)} keys, global gradient norm "
+          f"{record['global_norm']:.6f}, entity norm {record['entity_norm_mean']:.4f} +- "
+          f"{record['entity_norm_std']:.4f}; with all {len(full[0])} keys cuda vs cpu within "
+          f"{worst:.2e}", flush=True)
+
+
+def phase_hyperbolic_options(data, tc: TrainConfig, dev: torch.device,
+                             config1: ModelConfig) -> dict:
+    """The headline with ``manifold_entities`` (Riemannian Adam on the
+    entity table) on synthetic-icews14s: (a) 3 snapshots cuda vs cpu with
+    triple batches of 256 rows in each mode (``chunked_three_steps``); (b)
+    one epoch in mode ``accumulate``, B1 exactly 2 layers x each window's
+    snapshots x its non-empty chunks; (c) the analysis records of
+    ``HyperbolicTrainer`` and of config 1's ``Trainer`` on the card and the
+    CPU; (d) 3 windows through ``evolve(tangent_fast=False)``, the uvrgcn's
+    ball-space layer, cuda vs cpu with the gradients of every parameter,
+    B1 2 x the window's snapshots each."""
+    tag = "options"
+    cfg = headline_config(data, manifold_entities=True, **NO_DROPOUT)
+    for mode in ("accumulate", "per_chunk"):
+        kw = dict(triple_batch_size=TRIPLE_BATCH, triple_batch_mode=mode)
+        gpu = HyperbolicTrainer(cfg, tc, data, device=dev, **kw)
+        cpu = HyperbolicTrainer(cfg, tc, data, device="cpu", **kw)
+        s_gpu = gpu.init_state(SEED)
+        s_cpu = cpu.state_from(s_gpu.params, s_gpu.model_state)
+        chunked_three_steps(tag, gpu, cpu, s_gpu, s_cpu, gpu.epoch_order(0)[:3],
+                            gpu._curvature_max(0))
+    del gpu, cpu, s_gpu, s_cpu
+
+    # (b) an epoch in mode accumulate, with the config's dropouts
+    full = headline_config(data, manifold_entities=True)
+    trainer = HyperbolicTrainer(full, tc, data, device=dev, triple_batch_size=TRIPLE_BATCH)
+    state = trainer.init_state(SEED)
+    order = trainer.epoch_order(0)
+    chunks = [max(1, len(trainer.chunks(i))) for i in order]
+    expected = full.n_layers * sum(min(i, tc.train_history_len) * n
+                                   for i, n in zip(order, chunks))
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = trainer.run_epoch(state, 0)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    epoch_launches = read_launches()
+    check(all(math.isfinite(v) for v in losses.values()), f"{tag} epoch losses {losses}")
+    check(state.step == len(order), f"{tag}: {state.step} optimizer steps in an accumulate "
+          f"epoch of {len(order)} snapshots")
+    check(epoch_launches["rgcn_scatter_sorted"] == expected
+          and all(epoch_launches[k] == 0 for k in CE_KERNELS),
+          f"{tag} epoch launches {epoch_launches}, expected {expected} = {full.n_layers} layers "
+          f"x each window's snapshots x its {sum(chunks)} chunks, and no CE kernel")
+    print(f"[{tag}] (b) accumulate epoch: {len(order)} snapshots in {sum(chunks)} chunks "
+          f"({min(chunks)} to {max(chunks)} a snapshot), {state.step} optimizer steps in "
+          f"{epoch_s:.2f} s (first epoch: includes building the windows); mean losses "
+          + ", ".join(f"{k} {v:.5f}" for k, v in losses.items())
+          + f"; launches {epoch_launches}", flush=True)
+
+    # (c) the analysis records of both trainers
+    gpu = HyperbolicTrainer(cfg, tc, data, device=dev, run_analysis=True)
+    cpu = HyperbolicTrainer(cfg, tc, data, device="cpu", run_analysis=True)
+    s_gpu = gpu.init_state(SEED)
+    analysis_records(tag, gpu, cpu, s_gpu, cpu.state_from(s_gpu.params, s_gpu.model_state), 0)
+    exp = ExperimentConfig(model=dataclasses.replace(config1, **NO_DROPOUT), train=tc)
+    r_gpu = loop.Trainer(exp, data, device=dev, run_analysis=True)
+    r_cpu = loop.Trainer(exp, data, device="cpu", run_analysis=True)
+    s_gpu = r_gpu.init_state(SEED)
+    analysis_records("options, RE-GCN", r_gpu, r_cpu, s_gpu,
+                     train_state.state_from(s_gpu.params, s_gpu.model_state, tc, SEED, "cpu"))
+
+    # (d) the ball-space route through B1
+    gpu = HyperbolicTrainer(cfg, tc, data, device=dev)
+    cpu = HyperbolicTrainer(cfg, tc, data, device="cpu")
+    s_gpu = gpu.init_state(SEED)
+    s_cpu = cpu.state_from(s_gpu.params, s_gpu.model_state)
+    kinks, worst, worst_h, ball_launches = PinnedKinks(), 0.0, 0.0, 0
+    probe = torch.randn(data.num_nodes, cfg.h_dim, generator=torch.Generator().manual_seed(SEED))
+    for i in gpu.epoch_order(0)[:3]:
+        out = []
+        for tr, st, pin in ((gpu, s_gpu, kinks.record), (cpu, s_cpu, kinks.replay)):
+            history = tr.window(i)[0]
+            reset_launches()
+            with pin():
+                h, h0, _, all_h = hyp_model.evolve(st.params, cfg, history, return_all=True,
+                                                   tangent_fast=False)
+                if tr is gpu:
+                    n = read_launches()["rgcn_scatter_sorted"]
+                    want = cfg.n_layers * history.src.shape[0]
+                    check(n == want, f"{tag} (d): B1 launched {n} times on the ball-space route "
+                          f"of a {history.src.shape[0]}-snapshot window, expected {want}")
+                    ball_launches += n
+                total = torch.sum(h * probe.to(h.device)) + torch.sum(h0 ** 2)
+                grads = torch.autograd.grad(total, tree_leaves(st.params), allow_unused=True)
+            out.append((all_h, grads))
+        (h_gpu, g_gpu), (h_cpu, g_cpu) = out
+        worst_h = max(worst_h, rel_err(h_gpu, h_cpu))
+        check(worst_h <= CPU_SCORE_TOL, f"{tag} (d): ball-space points cuda vs cpu {worst_h:.3e}")
+        for name, a, b in zip(leaf_names(s_gpu.params), g_gpu, g_cpu):
+            check((a is None) == (b is None), f"{tag} (d): {name} has a gradient on one device")
+            if a is not None:
+                err = rel_err(a, b)
+                check(err <= TRAIN_GRAD_TOL, f"{tag} (d): {name} gradient cuda vs cpu {err:.3e}")
+                worst = max(worst, err)
+    print(f"[{tag}] (d) evolve(tangent_fast=False) on 3 windows, cuda vs cpu on the card's "
+          f"branches ({kinks.check(tag)}): every step's ball points within {worst_h:.2e}, every "
+          f"gradient within {worst:.2e}; {ball_launches} B1 launches", flush=True)
+    return {"options accumulate epoch": epoch_launches,
+            "options ball-space evolve": {**{k: 0 for k in epoch_launches},
+                                          "rgcn_scatter_sorted": ball_launches}}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     seconds = {}
@@ -1635,6 +2112,12 @@ def main() -> None:
     by_path.update(config4_paths)
     by_path.update(timed("config-5 training", phase_headline_training, gdelt_data(), tc, dev,
                          config5, "config5"))
+    data18 = icews18_data()
+    by_path.update(timed("config-2 training", phase_config2_training, data18, dev))
+    by_path.update(timed("static headline training", phase_static_headline, data18, dev))
+    del data18
+    by_path.update(timed("hyperbolic trainer options", phase_hyperbolic_options, data, tc, dev,
+                         cfg))
     launches.update({k: by_path["config-3 training epoch"][k] for k in CE_KERNELS})
     for k in CE_KERNELS:
         timing[k]["shapes"] = [config4_times[k]]

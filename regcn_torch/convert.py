@@ -26,7 +26,11 @@ or hyperbolic ``HypTrainState`` (numpy leaves): its parameters and BN
 statistics as above, the Adam ``count``/``mu``/``nu`` of its optax chain,
 its step and, from a ``HypTrainState`` with EST, its ``ESTState`` (the
 H-PES ``fast`` and ``slow`` memories), so that a run can continue
-mid-training in this package.
+mid-training in this package. The dual optimizer's state of
+``manifold_entities`` (an optax ``multi_transform``: Riemannian Adam's
+``count``/``mu``/``nu`` on the entity table, Adam's on the other leaves,
+each with the other's leaves masked out) becomes one ``AdamState`` whose
+``manifold`` marks the entity table.
 """
 
 from __future__ import annotations
@@ -77,17 +81,34 @@ def hyperbolic_params_from_jax(
     return _tensor_tree(params_np, device), state
 
 
-def _adam_state(opt_state):
-    """The member of a (nested tuple) optax chain state that has Adam's
-    ``count``, ``mu`` and ``nu``."""
+def _adam_states(opt_state, label=None) -> list:
+    """(label, member) for each member of a nested optax state that has
+    Adam's ``count``, ``mu`` and ``nu``; the label is the
+    ``multi_transform`` partition the member sits in, or None."""
     if all(hasattr(opt_state, k) for k in ("count", "mu", "nu")):
-        return opt_state
+        return [(label, opt_state)]
+    if isinstance(opt_state, Mapping):
+        return [f for k, v in opt_state.items() for f in _adam_states(v, k)]
     if isinstance(opt_state, (tuple, list)):
-        for sub in opt_state:
-            found = _adam_state(sub)
-            if found is not None:
-                return found
-    return None
+        return [f for sub in opt_state for f in _adam_states(sub, label)]
+    return []
+
+
+def _masked(leaf) -> bool:
+    """optax's ``MaskedNode``: the leaf of a partition that another owns
+    (an empty tuple)."""
+    return isinstance(leaf, tuple) and not leaf
+
+
+def _merge(trees):
+    """The trees of several ``multi_transform`` partitions as one: each
+    leaf from the tree that does not mask it."""
+    first = trees[0]
+    if isinstance(first, Mapping):
+        return {k: _merge([t[k] for t in trees]) for k in first}
+    if isinstance(first, list):
+        return [_merge([t[i] for t in trees]) for i in range(len(first))]
+    return next(t for t in trees if not _masked(t))
 
 
 def _like(tree, template):
@@ -110,17 +131,25 @@ def train_state_from_jax(jax_state, device="cuda", seed: int = 0) -> TrainState:
     params, model_state = convert(jax_state.params, jax_state.model_state, device)
     for t in tree_leaves(params):
         t.requires_grad_(True)
-    adam = _adam_state(jax_state.opt_state)
-    if adam is None:
+    found = _adam_states(jax_state.opt_state)
+    if not found:
         raise ValueError("the JAX optimizer state holds no Adam moments (count, mu, nu)")
-    moments = [tree_leaves(_like(_tensor_tree(m, device), params)) for m in (adam.mu, adam.nu)]
+    counts = {int(np.asarray(a.count)) for _, a in found}
+    if len(counts) != 1:
+        raise ValueError(f"the JAX optimizer's partitions are at different steps {counts}")
+    moments = [tree_leaves(_like(_tensor_tree(_merge([getattr(a, m) for _, a in found]), device),
+                                 params)) for m in ("mu", "nu")]
+    manifold = None
+    for label, a in found:
+        if label == "manifold":
+            manifold = [not _masked(x) for x in tree_leaves(_like(a.mu, params))]
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     est = getattr(jax_state, "est_state", None)
     if est is not None:
         est = ESTState(fast=_tensor_tree(est.fast, device), slow=_tensor_tree(est.slow, device))
     return TrainState(params=params,
-                      opt_state=AdamState(count=int(np.asarray(adam.count)), mu=moments[0],
-                                          nu=moments[1]),
+                      opt_state=AdamState(count=counts.pop(), mu=moments[0], nu=moments[1],
+                                          manifold=manifold),
                       model_state=model_state, gen=gen, step=int(np.asarray(jax_state.step)),
                       est_state=est)

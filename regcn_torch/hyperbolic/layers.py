@@ -6,19 +6,18 @@ Counterpart of ``regcn_tpu/hyperbolic/layers.py`` for two encoders:
   mapped to the hyperboloid and aggregated per destination as weighted
   Lorentz centroids, a dual self-loop, an optional gated skip, ±10
   tangent clamps and the fixed-slope rrelu;
-- ``hyperbolic_uvrgcn`` on its tangent carry (:func:`union_layer_tangent`,
-  :func:`uvrgcn_cell_tangent`): the UnionRGCN message
-  ``(v_src + rel) @ W`` weighted by ``exp(-γ|r_src - r_dst|)`` of the
-  points' radii and summed per destination by kernel B1
-  (``regcn_torch/ops/rgcn_scatter.py``), the same self-loop, skip, clamps
-  and rrelu.
+- ``hyperbolic_uvrgcn``: the UnionRGCN message ``(v_src + rel) @ W``
+  weighted by ``exp(-γ|r_src - r_dst|)`` of the points' radii and summed
+  per destination by kernel B1 (``regcn_torch/ops/rgcn_scatter.py``), the
+  same self-loop, skip, clamps and rrelu; on ball points
+  (:func:`hyperbolic_union_layer`, which ``evolve(tangent_fast=False)``
+  reaches through :func:`encoder_cell`) or on the tangent carry
+  (:func:`union_layer_tangent`, :func:`uvrgcn_cell_tangent`).
 
 The parameter dictionaries have the JAX package's keys and layouts.
 
-Not ported yet, and raising: the uvrgcn's ball-space layer
-(``hyperbolic_union_layer``, which only ``evolve(tangent_fast=False)``
-reaches; ROADMAP A.3b), the ``fhnn`` and ``hgat`` encoders (A.7) and the
-multi-device halo aggregation (A.11).
+Not ported yet, and raising: the ``fhnn`` and ``hgat`` encoders (ROADMAP
+A.7) and the multi-device halo aggregation (A.11).
 """
 
 from __future__ import annotations
@@ -101,7 +100,7 @@ def lgcn_layer(params: Params, h_hyper: torch.Tensor, rel_emb: Optional[torch.Te
     return H.exp_map_zero(h_new, c).to(h_hyper.dtype)
 
 
-PORTED = ("hyperbolic_uvrgcn", "lgcn")  # the uvrgcn on its tangent carry only
+PORTED = ("hyperbolic_uvrgcn", "lgcn")
 
 
 def _abs_diff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -110,6 +109,39 @@ def _abs_diff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     so does every edge between two entities of bitwise-equal radius."""
     d = a - b
     return torch.where(d >= 0, d, -d)
+
+
+def hyperbolic_union_layer(params: Params, h_hyper: torch.Tensor, rel_emb: torch.Tensor, snap,
+                           c, *, prev_h: Optional[torch.Tensor] = None,
+                           radius_gamma: float = 1.0, dropout: float = 0.0,
+                           gen: Optional[torch.Generator] = None, train: bool = False
+                           ) -> torch.Tensor:
+    """One UnionRGCN layer on ball points [N, d]; returns ball points. The
+    radius weight comes from the points' norms (``get_radius``), and B1
+    sums the weighted messages, with the weight's gradient ``dw``."""
+    h_tan = H.log_map_zero(h_hyper, c)
+    radius = H.get_radius(h_hyper)
+    rw = torch.exp(-radius_gamma * _abs_diff(radius.index_select(0, snap.src),
+                                             radius.index_select(0, snap.dst)))
+    h_new = rgcn_aggregate(h_tan, rel_emb, params["w_neighbor"], snap.src, snap.dst, snap.rel,
+                           snap.edge_mask, snap.in_deg_norm, dst_sorted=snap.dst_sorted,
+                           edge_weight=rw)
+    h_new = torch.clamp(h_new, -CLAMP, CLAMP)
+
+    if "loop_w" in params:
+        loop = _dual_self_loop(params, h_tan, snap.has_in_edge)
+    if prev_h is not None and "skip_w" in params:
+        prev_tan = H.log_map_zero(prev_h, c)
+        gate = torch.sigmoid(prev_tan @ params["skip_w"] + params["skip_b"])
+        if "loop_w" in params:
+            h_new = h_new + loop
+        h_new = gate * h_new + (1 - gate) * prev_tan
+    elif "loop_w" in params:
+        h_new = h_new + loop
+
+    h_new = torch.clamp(h_new, -CLAMP, CLAMP)
+    h_new = inverted_dropout(rrelu(h_new), dropout, gen, train)
+    return H.exp_map_zero(h_new, c).to(h_hyper.dtype)
 
 
 def union_layer_tangent(params: Params, v: torch.Tensor, rel_emb: torch.Tensor, snap, c, *,
@@ -182,19 +214,20 @@ def encoder_cell(params, encoder: str, h_hyper: torch.Tensor, rel_emb: torch.Ten
                  *, n_bases: int = -1, num_heads: int = 4, radius_gamma: float = 1.0,
                  dropout: float = 0.0, gen: Optional[torch.Generator] = None,
                  train: bool = False, impl: str = "xla") -> torch.Tensor:
-    """The ball-space layer stack (``evolve``'s path for LGCN)."""
-    if encoder == "hyperbolic_uvrgcn":
-        raise NotImplementedError("the uvrgcn's ball-space layer (hyperbolic_union_layer) is "
-                                  "not ported yet (ROADMAP A.3b); evolve runs it on its "
-                                  "tangent carry")
-    _check_encoder(encoder, ("lgcn",))
+    """The ball-space layer stack: ``evolve``'s path for LGCN, and for the
+    uvrgcn with ``tangent_fast=False``."""
+    _check_encoder(encoder)
     if impl != "xla":
         raise NotImplementedError(f"encoder impl {impl!r} (halo / pallas) is not ported yet")
     x, prev = h_hyper, None
     for i, lp in enumerate(params["layers"]):
-        d = x.shape[1]
-        nb_eff = d * d // lp["weight"].shape[1]  # cols = nb * (d/nb)^2 = d^2 / nb
-        new_x = lgcn_layer(lp, x, rel_emb, snap, c, nb_eff, prev_h=prev if i > 0 else None,
-                           dropout=dropout, gen=gen, train=train)
+        kw = dict(prev_h=prev if i > 0 else None, dropout=dropout, gen=gen, train=train)
+        if encoder == "hyperbolic_uvrgcn":
+            new_x = hyperbolic_union_layer(lp, x, rel_emb, snap, c, radius_gamma=radius_gamma,
+                                           **kw)
+        else:
+            d = x.shape[1]
+            nb_eff = d * d // lp["weight"].shape[1]  # cols = nb * (d/nb)^2 = d^2 / nb
+            new_x = lgcn_layer(lp, x, rel_emb, snap, c, nb_eff, **kw)
         prev, x = x, new_x
     return x

@@ -18,6 +18,17 @@ over its T steps. One evolution step (snapshot t), on the ball:
 and on the tangent carry v = log_0(h), where every exp_0/log_0 pair of
 the ball path becomes a norm clamp (``clamp_tangent_norm``) and the radii
 come from v (``radius_from_tangent``, ``apply_radius_tangent``).
+``evolve(tangent_fast=False)`` runs the uvrgcn on the ball path instead
+(``hyperbolic_union_layer``), the reference formulation the tangent carry
+is held against.
+
+The initial points are the exp map of ``dynamic_emb`` (L2-normalised
+under ``layer_norm``), or with ``use_static`` of the static entity-word
+graph's embedding (one ``rgcn_block_layer``; the loss then adds the
+angular constraint between it and each step's evolved point, compared in
+tangent space), or with ``manifold_entities`` the table itself, which
+then lives on the ball and is updated by Riemannian Adam
+(``regcn_torch/hyperbolic/optim.py``).
 
 The curvature is fixed, or learned as clamp(exp(log_c), c_min, c_max),
 with c_max a warmup schedule that the trainer passes in; the entity
@@ -29,9 +40,8 @@ of the final table are enriched from their retrieved event histories
 before the decoders; with ``use_time_aware_negative`` the other true
 tails of each training query are squashed out of its entity scores.
 
-Not ported yet, and raising: the fhnn and hgat encoders (ROADMAP A.7),
-the static graph (A.6), entities stored on the ball with Riemannian Adam
-(A.3b) and bf16 (A.5).
+Not ported yet, and raising: the fhnn and hgat encoders (ROADMAP A.7)
+and bf16 (A.5).
 """
 
 from __future__ import annotations
@@ -46,8 +56,8 @@ from regcn_torch.hyperbolic import decoders as HD
 from regcn_torch.hyperbolic import est
 from regcn_torch.hyperbolic import layers as HL
 from regcn_torch.hyperbolic import ops as H
-from regcn_torch.models.layers import gru_cell, init_gru_cell
-from regcn_torch.models.recurrent import _masked_ce, tree_to
+from regcn_torch.models.layers import gru_cell, init_gru_cell, init_rgcn_block_layer
+from regcn_torch.models.recurrent import _masked_ce, _static_init, static_angular_loss, tree_to
 from regcn_torch.ops.activations import l2_normalize
 from regcn_torch.ops.segment import masked_segment_mean
 from regcn_torch.utils.init import xavier_normal, xavier_uniform
@@ -133,13 +143,6 @@ class HypModelState:
 
 def check_supported(cfg: HyperbolicConfig) -> None:
     """Raises for the configurations this package does not run yet."""
-    unported = {
-        "use_static": "the static graph (ROADMAP A.6)",
-        "manifold_entities": "entities on the ball with Riemannian Adam (ROADMAP A.3b)",
-    }
-    for flag, what in unported.items():
-        if getattr(cfg, flag):
-            raise NotImplementedError(f"{flag}: {what} is not ported yet")
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(f"compute dtype {cfg.compute_dtype!r}: only float32 is ported "
                                   "(ROADMAP A.5)")
@@ -158,8 +161,12 @@ def init_params(gen: torch.Generator, cfg: HyperbolicConfig, radius_target=None,
     seeds the learnable ``radius_static``; it defaults to mid-range."""
     check_supported(cfg)
     d = cfg.h_dim
+    dyn = torch.randn((cfg.num_ents, d), generator=gen)
+    if cfg.manifold_entities:
+        # on the ball: a tangent normal of std 0.1, mapped (ref :322-325)
+        dyn = H.exp_map_zero(0.1 * dyn, cfg.c)
     params: Params = {
-        "dynamic_emb": torch.randn((cfg.num_ents, d), generator=gen),
+        "dynamic_emb": dyn,
         "emb_rel": xavier_normal(gen, (cfg.num_rels_total, d)),
         "time_gate_w": xavier_uniform(gen, (d, d), gain=math.sqrt(2.0)),
         "time_gate_b": torch.zeros(d),
@@ -192,6 +199,10 @@ def init_params(gen: torch.Generator, cfg: HyperbolicConfig, radius_target=None,
                              "atth": (HD.init_atth, HD.init_atth_rel)}[cfg.decoder]
         params["decoder_ob"] = init_ob(gen, *entity, **scores)
         params["decoder_rel"] = init_rel(gen, cfg.num_rels, d, cfg.hyp_init_scale, **scores)
+    if cfg.use_static:
+        params["words_emb"] = xavier_normal(gen, (cfg.num_words, d))
+        params["static_rgcn"] = init_rgcn_block_layer(gen, d, 2 * cfg.num_static_rels,
+                                                      cfg.n_bases)
     if cfg.use_est:
         params["est"] = est.init_est_params(gen, cfg)
     state = HypModelState(bn_ob=tree_to(bn_ob, device), bn_rel=tree_to(bn_rel, device),
@@ -227,28 +238,43 @@ def _radius_evolution(params, cfg, x, static_radius, c):
     return H.apply_radius(x, base + delta, c)
 
 
-def evolve(params: Params, cfg: HyperbolicConfig, history, *,
+def evolve(params: Params, cfg: HyperbolicConfig, history, *, static_snap=None,
            est_slow_state: Optional[torch.Tensor] = None, gen: Optional[torch.Generator] = None,
-           train: bool = False, curvature_max=None) -> Tuple[torch.Tensor, torch.Tensor]:
+           train: bool = False, return_all: bool = False, curvature_max=None,
+           tangent_fast: Optional[bool] = None):
     """Runs the evolution over a stacked [T, ...] history window (a
-    Snapshot of tensors). Returns (h ball points [N, d], h0 [2R, d]).
-    The uvrgcn encoder runs on its tangent carry, as JAX's
-    ``evolve(tangent_fast=None)`` picks for it. With ``use_est``, the H-PES
-    slow memory ``est_slow_state`` [N, d] is injected into the initial
-    points."""
+    Snapshot of tensors). Returns (h ball points [N, d], h0 [2R, d]); with
+    ``return_all``, (h, h0, the static embedding or None, every step's ball
+    points [T, N, d]). The uvrgcn encoder runs on its tangent carry unless
+    ``tangent_fast`` is False, as JAX's ``evolve`` picks. With
+    ``use_static`` and a ``static_snap`` the initial points come from the
+    static graph; with ``use_est`` the H-PES slow memory
+    ``est_slow_state`` [N, d] is injected into them."""
     check_supported(cfg)
     c = get_curvature(params, cfg, curvature_max)
-    emb = params["dynamic_emb"]
-    h = H.exp_map_zero(l2_normalize(emb) if cfg.layer_norm else emb, c)
+    static_emb = None
+    if cfg.use_static and static_snap is not None:
+        static_emb = _static_init(params, cfg, static_snap, gen=gen, train=train)
+        h = H.exp_map_zero(static_emb, c)
+    elif cfg.manifold_entities:
+        # the entities already live on the ball: projected only (ref :775-777)
+        h = H.project_to_ball(params["dynamic_emb"], c)
+    else:
+        emb = params["dynamic_emb"]
+        h = H.exp_map_zero(l2_normalize(emb) if cfg.layer_norm else emb, c)
     static_radius = _static_radius(params, cfg, c)
     h = H.apply_radius(h, static_radius, c)
     if cfg.use_est and est_slow_state is not None:
         h = est.inject_slow_state(params["est"], h, est_slow_state, c)
     emb_rel = params["emb_rel"]
-    if cfg.encoder == "hyperbolic_uvrgcn":
-        return _evolve_tangent(params, cfg, history, h, emb_rel, static_radius, c, gen=gen,
-                               train=train)
+    if tangent_fast is None:
+        tangent_fast = cfg.encoder == "hyperbolic_uvrgcn"
+    if tangent_fast and cfg.encoder == "hyperbolic_uvrgcn":
+        h, h0, all_h = _evolve_tangent(params, cfg, history, h, emb_rel, static_radius, c,
+                                       gen=gen, train=train, return_all=return_all)
+        return (h, h0, static_emb, all_h) if return_all else (h, h0)
     h0 = emb_rel
+    all_h = []
     for t in range(history.src.shape[0]):
         snap = history.step(t)
         h_tan = H.log_map_zero(h, c)
@@ -258,8 +284,8 @@ def evolve(params: Params, cfg: HyperbolicConfig, history, *,
         if cfg.layer_norm:
             h0_new = l2_normalize(h0_new)
         cur = HL.encoder_cell(params["rgcn"], cfg.encoder, h, h0_new, snap, c,
-                              n_bases=cfg.n_bases, dropout=cfg.dropout, gen=gen, train=train,
-                              impl=cfg.impl)
+                              n_bases=cfg.n_bases, radius_gamma=cfg.radius_msg_gamma,
+                              dropout=cfg.dropout, gen=gen, train=train, impl=cfg.impl)
         cur = H.project_to_ball(cur, c)
         if cfg.layer_norm:
             cur = H.exp_map_zero(l2_normalize(H.log_map_zero(cur, c)), c)
@@ -276,15 +302,19 @@ def evolve(params: Params, cfg: HyperbolicConfig, history, *,
         active = snap.edge_mask.max() > 0
         h = torch.where(active, h_new, h)
         h0 = torch.where(active, h0_new, h0)
-    return h, h0
+        all_h.append(h)
+    return (h, h0, static_emb, torch.stack(all_h)) if return_all else (h, h0)
 
 
-def _evolve_tangent(params, cfg, history, h_init, emb_rel, static_radius, c, *, gen, train):
+def _evolve_tangent(params, cfg, history, h_init, emb_rel, static_radius, c, *, gen, train,
+                    return_all=False):
     """The evolution with its carry in tangent space, v = log_0(h) exactly
     (eps clamps included): each exp_0 -> project -> log_0 of the ball path
-    is one ``clamp_tangent_norm``, and the ball point is made once, at the
-    end."""
+    is one ``clamp_tangent_norm``, and the ball points are made at the end:
+    (h [N, d], h0, with ``return_all`` every step's points [T, N, d], else
+    None)."""
     v, h0 = H.log_map_zero(h_init, c), emb_rel
+    all_v = []
     for t in range(history.src.shape[0]):
         snap = history.step(t)
         ctx = masked_segment_mean(v.index_select(0, snap.rc_ent), snap.rc_rel, snap.rc_mask,
@@ -312,7 +342,18 @@ def _evolve_tangent(params, cfg, history, h_init, emb_rel, static_radius, c, *, 
         active = snap.edge_mask.max() > 0
         v = torch.where(active, v_new, v)
         h0 = torch.where(active, h0_new, h0)
-    return H.exp_map_zero(v, c), h0
+        all_v.append(v)
+    # every step's points as JAX makes them: the exp map of the stacked
+    # carries, which the static loss maps back to the tangent space
+    all_h = H.exp_map_zero(torch.stack(all_v), c) if return_all else None
+    return H.exp_map_zero(v, c), h0, all_h
+
+
+def static_angular_loss_tangent(static_emb: torch.Tensor, all_h: torch.Tensor, cfg, c,
+                                active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The static constraint compared in tangent space (ref :1039-1064):
+    ``recurrent.static_angular_loss`` of log_0 of every step's points."""
+    return static_angular_loss(static_emb, H.log_map_zero(all_h, c), cfg, active=active)
 
 
 def radius_supervision_loss(params, state: HypModelState, cfg, triples, mask, c):
@@ -375,6 +416,13 @@ def _decoder_inputs(h, cfg, c):
     return H.exp_map_zero(pre_tan, c), ent_tan
 
 
+def _dynamic_tangent(params, cfg, c):
+    """The entity table as EST reads it: tangent vectors, so the log map of
+    the table where it lives on the ball."""
+    emb = params["dynamic_emb"]
+    return H.log_map_zero(emb, c) if cfg.manifold_entities else emb
+
+
 def _enrich(params, cfg, est_inputs, emb, ent_tan, triples, r_emb, c):
     """EST's enrichment of the decoders' table ``emb`` from ``est_inputs``
     (the ESTState, the RetrievalBatch of the batch's heads): (the enriched
@@ -383,16 +431,16 @@ def _enrich(params, cfg, est_inputs, emb, ent_tan, triples, r_emb, c):
     ConvTrans decoder derive the tangent table from the enriched one; it
     is derived here once for both."""
     emb, ctx = est.enrich_embeddings(params["est"], cfg, emb, triples, est_inputs[1], c,
-                                     est_inputs[0].slow, params["dynamic_emb"], r_emb,
-                                     return_ctx_tangent=True)
+                                     est_inputs[0].slow, _dynamic_tangent(params, cfg, c),
+                                     r_emb, return_ctx_tangent=True)
     if ent_tan is not None:
         ent_tan = HD._leaky_tanh(H.log_map_zero(emb, c))
     return emb, ent_tan, ctx
 
 
 def get_loss(params: Params, state: HypModelState, cfg: HyperbolicConfig, history,
-             triples: torch.Tensor, triple_mask: torch.Tensor, *, est_inputs=None,
-             tans_mask_coo=None, gen: Optional[torch.Generator] = None, train: bool = True,
+             triples: torch.Tensor, triple_mask: torch.Tensor, *, static_snap=None,
+             est_inputs=None, tans_mask_coo=None, gen: Optional[torch.Generator] = None, train: bool = True,
              curvature_max=None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], HypModelState, Dict[str, Any]]:
     """(loss_ent, {"entity", "relation", "static", "radius"}, new
@@ -403,13 +451,20 @@ def get_loss(params: Params, state: HypModelState, cfg: HyperbolicConfig, histor
     for the H-PES writeback.
 
     ``triples`` [B, 3] with inverses, padded; ``triple_mask`` [B].
+    ``static_snap``: the static graph's Snapshot with ``use_static``, whose
+    angular constraint is then the static loss (else 0).
     ``est_inputs``: (ESTState, RetrievalBatch or None) with ``use_est``.
     ``tans_mask_coo``: (rows, cols) of entity scores squashed to -1e9 in
     training with ``use_time_aware_negative`` (rows >= B are padding)."""
     c = get_curvature(params, cfg, curvature_max)
     slow = est_inputs[0].slow if cfg.use_est and est_inputs is not None else None
-    h, r_emb = evolve(params, cfg, history, est_slow_state=slow, gen=gen, train=train,
-                      curvature_max=curvature_max)
+    static_emb = all_h = None
+    kw = dict(static_snap=static_snap, est_slow_state=slow, gen=gen, train=train,
+              curvature_max=curvature_max)
+    if cfg.use_static:
+        h, r_emb, static_emb, all_h = evolve(params, cfg, history, return_all=True, **kw)
+    else:
+        h, r_emb = evolve(params, cfg, history, **kw)
     pre_emb, ent_tan = _decoder_inputs(h, cfg, c)
     aux: Dict[str, Any] = {}
     if slow is not None and est_inputs[1] is not None:
@@ -442,19 +497,22 @@ def get_loss(params: Params, state: HypModelState, cfg: HyperbolicConfig, histor
             losses["relation"] = RELATION_LOSSES[cfg.decoder](
                 params["decoder_rel"], pre_emb, r_emb, triples, c, mask=triple_mask,
                 dropout=cfg.input_dropout, gen=gen, train=train)
+    if static_emb is not None:
+        active = (history.edge_mask.amax(dim=1) > 0).float()
+        losses["static"] = static_angular_loss_tangent(static_emb, all_h, cfg, c, active=active)
     losses["radius"] = radius_supervision_loss(params, state, cfg, triples, triple_mask, c)
     new_state = HypModelState(bn_ob=bn_ob, bn_rel=bn_rel, radius_target=state.radius_target)
     return losses["entity"], losses, new_state, aux
 
 
 def predict(params: Params, state: HypModelState, cfg: HyperbolicConfig, history,
-            triples: torch.Tensor, triple_mask=None, *, est_inputs=None
+            triples: torch.Tensor, triple_mask=None, *, static_snap=None, est_inputs=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Eval-mode scores: (entity [B, N], relation [B, 2R]); ``est_inputs``
-    as in :func:`get_loss`."""
+    """Eval-mode scores: (entity [B, N], relation [B, 2R]); ``static_snap``
+    and ``est_inputs`` as in :func:`get_loss`."""
     c = get_curvature(params, cfg)
     slow = est_inputs[0].slow if cfg.use_est and est_inputs is not None else None
-    h, r_emb = evolve(params, cfg, history, est_slow_state=slow)
+    h, r_emb = evolve(params, cfg, history, static_snap=static_snap, est_slow_state=slow)
     emb, ent_tan = _decoder_inputs(h, cfg, c)
     if slow is not None and est_inputs[1] is not None:
         emb, ent_tan, _ = _enrich(params, cfg, est_inputs, emb, ent_tan, triples, r_emb, c)

@@ -111,6 +111,16 @@ def conformal_factor(x: torch.Tensor, c, keepdim: bool = True) -> torch.Tensor:
     return 2.0 / maximum(1.0 - c * sq, EPS)
 
 
+def exp_map(v: torch.Tensor, x: torch.Tensor, c, eps: float = EPS) -> torch.Tensor:
+    """exp_x(v) = x ⊕ tanh(sqrt(c) λ_x ||v|| / 2) v / (sqrt(c) ||v||),
+    projected: Riemannian Adam's retraction at the point x."""
+    sqrt_c = sqrt(c)
+    v_norm = _norm(v, eps=eps)
+    lam = conformal_factor(x, c)
+    second = torch.tanh(sqrt_c * lam * v_norm / 2.0) * v / (sqrt_c * v_norm)
+    return project_to_ball(mobius_add(x, second, c, eps), c, eps)
+
+
 def mobius_add(x: torch.Tensor, y: torch.Tensor, c, eps: float = EPS) -> torch.Tensor:
     """Möbius addition x ⊕_c y, projected to the ball."""
     x_sq = torch.sum(x * x, dim=-1, keepdim=True)

@@ -21,19 +21,34 @@ split follows the training snapshots, the test split both). TANS
 true tails, over the training snapshots, of its queries. Both inputs of
 a training window are built once, like the window.
 
+Static graph (``use_static``): the entity-word graph is built once, on
+the trainer's device, and every step and eval snapshot starts from its
+embedding. ``manifold_entities``: the dual optimizer, Riemannian Adam on
+the entity table (``regcn_torch/hyperbolic/optim.py``). Triple batching
+(``triple_batch_size``): a snapshot's padded triples go through in chunks
+of that size, all-masked chunks skipped, each with its own slice of EST's
+retrieval batch and its own TANS COO; in mode ``accumulate`` (the
+reference's) each chunk's loss is its own mean, the gradients add up
+over the chunks and the clip and the optimizer step come once per
+snapshot, in mode ``per_chunk`` each chunk takes a step; the epoch logs
+each snapshot's mean of its chunk losses. ``run_analysis``: ``fit``
+records gradient, embedding, radius and curvature statistics each epoch
+(:meth:`HyperbolicTrainer.analysis_record`).
+
 The JAX trainer runs an epoch as one fused ``lax.scan`` over a store
 front-padded with empty snapshots; here a Python loop takes the same
 steps in the same order. A window shorter than the history length is
 run as it is: the fused path's empty front snapshots are identity steps,
 so both give the same result.
 
-Not ported yet, and raising: triple mini-batching (``triple_batch_size``)
-and ``--run-analysis`` (ROADMAP A.3b), the static graph, meshes and the
-boundary halo.
+Not ported yet, and raising: ``dilate_len > 1``, meshes and the boundary
+halo.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import logging
 import random
 import time
@@ -50,10 +65,12 @@ from regcn_torch.hyperbolic import est
 from regcn_torch.hyperbolic import model as hmodel
 from regcn_torch.hyperbolic import ops as H
 from regcn_torch.hyperbolic.model import HyperbolicConfig, HypModelState
+from regcn_torch.hyperbolic.optim import dual_optimizer, manifold_mask
 from regcn_torch.train import loop, metrics
 from regcn_torch.train import state as train_state
 from regcn_torch.train.optim import tree_leaves
 from regcn_torch.train.state import TrainState, copy_state
+from regcn_torch.utils.profiling import embedding_stats, gradient_stats
 
 log = logging.getLogger(__name__)
 
@@ -92,17 +109,20 @@ def compute_radius_targets(
 class HyperbolicTrainer:
     def __init__(self, cfg: HyperbolicConfig, tc: TrainConfig, data: TKGData, *,
                  curvature_warmup_epochs: int = 0, triple_batch_size: Optional[int] = None,
+                 triple_batch_mode: str = "accumulate", run_analysis: bool = False,
                  device="cuda"):
         hmodel.check_supported(cfg)
-        if triple_batch_size:
-            raise NotImplementedError("triple_batch_size (snapshot-inner mini-batching) is "
-                                      "not ported yet")
+        if triple_batch_mode not in ("accumulate", "per_chunk"):
+            raise ValueError(f"triple_batch_mode must be 'accumulate' or 'per_chunk', got "
+                             f"{triple_batch_mode!r}")
         if tc.dilate_len > 1:
             raise NotImplementedError("dilated training snapshots (dilate_len > 1) are not "
                                       "ported yet")
         self.cfg, self.tc, self.data = cfg, tc, data
         self.device = torch.device(device)
         self.curvature_warmup_epochs = curvature_warmup_epochs
+        self.triple_batch_size, self.triple_batch_mode = triple_batch_size, triple_batch_mode
+        self.run_analysis = run_analysis
         self.num_rels, self.num_nodes = data.num_rels, data.num_nodes
         self.train_list = split_by_time(data.train)
         self.valid_list = split_by_time(data.valid)
@@ -116,17 +136,23 @@ class HyperbolicTrainer:
             self.temporal_index.build(self.train_list, self.num_rels)
         if cfg.use_time_aware_negative:
             self.true_tails = est.build_true_tails_dict(self.train_list, self.num_rels)
-        self.opt = train_state.make_optimizer(tc)
+        self.static_snap = loop.static_snapshot(data, tc, self.device) if cfg.use_static else None
+        self.opt = dual_optimizer(tc, cfg)
         self._windows: Dict = {}
         self._est_windows: Dict = {}
+        self._chunks: Dict = {}
 
     # ----------------------------------------------------------------- state
     def state_from(self, params, model_state: HypModelState, seed: Optional[int] = None
                    ) -> TrainState:
         """A fresh training state (zero Adam moments; with EST, zero H-PES
-        memories) around ``params``, copied onto the trainer's device."""
+        memories; with ``manifold_entities`` the entity table marked for
+        Riemannian Adam) around ``params``, copied onto the trainer's
+        device."""
         state = train_state.state_from(params, model_state, self.tc,
                                        self.tc.seed + 1 if seed is None else seed, self.device)
+        if self.cfg.manifold_entities:
+            state.opt_state.manifold = manifold_mask(state.params)
         if self.cfg.use_est:
             state.est_state = est.init_est_state(self.cfg.num_ents, self.cfg.h_dim, self.device)
         return state
@@ -153,14 +179,41 @@ class HyperbolicTrainer:
         each None where the config does without; built once."""
         if i not in self._est_windows:
             triples, mask = pad_triples(self.train_list[i], self.num_rels, self.tc.triple_bucket)
-            rb = tans = None
-            if self.temporal_index is not None:
-                rb = est.RetrievalBatch.query(self.temporal_index, triples, mask, i, self.device)
-            if self.true_tails is not None:
-                tans = tuple(torch.from_numpy(a).to(self.device)
-                             for a in est.tans_mask_coo(triples, mask, self.true_tails))
-            self._est_windows[i] = (rb, tans)
+            self._est_windows[i] = self._est_inputs(triples, mask, i)
         return self._est_windows[i]
+
+    def _est_inputs(self, triples: np.ndarray, mask: np.ndarray, i: int) -> tuple:
+        """(retrieval batch, TANS COO) of ``triples`` at training time i."""
+        rb = tans = None
+        if self.temporal_index is not None:
+            rb = est.RetrievalBatch.query(self.temporal_index, triples, mask, i, self.device)
+        if self.true_tails is not None:
+            tans = tuple(torch.from_numpy(a).to(self.device)
+                         for a in est.tans_mask_coo(triples, mask, self.true_tails))
+        return rb, tans
+
+    def chunks(self, i: int) -> list:
+        """Triple batching's chunks of training snapshot i: (triples, mask,
+        retrieval batch, TANS COO) on the device for each chunk of
+        ``triple_batch_size`` rows of the padded triples that holds a real
+        one; built once. A snapshot whose padded triples fit in one chunk
+        is not cut (an empty list)."""
+        if i not in self._chunks:
+            triples, mask = pad_triples(self.train_list[i], self.num_rels, self.tc.triple_bucket)
+            tb, out = self.triple_batch_size, []
+            if len(triples) > tb:
+                for s in range(0, len(triples), tb):
+                    tr, mk = triples[s:s + tb], mask[s:s + tb]
+                    if mk.sum() > 0:
+                        out.append((torch.from_numpy(tr).long().to(self.device),
+                                    torch.from_numpy(mk).to(self.device),
+                                    *self._est_inputs(tr, mk, i)))
+            self._chunks[i] = out
+        return self._chunks[i]
+
+    def _predict(self):
+        """The model's eval-mode scores, the static graph bound in."""
+        return functools.partial(hmodel.predict, static_snap=self.static_snap)
 
     def _eval_inputs(self, state: TrainState, time_offset: int):
         """``step_inputs`` of the rolling evaluation: EST's retrieval batch of
@@ -194,8 +247,8 @@ class HyperbolicTrainer:
         est_inputs = (state.est_state, rb) if (self.cfg.use_est and rb is not None) else None
         _, losses, new_model_state, aux = hmodel.get_loss(
             state.params, state.model_state, self.cfg, history, triples, mask,
-            est_inputs=est_inputs, tans_mask_coo=tans, gen=state.gen, train=True,
-            curvature_max=cmax)
+            static_snap=self.static_snap, est_inputs=est_inputs, tans_mask_coo=tans,
+            gen=state.gen, train=True, curvature_max=cmax)
         tw = self.tc.task_weight
         total = (tw * losses["entity"] + (1.0 - tw) * losses["relation"]
                  + losses["static"] + losses["radius"])
@@ -214,21 +267,51 @@ class HyperbolicTrainer:
         state.est_state = est.update_states(state.params["est"], state.est_state, triples[:, 0],
                                             mask, ctx, self.cfg.est_state_alpha)
 
+    def grad_step(self, state: TrainState, history, triples, mask, cmax, rb=None, tans=None
+                  ) -> Tuple[Dict[str, torch.Tensor], tuple]:
+        """A step's forward and backward without the optimizer: (losses,
+        the gradients in ``tree_leaves`` order, None where a leaf has none).
+        The new BN statistics and the H-PES writeback go into ``state``;
+        the writeback reads the gate parameters of the forward, as JAX's
+        ``update_states`` does."""
+        total, losses, new_model_state, aux = self.loss(state, history, triples, mask, cmax, rb,
+                                                        tans)
+        grads = torch.autograd.grad(total, tree_leaves(state.params), allow_unused=True)
+        self.est_update(state, triples, mask, aux)
+        state.model_state = new_model_state
+        return {k: v.detach() for k, v in losses.items()}, grads
+
     def train_step(self, state: TrainState, history, triples, mask, cmax, rb=None, tans=None
                    ) -> Dict[str, torch.Tensor]:
         """One optimizer step, in place on ``state``; returns the losses
-        (0-d tensors on the device, not synchronised). The H-PES writeback
-        runs before the optimizer's in-place step, so it reads the gate
-        parameters of the forward, as JAX's ``update_states`` does."""
-        total, losses, new_model_state, aux = self.loss(state, history, triples, mask, cmax, rb,
-                                                        tans)
-        leaves = tree_leaves(state.params)
-        grads = torch.autograd.grad(total, leaves, allow_unused=True)
-        self.est_update(state, triples, mask, aux)
-        self.opt.step(leaves, grads, state.opt_state)
-        state.model_state = new_model_state
+        (0-d tensors on the device, not synchronised)."""
+        losses, grads = self.grad_step(state, history, triples, mask, cmax, rb, tans)
+        self.opt.step(tree_leaves(state.params), grads, state.opt_state)
         state.step += 1
-        return {k: v.detach() for k, v in losses.items()}
+        return losses
+
+    def snapshot_step(self, state: TrainState, i: int, cmax) -> Dict[str, torch.Tensor]:
+        """The step(s) of training snapshot i: one ``train_step``, or with
+        triple batching one per chunk (``per_chunk``) or one from the sum
+        of the chunks' gradients (``accumulate``). Returns the losses, the
+        mean of the chunks' where there are chunks."""
+        history = self.window(i)[0]
+        chunks = self.chunks(i) if self.triple_batch_size else []
+        if not chunks:
+            return self.train_step(state, *self.window(i), cmax, *self.est_window(i))
+        seen, acc = [], None
+        for triples, mask, rb, tans in chunks:
+            if self.triple_batch_mode == "per_chunk":
+                seen.append(self.train_step(state, history, triples, mask, cmax, rb, tans))
+                continue
+            losses, grads = self.grad_step(state, history, triples, mask, cmax, rb, tans)
+            seen.append(losses)
+            acc = list(grads) if acc is None else [
+                g if a is None else (a if g is None else a + g) for a, g in zip(acc, grads)]
+        if acc is not None:
+            self.opt.step(tree_leaves(state.params), acc, state.opt_state)
+            state.step += 1
+        return {k: torch.stack([l[k] for l in seen]).mean() for k in seen[0]}
 
     def epoch_order(self, epoch: int) -> List[int]:
         """The training snapshots of an epoch, in the JAX trainer's order."""
@@ -237,15 +320,41 @@ class HyperbolicTrainer:
         return idx
 
     def run_epoch(self, state: TrainState, epoch: int) -> Dict[str, float]:
-        """One step per training snapshot; returns the mean losses."""
+        """The steps of every training snapshot; returns the mean losses."""
         cmax = self._curvature_max(epoch)
         order = self.epoch_order(epoch)
         sums = torch.zeros(len(LOSS_KEYS), device=self.device)
         for i in order:
-            losses = self.train_step(state, *self.window(i), cmax, *self.est_window(i))
+            losses = self.snapshot_step(state, i, cmax)
             sums += torch.stack([losses[k] for k in LOSS_KEYS])
         means = (sums / max(len(order), 1)).tolist()  # one sync per epoch
         return dict(zip(LOSS_KEYS, means))
+
+    # ------------------------------------------------------------- analysis
+    def analysis_record(self, state: TrainState, epoch: int = 0) -> Dict[str, float]:
+        """The ``run_analysis`` sample of an epoch (``regcn_tpu``'s
+        ``HyperbolicTrainer.analysis_record``): the gradient norms of the
+        training loss on the first full window, with EST's retrieval batch
+        and without TANS, as JAX takes them; the entity table's row norms;
+        the static radii's mean and spread; the curvature. Its dropouts
+        draw from a generator seeded 0, as JAX's from a fixed key, and the
+        state is left as it was."""
+        i = min(self.tc.train_history_len, len(self.train_list) - 1)
+        history, triples, mask = self.window(i)
+        rb = self.est_window(i)[0]
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(0)
+        cmax = self._curvature_max(epoch)
+        probe = dataclasses.replace(state, gen=gen)
+        total, *_ = self.loss(probe, history, triples, mask, cmax, rb, None)
+        grads = torch.autograd.grad(total, tree_leaves(state.params), allow_unused=True)
+        rec = gradient_stats(state.params, grads)
+        rec.update(embedding_stats(state.params["dynamic_emb"], "entity"))
+        radius = state.params["radius_static"].detach().cpu().numpy()
+        rec["radius_static_mean"] = float(radius.mean())
+        rec["radius_static_std"] = float(radius.std())
+        rec["curvature"] = float(hmodel.get_curvature(state.params, self.cfg, cmax))
+        return rec
 
     # ------------------------------------------------------------------ eval
     def evaluate(self, state: TrainState, history_list: Sequence[np.ndarray],
@@ -255,7 +364,7 @@ class HyperbolicTrainer:
         """Rolling-window evaluation of ``eval_list``, whose first snapshot
         is at time ``time_offset`` (EST retrieves the events before it)."""
         return loop.evaluate(state.params, state.model_state, self.cfg, self.tc, history_list,
-                             eval_list, ent_filters, rel_filters, self.device, hmodel.predict,
+                             eval_list, ent_filters, rel_filters, self.device, self._predict(),
                              multi_step, topk, relation_evaluation,
                              self._eval_inputs(state, time_offset))
 
@@ -264,7 +373,7 @@ class HyperbolicTrainer:
         """The test split, with train + valid as its history; ``multi_step``
         feeds the top-k predictions back (ref:hyperbolic_main.py:135-142)."""
         return loop.test(state.params, state.model_state, self.cfg, self.tc, self.data,
-                         self.device, hmodel.predict, multi_step, topk, relation_evaluation,
+                         self.device, self._predict(), multi_step, topk, relation_evaluation,
                          self._eval_inputs(state, len(self.train_list) + len(self.valid_list)))
 
     def fit(self, state: Optional[TrainState] = None, n_epochs: Optional[int] = None,
@@ -301,8 +410,15 @@ class HyperbolicTrainer:
             stats = self.evaluate(state, self.train_list, self.valid_list, ent_f, rel_f,
                                   time_offset=len(self.train_list))
             mrr = stats[selection_metric].mrr
-            rows.append({"epoch": epoch, "losses": losses, "valid_mrr_raw": stats["ent_raw"].mrr,
-                         "epoch_time_s": dt})
+            row = {"epoch": epoch, "losses": losses, "valid_mrr_raw": stats["ent_raw"].mrr,
+                   "epoch_time_s": dt}
+            if self.run_analysis:
+                row["analysis"] = rec = self.analysis_record(state, epoch)
+                log.info("analysis %03d | grad global %.4e | ent norm %.3f±%.3f | radius "
+                         "%.3f±%.3f | c %.5f", epoch, rec["global_norm"], rec["entity_norm_mean"],
+                         rec["entity_norm_std"], rec["radius_static_mean"],
+                         rec["radius_static_std"], rec["curvature"])
+            rows.append(row)
             log.info("epoch %03d | e/r/s/rad %.4f/%.4f/%.4f/%.4f | %s MRR %.4f | %.1fs", epoch,
                      losses["entity"], losses["relation"], losses["static"], losses["radius"],
                      selection_metric, mrr, dt)

@@ -13,6 +13,12 @@ parameters drop in unchanged.
   training. The rrelu keeps its fixed slope in training too: the
   reference calls ``F.rrelu`` with its default ``training=False``
   (ref:src/rrgcn.py:16), so no slope is ever sampled.
+- :func:`rgcn_block_layer` — parity with ref:rgcn/layers.py:147-179
+  ``RGCNBlockLayer``, the static entity-word graph's layer: a
+  block-diagonal transform per relation, the in-degree-normalised sum
+  over destinations (``masked_segment_sum``, plain ``index_add_``: JAX's
+  is a plain ``segment_sum``, not a Pallas kernel), the fixed-slope
+  rrelu, then dropout in training.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 from regcn_torch.config import ModelConfig
 from regcn_torch.ops.activations import inverted_dropout, rrelu
 from regcn_torch.ops.rgcn_scatter import rgcn_aggregate
+from regcn_torch.ops.segment import masked_segment_sum
 from regcn_torch.utils.init import RELU_GAIN, gru_uniform, xavier_uniform
 
 Params = Dict[str, torch.Tensor]
@@ -89,6 +96,40 @@ def rgcn_cell(
         prev, x = x, union_rgcn_layer(lp, x, rel_emb, snap, prev_h=sc_prev,
                                       dropout=cfg.dropout, gen=gen, train=train)
     return x
+
+
+def init_rgcn_block_layer(gen: torch.Generator, h_dim: int, num_rels: int, n_bases: int
+                          ) -> Params:
+    """``weight`` [num_rels, n_bases * sub * sub], sub = h_dim / n_bases:
+    row r holds relation r's n_bases diagonal blocks of [sub, sub]."""
+    if h_dim % n_bases:
+        raise ValueError(f"h_dim {h_dim} must be divisible by n_bases {n_bases}")
+    sub = h_dim // n_bases
+    return {"weight": xavier_uniform(gen, (num_rels, n_bases * sub * sub), gain=RELU_GAIN)}
+
+
+def rgcn_block_layer(
+    params: Params,
+    h: torch.Tensor,  # [N_total, d]: entities, then words, for the static graph
+    snap,
+    n_bases: int,
+    *,
+    dropout: float = 0.0,
+    gen: Optional[torch.Generator] = None,
+    train: bool = False,
+) -> torch.Tensor:
+    """msg_e = blockdiag(W[rel_e]) @ h[src_e]; the sum over each node's
+    incoming edges times 1/in_degree; rrelu; no self-loop."""
+    n, d = h.shape
+    sub = d // n_bases
+    # the blocks applied as a broadcast product summed over the input
+    # index (the LGCN layer's form): per edge n_bases products of [1, sub]
+    # by [sub, sub], far too small for a batched GEMM
+    w_e = params["weight"].index_select(0, snap.rel).reshape(-1, n_bases, sub, sub)
+    h_src = h.index_select(0, snap.src).reshape(-1, n_bases, sub, 1)
+    msg = torch.sum(h_src * w_e, dim=2).reshape(-1, d)
+    agg = masked_segment_sum(msg, snap.dst, snap.edge_mask, n) * snap.in_deg_norm[:, None]
+    return inverted_dropout(rrelu(agg), dropout, gen, train)
 
 
 def init_gru_cell(gen: torch.Generator, input_size: int, hidden_size: int) -> Params:

@@ -8,6 +8,12 @@ here. In training every dropout draws from one ``torch.Generator`` on
 the parameters' device; JAX's and torch's random streams differ, so the
 two packages agree step for step only with every dropout at 0.
 
+With ``use_static`` (ref:src/rrgcn.py:146-155, :225-247) the evolution
+starts from the static entity-word graph's embedding, one
+``rgcn_block_layer`` over the entities and words, and the loss adds the
+angular constraint between that embedding and each step's evolved one
+(:func:`static_angular_loss`).
+
 Evolution step (one snapshot):
   ctx[r]   = mean_{e incident to r} h[e]                  (segment mean)
   h0       = GRUCell([emb_rel ; ctx], h0)                 (relation GRU)
@@ -26,7 +32,14 @@ import torch
 
 from regcn_torch.config import ModelConfig
 from regcn_torch.models import decoders
-from regcn_torch.models.layers import gru_cell, init_gru_cell, init_rgcn_cell, rgcn_cell
+from regcn_torch.models.layers import (
+    gru_cell,
+    init_gru_cell,
+    init_rgcn_block_layer,
+    init_rgcn_cell,
+    rgcn_block_layer,
+    rgcn_cell,
+)
 from regcn_torch.ops.activations import l2_normalize
 from regcn_torch.ops.segment import masked_segment_mean
 from regcn_torch.utils.init import xavier_normal, xavier_uniform
@@ -53,8 +66,6 @@ def tree_to(tree, device):
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raises for the configurations this package does not run yet."""
-    if cfg.use_static:
-        raise NotImplementedError("the static-graph constraint (use_static) is not ported yet")
     if cfg.dtype != "float32":
         raise NotImplementedError(f"compute dtype {cfg.dtype!r}: only float32 is ported")
 
@@ -77,19 +88,44 @@ def init_params(
         gen, cfg.h_dim, cfg.decoder_channels, cfg.decoder_kernel)
     params["decoder_rel"], bn_rel = decoders.init_convtrans(
         gen, cfg.h_dim, cfg.decoder_channels, cfg.decoder_kernel)
+    if cfg.use_static:
+        params["words_emb"] = xavier_normal(gen, (cfg.num_words, cfg.h_dim))
+        params["static_rgcn"] = init_rgcn_block_layer(gen, cfg.h_dim, 2 * cfg.num_static_rels,
+                                                      cfg.n_bases)
     state = ModelState(bn_ob=tree_to(bn_ob, device), bn_rel=tree_to(bn_rel, device))
     return tree_to(params, device), state
 
 
-def evolve(params: Params, cfg: ModelConfig, history, *,
-           gen: Optional[torch.Generator] = None, train: bool = False
-           ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _static_init(params: Params, cfg: ModelConfig, static_snap, *,
+                 gen: Optional[torch.Generator] = None, train: bool = False) -> torch.Tensor:
+    """The static graph's entity embedding [N, d] (ref:src/rrgcn.py:146-152):
+    the block layer over ``dynamic_emb`` ++ ``words_emb``, its first
+    ``num_ents`` rows, L2-normalised under ``layer_norm``."""
+    h_all = torch.cat([params["dynamic_emb"], params["words_emb"]], dim=0)
+    out = rgcn_block_layer(params["static_rgcn"], h_all, static_snap, cfg.n_bases,
+                           dropout=cfg.dropout, gen=gen, train=train)
+    static_emb = out[: cfg.num_ents]
+    return l2_normalize(static_emb) if cfg.layer_norm else static_emb
+
+
+def evolve(params: Params, cfg: ModelConfig, history, *, static_snap=None,
+           gen: Optional[torch.Generator] = None, train: bool = False, return_all: bool = False):
     """Run the recurrent evolution over a stacked [T, ...] history window
-    (a Snapshot of tensors). Returns (h_final [N, d], r_emb_final [2R, d])."""
+    (a Snapshot of tensors). Returns (h_final [N, d], r_emb_final [2R, d]);
+    with ``return_all``, (h_final, r_emb_final, the static embedding or
+    None, every step's h [T, N, d]). With ``use_static`` and a
+    ``static_snap`` (the static graph's Snapshot) the evolution starts
+    from the static embedding."""
     check_supported(cfg)
-    h = l2_normalize(params["dynamic_emb"]) if cfg.layer_norm else params["dynamic_emb"]
+    static_emb = None
+    if cfg.use_static and static_snap is not None:
+        static_emb = _static_init(params, cfg, static_snap, gen=gen, train=train)
+        h = static_emb
+    else:
+        h = l2_normalize(params["dynamic_emb"]) if cfg.layer_norm else params["dynamic_emb"]
     emb_rel = params["emb_rel"]
     h0 = emb_rel
+    all_h = []
     for t in range(history.src.shape[0]):
         snap = history.step(t)
         # relation context: masked segment-mean of current entity states over
@@ -108,6 +144,9 @@ def evolve(params: Params, cfg: ModelConfig, history, *,
         active = snap.edge_mask.max() > 0
         h = torch.where(active, h_new, h)
         h0 = torch.where(active, h0_new, h0)
+        all_h.append(h)
+    if return_all:
+        return h, h0, static_emb, torch.stack(all_h)
     return h, h0
 
 
@@ -120,6 +159,36 @@ def _masked_ce(scores: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
+def static_angular_loss(static_emb: torch.Tensor, all_h: torch.Tensor, cfg,
+                        active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Angular constraint between the static and the evolved embeddings
+    (ref:src/rrgcn.py:225-247): per history step t (1-indexed, counting
+    ``active`` steps only when it is given), max(0, cos(angle * t) -
+    cos_sim(static, evolved)) summed over entities and steps, times
+    ``static_weight``; with ``discount`` 0 the angle does not grow with t."""
+    T = all_h.shape[0]
+    if active is None:
+        steps = torch.arange(1, T + 1, dtype=torch.float32, device=all_h.device)
+    else:
+        active = active.float()
+        steps = torch.cumsum(active, dim=0)
+    if cfg.discount == 0:
+        steps = torch.ones_like(steps)
+    angles = torch.cos(cfg.angle * math.pi / 180.0 * steps)  # [T]
+    if cfg.layer_norm:
+        sim = torch.sum(static_emb[None] * l2_normalize(all_h), dim=-1)  # [T, N]
+    else:
+        num = torch.sum(static_emb[None] * all_h, dim=-1)
+        den = torch.linalg.vector_norm(static_emb, dim=-1)[None] * torch.linalg.vector_norm(
+            all_h, dim=-1)
+        sim = num / torch.clamp(den, min=1e-12)
+    gap = angles[:, None] - sim
+    gap = torch.where(gap > 0, gap, torch.zeros_like(gap))
+    if active is not None:
+        gap = gap * active[:, None]
+    return cfg.static_weight * torch.sum(gap)
+
+
 def get_loss(
     params: Params,
     state: ModelState,
@@ -128,16 +197,23 @@ def get_loss(
     triples: torch.Tensor,  # [B, 3] padded, inverses already added
     triple_mask: torch.Tensor,  # [B]
     *,
+    static_snap=None,
     gen: Optional[torch.Generator] = None,
     train: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], ModelState]:
-    """Entity + relation losses (ref:src/rrgcn.py:197-248):
+    """Entity + relation + static losses (ref:src/rrgcn.py:197-248):
     (loss_ent, {"entity", "relation", "static"}, new ModelState). The
-    static loss is 0: the static graph is not ported. In train mode the
-    decoders' BatchNorms use the batch statistics of the real triples and
-    the new state holds their updated running statistics."""
+    static loss is the angular constraint with ``use_static`` and a
+    ``static_snap``, else 0. In train mode the decoders' BatchNorms use the
+    batch statistics of the real triples and the new state holds their
+    updated running statistics."""
     check_supported(cfg)
-    h, r_emb = evolve(params, cfg, history, gen=gen, train=train)
+    static_emb = all_h = None
+    if cfg.use_static:
+        h, r_emb, static_emb, all_h = evolve(params, cfg, history, static_snap=static_snap,
+                                             gen=gen, train=train, return_all=True)
+    else:
+        h, r_emb = evolve(params, cfg, history, gen=gen, train=train)
     pre_emb = l2_normalize(h) if cfg.layer_norm else h
     zero = torch.zeros((), device=h.device)
     losses = {"entity": zero, "relation": zero, "static": zero}
@@ -155,6 +231,9 @@ def get_loss(
                                         triple_mask, **kw)
         scores, bn_rel = out if train else (out, bn_rel)
         losses["relation"] = _masked_ce(scores, triples[:, 1], triple_mask)
+    if static_emb is not None:
+        active = (history.edge_mask.amax(dim=1) > 0).float()
+        losses["static"] = static_angular_loss(static_emb, all_h, cfg, active=active)
     return losses["entity"], losses, ModelState(bn_ob=bn_ob, bn_rel=bn_rel)
 
 
@@ -164,9 +243,11 @@ def predict(
     cfg: ModelConfig,
     history,
     triples: torch.Tensor,  # [B, 3] with inverses, padded
+    *,
+    static_snap=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eval-mode scores (ref:src/rrgcn.py:183-194): (ent [B,N], rel [B,2R])."""
-    h, r_emb = evolve(params, cfg, history)
+    h, r_emb = evolve(params, cfg, history, static_snap=static_snap)
     emb = l2_normalize(h) if cfg.layer_norm else h
     scores_ob = decoders.convtranse_score(params["decoder_ob"], state.bn_ob, emb, r_emb, triples)
     scores_rel = decoders.convtransr_score(params["decoder_rel"], state.bn_rel, emb, r_emb, triples)

@@ -14,7 +14,11 @@ Counterpart of ``regcn_tpu/train/loop.py`` (ref:src/main.py:33-291).
   snapshot (EST's retrieval batch at that snapshot's time).
 - :class:`Trainer`: RE-GCN training, one optimizer step per training
   snapshot in the order of ``Trainer.run_epoch_fused``, and ``fit`` with
-  best and last checkpoints and resume.
+  best and last checkpoints and resume. With ``use_static`` the static
+  entity-word graph is built once, on the trainer's device, and every
+  training step and eval snapshot starts from its embedding; with
+  ``run_analysis`` ``fit`` records gradient and embedding statistics once
+  an epoch (:meth:`Trainer.analysis_record`).
 
 The JAX trainer runs an epoch as one fused ``lax.scan`` over a store
 front-padded with empty snapshots; here a Python loop takes the same
@@ -25,6 +29,8 @@ so both give the same result.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import logging
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -35,12 +41,13 @@ import torch
 from regcn_torch.config import ExperimentConfig, TrainConfig
 from regcn_torch.data.answers import AnswerFilter, build_answer_filters_by_time
 from regcn_torch.data.dataset import TKGData
-from regcn_torch.data.snapshots import build_history, pad_triples, split_by_time
+from regcn_torch.data.snapshots import build_history, build_snapshot, pad_triples, split_by_time
 from regcn_torch.models import recurrent
 from regcn_torch.train import metrics
 from regcn_torch.train import state as train_state
 from regcn_torch.train.optim import tree_leaves
 from regcn_torch.train.state import TrainState
+from regcn_torch.utils.profiling import embedding_stats, gradient_stats
 
 log = logging.getLogger(__name__)
 
@@ -54,9 +61,19 @@ Predict = Callable[..., tuple]
 StepInputs = Optional[Callable[[int, np.ndarray, np.ndarray], dict]]
 
 
-def regcn_predict(params, model_state, cfg, history, triples, mask):
+def regcn_predict(params, model_state, cfg, history, triples, mask, static_snap=None):
     """RE-GCN's eval-mode scores (the mask is not needed there)."""
-    return recurrent.predict(params, model_state, cfg, history, triples)
+    return recurrent.predict(params, model_state, cfg, history, triples, static_snap=static_snap)
+
+
+def static_snapshot(data: TKGData, tc: TrainConfig, device):
+    """The static entity-word graph of ``data`` as a Snapshot on ``device``
+    (entities, then words, as nodes; inverse edges give 2 *
+    ``num_static_rels`` relation ids), or None where it has none."""
+    if data.static_triples is None:
+        return None
+    return build_snapshot(data.static_triples, data.num_nodes + data.num_words,
+                          data.num_static_rels, edge_bucket=tc.edge_bucket).to(device)
 
 
 @torch.inference_mode()
@@ -258,8 +275,7 @@ class Trainer:
     """RE-GCN training and evaluation on one device.
 
     Not ported, and raising ``NotImplementedError``: a mesh,
-    ``dist_agg="halo"``, ``run_analysis``, ``dilate_len > 1`` and the
-    static graph (``use_static``)."""
+    ``dist_agg="halo"`` and ``dilate_len > 1``."""
 
     def __init__(self, cfg: ExperimentConfig, data: TKGData, *, mesh=None,
                  dist_agg: str = "gspmd", run_analysis: bool = False, device="cuda"):
@@ -268,8 +284,6 @@ class Trainer:
         if mesh is not None or dist_agg == "halo":
             raise NotImplementedError("multi-device training (a mesh, dist_agg='halo') is not "
                                       "ported yet")
-        if run_analysis:
-            raise NotImplementedError("run_analysis is not ported yet")
         if cfg.train.dilate_len > 1:
             raise NotImplementedError("dilated training snapshots (dilate_len > 1) are not "
                                       "ported yet")
@@ -280,6 +294,9 @@ class Trainer:
         self.train_list = split_by_time(data.train)
         self.valid_list = split_by_time(data.valid)
         self.test_list = split_by_time(data.test)
+        self.static_snap = (static_snapshot(data, cfg.train, self.device)
+                            if cfg.model.use_static else None)
+        self.run_analysis = run_analysis
         self.opt = train_state.make_optimizer(cfg.train)
         self._windows: Dict[int, tuple] = {}
 
@@ -303,7 +320,7 @@ class Trainer:
         total = tw * entity + (1 - tw) * relation + static."""
         _, losses, new_model_state = recurrent.get_loss(
             state.params, state.model_state, self.cfg.model, history, triples, mask,
-            gen=state.gen, train=True)
+            static_snap=self.static_snap, gen=state.gen, train=True)
         tw = self.cfg.train.task_weight
         total = tw * losses["entity"] + (1.0 - tw) * losses["relation"] + losses["static"]
         return total, losses, new_model_state
@@ -335,6 +352,23 @@ class Trainer:
             sums += torch.stack([losses[k] for k in LOSS_KEYS])
         return dict(zip(LOSS_KEYS, (sums / max(len(order), 1)).tolist()))
 
+    # ------------------------------------------------------------- analysis
+    def analysis_record(self, state: TrainState) -> Dict[str, float]:
+        """The ``run_analysis`` sample of an epoch (``regcn_tpu``'s
+        ``Trainer.analysis_record``): the gradient norms of the training
+        loss on the first full window, with the entity embeddings' row-norm
+        statistics. Its dropouts draw from a generator seeded 0, as JAX's
+        from a fixed key, and leave the state's generator alone."""
+        i = min(self.cfg.train.train_history_len, len(self.train_list) - 1)
+        history, triples, mask = self.window(i)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(0)
+        total, _, _ = self.loss(dataclasses.replace(state, gen=gen), history, triples, mask)
+        grads = torch.autograd.grad(total, tree_leaves(state.params), allow_unused=True)
+        rec = gradient_stats(state.params, grads)
+        rec.update(embedding_stats(state.params["dynamic_emb"], "entity"))
+        return rec
+
     # ------------------------------------------------------------------ eval
     def evaluate(self, state: TrainState, history_list: Sequence[np.ndarray],
                  eval_list: Sequence[np.ndarray],
@@ -346,6 +380,7 @@ class Trainer:
         or multi-step (:func:`multi_step_ranks`)."""
         return evaluate(state.params, state.model_state, self.cfg.model, self.cfg.train,
                         history_list, eval_list, ent_filters, rel_filters, self.device,
+                        functools.partial(regcn_predict, static_snap=self.static_snap),
                         multi_step=multi_step, topk=topk,
                         relation_evaluation=relation_evaluation)
 
@@ -396,12 +431,18 @@ class Trainer:
             if epoch % log_every == 0:
                 log.info("epoch %04d | loss e/r/s: %.4f/%.4f/%.4f | %.1fs", epoch,
                          losses["entity"], losses["relation"], losses["static"], dt)
+            if self.run_analysis:
+                rec = self.analysis_record(state)
+                log.info("analysis %04d | grad global %.4e | ent norm %.3f±%.3f", epoch,
+                         rec["global_norm"], rec["entity_norm_mean"], rec["entity_norm_std"])
             if epoch % tc.evaluate_every == 0:
                 stats = self.evaluate(state, self.train_list, self.valid_list, ent_f, rel_f)
                 mrr = stats[selection_metric].mrr
-                rows.append({"epoch": epoch, "losses": losses,
-                             "valid_mrr_raw": stats["ent_raw"].mrr,
-                             "valid_mrr_filter": stats["ent_filter"].mrr, "epoch_time_s": dt})
+                row = {"epoch": epoch, "losses": losses, "valid_mrr_raw": stats["ent_raw"].mrr,
+                       "valid_mrr_filter": stats["ent_filter"].mrr, "epoch_time_s": dt}
+                if self.run_analysis:
+                    row["analysis"] = rec
+                rows.append(row)
                 log.info("epoch %04d | valid %s MRR %.4f | ent raw/filt %.4f/%.4f (best %.4f)",
                          epoch, selection_metric, mrr, stats["ent_raw"].mrr,
                          stats["ent_filter"].mrr, best_mrr)

@@ -49,6 +49,9 @@ class AdamState:
     count: int
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
+    # per leaf, whether it lives on the Poincaré ball and takes Riemannian
+    # Adam's step (``regcn_torch/hyperbolic/optim.py``); None: no leaf does
+    manifold: Optional[List[bool]] = None
 
 
 class EuclideanAdam:
@@ -71,6 +74,13 @@ class EuclideanAdam:
         Written with ``torch._foreach_*`` ops: a dozen launches for all
         parameters together, where one op per tensor would be hundreds."""
         params = list(params)
+        grads = self.clipped(params, grads)
+        state.count += 1
+        self.adam(params, grads, state.mu, state.nu, state.count)
+
+    def clipped(self, params: Sequence[torch.Tensor], grads: Sequence[Optional[torch.Tensor]]
+                ) -> List[torch.Tensor]:
+        """The gradients clipped by their global norm (a None grad is zero)."""
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         # the global norm accumulated in float64: torch's fp32 norm on the
         # CPU sums millions of squares one after another and loses digits
@@ -83,16 +93,22 @@ class EuclideanAdam:
         # g / norm * limit; decided on the device
         factor = torch.where(g_norm < self.grad_norm, torch.ones_like(g_norm),
                              self.grad_norm / g_norm).float()
-        grads = torch._foreach_mul(grads, factor)
+        return list(torch._foreach_mul(grads, factor))
+
+    def adam(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+             mu: List[torch.Tensor], nu: List[torch.Tensor], count: int) -> None:
+        """Coupled weight decay, then Adam's step ``count``, in place on
+        ``params``, ``mu`` and ``nu`` (the clipped ``grads`` are consumed)."""
+        if not params:
+            return
         torch._foreach_add_(grads, params, alpha=self.weight_decay)
-        state.count += 1
-        torch._foreach_mul_(state.mu, self.b1)
-        torch._foreach_add_(state.mu, grads, alpha=1.0 - self.b1)
-        torch._foreach_mul_(state.nu, self.b2)
-        torch._foreach_addcmul_(state.nu, grads, grads, value=1.0 - self.b2)
-        denom = torch._foreach_div(state.nu, 1.0 - self.b2 ** state.count)
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.b2)
+        denom = torch._foreach_div(nu, 1.0 - self.b2 ** count)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        update = torch._foreach_div(state.mu, 1.0 - self.b1 ** state.count)
+        update = torch._foreach_div(mu, 1.0 - self.b1 ** count)
         torch._foreach_div_(update, denom)
         torch._foreach_add_(params, update, alpha=-self.lr)

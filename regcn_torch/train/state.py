@@ -106,7 +106,7 @@ def save_checkpoint(path: str, state: TrainState, meta: Optional[Dict[str, Any]]
     blob = {
         "params": tree_map(torch.Tensor.detach, state.params),
         "opt_state": {"count": state.opt_state.count, "mu": state.opt_state.mu,
-                      "nu": state.opt_state.nu},
+                      "nu": state.opt_state.nu, "manifold": state.opt_state.manifold},
         "model_state": _fields(state.model_state),
         "gen": state.gen.get_state(),
         "step": state.step,
@@ -136,7 +136,8 @@ def restore_checkpoint(path: str, template: TrainState) -> Tuple[TrainState, Dic
     opt = blob["opt_state"]
     state = TrainState(
         params=tree_map(lambda t: t.requires_grad_(True), blob["params"]),
-        opt_state=AdamState(count=int(opt["count"]), mu=opt["mu"], nu=opt["nu"]),
+        opt_state=AdamState(count=int(opt["count"]), mu=opt["mu"], nu=opt["nu"],
+                            manifold=opt.get("manifold")),
         model_state=type(template.model_state)(**blob["model_state"]),
         gen=gen, step=int(blob["step"]),
         est_state=(None if template.est_state is None

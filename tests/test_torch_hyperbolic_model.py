@@ -258,9 +258,55 @@ def test_predict_matches_jax(data):
     dict(use_static=True), dict(manifold_entities=True),
     dict(compute_dtype="bfloat16"), dict(encoder="fhnn"), dict(encoder="hgat")])
 def test_unported_configs_raise(data, unported):
-    _, pcfg = configs(data, **unported)
-    with pytest.raises(NotImplementedError):
-        PM.init_params(torch.Generator().manual_seed(0), pcfg, device="cpu")
+    """bf16, fhnn and hgat are not ported and raise. The static graph and
+    entities on the ball (``manifold_entities``), refused until they were
+    ported, now run: the parameters have JAX's keys and shapes (on the
+    ball for ``manifold_entities``), and ``evolve`` matches JAX's."""
+    if not ({"use_static", "manifold_entities"} & set(unported)):
+        _, pcfg = configs(data, **unported)
+        with pytest.raises(NotImplementedError):
+            PM.init_params(torch.Generator().manual_seed(0), pcfg, device="cpu")
+        return
+    if "use_static" in unported:
+        unported = dict(unported, num_static_rels=2, num_words=10)
+    jcfg, pcfg, (jp, _), (cp, _) = init(data, **unported)
+    got, _ = PM.init_params(torch.Generator().manual_seed(0), pcfg, device="cpu")
+    assert [tuple(t.shape) for t in tree_leaves(got)] == [
+        tuple(np.shape(v)) for v in [keyed_leaf(jp, p) for p in paths(got)]]
+    pt_hist, jx_hist = history(data)
+    kw_pt, kw_jx = {}, {}
+    if "use_static" in unported:
+        rng = np.random.default_rng(3)
+        ents = np.arange(data.num_nodes)
+        st = np.stack([ents, rng.integers(0, 2, len(ents)),
+                       rng.integers(0, 10, len(ents)) + data.num_nodes], axis=1)
+        host = pt_snapshots.build_snapshot(st, data.num_nodes + 10, 2, edge_bucket=32)
+        kw_pt["static_snap"] = host.to("cpu")
+        kw_jx["static_snap"] = jax_snapshots.Snapshot(
+            **{f: getattr(host, f) for f in pt_snapshots._ARRAY_FIELDS},
+            num_edges=host.num_edges, num_triples=host.num_triples, dst_sorted=True)
+    else:
+        radius = torch.linalg.vector_norm(got["dynamic_emb"], dim=-1)
+        assert float(radius.max()) < 1.0 / 0.01 ** 0.5
+    h, r = PM.evolve(cp, pcfg, pt_hist, **kw_pt)
+    jh, jr, _, _ = JM.evolve(jp, jcfg, jx_hist, **kw_jx)
+    close(h, jh)
+    close(r, jr)
+
+
+def paths(tree, prefix=()):
+    """Key paths of a nested dict/list, in tree_leaves order."""
+    if isinstance(tree, dict):
+        return [p for k in tree for p in paths(tree[k], prefix + (k,))]
+    if isinstance(tree, list):
+        return [p for i, v in enumerate(tree) for p in paths(v, prefix + (i,))]
+    return [prefix]
+
+
+def keyed_leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def test_config_defaults_equal_jax():

@@ -297,13 +297,19 @@ def test_init_matches_jax_structure(data):
 
 
 def test_ball_space_uvrgcn_raises(data):
-    """The uvrgcn runs on its tangent carry only; its ball-space layer is
-    not ported."""
-    _, pcfg, _, (cp, _) = init(data)
-    snap, _ = history(data, length=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PL.encoder_cell(cp["rgcn"], "hyperbolic_uvrgcn", torch.zeros(data.num_nodes, D),
-                        cp["emb_rel"], snap.step(0), C)
+    """The uvrgcn's ball-space layer stack (``encoder_cell``, which
+    ``evolve(tangent_fast=False)`` runs), refused until it was ported, now
+    runs and matches JAX's on ball points."""
+    _, _, (jp, _), (cp, _) = init(data, skip_connect=True)
+    snap, jx = history(data, length=1)
+    rng = np.random.default_rng(8)
+    h = np.asarray(JH.exp_map_zero(jnp.asarray(rng.normal(size=(data.num_nodes, D))
+                                               .astype(np.float32)), C))
+    got = PL.encoder_cell(cp["rgcn"], "hyperbolic_uvrgcn", torch.from_numpy(h), cp["emb_rel"],
+                          snap.step(0), C)
+    want = JL.encoder_cell(jp["rgcn"], "hyperbolic_uvrgcn", jnp.asarray(h), jp["emb_rel"],
+                           jax.tree.map(lambda a: a[0], jx), C)
+    close(got, want)
 
 
 # ------------------------------------------------------------ (c) evolve
