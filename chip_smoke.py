@@ -39,10 +39,11 @@ Phases, each of which exits non-zero on failure:
    kernels' grids, cluster sizes and blocks per SM are printed;
 6. training path: hyperbolic config 3 (LGCN + RotH, c=0.01 learned with
    a 5-epoch warmup, radius supervision, h=200, 2 layers, n_bases 100,
-   history 3) through ``regcn_torch.hyperbolic.train.HyperbolicTrainer``:
+   history 3) through ``regcn_torch.hyperbolic.train.HyperbolicTrainer``,
+   on synthetic-icews14s cut to 120 snapshots (100 / 10 / 10):
    (a) 3 steps on the card, each checked against the CPU from the same
    state (dropouts 0): the losses, every parameter's gradient and the
-   optimizer's update; (b) one full epoch with the config's
+   optimizer's update; (b) one full epoch (99 steps) with the config's
    dropouts, the kernels' launch counts reset just before and read just
    after (B2 forward and both backward kernels: 2 per step); (c) the
    test split's four MRRs; (d) a few steps under torch.profiler;
@@ -78,12 +79,13 @@ Phases, each of which exits non-zero on failure:
    (h=200, 2 layers, history 3, c=0.01 learned, a curvature per relation,
    an entity bias, dropouts 0.2, fp32; buckets of 128), the first path
    that runs B1 and B2 in one step, B2's entity loss on the true distance
-   with per-query curvature: (a) 3 steps cuda vs cpu as in phase 8, the
+   with per-query curvature, on phase 6's cut of synthetic-icews14s: (a)
+   3 steps cuda vs cpu as in phase 8, the
    gradients of log_c, rel_curvature_raw (B2's dc) and entity_bias (B2's
    dbias) printed apart; B2's three kernels timed at config 4's entity
    shape on that distance; (b) one epoch through ``fit``, the launch
-   counts reset just before the epoch and read just after (B1 1812, each
-   B2 kernel 2 per step, 606 at this data); (c) 20 steady steps; (d) the
+   counts reset just before the epoch and read just after (B1 2 x the
+   window's snapshots, each B2 kernel 2 per step); (c) 20 steady steps; (d) the
    test split at random init and after the epoch (B1 6 launches per
    snapshot, no B2), the entity raw MRR above the random-init one; (e) a
    profile of a step, with B1's forward, the scatter backward and the
@@ -92,12 +94,13 @@ Phases, each of which exits non-zero on failure:
    (H-PES memories, alpha 0.2; ETNR retrieval of K = 32 events; the QCHHE
    GRU) and TANS negatives, on synthetic-gdelt (seed 123, GDELT's 7691
    entities, 240 relations and 700 triples a snapshot, the time axis cut
-   to 365 snapshots split 304/30/31), through phase 8's steps: (a) 3 steps
+   to 185 snapshots split 154/15/16), through phase 8's steps: (a) 3 steps
    cuda vs cpu, the cpu also on the card's branches at H-TDP's relu, the
    H-PES memories compared after each device's writeback; (b) one epoch
-   through ``fit(checkpoint_path)`` (B1 1812, no B2); (c) the resume, the
-   H-PES memories among the tensors restored exactly; (d) 20 steady
-   steps; (e) the test split at random init and after the epoch (B1 186);
+   through ``fit(checkpoint_path)`` (B1 2 x the window's snapshots, no
+   B2); (c) the resume, the H-PES memories among the tensors restored
+   exactly; (d) 20 steady steps; (e) the test split at random init and
+   after the epoch (B1 6 a snapshot);
    (f) a profile of a step;
 11. config-2 training: BASELINE.json config 2, RE-GCN with the static
    entity-word graph (a block-diagonal RGCN layer over entities and words
@@ -116,7 +119,7 @@ Phases, each of which exits non-zero on failure:
 12. the hyperbolic headline with the static graph on the same data: (a) 3
    steps cuda vs cpu with B1's dw; (b) one epoch through ``fit`` (B1
    1428); (e) the test split (B1 204);
-13. the rest of the hyperbolic trainer on synthetic-icews14s, the
+13. the rest of the hyperbolic trainer on phase 6's cut of synthetic-icews14s, the
    headline with its entities on the ball and Riemannian Adam
    (``manifold_entities``): (a) 3 snapshots cuda vs cpu in triple batches
    of 256 rows in each mode (``accumulate``, ``per_chunk``), the
@@ -125,12 +128,31 @@ Phases, each of which exits non-zero on failure:
    each window's snapshots x its non-empty chunks; (c) both trainers'
    ``analysis_record`` on the card and the CPU; (d) 3 windows through
    ``evolve(tangent_fast=False)``, the uvrgcn's ball-space layer on B1
-   (2 launches per window snapshot), cuda vs cpu with every gradient.
+   (2 launches per window snapshot), cuda vs cpu with every gradient;
+14. HisRES (``regcn_torch.hisres.train.HisResTrainer``) on
+   synthetic-icews14s with ``run_hisres``'s defaults (h=200, 2 layers,
+   history 3, history rate 0.3, dropouts 0.2, ``rc_mode="src"``, relation
+   history over the whole window, history graphs in buckets of 4096 edges
+   capped at 65536, lr 1e-3, task weight 0.7; buckets of 128): (a) 3
+   steps cuda vs cpu, the cpu on the card's branches at every rrelu and at
+   the attention's leaky relu, B1's dw (the attention weight's gradient)
+   among the checks; (b) one epoch through ``fit(checkpoint_path)``, B1
+   exactly 2 x (T + max(T - 1, 1)) + 4 times a step (T the window's
+   snapshots; 4232 at this data), no B2; the history graphs' real edges
+   and how many hit the cap; (c) the resume; (d) 20 steady steps, their
+   launches and peak memory; (e) the test split at random init and after
+   the epoch (B1 14 a snapshot, 434), the entity raw MRR above the
+   random-init one; (f) a profile of a step;
+15. config 3 with the FHNN, then the HGAT encoder (RotH / RotH-Rel, c =
+   0.01 learned; buckets of 128): (a) 3 steps cuda vs cpu, HGAT's
+   attention leaky relu pinned; (b) 20 steady steps with their peak
+   memory, each B2 kernel exactly twice a step, no B1; (c) the test split
+   after them; (d) a profile of a step.
 
 The line before the last is ``{"kernels": [...]}``: each row's
 ``launches`` is B1's on the config-1 test split or a B2 kernel's in the
 config-3 epoch, and ``launches_by_path`` holds its count on each path
-(config 5's and phases 11-13's among them);
+(config 5's, phases 11-13's and HisRES's, FHNN's and HGAT's among them);
 B1's ``shapes`` holds its times at three shapes, each B2 kernel's its
 times at config 4's entity shape on the true distance. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -163,6 +185,9 @@ from regcn_torch.data.snapshots import (  # noqa: E402
     split_by_time,
 )
 from regcn_torch.data.synthetic import generate  # noqa: E402
+from regcn_torch.hisres import layers as hisres_layers  # noqa: E402
+from regcn_torch.hisres.model import HisResConfig  # noqa: E402
+from regcn_torch.hisres.train import HisResTrainer  # noqa: E402
 from regcn_torch.hyperbolic import est as hyp_est  # noqa: E402
 from regcn_torch.hyperbolic import layers as hyp_layers  # noqa: E402
 from regcn_torch.hyperbolic import model as hyp_model  # noqa: E402
@@ -225,7 +250,16 @@ KINK_FLIP_SHARE = 1e-6
 # r_dst may differ between the devices only where the two radii (0.5 to
 # ~3.2) agree within rounding, ~40 fp32 ulps at radius 3
 ABS_TIE_TOL = 1e-5
-PROFILE_STEPS = 20
+# the attention logits' leaky relu (HisRES's candidate layers, HGAT): HGAT's
+# logit <attn_vec, log_0(h_src ⊕ -h_dst)> is 0 by construction where the two
+# ends are one point (every padded edge), and its fp32 rounding (~1e-10)
+# takes either sign; so a flipped logit is held to this size instead of a
+# share of the entries
+LEAKY_TIE_TOL = 1e-6
+PROFILE_STEPS = 20  # steady steps timed
+# steps under torch.profiler: its key_averages over a step's thousands of
+# kernels take seconds a step, the most of a phase at 20 steps
+PROFILED_STEPS = 5
 # parameters that no loss reads: the H-PES gate, which only the writeback
 # after the backward reads (JAX's gradient of each is 0)
 NO_GRAD = {"est.slow_threshold", "est.slow_scale"}
@@ -763,13 +797,18 @@ def leaf_names(tree, prefix: str = "") -> list:
     return [prefix[:-1]]
 
 
+def model_state_leaves(ms) -> list:
+    """Every tensor of a model state (BatchNorm running statistics, the
+    radius targets), field by field."""
+    return [t for f in dataclasses.fields(ms) for t in tree_leaves(getattr(ms, f.name))]
+
+
 def state_leaves(state) -> list:
-    """Parameters, Adam moments, BatchNorm running statistics and, with
-    EST, the H-PES memories."""
-    ms = state.model_state
+    """Parameters, Adam moments, the model state and, with EST, the H-PES
+    memories."""
     est = [] if state.est_state is None else [state.est_state.fast, state.est_state.slow]
     return (tree_leaves(state.params) + state.opt_state.mu + state.opt_state.nu
-            + tree_leaves(ms.bn_ob) + tree_leaves(ms.bn_rel) + est)
+            + model_state_leaves(state.model_state) + est)
 
 
 def copy_state_into(dst, src) -> None:
@@ -880,7 +919,7 @@ def phase_training(data, dev: torch.device) -> dict:
     # (d) where a step's time goes
     cmax = trainer._curvature_max(2)
     train_profile("train step", lambda i: trainer.train_step(state, *trainer.window(i), cmax),
-                  trainer.epoch_order(2)[:PROFILE_STEPS])
+                  trainer.epoch_order(2)[:PROFILED_STEPS])
     return launches
 
 
@@ -950,8 +989,10 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 class PinnedKinks:
     """The branches a model takes at its kinks, recorded on one device and
-    replayed on another: the UnionRGCN layers' fixed-slope rrelu (RE-GCN's
-    and the hyperbolic uvrgcn's), the decoders' and EST's H-TDP relu, and
+    replayed on another: the fixed-slope rrelu of the RGCN layers (RE-GCN's,
+    the hyperbolic encoders' and HisRES's), the decoders' and EST's H-TDP
+    relu, the leaky relu of the attention logits (HisRES's candidate layers,
+    HGAT), and
     the sign of r_src - r_dst in the uvrgcn's radius weight
     exp(-γ|r_src - r_dst|), each patched by its name in its module. An fp32 value within rounding
     of 0 may take the other branch on the other device, and a few such
@@ -963,33 +1004,41 @@ class PinnedKinks:
     ``entries`` for the activations: pre-activations that went wrong on
     the card would show there. Radii tie by construction (entities of
     one radius target), so there ``abs_flip_max``, the largest |r_src -
-    r_dst| of a flipped edge, is held to ABS_TIE_TOL instead."""
+    r_dst| of a flipped edge, is held to ABS_TIE_TOL instead, and the
+    attention logits, which tie at 0 on every padded edge of HGAT, to
+    LEAKY_TIE_TOL."""
 
-    KINDS = ("rrelu", "relu", "abs")
+    KINDS = ("rrelu", "relu", "leaky", "abs")
+    ACTIVATIONS = ("rrelu", "relu")
 
     def __init__(self):
         self.masks = {k: [] for k in self.KINDS}
         self.flips = {k: 0 for k in self.KINDS}
         self.entries = {k: 0 for k in self.KINDS}
+        self.flip_max = {}  # per kind, the largest |pre-activation| that flipped
         self.abs_flip_max = 0.0
 
     @contextlib.contextmanager
-    def _patched(self, rrelu, relu, abs_diff):
-        saved = (model_layers.rrelu, hyp_layers.rrelu, model_decoders.relu, hyp_est.relu,
+    def _patched(self, rrelu, relu, leaky, abs_diff):
+        saved = (model_layers.rrelu, hyp_layers.rrelu, hisres_layers.rrelu, model_decoders.relu,
+                 hyp_est.relu, hyp_layers.leaky_relu, hisres_layers.leaky_relu,
                  hyp_layers._abs_diff)
-        model_layers.rrelu = hyp_layers.rrelu = rrelu
+        model_layers.rrelu = hyp_layers.rrelu = hisres_layers.rrelu = rrelu
         model_decoders.relu = hyp_est.relu = relu
+        hyp_layers.leaky_relu = hisres_layers.leaky_relu = leaky
         hyp_layers._abs_diff = abs_diff
         try:
             yield
         finally:
-            (model_layers.rrelu, hyp_layers.rrelu, model_decoders.relu, hyp_est.relu,
+            (model_layers.rrelu, hyp_layers.rrelu, hisres_layers.rrelu, model_decoders.relu,
+             hyp_est.relu, hyp_layers.leaky_relu, hisres_layers.leaky_relu,
              hyp_layers._abs_diff) = saved
 
     def record(self):
         """Runs the model as it is and keeps each kink's branch."""
         self.masks = {k: [] for k in self.KINDS}
         rrelu, relu, abs_diff = model_layers.rrelu, model_decoders.relu, hyp_layers._abs_diff
+        leaky = hisres_layers.leaky_relu
 
         def rec_rrelu(x):
             self.masks["rrelu"].append(x >= 0)
@@ -999,11 +1048,15 @@ class PinnedKinks:
             self.masks["relu"].append(x > 0)
             return relu(x)
 
+        def rec_leaky(x, negative_slope):
+            self.masks["leaky"].append(x >= 0)
+            return leaky(x, negative_slope)
+
         def rec_abs(a, b):
             self.masks["abs"].append(a - b >= 0)
             return abs_diff(a, b)
 
-        return self._patched(rec_rrelu, rec_relu, rec_abs)
+        return self._patched(rec_rrelu, rec_relu, rec_leaky, rec_abs)
 
     @contextlib.contextmanager
     def replay(self):
@@ -1014,8 +1067,12 @@ class PinnedKinks:
 
         def pinned(kind, x, own):
             mask = next(queues[kind]).to(x.device)
-            self.flips[kind] += int((own != mask).sum())
+            flipped = own != mask
+            self.flips[kind] += int(flipped.sum())
             self.entries[kind] += mask.numel()
+            if flipped.any():
+                self.flip_max[kind] = max(self.flip_max.get(kind, 0.0),
+                                          x.detach()[flipped].abs().max().item())
             return mask
 
         def rep_rrelu(x):
@@ -1023,6 +1080,9 @@ class PinnedKinks:
 
         def rep_relu(x):
             return torch.where(pinned("relu", x, x > 0), x, torch.zeros_like(x))
+
+        def rep_leaky(x, negative_slope):
+            return torch.where(pinned("leaky", x, x >= 0), x, x * negative_slope)
 
         def rep_abs(a, b):
             d = a - b
@@ -1032,7 +1092,7 @@ class PinnedKinks:
                 self.abs_flip_max = max(self.abs_flip_max, flipped.abs().max().item())
             return torch.where(mask, d, -d)
 
-        with self._patched(rep_rrelu, rep_relu, rep_abs):
+        with self._patched(rep_rrelu, rep_relu, rep_leaky, rep_abs):
             yield
         check(all(next(q, None) is None for q in queues.values()),
               "the replay passed fewer activations than the recorded run")
@@ -1040,14 +1100,21 @@ class PinnedKinks:
     def check(self, tag: str) -> str:
         """Fails if too many activation entries flipped, or a radius sign
         flipped away from a tie; returns a summary."""
-        flips = self.flips["rrelu"] + self.flips["relu"]
-        entries = self.entries["rrelu"] + self.entries["relu"]
+        flips = sum(self.flips[k] for k in self.ACTIVATIONS)
+        entries = sum(self.entries[k] for k in self.ACTIVATIONS)
+        by_kind = ", ".join(f"{k} {self.flips[k]} of {self.entries[k]}"
+                            + (f" (|x| <= {self.flip_max[k]:.2e})" if k in self.flip_max else "")
+                            for k in self.ACTIVATIONS + ("leaky",) if self.entries[k])
         check(flips <= KINK_FLIP_SHARE * entries, f"{tag}: {flips} of {entries} "
               f"pre-activations took the other branch at a kink on the cpu, over "
-              f"{KINK_FLIP_SHARE:.0e} of them")
+              f"{KINK_FLIP_SHARE:.0e} of them ({by_kind})")
+        check(self.flip_max.get("leaky", 0.0) <= LEAKY_TIE_TOL, f"{tag}: an attention logit "
+              f"took the other branch on the cpu at |x| = {self.flip_max.get('leaky', 0.0):.3e} > "
+              f"{LEAKY_TIE_TOL:.0e} ({by_kind})")
         check(self.abs_flip_max <= ABS_TIE_TOL, f"{tag}: r_src - r_dst took the other sign on "
               f"the cpu at |r_src - r_dst| = {self.abs_flip_max:.3e} > {ABS_TIE_TOL:.0e}")
-        text = f"{flips} of {entries} activation entries"
+        text = f"{flips + self.flips['leaky']} of {entries + self.entries['leaky']} activation " \
+            f"entries ({by_kind})"
         if self.entries["abs"]:
             text += (f", {self.flips['abs']} of {self.entries['abs']} radius-weight signs (at "
                      f"|r_src - r_dst| <= {self.abs_flip_max:.2e})")
@@ -1079,7 +1146,7 @@ class DwRecorder:
             rgcn_scatter.scatter_add_sorted_backward = backward
 
 
-def three_steps(tag: str, gpu, cpu, s_gpu, s_cpu, order, *loss_args) -> None:
+def three_steps(tag: str, gpu, cpu, s_gpu, s_cpu, order, *loss_args, may_lack=()) -> dict:
     """(a) of the training phases: 3 steps on the card; before each, the
     CPU takes the card's state and both compute the step from it, the CPU
     on the card's branches at the kinks (PinnedKinks): the losses, each
@@ -1128,6 +1195,8 @@ def three_steps(tag: str, gpu, cpu, s_gpu, s_cpu, order, *loss_args) -> None:
             if name in NO_GRAD:
                 check(a is None and b is None, f"{tag}: {name} got a gradient")
                 continue
+            if name in may_lack and a is None and b is None:
+                continue
             check(a is not None and b is not None, f"{tag}, step on snapshot {i}: {name} has "
                   "no gradient")
             err = rel_err(a, b)
@@ -1144,9 +1213,8 @@ def three_steps(tag: str, gpu, cpu, s_gpu, s_cpu, order, *loss_args) -> None:
                   f"{err:.3e} > {TRAIN_GRAD_TOL:.0e} of its largest entry")
             worst_dw = max(worst_dw, err)
         n_dw += len(dw_gpu)
-        for bn in ("bn_ob", "bn_rel"):
-            for a, b in zip(tree_leaves(getattr(bn_gpu, bn)), tree_leaves(getattr(bn_cpu, bn))):
-                worst_bn = max(worst_bn, rel_err(a, b))
+        for a, b in zip(model_state_leaves(bn_gpu), model_state_leaves(bn_cpu)):
+            worst_bn = max(worst_bn, rel_err(a, b))
         check(worst_bn <= TRAIN_GRAD_TOL, f"{tag}, step on snapshot {i}: BN running "
               f"statistics cuda vs cpu {worst_bn:.3e} > {TRAIN_GRAD_TOL:.0e}")
         if s_gpu.est_state is not None:
@@ -1289,7 +1357,7 @@ def phase_config1_training(data, cfg: ModelConfig, tc: TrainConfig, dev: torch.d
 
     # (f) where a step's time goes
     train_profile("config-1 train step", lambda i: trainer.train_step(steady, *trainer.window(i)),
-                  trainer.epoch_order(2)[:PROFILE_STEPS], scatter=True)
+                  trainer.epoch_order(2)[:PROFILED_STEPS], scatter=True)
     return launches
 
 
@@ -1329,9 +1397,9 @@ def counted_test(trainer, state, expected: int, label: str) -> tuple:
 
 def one_epoch(trainer) -> dict:
     """``fit``'s keyword for one epoch: the hyperbolic trainer takes
-    ``n_epochs``; RE-GCN's ``Trainer`` runs its config's, which the phases
-    set to 1."""
-    return {} if isinstance(trainer, loop.Trainer) else {"n_epochs": 1}
+    ``n_epochs``; RE-GCN's and HisRES's trainers run their config's, which
+    the phases set to 1."""
+    return {"n_epochs": 1} if isinstance(trainer, HyperbolicTrainer) else {}
 
 
 def fit_one_counted_epoch(trainer, state, **fit_kw) -> tuple:
@@ -1444,7 +1512,7 @@ def phase_headline_training(data, tc: TrainConfig, dev: torch.device, config=Non
     train_profile(f"{tag} train step",
                   lambda i: trainer.train_step(steady, *trainer.window(i), cmax,
                                                *trainer.est_window(i)),
-                  trainer.epoch_order(2)[:PROFILE_STEPS], scatter=True)
+                  trainer.epoch_order(2)[:PROFILED_STEPS], scatter=True)
     return {f"{tag} training epoch": launches, f"{tag} test split": test_counts}
 
 
@@ -1516,9 +1584,9 @@ def config5(data, **kw) -> HyperbolicConfig:
 
 def gdelt_data():
     """synthetic-gdelt (GDELT's 7691 entities, 240 relations and 700
-    triples a snapshot) with its time axis cut to 365 snapshots split
-    304 / 30 / 31, the other paths' 303 training steps."""
-    return generate("synthetic-gdelt", seed=SEED, num_snaps=365, split=(304, 30, 31))
+    triples a snapshot) with its time axis cut to 185 snapshots split
+    154 / 15 / 16: an epoch of 153 steps."""
+    return generate("synthetic-gdelt", seed=SEED, num_snaps=185, split=(154, 15, 16))
 
 
 # ------------------------------------------------------- config-4 training
@@ -1637,7 +1705,7 @@ def phase_config4_training(data, tc: TrainConfig, dev: torch.device) -> tuple:
     cmax = trainer._curvature_max(2)
     train_profile("config-4 train step",
                   lambda i: trainer.train_step(steady, *trainer.window(i), cmax),
-                  trainer.epoch_order(2)[:PROFILE_STEPS], scatter=True, ce=True)
+                  trainer.epoch_order(2)[:PROFILED_STEPS], scatter=True, ce=True)
     return {"config-4 training epoch": launches, "config-4 test split": test_counts}, times
 
 
@@ -1795,7 +1863,7 @@ def phase_config2_training(data, dev: torch.device) -> dict:
     # (f) where a step's time goes, and the static layer's share of it
     busy = train_profile(f"{tag} train step",
                          lambda i: trainer.train_step(steady, *trainer.window(i)),
-                         trainer.epoch_order(2)[:PROFILE_STEPS], scatter=True)
+                         trainer.epoch_order(2)[:PROFILED_STEPS], scatter=True)
     static_layer_profile(tag, steady.params, cfg, trainer.static_snap, busy)
     return {"config-2 training epoch": launches, "config-2 test split": test_counts}
 
@@ -2078,6 +2146,217 @@ def phase_hyperbolic_options(data, tc: TrainConfig, dev: torch.device,
                                           "rgcn_scatter_sorted": ball_launches}}
 
 
+# ----------------------------------------------------------- HisRES training
+
+def hisres_config(data, **kw) -> HisResConfig:
+    """HisRES at full width with ``run_hisres``'s defaults (h=200, 2 layers,
+    history rate 0.3, dropouts 0.2, the candidate cells' 0.2, layer norm,
+    ``rc_mode="src"``), in fp32."""
+    return HisResConfig(num_ents=data.num_nodes, num_rels=data.num_rels, h_dim=200,
+                        n_layers=2, history_rate=0.3, **kw)
+
+
+# run_hisres's trainer defaults: the history graphs padded to multiples of
+# 4096 edges and capped at 65536, relation history over the whole window
+HISRES_TRAINER = dict(his_edge_bucket=4096, his_max_edges=65536, rel_window_mode="full")
+
+
+def hisres_launches(cfg: HisResConfig, T: int) -> int:
+    """B1's launches in one HisRES forward on a window of T snapshots: each
+    recurrent layer on the T snapshots and on the max(T - 1, 1) union
+    graphs, and each layer of the two candidate cells."""
+    return cfg.n_layers * (T + max(T - 1, 1)) + 2 * cfg.n_layers
+
+
+def steady_steps(tag: str, step, order) -> dict:
+    """``step(i)`` for each i of ``order`` (their inputs built before), with
+    the launch counts reset just before and read just after, and the peak
+    of torch.cuda.max_memory_allocated over the steps: prints and returns
+    {"ms", "launches", "peak_mib", "base_mib"}."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mib = torch.cuda.memory_allocated() / 2**20
+    reset_launches()
+    t0 = time.perf_counter()
+    for i in order:
+        step(i)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    out = dict(ms=seconds / len(order) * 1e3, launches=read_launches(),
+               peak_mib=torch.cuda.max_memory_allocated() / 2**20, base_mib=base_mib)
+    print(f"[{tag}] steady state: {len(order)} steps in {seconds:.3f} s = "
+          f"{len(order) / seconds:.2f} snapshots/s, {out['ms']:.2f} ms per step; peak "
+          f"torch.cuda.max_memory_allocated {out['peak_mib']:.1f} MiB ({base_mib:.1f} MiB "
+          f"allocated before the steps); launches {out['launches']}", flush=True)
+    return out
+
+
+def phase_hisres_training(data, tc: TrainConfig, dev: torch.device) -> dict:
+    """HisRES through ``HisResTrainer`` with ``run_hisres``'s defaults: (a) 3
+    steps cuda vs cpu (``three_steps``, every dropout 0), the cpu on the
+    card's branches at every rrelu and at the attention's leaky relu, B1's
+    dw (the candidate layers' attention weight) among the checks; (b) one
+    epoch through ``fit(checkpoint_path)``, the launch counts reset just
+    before ``run_epoch`` and read just after, B1 exactly
+    ``hisres_launches`` per step, no B2; the history graphs' sizes; (c)
+    ``fit(resume=True)`` in a fresh trainer restores it exactly; (d) 20
+    steady steps, their wall time, launches and peak memory; (e) the test
+    split at random init and after the epoch (B1 ``hisres_launches`` per
+    snapshot), the entity raw MRR above the random-init one; (f) a profile
+    of a step, B1's forward and the scatter backward apart."""
+    tag = "hisres"
+    tc = dataclasses.replace(tc, n_epochs=1)  # fit runs the config's epochs
+    gpu = HisResTrainer(hisres_config(data, cand_dropout=0.0, **NO_DROPOUT), tc, data,
+                        device=dev, **HISRES_TRAINER)
+    cpu = HisResTrainer(hisres_config(data, cand_dropout=0.0, **NO_DROPOUT), tc, data,
+                        device="cpu", **HISRES_TRAINER)
+    s_gpu = gpu.init_state(SEED)
+    s_cpu = cpu.state_from(s_gpu.params, s_gpu.model_state)
+    # the union stream's relation GRU, and the relation branch of its last
+    # layer that feeds the GRU, reach the loss only through a later step of
+    # the window: on a window of one union graph nothing reads them (their
+    # gradient is 0 in JAX)
+    last = cpu.cfg.n_layers - 1
+    gg_rel_gru = ({f"relation_cell_2.{w}" for w in ("w_ih", "w_hh", "b_ih", "b_hh")}
+                  | {f"rgcn_2.layers.{last}.r_linear_{w}" for w in ("w", "b")})
+    worst = three_steps(tag, gpu, cpu, s_gpu, s_cpu, gpu.epoch_order(0)[:3],
+                        may_lack=gg_rel_gru)
+    for name in ("cand_raw.layers.0.attn_fc_w", "cand_inv.layers.1.pos_proj_w", "weight_t2",
+                 "rgcn_2.layers.1.w_neighbor", *gg_rel_gru):
+        check(worst[name][1] > 0, f"{tag}: {name} got no gradient in the 3 steps")
+    del gpu, cpu, s_gpu, s_cpu
+
+    cfg = hisres_config(data)
+    trainer = HisResTrainer(cfg, tc, data, device=dev, **HISRES_TRAINER)
+    state = trainer.init_state(SEED)
+    n_test = len(trainer.test_list)
+    test_launches = n_test * hisres_launches(cfg, tc.test_history_len)
+    init_stats, _, init_s = counted_test(trainer, state, test_launches, f"{tag} at init")
+    print(f"[{tag}] test split at random init ({init_s:.1f} s, {test_launches} B1 launches): "
+          "MRR " + ", ".join(f"{k} {v.mrr:.6f}" for k, v in init_stats.items()), flush=True)
+
+    # (b) the epoch, inside fit with a checkpoint; (c) its resume
+    order = trainer.epoch_order(0)
+    expected = sum(hisres_launches(cfg, min(i, tc.train_history_len)) for i in order)
+    with tempfile.TemporaryDirectory() as path:
+        info, epoch = fit_one_counted_epoch(trainer, state, checkpoint_path=path)
+        launches, row = epoch["launches"], info["history"][0]
+        check(all(math.isfinite(v) for v in row["losses"].values()),
+              f"{tag} epoch losses {row['losses']}")
+        check(launches["rgcn_scatter_sorted"] == expected
+              and all(launches[k] == 0 for k in CE_KERNELS),
+              f"{tag} epoch launches {launches}, expected {expected} of the scatter kernel "
+              f"(2 layers x each window's snapshots and union graphs, 4 candidate layers, per "
+              f"step) and no CE kernel")
+        print(f"[{tag}] (b) epoch 0 in fit: {len(order)} steps in {epoch['seconds']:.2f} s = "
+              f"{len(order) / epoch['seconds']:.2f} snapshots/s (first epoch: includes building "
+              f"the {len(order)} steps' inputs); mean losses "
+              + ", ".join(f"{k} {v:.5f}" for k, v in row["losses"].items())
+              + f"; valid ent raw MRR {row['valid_mrr_raw']:.6f}; launches {launches} "
+              f"({launches['rgcn_scatter_sorted'] / len(order):.2f} B1 launches per step)",
+              flush=True)
+        edges = np.array([[trainer._windows[i][k].num_edges for k in (5, 6)] for i in order])
+        padded = np.array([[trainer._windows[i][k].src.shape[0] for k in (5, 6)] for i in order])
+        cap = HISRES_TRAINER["his_max_edges"]
+        print(f"[{tag}] history graphs of the epoch's {len(order)} steps (raw / inverse "
+              f"queries): real edges mean {edges[:, 0].mean():.1f} / {edges[:, 1].mean():.1f}, "
+              f"max {edges[:, 0].max()} / {edges[:, 1].max()}, padded to {padded.min()} to "
+              f"{padded.max()}; {int((edges >= cap).sum())} of {edges.size} at the cap of {cap}",
+              flush=True)
+        headline_resume(trainer, HisResTrainer(cfg, tc, data, device=dev, **HISRES_TRAINER),
+                        state, info, path, tag, lambda tr, st, i: tr.train_step(st, *tr.window(i)))
+
+    # (d) steady state on a copy: the next epoch's first steps, inputs built
+    steady = train_state.copy_state(state)
+    steady_order = trainer.epoch_order(1)[:PROFILE_STEPS]
+    steady_out = steady_steps(tag, lambda i: trainer.train_step(steady, *trainer.window(i)),
+                              steady_order)
+    want = sum(hisres_launches(cfg, min(i, tc.train_history_len)) for i in steady_order)
+    check(steady_out["launches"]["rgcn_scatter_sorted"] == want,
+          f"{tag}: {steady_out['launches']} in the steady steps, expected {want} of B1")
+
+    # (e) the test split after the epoch
+    stats, test_counts, test_s = counted_test(trainer, state, test_launches, tag)
+    check(stats["ent_raw"].mrr > init_stats["ent_raw"].mrr,
+          f"{tag} entity raw MRR {stats['ent_raw'].mrr:.6f} after an epoch is not above the "
+          f"random-init {init_stats['ent_raw'].mrr:.6f}")
+    print(f"[{tag}] (e) test split after one epoch ({test_s:.1f} s, "
+          f"{test_s / n_test * 1e3:.2f} ms per snapshot, {test_counts['rgcn_scatter_sorted']} B1 "
+          "launches): MRR " + ", ".join(f"{k} {v.mrr:.6f}" for k, v in stats.items())
+          + " (random init: " + ", ".join(f"{k} {v.mrr:.6f}" for k, v in init_stats.items())
+          + ")", flush=True)
+
+    # (f) where a step's time goes
+    train_profile(f"{tag} train step", lambda i: trainer.train_step(steady, *trainer.window(i)),
+                  trainer.epoch_order(2)[:PROFILED_STEPS], scatter=True)
+    return {"hisres training epoch": launches, "hisres test split": test_counts,
+            "hisres steady steps": steady_out["launches"]}
+
+
+# ------------------------------------------ the fhnn and hgat encoders
+
+def phase_hyperbolic_encoders(data, tc: TrainConfig, dev: torch.device) -> dict:
+    """Config 3 with its LGCN encoder replaced by FHNN, then by HGAT (RotH /
+    RotH-Rel, c = 0.01 learned with a 5-epoch warmup, radius supervision):
+    (a) 3 steps cuda vs cpu (``three_steps``, dropouts 0), the cpu on the
+    card's branches at the rrelu and, for HGAT, at the attention's leaky
+    relu; (b) 20 steady steps, their wall time and peak memory, B2's three
+    kernels exactly twice a step (entity and relation loss) and no B1; (c)
+    the test split after them (no kernel: eval scores are plain distance
+    logits); (d) a profile of a step, B2's kernels apart."""
+    out = {}
+    for encoder in ("fhnn", "hgat"):
+        def cfg(**kw):
+            return dataclasses.replace(config3(data, **kw), encoder=encoder)
+
+        gpu = HyperbolicTrainer(cfg(**NO_DROPOUT), tc, data, curvature_warmup_epochs=5,
+                                device=dev)
+        cpu = HyperbolicTrainer(cfg(**NO_DROPOUT), tc, data, curvature_warmup_epochs=5,
+                                device="cpu")
+        s_gpu = gpu.init_state(SEED)
+        s_cpu = cpu.state_from(s_gpu.params, s_gpu.model_state)
+        worst = three_steps(encoder, gpu, cpu, s_gpu, s_cpu, gpu.epoch_order(0)[:3],
+                            gpu._curvature_max(0))
+        check(worst["rgcn.layers.1.rel_weight"][1] > 0,
+              f"{encoder}: the second layer's relation weights got no gradient")
+        del gpu, cpu, s_gpu, s_cpu
+
+        trainer = HyperbolicTrainer(cfg(), tc, data, curvature_warmup_epochs=5, device=dev)
+        state = trainer.init_state(SEED)
+        order = trainer.epoch_order(0)[:PROFILE_STEPS]
+        E = sorted({trainer.window(i)[0].src.shape[1] for i in order})
+        cmax = trainer._curvature_max(0)
+        steady = steady_steps(encoder, lambda i: trainer.train_step(state, *trainer.window(i),
+                                                                    cmax), order)
+        launches = steady["launches"]
+        check(launches["rgcn_scatter_sorted"] == 0
+              and all(launches[k] == 2 * len(order) for k in CE_KERNELS),
+              f"{encoder}: launches {launches} in {len(order)} steps, expected each B2 kernel "
+              f"{2 * len(order)} times and no B1")
+        print(f"[{encoder}] (b) padded edges of the steps' windows {E}: the per-edge relation "
+              "weights take " + ", ".join(
+                  f"{e * (4 if encoder == 'hgat' else 1) * cfg().h_dim ** 2 * 4 / 2**20:.0f}"
+                  for e in E) + " MiB per layer and snapshot", flush=True)
+        stats, test_counts, test_s = counted_test(trainer, state, 0, encoder)
+        print(f"[{encoder}] (c) test split after {len(order)} steps ({test_s:.1f} s): MRR "
+              + ", ".join(f"{k} {v.mrr:.6f}" for k, v in stats.items()), flush=True)
+        train_profile(f"{encoder} train step",
+                      lambda i: trainer.train_step(state, *trainer.window(i), cmax),
+                      trainer.epoch_order(1)[:PROFILED_STEPS], ce=True)
+        out[f"{encoder} steady steps"] = launches
+        out[f"{encoder} test split"] = test_counts
+        del trainer, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def config3_data():
+    """synthetic-icews14s (seed 123) with its time axis cut to 120
+    snapshots split 100 / 10 / 10: the epochs of config 3, config 4 and
+    the options phase are 99 steps."""
+    return generate("synthetic-icews14s", seed=SEED, num_snaps=120, split=(100, 10, 10))
+
+
 def main() -> None:
     t_start = time.perf_counter()
     seconds = {}
@@ -2102,12 +2381,14 @@ def main() -> None:
     by_path = {"config-1 test split": dict(launches)}
     timing.update(timed("streaming-CE kernels", phase_ce_kernels, cfg.num_ents, cfg.num_rels,
                         cfg.h_dim, dev))
-    by_path["config-3 training epoch"] = timed("config-3 training", phase_training, data, dev)
+    by_path["config-3 training epoch"] = timed("config-3 training", phase_training,
+                                               config3_data(), dev)
     by_path["config-1 training epoch"] = timed(
         "config-1 training", phase_config1_training, data, cfg, tc, dev, serving["ent_raw"].mrr)
     headline = timed("hyperbolic headline training", phase_headline_training, data, tc, dev)
     by_path.update(headline)
-    config4_paths, config4_times = timed("config-4 training", phase_config4_training, data, tc,
+    cut = config3_data()
+    config4_paths, config4_times = timed("config-4 training", phase_config4_training, cut, tc,
                                          dev)
     by_path.update(config4_paths)
     by_path.update(timed("config-5 training", phase_headline_training, gdelt_data(), tc, dev,
@@ -2116,8 +2397,10 @@ def main() -> None:
     by_path.update(timed("config-2 training", phase_config2_training, data18, dev))
     by_path.update(timed("static headline training", phase_static_headline, data18, dev))
     del data18
-    by_path.update(timed("hyperbolic trainer options", phase_hyperbolic_options, data, tc, dev,
+    by_path.update(timed("hyperbolic trainer options", phase_hyperbolic_options, cut, tc, dev,
                          cfg))
+    by_path.update(timed("hisres training", phase_hisres_training, data, tc, dev))
+    by_path.update(timed("fhnn and hgat encoders", phase_hyperbolic_encoders, data, tc, dev))
     launches.update({k: by_path["config-3 training epoch"][k] for k in CE_KERNELS})
     for k in CE_KERNELS:
         timing[k]["shapes"] = [config4_times[k]]

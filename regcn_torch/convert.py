@@ -21,9 +21,13 @@ decoders' BN trees and the 0-d leaves (``log_c``, ``score_margin``,
 (its 0-d gate leaves, the nested ``qchhe_gru`` or ``qchhe_transformer``)
 converts the same way.
 
-:func:`train_state_from_jax` takes a whole ``regcn_tpu`` ``TrainState``
-or hyperbolic ``HypTrainState`` (numpy leaves): its parameters and BN
-statistics as above, the Adam ``count``/``mu``/``nu`` of its optax chain,
+:func:`hisres_params_from_jax` does the same for the pytree of
+``regcn_tpu.hisres.model.init_params`` and its ``HisResState``: the six
+BN trees, the candidate cells' as lists of one per layer.
+
+:func:`train_state_from_jax` takes a whole ``regcn_tpu`` ``TrainState``,
+hyperbolic ``HypTrainState`` or ``HisResTrainState`` (numpy leaves): its
+parameters and BN statistics as above, the Adam ``count``/``mu``/``nu`` of its optax chain,
 its step and, from a ``HypTrainState`` with EST, its ``ESTState`` (the
 H-PES ``fast`` and ``slow`` memories), so that a run can continue
 mid-training in this package. The dual optimizer's state of
@@ -35,11 +39,13 @@ each with the other's leaves masked out) becomes one ``AdamState`` whose
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Mapping, Tuple
 
 import numpy as np
 import torch
 
+from regcn_torch.hisres.model import HisResState
 from regcn_torch.hyperbolic.est import ESTState
 from regcn_torch.hyperbolic.model import HypModelState
 from regcn_torch.models.recurrent import ModelState
@@ -78,6 +84,16 @@ def hyperbolic_params_from_jax(
         bn_rel=_tensor_tree(model_state_np.bn_rel, device),
         radius_target=_tensor_tree(model_state_np.radius_target, device),
     )
+    return _tensor_tree(params_np, device), state
+
+
+def hisres_params_from_jax(
+    params_np: Mapping[str, Any], model_state_np, device="cuda"
+) -> Tuple[dict, HisResState]:
+    """(params, HisResState) on ``device`` from the HisRES JAX parameter
+    pytree and its ``HisResState``."""
+    state = HisResState(**{f.name: _tensor_tree(getattr(model_state_np, f.name), device)
+                           for f in dataclasses.fields(HisResState)})
     return _tensor_tree(params_np, device), state
 
 
@@ -122,12 +138,17 @@ def _like(tree, template):
 
 
 def train_state_from_jax(jax_state, device="cuda", seed: int = 0) -> TrainState:
-    """A ``TrainState`` on ``device`` from a ``regcn_tpu`` ``TrainState`` or
-    ``HypTrainState`` (its model state has a ``radius_target``) with numpy
+    """A ``TrainState`` on ``device`` from a ``regcn_tpu`` ``TrainState``,
+    ``HypTrainState`` (its model state has a ``radius_target``) or
+    ``HisResTrainState`` (its model state has ``bn_cand_raw``) with numpy
     leaves (``jax.tree.map(np.asarray, state)``). The dropout generator,
     which JAX's PRNG key cannot seed alike, is seeded with ``seed``."""
-    hyperbolic = hasattr(jax_state.model_state, "radius_target")
-    convert = hyperbolic_params_from_jax if hyperbolic else params_from_jax
+    if hasattr(jax_state.model_state, "bn_cand_raw"):
+        convert = hisres_params_from_jax
+    elif hasattr(jax_state.model_state, "radius_target"):
+        convert = hyperbolic_params_from_jax
+    else:
+        convert = params_from_jax
     params, model_state = convert(jax_state.params, jax_state.model_state, device)
     for t in tree_leaves(params):
         t.requires_grad_(True)

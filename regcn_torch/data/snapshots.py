@@ -10,8 +10,9 @@ Semantics (ref:rgcn/utils.py:78-134):
 - message normalisation is 1/in_degree of the destination node, with
   isolated nodes clamped to 1;
 - the relation-context incidence: for every base relation r present in
-  the snapshot, the set of entities incident to r-edges, shared by r and
-  r+R, as a flat (rel_id, ent_id) pair list.
+  the snapshot, the set of entities incident to r-edges (or, for HisRES,
+  their sources only), shared by r and r+R, as a flat (rel_id, ent_id)
+  pair list.
 """
 
 from __future__ import annotations
@@ -99,20 +100,29 @@ def split_by_time(data: np.ndarray) -> List[np.ndarray]:
     return snapshots
 
 
-def _relation_context_pairs(triples: np.ndarray, num_rels: int):
+def _relation_context_pairs(triples: np.ndarray, num_rels: int, rc_mode: str = "both"):
     """Unique (relation, entity) incidence pairs including inverse relations.
 
-    Parity with ref:rgcn/utils.py:78-97: r_to_e[r] is the *set* of
-    entities incident to base-relation-r triples (both endpoints), and
-    r+R maps to the same set.
+    rc_mode="both", parity with ref:rgcn/utils.py:78-97: r_to_e[r] is the
+    *set* of entities incident to base-relation-r triples (both
+    endpoints), and r+R maps to the same set.
+
+    rc_mode="src", parity with the HisRES variant's r2e
+    (ref:hisres_rgcn/utils.py:71-88): only the source entity, for r and
+    for r+R alike.
     """
     s, r, o = triples[:, 0], triples[:, 1], triples[:, 2]
-    parts = [
-        np.stack([r, s], axis=1),
-        np.stack([r, o], axis=1),
-        np.stack([r + num_rels, s], axis=1),
-        np.stack([r + num_rels, o], axis=1),
-    ]
+    if rc_mode == "src":
+        parts = [np.stack([r, s], axis=1), np.stack([r + num_rels, s], axis=1)]
+    elif rc_mode == "both":
+        parts = [
+            np.stack([r, s], axis=1),
+            np.stack([r, o], axis=1),
+            np.stack([r + num_rels, s], axis=1),
+            np.stack([r + num_rels, o], axis=1),
+        ]
+    else:
+        raise ValueError(f"rc_mode must be 'both' or 'src', got {rc_mode!r}")
     pairs = np.unique(np.concatenate(parts, axis=0), axis=0)
     return pairs[:, 0].astype(np.int32), pairs[:, 1].astype(np.int32)
 
@@ -125,8 +135,11 @@ def build_snapshot(
     rc_pad: int | None = None,
     edge_bucket: int = 1024,
     rc_bucket: int = 1024,
+    rc_mode: str = "both",
 ) -> Snapshot:
-    """Build a padded flat-array snapshot graph from [n,3] (s,r,o) triples."""
+    """Build a padded flat-array snapshot graph from [n,3] (s,r,o) triples;
+    ``rc_mode`` picks the relation-context incidence
+    (:func:`_relation_context_pairs`)."""
     triples = np.asarray(triples)[:, :3].astype(np.int64)
     n = len(triples)
     s, r, o = triples[:, 0], triples[:, 1], triples[:, 2]
@@ -145,7 +158,7 @@ def build_snapshot(
     has_in = (in_deg > 0).astype(np.float32)
     in_deg_norm = 1.0 / np.maximum(in_deg, 1.0)
 
-    rc_rel, rc_ent = _relation_context_pairs(triples, num_rels)
+    rc_rel, rc_ent = _relation_context_pairs(triples, num_rels, rc_mode)
     m = len(rc_rel)
 
     E = edge_pad if edge_pad is not None else _round_up(e, edge_bucket)
@@ -198,13 +211,14 @@ def build_history(
     num_rels: int,
     edge_bucket: int = 1024,
     rc_bucket: int = 1024,
+    rc_mode: str = "both",
 ) -> Snapshot:
     """Build + stack a history window, padding all steps to the window max."""
     edge_pad = _round_up(max(2 * len(t) for t in snapshots), edge_bucket)
     # rc pairs <= 4 * triples
     rc_pad = _round_up(4 * max(len(t) for t in snapshots), rc_bucket)
     return stack_history([
-        build_snapshot(t, num_nodes, num_rels, edge_pad=edge_pad, rc_pad=rc_pad)
+        build_snapshot(t, num_nodes, num_rels, edge_pad=edge_pad, rc_pad=rc_pad, rc_mode=rc_mode)
         for t in snapshots
     ])
 

@@ -1,6 +1,6 @@
-"""Hyperbolic GNN encoder layers: LGCN and the tangent-space UnionRGCN.
+"""Hyperbolic GNN encoder layers: all four encoders of the JAX package.
 
-Counterpart of ``regcn_tpu/hyperbolic/layers.py`` for two encoders:
+Counterpart of ``regcn_tpu/hyperbolic/layers.py``:
 
 - ``lgcn``: a block-decomposed tangent transform per relation, messages
   mapped to the hyperboloid and aggregated per destination as weighted
@@ -12,12 +12,23 @@ Counterpart of ``regcn_tpu/hyperbolic/layers.py`` for two encoders:
   same self-loop, skip, clamps and rrelu; on ball points
   (:func:`hyperbolic_union_layer`, which ``evolve(tangent_fast=False)``
   reaches through :func:`encoder_cell`) or on the tangent carry
-  (:func:`union_layer_tangent`, :func:`uvrgcn_cell_tangent`).
+  (:func:`union_layer_tangent`, :func:`uvrgcn_cell_tangent`);
+- ``fhnn``: a per-relation matvec on the source's tangent vector (plus
+  the relation embedding), mapped to the ball and aggregated per
+  destination as the Einstein midpoint of the in-degree weights, a
+  Möbius self-loop, the rrelu and dropout in tangent space;
+- ``hgat``: per head, the per-relation matvec message, attention logits
+  ``leaky_relu(<attn_vec[rel], log_0(h_src ⊕ -h_dst)>, 0.2)``, the
+  segment softmax over each destination's edges and the Einstein midpoint
+  of the messages under it; the heads averaged in tangent space, the
+  Möbius self-loop, an optional gated skip, rrelu and dropout.
 
-The parameter dictionaries have the JAX package's keys and layouts.
+The per-relation matvec of fhnn and hgat is JAX's ``take`` lowering: the
+relation weights gathered per edge ([E, d, d], or [E, heads, d, d] for
+hgat), then a batched product. The parameter dictionaries have the JAX
+package's keys and layouts.
 
-Not ported yet, and raising: the ``fhnn`` and ``hgat`` encoders (ROADMAP
-A.7) and the multi-device halo aggregation (A.11).
+Not ported yet, and raising: the multi-device halo aggregation (A.11).
 """
 
 from __future__ import annotations
@@ -28,9 +39,10 @@ import torch
 
 from regcn_torch.hyperbolic import ops as H
 from regcn_torch.models.layers import init_union_rgcn_layer
-from regcn_torch.ops.activations import inverted_dropout, rrelu
+from regcn_torch.ops.activations import inverted_dropout, leaky_relu, rrelu
 from regcn_torch.ops.rgcn_scatter import rgcn_aggregate
-from regcn_torch.utils.init import RELU_GAIN, xavier_uniform
+from regcn_torch.ops.segment import segment_softmax
+from regcn_torch.utils.init import RELU_GAIN, _uniform, xavier_uniform
 
 Params = Dict[str, torch.Tensor]
 
@@ -100,7 +112,100 @@ def lgcn_layer(params: Params, h_hyper: torch.Tensor, rel_emb: Optional[torch.Te
     return H.exp_map_zero(h_new, c).to(h_hyper.dtype)
 
 
-PORTED = ("hyperbolic_uvrgcn", "lgcn")
+def fhnn_edge_transform(rel_weight: torch.Tensor, tan_src: torch.Tensor, rel: torch.Tensor
+                        ) -> torch.Tensor:
+    """``msg[e] = tan_src[e] @ rel_weight[rel[e]]`` (ref:hyperbolic_layers.py:436-466),
+    JAX's ``take`` lowering: the [E, d, d] weights gathered per edge, then
+    one batched matvec. (JAX picks a one-hot GEMM instead on a TPU only.)"""
+    w_e = rel_weight.index_select(0, rel)
+    return torch.bmm(tan_src[:, None, :], w_e)[:, 0, :]
+
+
+def init_fhnn_layer(gen: torch.Generator, h_dim, num_rels, self_loop=True) -> Params:
+    """``rel_weight`` [R, d, d]: xavier-uniform on its view(-1, d), fans
+    (R * d, d) (ref :361-362); ``loop_w`` xavier-uniform, gain 1."""
+    p = {"rel_weight": _uniform(gen, (num_rels, h_dim, h_dim),
+                                (6.0 / (num_rels * h_dim + h_dim)) ** 0.5)}
+    if self_loop:
+        p["loop_w"] = xavier_uniform(gen, (h_dim, h_dim))
+    return p
+
+
+def _tangent_activation(h_new: torch.Tensor, c, dropout: float, gen, train) -> torch.Tensor:
+    """The rrelu in tangent space, then dropout in tangent space
+    (ref :466-475), each between log_0 and exp_0."""
+    h_new = H.exp_map_zero(rrelu(H.log_map_zero(h_new, c)), c)
+    if train and dropout > 0 and gen is not None:
+        h_new = H.exp_map_zero(inverted_dropout(H.log_map_zero(h_new, c), dropout, gen, train),
+                               c)
+    return h_new
+
+
+def fhnn_layer(params: Params, h_hyper: torch.Tensor, rel_emb: Optional[torch.Tensor], snap, c,
+               *, prev_h=None, dropout: float = 0.0, gen: Optional[torch.Generator] = None,
+               train: bool = False) -> torch.Tensor:
+    """One FHNN layer on ball points [N, d]; returns ball points.
+    ``prev_h`` is ignored, as in the reference (ref :444)."""
+    n = h_hyper.shape[0]
+    h_tan = H.log_map_zero(h_hyper, c)
+    msg_tan = fhnn_edge_transform(params["rel_weight"], h_tan.index_select(0, snap.src),
+                                  snap.rel)
+    if rel_emb is not None:
+        msg_tan = msg_tan + rel_emb.index_select(0, snap.rel)
+    h_new = H.einstein_midpoint_segments(H.exp_map_zero(msg_tan, c),
+                                         snap.in_deg_norm[snap.dst] * snap.edge_mask, snap.dst,
+                                         n, c)
+    if "loop_w" in params:
+        h_new = H.mobius_add(h_new, H.exp_map_zero(h_tan @ params["loop_w"], c), c)
+    return _tangent_activation(h_new, c, dropout, gen, train).to(h_hyper.dtype)
+
+
+def init_hgat_layer(gen: torch.Generator, h_dim, num_rels, num_heads=4, self_loop=True,
+                    skip_connect=False) -> Params:
+    """``rel_weight`` [R, heads, d, d] and ``attn_vec`` [R, heads, d]
+    (head_dim = d: the reference cell averages its heads, ref :948)."""
+    p = {
+        "rel_weight": _uniform(gen, (num_rels, num_heads, h_dim, h_dim),
+                               (6.0 / (num_rels * num_heads * h_dim + h_dim)) ** 0.5),
+        "attn_vec": _uniform(gen, (num_rels, num_heads, h_dim),
+                             (6.0 / (num_rels * num_heads + h_dim)) ** 0.5),
+    }
+    if self_loop:
+        p["loop_w"] = xavier_uniform(gen, (h_dim, h_dim))
+    if skip_connect:
+        p["skip_w"] = xavier_uniform(gen, (h_dim, h_dim))
+        p["skip_b"] = torch.zeros(h_dim)
+    return p
+
+
+def hgat_layer(params: Params, h_hyper: torch.Tensor, rel_emb: Optional[torch.Tensor], snap, c,
+               *, prev_h: Optional[torch.Tensor] = None, dropout: float = 0.0,
+               gen: Optional[torch.Generator] = None, train: bool = False) -> torch.Tensor:
+    """One HGAT layer on ball points [N, d]; returns ball points.
+    ``rel_emb`` takes no part in the attention (ref :882). JAX maps a
+    function over the heads; here every head runs in one batched product,
+    one segment softmax and one Einstein midpoint over [E, heads, ...]."""
+    n = h_hyper.shape[0]
+    h_tan = H.log_map_zero(h_hyper, c)
+    w_e = params["rel_weight"].index_select(0, snap.rel)  # [E, heads, d, d]
+    src_tan = h_tan.index_select(0, snap.src)
+    msgs_tan = torch.matmul(src_tan[:, None, None, :], w_e)[:, :, 0, :]  # [E, heads, d]
+    msgs_ball = H.exp_map_zero(msgs_tan, c)
+    h_src, h_dst = h_hyper.index_select(0, snap.src), h_hyper.index_select(0, snap.dst)
+    diff_tan = H.log_map_zero(H.mobius_add(h_src, -h_dst, c), c)
+    av = params["attn_vec"].index_select(0, snap.rel)  # [E, heads, d]
+    scores = leaky_relu(torch.sum(av * diff_tan[:, None, :], dim=-1), 0.2)  # [E, heads]
+    alpha = segment_softmax(scores, snap.dst, snap.edge_mask, n)
+    agg = H.einstein_midpoint_segments(msgs_ball, alpha * snap.edge_mask[:, None], snap.dst, n,
+                                       c)  # [N, heads, d]
+    h_new = H.exp_map_zero(torch.mean(H.log_map_zero(agg, c), dim=1), c)
+    if "loop_w" in params:
+        h_new = H.mobius_add(h_new, H.exp_map_zero(h_tan @ params["loop_w"], c), c)
+    if prev_h is not None and "skip_w" in params:
+        prev_tan = H.log_map_zero(prev_h, c)
+        gate = torch.sigmoid(prev_tan @ params["skip_w"] + params["skip_b"])
+        h_new = H.exp_map_zero(gate * H.log_map_zero(h_new, c) + (1 - gate) * prev_tan, c)
+    return _tangent_activation(h_new, c, dropout, gen, train).to(h_hyper.dtype)
 
 
 def _abs_diff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -190,32 +295,35 @@ def uvrgcn_cell_tangent(params, v: torch.Tensor, rel_emb: torch.Tensor, snap, c,
     return x
 
 
-def _check_encoder(encoder: str, ported=PORTED) -> None:
+def _check_encoder(encoder: str) -> None:
     if encoder not in ENCODERS:
         raise ValueError(f"unknown encoder {encoder!r}; known: {ENCODERS}")
-    if encoder not in ported:
-        raise NotImplementedError(f"the {encoder} encoder is not ported yet (ROADMAP A.7)")
 
 
 def init_encoder_cell(gen: torch.Generator, encoder: str, h_dim: int, num_rels_total: int,
                       n_layers: int, n_bases: int = -1, num_heads: int = 4,
                       self_loop: bool = True, skip_connect: bool = False) -> Dict[str, list]:
     _check_encoder(encoder)
-    if encoder == "hyperbolic_uvrgcn":
-        return {"layers": [init_union_rgcn_layer(gen, h_dim, self_loop, skip_connect and i > 0)
-                           for i in range(n_layers)]}
-    return {"layers": [
-        init_lgcn_layer(gen, h_dim, num_rels_total, n_bases, self_loop, skip_connect and i > 0)
-        for i in range(n_layers)
-    ]}
+    layers = []
+    for i in range(n_layers):
+        sc = skip_connect and i > 0
+        if encoder == "hyperbolic_uvrgcn":
+            layers.append(init_union_rgcn_layer(gen, h_dim, self_loop, sc))
+        elif encoder == "fhnn":
+            layers.append(init_fhnn_layer(gen, h_dim, num_rels_total, self_loop))
+        elif encoder == "lgcn":
+            layers.append(init_lgcn_layer(gen, h_dim, num_rels_total, n_bases, self_loop, sc))
+        else:
+            layers.append(init_hgat_layer(gen, h_dim, num_rels_total, num_heads, self_loop, sc))
+    return {"layers": layers}
 
 
 def encoder_cell(params, encoder: str, h_hyper: torch.Tensor, rel_emb: torch.Tensor, snap, c,
                  *, n_bases: int = -1, num_heads: int = 4, radius_gamma: float = 1.0,
                  dropout: float = 0.0, gen: Optional[torch.Generator] = None,
                  train: bool = False, impl: str = "xla") -> torch.Tensor:
-    """The ball-space layer stack: ``evolve``'s path for LGCN, and for the
-    uvrgcn with ``tangent_fast=False``."""
+    """The ball-space layer stack: ``evolve``'s path for LGCN, FHNN and
+    HGAT, and for the uvrgcn with ``tangent_fast=False``."""
     _check_encoder(encoder)
     if impl != "xla":
         raise NotImplementedError(f"encoder impl {impl!r} (halo / pallas) is not ported yet")
@@ -225,6 +333,10 @@ def encoder_cell(params, encoder: str, h_hyper: torch.Tensor, rel_emb: torch.Ten
         if encoder == "hyperbolic_uvrgcn":
             new_x = hyperbolic_union_layer(lp, x, rel_emb, snap, c, radius_gamma=radius_gamma,
                                            **kw)
+        elif encoder == "fhnn":
+            new_x = fhnn_layer(lp, x, rel_emb, snap, c, **kw)
+        elif encoder == "hgat":
+            new_x = hgat_layer(lp, x, rel_emb, snap, c, **kw)
         else:
             d = x.shape[1]
             nb_eff = d * d // lp["weight"].shape[1]  # cols = nb * (d/nb)^2 = d^2 / nb

@@ -1,17 +1,18 @@
 """Hyperbolic recurrent RGCN: the model core of the hyperbolic slice.
 
-Counterpart of ``regcn_tpu/hyperbolic/model.py`` for the LGCN and the
-hyperbolic UnionRGCN encoders with each of the four decoders (tangent
-ConvTransE / R, MuRP, RotH, AttH, each entity decoder with its relation
-variant). As in JAX, the encoder alone picks the evolution path: the
-LGCN runs on the ball (``evolve`` lines 322-367), the uvrgcn on the
+Counterpart of ``regcn_tpu/hyperbolic/model.py`` for its four encoders
+(LGCN, the hyperbolic UnionRGCN, FHNN, HGAT) with each of its four
+decoders (tangent ConvTransE / R, MuRP, RotH, AttH, each entity decoder
+with its relation variant). As in JAX, the encoder alone picks the
+evolution path: LGCN, FHNN and HGAT run on the ball (``evolve`` lines
+322-367), the uvrgcn on the
 tangent carry (``_evolve_tangent``, which JAX's ``evolve`` picks for this
 encoder). The JAX ``lax.scan`` over the history window is a Python loop
 over its T steps. One evolution step (snapshot t), on the ball:
 
   ctx  = segment-mean of log_0(h) over relation incidence
   h0   = GRUCell([emb_rel ; ctx], h0)                 (tangent, L2-normalised)
-  cur  = LGCN cell(g_t, h, h0), projected, tangent-L2-normalised
+  cur  = encoder cell(g_t, h, h0), projected, tangent-L2-normalised
   h    = exp_0(gate * log_0(cur) + (1-gate) * log_0(h))   (±10 clamps)
   h    = radius evolution towards the static radius   (or apply_radius)
 
@@ -40,8 +41,8 @@ of the final table are enriched from their retrieved event histories
 before the decoders; with ``use_time_aware_negative`` the other true
 tails of each training query are squashed out of its entity scores.
 
-Not ported yet, and raising: the fhnn and hgat encoders (ROADMAP A.7)
-and bf16 (A.5).
+Not ported yet, and raising: bf16 (ROADMAP A.5) and the multi-device
+aggregation (A.11).
 """
 
 from __future__ import annotations
@@ -67,8 +68,8 @@ Params = Dict[str, Any]
 CLAMP = 10.0
 ENCODERS = HL.ENCODERS
 DECODERS = ("hyperbolic_convtranse", "murp", "roth", "atth")
-# (encoder, decoder) pairs this package runs
-PORTED = tuple((e, d) for e in ("lgcn", "hyperbolic_uvrgcn") for d in DECODERS)
+# (encoder, decoder) pairs this package runs: all of them
+PORTED = tuple((e, d) for e in ENCODERS for d in DECODERS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,8 +148,8 @@ def check_supported(cfg: HyperbolicConfig) -> None:
         raise NotImplementedError(f"compute dtype {cfg.compute_dtype!r}: only float32 is ported "
                                   "(ROADMAP A.5)")
     if (cfg.encoder, cfg.decoder) not in PORTED:
-        raise NotImplementedError(f"the {cfg.encoder} encoder with the {cfg.decoder} decoder is "
-                                  f"not ported yet (ROADMAP A.7); ported: {PORTED}")
+        raise ValueError(f"unknown encoder x decoder pair ({cfg.encoder!r}, {cfg.decoder!r}); "
+                         f"known: {PORTED}")
     if cfg.impl != "xla":
         raise NotImplementedError(f"impl {cfg.impl!r} is not ported yet")
 
@@ -172,8 +173,8 @@ def init_params(gen: torch.Generator, cfg: HyperbolicConfig, radius_target=None,
         "time_gate_b": torch.zeros(d),
         "gru": init_gru_cell(gen, 2 * d, d),
         "rgcn": HL.init_encoder_cell(gen, cfg.encoder, d, cfg.num_rels_total, cfg.n_layers,
-                                     n_bases=cfg.n_bases, self_loop=cfg.self_loop,
-                                     skip_connect=cfg.skip_connect),
+                                     n_bases=cfg.n_bases, num_heads=cfg.num_heads,
+                                     self_loop=cfg.self_loop, skip_connect=cfg.skip_connect),
         "radius_mlp_w": xavier_uniform(gen, (1, d), gain=0.1),
         "radius_mlp_b": torch.zeros(1),
     }

@@ -1,7 +1,7 @@
 """Poincaré-ball and Lorentz-model operations.
 
 Counterparts of ``regcn_tpu/hyperbolic/ops.py`` for what the hyperbolic
-slice runs, with the same ``EPS`` clamps and fp32 islands. The curvature
+model runs, with the same ``EPS`` clamps and fp32 islands. The curvature
 ``c`` is a float or a 0-d tensor (learned curvature); gradients flow to it.
 
 At a tie JAX's ``jnp.maximum`` / ``jnp.minimum`` / ``jnp.clip`` split the
@@ -235,3 +235,34 @@ def lorentz_centroid_segments(
     origin[:, 0] = 1.0 / sqrt(c)
     centroid = torch.where((wsum <= eps)[:, None], origin, centroid)
     return lorentz_normalize(centroid, c, eps).to(emb.dtype)
+
+
+# ----------------------------------------- Einstein midpoint (FHNN and HGAT)
+
+def einstein_midpoint_segments(
+    points: torch.Tensor,  # [E, ..., d] Poincaré-ball points
+    weights: torch.Tensor,  # [E, ...] aggregation weights (>= 0)
+    segment_ids: torch.Tensor,  # [E] int64
+    num_segments: int,
+    c,
+    eps: float = EPS,
+) -> torch.Tensor:
+    """Per-segment Einstein midpoint with conformal-factor weights:
+    (ref:hyperbolic_layers.py:371-395) the weights normalised per segment
+    (plus eps), λ_i = 2 / (1 - c ||x_i||² + eps) in fp32, midpoint =
+    Σ w_i λ_i x_i / (Σ w_i λ_i + eps), projected to the ball; an empty
+    segment gives the origin. Axes between the edge axis and the last
+    (HGAT's heads) are carried along: [num_segments, ..., d]. The segment
+    sums are ``index_add``, as JAX's are ``segment_sum``."""
+    wsum = weights.new_zeros((num_segments,) + tuple(weights.shape[1:])).index_add(
+        0, segment_ids, weights)
+    w = weights / (wsum[segment_ids] + eps)
+    pf = points.float()
+    lam = 2.0 / (1.0 - c * torch.sum(pf * pf, dim=-1) + eps)
+    wl = w * lam
+    denom = wl.new_zeros(wsum.shape).index_add(0, segment_ids, wl) + eps
+    num = pf.new_zeros((num_segments,) + tuple(points.shape[1:])).index_add(
+        0, segment_ids, wl[..., None] * pf)
+    mid = num / denom[..., None]
+    mid = torch.where((wsum <= 0)[..., None], torch.zeros_like(mid), mid)
+    return project_to_ball(mid, c, eps).to(points.dtype)

@@ -1,7 +1,7 @@
 """Hyperbolic training: the trainer of the hyperbolic slice.
 
-Counterpart of ``regcn_tpu/hyperbolic/train.py`` for the configurations
-this package runs (the LGCN or the uvrgcn encoder with any of the four
+Counterpart of ``regcn_tpu/hyperbolic/train.py`` (any of the four
+encoders, LGCN, the uvrgcn, FHNN and HGAT, with any of the four
 decoders: among them config 3, LGCN + RotH; config 4, uvrgcn + AttH with
 learned and per-relation curvature and an entity bias; the headline,
 uvrgcn + tangent ConvTransE / R; config 5, the headline with EST and TANS

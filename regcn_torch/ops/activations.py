@@ -22,6 +22,13 @@ def rrelu(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 0, x, x * ((RRELU_LOWER + RRELU_UPPER) / 2.0))
 
 
+def leaky_relu(x: torch.Tensor, negative_slope: float) -> torch.Tensor:
+    """``jax.nn.leaky_relu``: x where x >= 0, else x * negative_slope. Its
+    derivative at 0 is 1, as JAX's; torch's ``F.leaky_relu`` takes the
+    slope there."""
+    return torch.where(x >= 0, x, x * negative_slope)
+
+
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
     """Row L2 normalisation, parity with torch F.normalize (p=2).
 

@@ -258,11 +258,12 @@ def test_predict_matches_jax(data):
     dict(use_static=True), dict(manifold_entities=True),
     dict(compute_dtype="bfloat16"), dict(encoder="fhnn"), dict(encoder="hgat")])
 def test_unported_configs_raise(data, unported):
-    """bf16, fhnn and hgat are not ported and raise. The static graph and
-    entities on the ball (``manifold_entities``), refused until they were
-    ported, now run: the parameters have JAX's keys and shapes (on the
-    ball for ``manifold_entities``), and ``evolve`` matches JAX's."""
-    if not ({"use_static", "manifold_entities"} & set(unported)):
+    """bf16 is not ported and raises. The static graph, entities on the
+    ball (``manifold_entities``) and the fhnn and hgat encoders, refused
+    until they were ported, now run: the parameters have JAX's keys and
+    shapes (on the ball for ``manifold_entities``), and ``evolve`` matches
+    JAX's."""
+    if "compute_dtype" in unported:
         _, pcfg = configs(data, **unported)
         with pytest.raises(NotImplementedError):
             PM.init_params(torch.Generator().manual_seed(0), pcfg, device="cpu")

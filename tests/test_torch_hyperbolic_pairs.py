@@ -144,7 +144,10 @@ def test_init_params_leaves_equal_jax(data, decoder):
 
 
 def test_every_pair_is_ported():
-    assert sorted(PM.PORTED) == sorted(PAIRS)
+    """This file's eight pairs, and the fhnn and hgat encoders' eight
+    (tests/test_torch_hyperbolic_encoders.py), are all of them."""
+    assert set(PAIRS) <= set(PM.PORTED)
+    assert sorted(PM.PORTED) == sorted((e, d) for e in PM.ENCODERS for d in PM.DECODERS)
 
 
 @pytest.mark.parametrize("encoder,decoder", PAIRS)

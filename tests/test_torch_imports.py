@@ -62,3 +62,13 @@ def test_the_training_slice_is_covered():
     for name in ("train/loop", "train/state", "train/optim", "train/metrics", "models/recurrent",
                  "models/decoders", "models/layers", "ops/activations", "convert"):
         assert f"regcn_torch/{name}.py" in checked
+
+
+def test_the_hisres_slice_is_covered():
+    """The modules of HisRES, and the segment softmax of its attention and
+    of the hgat encoder, are among the files checked above."""
+    checked = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for name in ("__init__", "history", "layers", "model", "train"):
+        assert f"regcn_torch/hisres/{name}.py" in checked
+    for name in ("ops/segment", "hyperbolic/layers", "hyperbolic/ops", "data/snapshots"):
+        assert f"regcn_torch/{name}.py" in checked
