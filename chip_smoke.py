@@ -147,14 +147,40 @@ Phases, each of which exits non-zero on failure:
    0.01 learned; buckets of 128): (a) 3 steps cuda vs cpu, HGAT's
    attention leaky relu pinned; (b) 20 steady steps with their peak
    memory, each B2 kernel exactly twice a step, no B1; (c) the test split
-   after them; (d) a profile of a step.
+   after them; (d) a profile of a step;
+16. the CLI: ``regcn_torch.cli.main(["train", "-d", "synthetic-icews14s",
+   "--n-epochs", "1", ...])`` with the CLI's defaults (config 1, buckets of
+   1024 / 512), then ``test``, which restores train's best checkpoint: B1
+   exactly the epoch's 2 x window snapshots plus 6 per valid and test
+   snapshot (2178), then 186; no B2; the same metrics within 1e-4;
+17. ``cli.main(["entity", "-d", "synthetic-aifb"])`` with the CLI's
+   defaults (basis-RGCN classifier, h=200, one basis per relation: 91
+   relations, 8285 nodes, 91136 padded edges, 4 classes): B1 held against
+   its plain version at d=200 and d=4 on that graph and timed there; the
+   logits at the seed's initial parameters card vs CPU; 30 full-batch
+   steps and two evaluations: B1 exactly 64, the accuracies, the peak
+   memory;
+18. ``cli.main(["grid", "--tune", "lr,seed", "--vectorize", ...])`` for
+   the regcn family, K = 6 models under ``torch.func.vmap``: (a) 3
+   vmapped steps against each model's steps alone on the card from the
+   same state (dropouts 0; each model on the kinks' branches the vmapped
+   step took); (b) the CLI's epoch and valid split, B1 folded to one
+   launch for the 6 models (as many as one model's run); (c) 20 steady
+   vmapped steps beside 20 of one model, and each profiled; (d) B1 at the
+   folded [E, 1200]; then the hyperbolic ``grid --vectorize`` on config 3
+   (phase 6's cut data, K = 6): its 3-step check, 10 steady steps with
+   each B2 kernel exactly 2 x K a step beside one model's, and the
+   headline vmapped over 2 learning rates (B1 folded with each model's
+   radius weight) through the same 3-step check.
 
 The line before the last is ``{"kernels": [...]}``: each row's
 ``launches`` is B1's on the config-1 test split or a B2 kernel's in the
 config-3 epoch, and ``launches_by_path`` holds its count on each path
-(config 5's, phases 11-13's and HisRES's, FHNN's and HGAT's among them);
-B1's ``shapes`` holds its times at three shapes, each B2 kernel's its
-times at config 4's entity shape on the true distance. The last line is
+(config 5's, phases 11-13's and HisRES's, FHNN's and HGAT's, the CLI's
+and the sweeps' among them); B1's ``shapes`` holds its times at six
+shapes (phase 3's three, synthetic-aifb's d=200 and d=4, the folded
+[E, 1200]), each B2 kernel's its times at config 4's entity shape on the
+true distance. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -256,6 +282,9 @@ ABS_TIE_TOL = 1e-5
 # takes either sign; so a flipped logit is held to this size instead of a
 # share of the entries
 LEAKY_TIE_TOL = 1e-6
+# the CLI's test of a restored checkpoint against train's test of the same
+# state: fp32 scores in another run may reorder near-ties, moving a rank
+CLI_MRR_TOL = 1e-4
 PROFILE_STEPS = 20  # steady steps timed
 # steps under torch.profiler: its key_averages over a step's thousands of
 # kernels take seconds a step, the most of a phase at 20 steps
@@ -2350,6 +2379,418 @@ def phase_hyperbolic_encoders(data, tc: TrainConfig, dev: torch.device) -> dict:
     return out
 
 
+# ------------------------------------------------ the CLI and the sweep
+
+def expected_epoch_scatters(train_list, hlen: int) -> int:
+    """B1's launches in one RE-GCN epoch: 2 layers x each window's snapshots."""
+    return sum(2 * min(i, hlen) for i in range(1, len(train_list)))
+
+
+def phase_cli_train_test(dev: torch.device) -> dict:
+    """(16) ``python -m regcn_torch.cli train`` then ``test`` through
+    ``cli.main`` on synthetic-icews14s with the CLI's defaults (config 1:
+    h=200, 2 layers, history 3, dropouts 0.2, buckets of 1024 / 512) and
+    one epoch: B1 exactly the epoch's 2 x window snapshots plus 6 per valid
+    and test snapshot, no B2; ``test`` restores the best checkpoint that
+    ``train`` saved and prints the same four MRRs."""
+    import shutil
+
+    from regcn_torch import cli
+
+    models = os.path.join(ROOT, "models", "chip_smoke_cli")
+    shutil.rmtree(models, ignore_errors=True)
+    argv = ["-d", "synthetic-icews14s", "--n-epochs", "1", "--models-dir", models]
+    data = generate("synthetic-icews14s")  # the data load_data makes for the name
+    n_valid, n_test = len(split_by_time(data.valid)), len(split_by_time(data.test))
+    want = {"train": expected_epoch_scatters(split_by_time(data.train), 3) + 6 * (n_valid + n_test),
+            "test": 6 * n_test}
+    out, launches = {}, {}
+    for mode in ("train", "test"):
+        reset_launches()
+        t0 = time.perf_counter()
+        out[mode] = cli.main([mode, *argv], device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches[mode] = read_launches()
+        check(launches[mode]["rgcn_scatter_sorted"] == want[mode]
+              and all(launches[mode][k] == 0 for k in CE_KERNELS),
+              f"cli {mode}: launches {launches[mode]}, expected B1 {want[mode]} and no B2")
+        for key, row in out[mode].items():
+            check(math.isfinite(row["mrr"]) and 0.0 < row["mrr"] <= 1.0,
+                  f"cli {mode}: {key} MRR {row['mrr']} not in (0, 1]")
+        print(f"[cli] {mode} ({seconds:.1f} s): B1 {launches[mode]['rgcn_scatter_sorted']} "
+              f"launches; MRR " + ", ".join(f"{k} {v['mrr']:.6f}" for k, v in out[mode].items()),
+              flush=True)
+    diff = max(abs(out["test"][k][m] - v) for k, row in out["train"].items()
+               for m, v in row.items())
+    check(diff <= CLI_MRR_TOL, f"cli test: the restored checkpoint's metrics differ from "
+          f"train's best state's by {diff:.3e} > {CLI_MRR_TOL:.0e}")
+    print(f"[cli] test restored train's best checkpoint: its metrics within {diff:.3e} of "
+          "train's", flush=True)
+    shutil.rmtree(models, ignore_errors=True)
+    return {"cli train": launches["train"], "cli test": launches["test"]}
+
+
+def phase_entity(dev: torch.device) -> tuple:
+    """(17) ``cli.main(["entity", "-d", "synthetic-aifb"])`` with the CLI's
+    defaults (h=200, n_bases 100 > 91 relations: one basis per relation,
+    dropout 0.2, lr 1e-3, 30 epochs): B1 on the graph's destination-sorted
+    edges with the edge norm as its weight, held against its plain version
+    at d=200 (the input layer) and d=4 (the output layer: one float4 a row)
+    and timed there; the launch count (2 a forward: 30 training steps, the
+    train and the test accuracy), the accuracies and the peak memory; the
+    logits at the seed's initial parameters on the card against the CPU's."""
+    from regcn_torch import cli
+    from regcn_torch.data.rdf import load_entity_data
+    from regcn_torch.models import entity_classifier as ec
+
+    data = load_entity_data("synthetic-aifb", seed=2023)  # the CLI's --seed default
+    graph = ec.graph_for(data, 128, dev)
+    N, E = data.num_nodes, graph.src.shape[0]
+    g = np.random.default_rng(SEED)
+    errs, times = {}, []
+    for d in (200, 4):
+        msg = torch.from_numpy(g.normal(size=(E, d)).astype(np.float32)).to(dev)
+        kw = dict(edge_weight=graph.edge_norm, row_scale=graph.in_deg_norm)
+        got = scatter_add_sorted(msg, graph.keys, N, **kw)
+        want = scatter_add_sorted_reference(msg, graph.keys, N, **kw)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = max(1.0, want.abs().max().item())
+        check(math.isfinite(err) and err <= KERNEL_TOL * scale,
+              f"entity graph d={d}: max|kernel - plain| = {err:.3e} > {KERNEL_TOL:.0e} * "
+              f"{scale:.3e}")
+        errs[d] = err
+        t = scatter_times(msg, graph.keys, N, len(data.edge_src), **kw)
+        times.append(dict(shape=f"synthetic-aifb E={E} N={N} d={d}", **t))
+        print(f"[entity] rgcn_scatter_sorted at E={E} ({len(data.edge_src)} real) N={N} d={d}: "
+              f"max abs err {err:.3e} (scale {scale:.3e}); kernel {t['ms'] * 1e3:.2f} us, plain "
+              f"{t['plain_ms'] * 1e3:.2f} us, zeros + index_add_ {t['library_ms'] * 1e3:.2f} us, "
+              f"bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})", flush=True)
+    cfg = ec.EntityClassifierConfig(h_dim=200, n_bases=100, dropout=0.2, lr=1e-3, n_epochs=30)
+    params = ec.init_entity_classifier(torch.Generator().manual_seed(2023), data, cfg, "cpu")
+    want = ec.entity_logits(params, ec.graph_for(data, 128, "cpu"), cfg).detach()
+    got = ec.entity_logits(recurrent.tree_to(params, dev), graph, cfg).detach().cpu()
+    err, scale = (got - want).abs().max().item(), max(1.0, want.abs().max().item())
+    check(math.isfinite(err) and err <= CPU_SCORE_TOL * scale,
+          f"entity logits cuda vs cpu: max abs err {err:.3e} > {CPU_SCORE_TOL:.0e} * {scale:.3e}")
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mib = torch.cuda.memory_allocated() / 2**20
+    reset_launches()
+    t0 = time.perf_counter()
+    result = cli.main(["entity", "-d", "synthetic-aifb"], device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    expected = 2 * (cfg.n_epochs + 2)
+    check(launches["rgcn_scatter_sorted"] == expected and all(launches[k] == 0 for k in CE_KERNELS),
+          f"entity: launches {launches}, expected B1 {expected} and no B2")
+    check(all(math.isfinite(v) for v in result.values())
+          and 0.0 <= result["train_acc"] <= 1.0 and 0.0 <= result["test_acc"] <= 1.0,
+          f"entity: result {result}")
+    print(f"[entity] cli entity -d synthetic-aifb ({data.num_nodes} nodes, {data.num_rels} "
+          f"relations, {data.num_classes} classes, {E} padded edges): {seconds:.1f} s for 30 "
+          f"full-batch steps and 2 evaluations; train acc {result['train_acc']:.4f}, test acc "
+          f"{result['test_acc']:.4f}, final loss {result['final_loss']:.4f}; logits at init cuda "
+          f"vs cpu {err:.3e} (scale {scale:.3e}); peak torch.cuda.max_memory_allocated "
+          f"{peak_mib:.1f} MiB ({base_mib:.1f} MiB before); launches {launches}", flush=True)
+    return {"cli entity": launches}, times, max(errs.values())
+
+
+def kink_recording(runner):
+    """``runner.model_loss`` that adds each kink's branch (PinnedKinks's
+    record) to the losses: a batched tensor may not outlive the ``vmap``,
+    so the branches of all models come back stacked through the losses."""
+    orig = runner.model_loss
+
+    def model_loss(*args):
+        kinks = PinnedKinks()
+        with kinks.record():
+            losses, new_state = orig(*args)
+        losses = dict(losses)
+        for kind, masks in kinks.masks.items():
+            for j, m in enumerate(masks):
+                losses[f"kink {kind} {j}"] = m
+        return losses, new_state
+
+    return model_loss
+
+
+def model_kinks(losses: dict, k: int) -> PinnedKinks:
+    """PinnedKinks holding model k's branches of a vmapped step, to replay."""
+    kinks = PinnedKinks()
+    for kind in PinnedKinks.KINDS:
+        n = sum(1 for key in losses if key.startswith(f"kink {kind} "))
+        kinks.masks[kind] = [losses[f"kink {kind} {j}"][k] for j in range(n)]
+    return kinks
+
+
+def vmapped_three_steps(tag: str, runner, trainers, order, *loss_args) -> None:
+    """3 vmapped steps of a sweep against 3 steps of each model alone on the
+    card, from the same state before each step (dropouts 0): model k's
+    trainer takes slice k of the sweep's state; the losses within
+    TRAIN_LOSS_RTOL, every gradient within TRAIN_GRAD_TOL of its largest
+    entry (model k on the branches the vmapped step took at the kinks,
+    as PinnedKinks replays the card's on the cpu), the BN statistics, and
+    each model's optimizer step from the same gradients and moments
+    against the stacked one within TRAIN_OPT_TOL."""
+    from regcn_torch.train.optim import AdamState
+    from regcn_torch.train.sweep import model_slice
+
+    t0 = time.perf_counter()
+    state = runner.init_state()
+    names = leaf_names(model_slice(state.params, 0))
+    runner.model_loss = kink_recording(runner)
+    worst = dict(loss=0.0, grad=0.0, bn=0.0, opt=0.0)
+    flips = []
+    for i in order:
+        losses, grads, new_ms = runner.grad_step(state, i)
+        expected = []
+        for k, tr in enumerate(trainers):
+            ms_k = runner.model_state_type(**model_slice(state.model_state, k))
+            if isinstance(tr, loop.Trainer):
+                s_k = train_state.state_from(model_slice(state.params, k), ms_k, tr.cfg.train,
+                                             SEED, tr.device)
+            else:
+                s_k = tr.state_from(model_slice(state.params, k), ms_k)
+            kinks = model_kinks(losses, k)
+            with kinks.replay():
+                total, parts, new_bn, *_ = tr.loss(s_k, *tr.window(i), *loss_args)
+                g_k = torch.autograd.grad(total, tree_leaves(s_k.params), allow_unused=True)
+            flips.append(kinks.check(f"{tag} model {k}"))
+            for key, v in parts.items():
+                a, b = losses[key][k].item(), v.item()
+                check(math.isfinite(a) and abs(a - b) <= TRAIN_LOSS_RTOL * max(1.0, abs(b)),
+                      f"{tag}, snapshot {i}, model {k}: {key} loss vmapped {a} vs alone {b}")
+                worst["loss"] = max(worst["loss"], abs(a - b) / max(1.0, abs(b)))
+            for name, a, b in zip(names, grads, g_k):
+                b = torch.zeros_like(a[k]) if b is None else b
+                err = (a[k] - b).abs().max().item() / max(1.0, b.abs().max().item())
+                check(err <= TRAIN_GRAD_TOL, f"{tag}, snapshot {i}, model {k}: {name} gradient "
+                      f"vmapped vs alone {err:.3e} > {TRAIN_GRAD_TOL:.0e}")
+                worst["grad"] = max(worst["grad"], err)
+            for a, b in zip(model_state_leaves(runner.model_state_type(**model_slice(new_ms, k))),
+                            model_state_leaves(new_bn)):
+                err = (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+                worst["bn"] = max(worst["bn"], err)
+            check(worst["bn"] <= TRAIN_GRAD_TOL, f"{tag}, snapshot {i}, model {k}: BN statistics "
+                  f"vmapped vs alone {worst['bn']:.3e} > {TRAIN_GRAD_TOL:.0e}")
+            # model k's own optimizer from the sweep's moments and gradients
+            leaves = [p.detach().clone() for p in tree_leaves(s_k.params)]
+            opt_k = AdamState(count=state.opt_state.count,
+                              mu=[m[k].clone() for m in state.opt_state.mu],
+                              nu=[m[k].clone() for m in state.opt_state.nu])
+            tr.opt.step(leaves, [g[k] for g in grads], opt_k)
+            expected.append(leaves)
+        runner.opt.step(tree_leaves(state.params), grads, state.opt_state)
+        state.model_state = new_ms
+        for k, leaves in enumerate(expected):
+            for name, a, b in zip(names, tree_leaves(state.params), leaves):
+                err = ((a[k] - b).abs() / b.abs().clamp(min=1.0)).max().item()
+                check(err <= TRAIN_OPT_TOL, f"{tag}, snapshot {i}, model {k}: {name} after the "
+                      f"optimizer step, stacked vs alone {err:.3e} > {TRAIN_OPT_TOL:.0e}")
+                worst["opt"] = max(worst["opt"], err)
+        print(f"[{tag}] vmapped step on snapshot {i}: entity losses "
+              + ", ".join(f"{v:.6f}" for v in losses["entity"].tolist()), flush=True)
+    del runner.model_loss
+    print(f"[{tag}] (a) 3 vmapped steps of {len(trainers)} models vs each model alone on the "
+          f"card from the same state: losses within {worst['loss']:.2e}, every gradient within "
+          f"{worst['grad']:.2e} of its largest entry, BN statistics within {worst['bn']:.2e}, "
+          f"every parameter after the stacked optimizer step within {worst['opt']:.2e}; kinks: "
+          f"{flips[-1]} ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def phase_vectorized_grid(data, dev: torch.device) -> tuple:
+    """(18) ``cli.main(["grid", "--tune", "lr,seed", "--vectorize", ...])``
+    for the regcn family (K = 6: lr {1e-3, 5e-4} x seed {2023, 2024,
+    2025}) on synthetic-icews14s with the CLI's defaults and one epoch:
+    (a) 3 vmapped steps against each model's 3 steps alone
+    (``vmapped_three_steps``, dropouts 0); (b) the CLI's run, B1 folded: as
+    many launches as one model's epoch and valid split, no B2; (c) 20
+    steady vmapped steps beside 20 steps of one model (wall, launches, peak
+    memory), and each under the profiler (device busy); (d) B1 at the
+    folded width [E, 6 x 200] of a window snapshot, timed beside zeros +
+    index_add_ and its bound."""
+    import itertools
+
+    from regcn_torch import cli
+    from regcn_torch.train.sweep import SweepRunner
+
+    argv = ["grid", "-d", "synthetic-icews14s", "--tune", "lr,seed", "--vectorize",
+            "--n-epochs", "1"]
+    args = cli.build_parser().parse_args(argv)
+    table = cli.grid_table(args.dataset, args.grid_family)
+    inner = list(itertools.product(table["lr"], table["seed"]))
+    combos = {"lr": [lr for lr, _ in inner], "seed": [s for _, s in inner]}
+    K = len(inner)
+    exp = cli.make_experiment(args, data)
+
+    # (a) dropouts 0
+    cfg0 = dataclasses.replace(exp.model, **NO_DROPOUT)
+    runner = SweepRunner(cfg0, exp.train, data, combos, device=dev)
+    trainers = [loop.Trainer(ExperimentConfig(model=cfg0, train=dataclasses.replace(
+        exp.train, lr=lr, seed=s)), data, device=dev) for lr, s in inner]
+    vmapped_three_steps("grid regcn", runner, trainers, runner.epoch_order(0)[:3])
+    del runner, trainers
+
+    # (b) the CLI's run
+    gs = f"{args.dataset}.{args.encoder}-{args.decoder}.gs"
+    train_list = split_by_time(data.train)
+    want = expected_epoch_scatters(train_list, 3) + 6 * len(split_by_time(data.valid))
+    reset_launches()
+    t0 = time.perf_counter()
+    rows = cli.main(argv, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    os.remove(gs)
+    check(len(rows) == K and all(0.0 < r["valid_ent_mrr_raw"] <= 1.0 for r in rows),
+          f"grid --vectorize: rows {rows}")
+    check(launches["rgcn_scatter_sorted"] == want and all(launches[k] == 0 for k in CE_KERNELS),
+          f"grid --vectorize: launches {launches}, expected B1 {want} (one model's epoch and "
+          "valid split: the models fold into one launch) and no B2")
+    print(f"[grid regcn] (b) cli grid --tune lr,seed --vectorize, {K} models, one epoch of "
+          f"{len(train_list) - 1} steps and the valid split ({seconds:.1f} s): B1 "
+          f"{launches['rgcn_scatter_sorted']} launches; valid raw MRR "
+          + ", ".join(f"lr {r['params']['lr']} seed {r['params']['seed']}: "
+                      f"{r['valid_ent_mrr_raw']:.6f}" for r in rows), flush=True)
+
+    # (c) steady steps: the sweep beside one model
+    runner = SweepRunner(exp.model, exp.train, data, combos, device=dev)
+    state = runner.init_state()
+    single = loop.Trainer(ExperimentConfig(model=exp.model, train=dataclasses.replace(
+        exp.train, lr=inner[0][0], seed=inner[0][1])), data, device=dev)
+    s1 = single.init_state()
+    order = runner.epoch_order(1)[:PROFILE_STEPS]
+    for i in order:
+        runner.window(i), runner.draws(state, i), single.window(i)
+    sweep_out = steady_steps(f"grid regcn x{K}", lambda i: runner.train_step(state, i), order)
+    one_out = steady_steps("grid regcn x1", lambda i: single.train_step(s1, *single.window(i)),
+                           order)
+    check(sweep_out["launches"] == one_out["launches"],
+          f"grid regcn: the vmapped steps launched {sweep_out['launches']}, one model's "
+          f"{one_out['launches']}")
+    busy_k = train_profile(f"grid regcn x{K} vmapped step", lambda i: runner.train_step(state, i),
+                           runner.epoch_order(2)[:PROFILED_STEPS])
+    busy_1 = train_profile("grid regcn x1 step", lambda i: single.train_step(s1, *single.window(i)),
+                           runner.epoch_order(2)[:PROFILED_STEPS], scatter=True)
+    print(f"[grid regcn] (c) one vmapped step of {K} models {sweep_out['ms']:.2f} ms (device busy "
+          f"{busy_k / 1e3:.3f} ms) against {K} steps of one model {K * one_out['ms']:.2f} ms "
+          f"({K} x {one_out['ms']:.2f}; device busy {K} x {busy_1 / 1e3:.3f} ms): "
+          f"{K * one_out['ms'] / sweep_out['ms']:.2f} x the models' steps per second; B1 "
+          f"{sweep_out['launches']['rgcn_scatter_sorted']} launches in {len(order)} steps either "
+          f"way", flush=True)
+
+    # (d) B1 at the folded width
+    history = runner.window(order[0])[0]
+    snap = history.step(history.src.shape[0] - 1)
+    n = data.num_nodes
+    keys = torch.where(snap.edge_mask > 0, snap.dst, n).to(torch.int32)
+    g = np.random.default_rng(SEED)
+    msg = torch.from_numpy(g.normal(size=(keys.shape[0], K * exp.model.h_dim)).astype(
+        np.float32)).to(dev)
+    kw = dict(edge_weight=snap.edge_mask.contiguous(), row_scale=snap.in_deg_norm.contiguous())
+    got = scatter_add_sorted(msg, keys, n, **kw)
+    ref = scatter_add_sorted_reference(msg, keys, n, **kw)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    check(err <= KERNEL_TOL * max(1.0, ref.abs().max().item()),
+          f"B1 at the folded width: max|kernel - plain| {err:.3e}")
+    t = scatter_times(msg, keys, n, int(snap.edge_mask.sum().item()), **kw)
+    print(f"[grid regcn] (d) rgcn_scatter_sorted folded, E={msg.shape[0]} N={n} "
+          f"d={msg.shape[1]}: max abs err {err:.3e}; kernel {t['ms'] * 1e3:.2f} us, plain "
+          f"{t['plain_ms'] * 1e3:.2f} us, zeros + index_add_ {t['library_ms'] * 1e3:.2f} us, "
+          f"bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}; kernel at "
+          f"{100 * t['bound_ms'] / t['ms']:.0f} % of it)", flush=True)
+    paths = {"grid --vectorize regcn": launches,
+             f"grid regcn x{K} steady steps": sweep_out["launches"]}
+    return paths, dict(shape=f"folded E={msg.shape[0]} N={n} d={msg.shape[1]}", **t), err
+
+
+def phase_vectorized_hyperbolic(data, tc: TrainConfig, dev: torch.device) -> dict:
+    """(18b) the hyperbolic ``grid --tune lr,seed --vectorize`` on config 3
+    (LGCN + RotH, c learned, h=200; K = 6) on phase 6's cut of
+    synthetic-icews14s, through ``HyperbolicSweepRunner`` with the configs
+    ``cli.make_hyperbolic_configs`` builds: (a) 3 vmapped steps against each
+    model alone (dropouts 0); (b) 10 steady vmapped steps with the config's
+    dropouts, each B2 kernel exactly K x 2 (entity and relation loss) a
+    step, no B1, beside 10 steps of one model; a profile of each; (c) the
+    headline (uvrgcn + tangent ConvTransE/R, buckets of 128) vmapped over
+    K = 2 learning rates: its 3-step check, B1 folded with each model's
+    radius weight multiplied in (as many launches as one model's steps)."""
+    import itertools
+
+    from regcn_torch import cli
+    from regcn_torch.train.sweep import HyperbolicSweepRunner
+
+    argv = ["grid", "-d", "synthetic-icews14s", "--grid-family", "hyperbolic", "--tune",
+            "lr,seed", "--vectorize", "--encoder", "lgcn", "--decoder", "roth",
+            "--learn-curvature", "--n-epochs", "1"]
+    args = cli.build_parser().parse_args(argv)
+    table = cli.grid_table(args.dataset, args.grid_family)
+    inner = list(itertools.product(table["lr"], table["seed"]))
+    combos = {"lr": [lr for lr, _ in inner], "seed": [s for _, s in inner]}
+    K = len(inner)
+    cfg, htc = cli.make_hyperbolic_configs(args, data)
+    cfg0 = dataclasses.replace(cfg, **NO_DROPOUT)
+    runner = HyperbolicSweepRunner(cfg0, htc, data, combos, device=dev)
+    trainers = [HyperbolicTrainer(cfg0, dataclasses.replace(htc, lr=lr, seed=s), data,
+                                  device=dev) for lr, s in inner]
+    vmapped_three_steps("grid hyperbolic", runner, trainers, runner.epoch_order(0)[:3],
+                        trainers[0]._curvature_max(0))
+    del runner, trainers
+    torch.cuda.empty_cache()
+
+    runner = HyperbolicSweepRunner(cfg, htc, data, combos, device=dev)
+    state = runner.init_state()
+    single = HyperbolicTrainer(cfg, dataclasses.replace(htc, lr=inner[0][0], seed=inner[0][1]),
+                               data, device=dev)
+    s1 = single.init_state()
+    cmax = single._curvature_max(0)
+    order = runner.epoch_order(0)[:10]
+    for i in order:
+        runner.window(i), runner.draws(state, i), single.window(i)
+    out = steady_steps(f"grid hyperbolic x{K}", lambda i: runner.train_step(state, i), order)
+    one = steady_steps("grid hyperbolic x1",
+                       lambda i: single.train_step(s1, *single.window(i), cmax), order)
+    check(out["launches"]["rgcn_scatter_sorted"] == 0
+          and all(out["launches"][k] == 2 * K * len(order) for k in CE_KERNELS),
+          f"grid hyperbolic: launches {out['launches']} in {len(order)} vmapped steps of {K} "
+          f"models, expected each B2 kernel {2 * K * len(order)} times and no B1")
+    busy_k = train_profile(f"grid hyperbolic x{K} vmapped step",
+                           lambda i: runner.train_step(state, i),
+                           runner.epoch_order(1)[:PROFILED_STEPS], ce=True)
+    busy_1 = train_profile("grid hyperbolic x1 step",
+                           lambda i: single.train_step(s1, *single.window(i), cmax),
+                           runner.epoch_order(1)[:PROFILED_STEPS], ce=True)
+    print(f"[grid hyperbolic] (b) one vmapped step of {K} models {out['ms']:.2f} ms (device busy "
+          f"{busy_k / 1e3:.3f} ms) against {K} steps of one model {K * one['ms']:.2f} ms "
+          f"({K} x {one['ms']:.2f}; device busy {K} x {busy_1 / 1e3:.3f} ms): "
+          f"{K * one['ms'] / out['ms']:.2f} x the models' steps per second", flush=True)
+    del runner, state, single, s1
+    torch.cuda.empty_cache()
+
+    headline = dataclasses.replace(headline_config(data), **NO_DROPOUT)
+    lrs = {"lr": table["lr"]}
+    runner = HyperbolicSweepRunner(headline, tc, data, lrs, device=dev)
+    trainers = [HyperbolicTrainer(headline, dataclasses.replace(tc, lr=lr), data, device=dev)
+                for lr in lrs["lr"]]
+    order = runner.epoch_order(0)[:3]
+    reset_launches()
+    vmapped_three_steps("grid headline", runner, trainers, order, trainers[0]._curvature_max(0))
+    launches = read_launches()
+    # per step: the vmapped forward (folded) and each model's own forward
+    want = sum(2 * min(i, tc.train_history_len) for i in order) * (1 + len(trainers))
+    check(launches["rgcn_scatter_sorted"] == want and all(launches[k] == 0 for k in CE_KERNELS),
+          f"grid headline: launches {launches} in 3 checked steps, expected B1 {want} (the "
+          f"vmapped step's as one model's, then each of {len(trainers)} models') and no B2")
+    return {f"grid hyperbolic x{K} steady steps": out["launches"],
+            "grid headline x2 checked steps": launches}
+
+
 def config3_data():
     """synthetic-icews14s (seed 123) with its time axis cut to 120
     snapshots split 100 / 10 / 10: the epochs of config 3, config 4 and
@@ -2401,9 +2842,20 @@ def main() -> None:
                          cfg))
     by_path.update(timed("hisres training", phase_hisres_training, data, tc, dev))
     by_path.update(timed("fhnn and hgat encoders", phase_hyperbolic_encoders, data, tc, dev))
+    by_path.update(timed("cli train and test", phase_cli_train_test, dev))
+    entity_paths, entity_times, entity_err = timed("cli entity", phase_entity, dev)
+    by_path.update(entity_paths)
+    grid_paths, folded_times, folded_err = timed("cli grid --vectorize", phase_vectorized_grid,
+                                                 data, dev)
+    by_path.update(grid_paths)
+    by_path.update(timed("hyperbolic grid --vectorize", phase_vectorized_hyperbolic, cut, tc,
+                         dev))
     launches.update({k: by_path["config-3 training epoch"][k] for k in CE_KERNELS})
     for k in CE_KERNELS:
         timing[k]["shapes"] = [config4_times[k]]
+    b1 = timing["rgcn_scatter_sorted"]
+    b1["shapes"] += entity_times + [folded_times]
+    b1["max_abs_err"] = max(b1["max_abs_err"], entity_err, folded_err)
     rows = [dict(name=k["name"], route=k["route"], source=k["source"], replaces=k["replaces"],
                  launches=launches[k["name"]], **timing[k["name"]],
                  launches_by_path={p: n[k["name"]] for p, n in by_path.items()})

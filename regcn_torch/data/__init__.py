@@ -6,6 +6,7 @@ from regcn_torch.data.snapshots import (  # noqa: F401
     build_history,
     stack_history,
     pad_triples,
+    dilate_snapshots,
 )
 from regcn_torch.data.answers import (  # noqa: F401
     AnswerFilter,

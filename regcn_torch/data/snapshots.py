@@ -65,7 +65,8 @@ class Snapshot:
         """The same snapshot as tensors on ``device``."""
         fields = {}
         for f in _ARRAY_FIELDS:
-            a = torch.as_tensor(np.asarray(getattr(self, f)))
+            a = getattr(self, f)
+            a = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
             a = a.long() if f in _INDEX_FIELDS else a.float()
             fields[f] = a.to(device)
         return dataclasses.replace(self, **fields)
@@ -240,3 +241,14 @@ def pad_triples(triples: np.ndarray, num_rels: int, bucket: int = 512):
     mask = np.zeros((B,), np.float32)
     mask[:b] = 1.0
     return out, mask
+
+
+def dilate_snapshots(snapshots: Sequence[np.ndarray], dilate_len: int) -> List[np.ndarray]:
+    """Merge every ``dilate_len`` consecutive snapshots into one, its rows
+    deduplicated and sorted (``np.unique``); the list as it is for
+    ``dilate_len <= 1``. Parity with ref:rgcn/utils.py:408-422
+    (``dilate_input``)."""
+    if dilate_len <= 1:
+        return list(snapshots)
+    return [np.unique(np.concatenate(snapshots[i:i + dilate_len], axis=0), axis=0)
+            for i in range(0, len(snapshots), dilate_len)]

@@ -40,7 +40,7 @@ import torch
 from regcn_torch.hyperbolic import ops as H
 from regcn_torch.models.layers import init_union_rgcn_layer
 from regcn_torch.ops.activations import inverted_dropout, leaky_relu, rrelu
-from regcn_torch.ops.rgcn_scatter import rgcn_aggregate
+from regcn_torch.ops.rgcn_scatter import check_impl, rgcn_aggregate
 from regcn_torch.ops.segment import segment_softmax
 from regcn_torch.utils.init import RELU_GAIN, _uniform, xavier_uniform
 
@@ -325,8 +325,7 @@ def encoder_cell(params, encoder: str, h_hyper: torch.Tensor, rel_emb: torch.Ten
     """The ball-space layer stack: ``evolve``'s path for LGCN, FHNN and
     HGAT, and for the uvrgcn with ``tangent_fast=False``."""
     _check_encoder(encoder)
-    if impl != "xla":
-        raise NotImplementedError(f"encoder impl {impl!r} (halo / pallas) is not ported yet")
+    check_impl(impl)
     x, prev = h_hyper, None
     for i, lp in enumerate(params["layers"]):
         kw = dict(prev_h=prev if i > 0 else None, dropout=dropout, gen=gen, train=train)

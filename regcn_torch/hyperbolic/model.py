@@ -60,6 +60,7 @@ from regcn_torch.hyperbolic import ops as H
 from regcn_torch.models.layers import gru_cell, init_gru_cell, init_rgcn_block_layer
 from regcn_torch.models.recurrent import _masked_ce, _static_init, static_angular_loss, tree_to
 from regcn_torch.ops.activations import l2_normalize
+from regcn_torch.ops.rgcn_scatter import check_impl
 from regcn_torch.ops.segment import masked_segment_mean
 from regcn_torch.utils.init import xavier_normal, xavier_uniform
 
@@ -150,8 +151,7 @@ def check_supported(cfg: HyperbolicConfig) -> None:
     if (cfg.encoder, cfg.decoder) not in PORTED:
         raise ValueError(f"unknown encoder x decoder pair ({cfg.encoder!r}, {cfg.decoder!r}); "
                          f"known: {PORTED}")
-    if cfg.impl != "xla":
-        raise NotImplementedError(f"impl {cfg.impl!r} is not ported yet")
+    check_impl(cfg.impl)
 
 
 def init_params(gen: torch.Generator, cfg: HyperbolicConfig, radius_target=None,

@@ -41,8 +41,8 @@ steps in the same order. A window shorter than the history length is
 run as it is: the fused path's empty front snapshots are identity steps,
 so both give the same result.
 
-Not ported yet, and raising: ``dilate_len > 1``, meshes and the boundary
-halo.
+``dilate_len`` is not read, as JAX's hyperbolic trainer does not read it.
+Not ported yet: meshes and the boundary halo (ROADMAP A.11).
 """
 
 from __future__ import annotations
@@ -115,9 +115,6 @@ class HyperbolicTrainer:
         if triple_batch_mode not in ("accumulate", "per_chunk"):
             raise ValueError(f"triple_batch_mode must be 'accumulate' or 'per_chunk', got "
                              f"{triple_batch_mode!r}")
-        if tc.dilate_len > 1:
-            raise NotImplementedError("dilated training snapshots (dilate_len > 1) are not "
-                                      "ported yet")
         self.cfg, self.tc, self.data = cfg, tc, data
         self.device = torch.device(device)
         self.curvature_warmup_epochs = curvature_warmup_epochs

@@ -19,6 +19,11 @@ parameters drop in unchanged.
   over destinations (``masked_segment_sum``, plain ``index_add_``: JAX's
   is a plain ``segment_sum``, not a Pallas kernel), the fixed-slope
   rrelu, then dropout in training.
+- :func:`rgcn_basis_layer` — parity with ref:rgcn/layers.py:96-144, the
+  basis-decomposition layer of the legacy entity classifier
+  (``regcn_torch/models/entity_classifier.py``), featureless (input) or
+  projected; its sum over each node's edges is kernel B1 with the
+  per-(destination, type) edge norm as the edge weight.
 """
 
 from __future__ import annotations
@@ -29,11 +34,15 @@ import torch
 
 from regcn_torch.config import ModelConfig
 from regcn_torch.ops.activations import inverted_dropout, rrelu
-from regcn_torch.ops.rgcn_scatter import rgcn_aggregate
+from regcn_torch.ops.rgcn_scatter import rgcn_aggregate, scatter_add_sorted
 from regcn_torch.ops.segment import masked_segment_sum
 from regcn_torch.utils.init import RELU_GAIN, gru_uniform, xavier_uniform
 
 Params = Dict[str, torch.Tensor]
+
+# the basis layer's fused gather [B, E, out] is taken up to this many
+# elements (JAX's ``_BASIS_FUSE_ELEMS``); above it, a loop over the bases
+_BASIS_FUSE_ELEMS = 1 << 27
 
 
 def init_union_rgcn_layer(
@@ -130,6 +139,65 @@ def rgcn_block_layer(
     msg = torch.sum(h_src * w_e, dim=2).reshape(-1, d)
     agg = masked_segment_sum(msg, snap.dst, snap.edge_mask, n) * snap.in_deg_norm[:, None]
     return inverted_dropout(rrelu(agg), dropout, gen, train)
+
+
+def init_rgcn_basis_layer(gen: torch.Generator, in_feat: int, out_feat: int, num_rels: int,
+                          num_bases: int = -1, bias: bool = False) -> Params:
+    """The legacy basis-decomposition layer (ref:rgcn/layers.py:96-144):
+    ``weight`` [B, in, out] (B = num_rels unless 0 < num_bases <
+    num_rels), ``w_comp`` [num_rels, B] only when B < num_rels, and an
+    optional ``bias`` [out]."""
+    if num_bases <= 0 or num_bases > num_rels:
+        num_bases = num_rels
+    p: Params = {"weight": xavier_uniform(gen, (num_bases, in_feat, out_feat), gain=RELU_GAIN)}
+    if num_bases < num_rels:
+        p["w_comp"] = xavier_uniform(gen, (num_rels, num_bases), gain=RELU_GAIN)
+    if bias:
+        p["bias"] = xavier_uniform(gen, (1, out_feat), gain=RELU_GAIN)[0]
+    return p
+
+
+def rgcn_basis_layer(params: Params, h: Optional[torch.Tensor], graph, *,
+                     input_layer: bool = False, activation=None) -> torch.Tensor:
+    """Basis-decomposed relation-typed aggregation (ref:rgcn/layers.py:118-144).
+
+    ``msg_e = h[src_e] @ W[rel_e]`` with ``W[r] = sum_b w_comp[r, b] basis_b``,
+    summed over each node's incoming edges times the edge norm
+    (``graph``: a ``regcn_torch.data.rdf.StaticGraph``, edges sorted by
+    destination; the sum is kernel B1), then bias and activation. As in
+    JAX, the bases are applied the GEMM-friendly way round: B products
+    ``P_b = h @ basis_b`` over all nodes, then ``msg_e = sum_b
+    comp[rel_e, b] P_b[src_e]``, never an [E, d, d] tensor; that sum is one
+    gathered [B, E, out] contraction up to ``_BASIS_FUSE_ELEMS`` elements
+    and a loop over the bases with an [E, out] accumulator above.
+
+    ``input_layer=True`` is the featureless input mode (ref :129-134): node
+    features are implicit one-hot ids, so the message is row
+    ``(rel_e, src_e)`` of the composed weight, and ``h`` is not read.
+    """
+    weight = params["weight"]  # [B, in, out]
+    num_bases, out_feat = weight.shape[0], weight.shape[-1]
+    n_edges = graph.src.shape[0]
+
+    def combine_bases(tables: torch.Tensor) -> torch.Tensor:  # [B, N, out]
+        comp = params["w_comp"].index_select(0, graph.rel)  # [E, B]
+        if num_bases * n_edges * out_feat <= _BASIS_FUSE_ELEMS:
+            return torch.einsum("eb,beo->eo", comp, tables[:, graph.src, :])
+        msg = tables.new_zeros((n_edges, out_feat))
+        for b in range(num_bases):
+            msg = msg + comp[:, b, None] * tables[b].index_select(0, graph.src)
+        return msg
+
+    tables = weight if input_layer else torch.einsum("ni,bio->bno", h, weight)
+    if "w_comp" in params:
+        msg = combine_bases(tables)
+    else:  # one basis per relation: a double gather, no contraction
+        msg = tables[graph.rel, graph.src]
+    agg = scatter_add_sorted(msg.contiguous(), graph.keys, graph.num_nodes,
+                             edge_weight=graph.edge_norm, row_scale=graph.in_deg_norm)
+    if "bias" in params:
+        agg = agg + params["bias"]
+    return agg if activation is None else activation(agg)
 
 
 def init_gru_cell(gen: torch.Generator, input_size: int, hidden_size: int) -> Params:

@@ -67,7 +67,8 @@ def tree_to(tree, device):
 def check_supported(cfg: ModelConfig) -> None:
     """Raises for the configurations this package does not run yet."""
     if cfg.dtype != "float32":
-        raise NotImplementedError(f"compute dtype {cfg.dtype!r}: only float32 is ported")
+        raise NotImplementedError(f"compute dtype {cfg.dtype!r}: only float32 is ported "
+                                  "(ROADMAP A.5)")
 
 
 def init_params(

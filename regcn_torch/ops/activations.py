@@ -3,7 +3,7 @@ the inverted dropout of the training path."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -40,14 +40,41 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Te
     return (x32 / torch.sqrt(torch.clamp(sq, min=eps * eps))).to(x.dtype)
 
 
-def inverted_dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator], train: bool
+class DropoutDraws:
+    """Dropout's uniform draws given in advance, in the order the training
+    path asks for them: a stand-in for its generator where the draws must
+    come from outside the function, as under ``torch.func.vmap``, where each
+    model's draws come batched from its own generator. Without ``draws`` it
+    records the shapes the path asks for (and hands back zeros), so a run on
+    the ``meta`` device lists the draws a step needs."""
+
+    def __init__(self, draws: Optional[Sequence[torch.Tensor]] = None):
+        self.draws = None if draws is None else list(draws)
+        self.shapes: List[Tuple[int, ...]] = []
+
+    def uniform(self, shape, device) -> torch.Tensor:
+        i = len(self.shapes)
+        self.shapes.append(tuple(shape))
+        if self.draws is None:
+            return torch.zeros(shape, device=device)
+        if i >= len(self.draws) or tuple(self.draws[i].shape) != tuple(shape):
+            raise ValueError(f"dropout draw {i} of shape {tuple(shape)} was not given in advance")
+        return self.draws[i]
+
+
+def inverted_dropout(x: torch.Tensor, rate: float,
+                     gen: Union[torch.Generator, DropoutDraws, None], train: bool
                      ) -> torch.Tensor:
     """Inverted dropout: keep each entry with probability ``1 - rate`` and
     scale the survivors by ``1 / (1 - rate)``; the identity outside
     training, at rate 0 or without a generator. The mask is drawn from
-    ``gen``, which must live on ``x``'s device."""
+    ``gen``, which must live on ``x``'s device, or taken from a
+    :class:`DropoutDraws`."""
     if not train or rate <= 0.0 or gen is None:
         return x
+    if isinstance(gen, DropoutDraws):
+        keep = gen.uniform(x.shape, x.device) < 1.0 - rate
+        return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
     if gen.device.type != x.device.type:
         raise ValueError(f"dropout on a {x.device.type} tensor needs a generator on that "
                          f"device, got one on {gen.device}")

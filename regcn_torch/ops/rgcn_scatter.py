@@ -29,6 +29,7 @@ packages, so a ``row_scale`` that requires grad raises under grad mode.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Optional, Tuple
@@ -38,6 +39,7 @@ import torch
 from regcn_torch.ops import cuda_build
 
 _INT_MAX = 2**31 - 1
+IMPLS = ("xla", "pallas")
 _MAX_EDGES = 2**24  # the kernel's per-row counters hold chunk ids below 2^19
 
 
@@ -56,6 +58,26 @@ def _kernel_lib() -> ctypes.CDLL:
 
 
 _counters: dict = {}
+_shape_runs = [0]  # open shape_run() blocks
+
+
+@contextlib.contextmanager
+def shape_run():
+    """Inside the block the kernels' wrappers (B1's here, B2's in
+    ``streaming_ce``) take ``meta`` tensors, through their plain versions:
+    shapes only, nothing launched. The vectorized sweep lists a step's
+    dropout draws so; outside it a meta tensor is refused."""
+    _shape_runs[0] += 1
+    try:
+        yield
+    finally:
+        _shape_runs[0] -= 1
+
+
+def devices() -> tuple:
+    """The device types the wrappers take here: cuda and cpu, and meta
+    inside :func:`shape_run`."""
+    return ("cpu", "cuda", "meta") if _shape_runs[0] else ("cpu", "cuda")
 
 
 def _counters_for(device: torch.device, n: int) -> torch.Tensor:
@@ -116,9 +138,10 @@ def scatter_add_sorted_backward(
 
 
 def _scatter_forward(msg, keys, n, edge_weight, row_scale) -> torch.Tensor:
-    """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    """The kernel on a CUDA tensor, the plain version on a CPU tensor (and
+    on a ``meta`` tensor inside :func:`shape_run`)."""
     num_edges, d = msg.shape
-    if msg.device.type == "cpu":
+    if msg.device.type in ("cpu", "meta"):
         return scatter_add_sorted_reference(msg, keys, n, edge_weight, row_scale)
     if max(n + 1, d) > _INT_MAX or num_edges >= _MAX_EDGES:
         raise ValueError(f"shape too large for the kernel: E={num_edges} n={n} d={d}")
@@ -145,19 +168,55 @@ def _scatter_forward(msg, keys, n, edge_weight, row_scale) -> torch.Tensor:
 
 
 class _ScatterAddSorted(torch.autograd.Function):
+    """The scatter as a new-style Function, so that it composes with
+    ``torch.func`` (``vmap`` of ``grad``): its :meth:`vmap` rule folds a
+    model axis into the feature axis, and its backward is plain torch, so
+    it vmaps by composition."""
+
     @staticmethod
-    def forward(ctx, msg, edge_weight, keys, n, row_scale):
-        out = _scatter_forward(msg, keys, n, edge_weight, row_scale)
+    def forward(msg, edge_weight, keys, n, row_scale):
+        return _scatter_forward(msg, keys, n, edge_weight, row_scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        msg, edge_weight, keys, n, row_scale = inputs
         need_dw = edge_weight is not None and ctx.needs_input_grad[1]
         ctx.save_for_backward(keys, edge_weight, row_scale, msg if need_dw else None)
         ctx.n = n
-        return out
 
     @staticmethod
     def backward(ctx, g):
         keys, edge_weight, row_scale, msg = ctx.saved_tensors
         dmsg, dw = scatter_add_sorted_backward(g, keys, ctx.n, edge_weight, row_scale, msg)
         return (dmsg if ctx.needs_input_grad[0] else None), dw, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, msg, edge_weight, keys, n, row_scale):
+        """K models (``info.batch_size``) over one graph: with ``keys`` and
+        ``row_scale`` shared, the model axis folds into the feature axis,
+        one launch on [E, K * d]; a per-model edge weight is multiplied
+        into the messages first (its gradient comes from the backward,
+        which runs batched). Batched keys or row scales launch once per
+        model."""
+        msg_d, w_d, keys_d, _, scale_d = in_dims
+        k = info.batch_size
+        if keys_d is not None or scale_d is not None:
+            def pick(t, dim, i):
+                return t if dim is None or t is None else t.select(dim, i).contiguous()
+
+            outs = [_ScatterAddSorted.apply(pick(msg, msg_d, i), pick(edge_weight, w_d, i),
+                                            pick(keys, keys_d, i), n, pick(row_scale, scale_d, i))
+                    for i in range(k)]
+            return torch.stack(outs), 0
+        msg = (msg.unsqueeze(0).expand(k, *msg.shape) if msg_d is None
+               else msg.movedim(msg_d, 0))
+        if w_d is not None:
+            msg = msg * edge_weight.movedim(w_d, 0)[:, :, None]
+            edge_weight = None
+        num_edges, d = msg.shape[1], msg.shape[2]
+        folded = msg.permute(1, 0, 2).reshape(num_edges, k * d).contiguous()
+        out = _ScatterAddSorted.apply(folded, edge_weight, keys, n, row_scale)
+        return out.reshape(n, k, d), 1
 
 
 def scatter_add_sorted(
@@ -166,14 +225,16 @@ def scatter_add_sorted(
 ) -> torch.Tensor:
     """Sorted-segment sum ``out[v] = row_scale[v] * sum_{keys[e]==v} w_e msg_e``.
 
-    msg: [E, d] float32; keys: [E] int32, ascending, masked edges keyed n;
-    edge_weight: optional [E] float32; row_scale: optional [n] float32.
-    On a CUDA tensor this launches the kernel and adds one to
-    ``scatter_add_sorted.launches``; on a CPU tensor it runs the plain
-    version. Either way the result is differentiable in msg and
-    edge_weight (:func:`scatter_add_sorted_backward`). Unsorted keys give
-    wrong sums on CUDA: sort them first, as :func:`rgcn_aggregate` does
-    for ``dst_sorted=False``.
+    msg: [E, d] float32, contiguous; keys: [E] int32, ascending,
+    masked edges keyed n; edge_weight: optional [E] float32; row_scale:
+    optional [n] float32. On a CUDA tensor this launches the kernel and
+    adds one to ``scatter_add_sorted.launches``; on a CPU tensor it runs
+    the plain version. Either way the result is differentiable in msg and
+    edge_weight (:func:`scatter_add_sorted_backward`), also under
+    ``torch.func`` transforms: under ``vmap`` over K models that share the
+    graph it launches once on [E, K * d] (``_ScatterAddSorted.vmap``).
+    Unsorted keys give wrong sums on CUDA: sort them first, as
+    :func:`rgcn_aggregate` does for ``dst_sorted=False``.
     """
     if msg.dim() != 2 or msg.dtype != torch.float32 or not msg.is_contiguous():
         raise ValueError(f"msg must be a contiguous 2-D float32 tensor; got {msg.dtype} "
@@ -182,7 +243,7 @@ def scatter_add_sorted(
     _check_vector("keys", keys, num_edges, torch.int32, msg.device)
     _check_vector("edge_weight", edge_weight, num_edges, torch.float32, msg.device)
     _check_vector("row_scale", row_scale, n, torch.float32, msg.device)
-    if msg.device.type not in ("cpu", "cuda"):
+    if msg.device.type not in devices():
         raise ValueError(f"scatter_add_sorted runs on cuda or cpu, not {msg.device}")
     if row_scale is not None and row_scale.requires_grad and torch.is_grad_enabled():
         raise ValueError("scatter_add_sorted has no gradient for row_scale (the in-degree norm "
@@ -191,6 +252,18 @@ def scatter_add_sorted(
 
 
 scatter_add_sorted.launches = 0
+
+
+def check_impl(impl: str) -> None:
+    """Raises unless ``impl`` is one of the JAX package's single-device
+    aggregation routes, "xla" (XLA's segment sum) or "pallas" (kernel B1).
+    Both take the same path here: the kernel on a CUDA tensor, its plain
+    version on a CPU tensor. "halo" is multi-device (ROADMAP A.11)."""
+    if impl == "halo":
+        raise NotImplementedError("impl 'halo' (the multi-device boundary exchange) is not "
+                                  "ported yet (ROADMAP A.11)")
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
 
 
 def rgcn_aggregate(

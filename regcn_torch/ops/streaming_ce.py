@@ -15,9 +15,13 @@ curvature c_i (see :func:`distance_logits`).
 On a CUDA tensor, :func:`streaming_nll` runs the hand-written kernels of
 ``regcn_torch/csrc/streaming_ce.cu`` behind a ``torch.autograd.Function``
 whose backward is two kernels as well; the [B, N] logits never reach
-device memory. On a CPU tensor it runs the plain version,
-:func:`streaming_nll_reference` (dense logits, ``logsumexp``, autograd).
-There is no switch that sends a CUDA tensor to the plain version.
+device memory. On a CPU tensor the same Function runs the plain versions
+(:func:`ce_forward_plain`, and autograd through
+:func:`streaming_nll_reference` for the backward). There is no switch
+that sends a CUDA tensor to a plain version. The Functions are new-style
+(``setup_context`` and a ``vmap`` rule), so B2 composes with
+``torch.func``: under ``vmap`` over K models each kernel runs once per
+model.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from typing import Tuple
 
 import torch
 
-from regcn_torch.ops import cuda_build
+from regcn_torch.ops import cuda_build, rgcn_scatter
 
 SCORE_EPS = 1e-6  # ref SCORE_SCALE_EPSILON
 TILE = 64  # queries and candidates per tile of the backward kernels' clusters
@@ -81,14 +85,20 @@ def distance_logits(query, candidates, c, *, bias=None, scale=None, margin=0.0,
     return block
 
 
+def ce_forward_plain(q, x, bias, cq, target, scale, margin, true_dist: bool = False):
+    """The forward kernel's plain version, on any device: (nll [B], lse [B])
+    from dense logits."""
+    logits = distance_logits(q, x, cq[:, None], bias=bias, scale=scale, margin=margin,
+                             true_dist=true_dist)
+    lse = torch.logsumexp(logits, dim=1)
+    return lse - logits.gather(1, target.long()[:, None])[:, 0], lse
+
+
 def streaming_nll_reference(q, x, bias, target, cq, scale, margin,
                             true_dist: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the kernels, on any device: per-query NLL
     [B] from dense logits; gradients by autograd."""
-    logits = distance_logits(q, x, cq[:, None], bias=bias, scale=scale, margin=margin,
-                             true_dist=true_dist)
-    lse = torch.logsumexp(logits, dim=1)
-    return lse - logits.gather(1, target.long()[:, None])[:, 0]
+    return ce_forward_plain(q, x, bias, cq, target, scale, margin, true_dist)[0]
 
 
 # ------------------------------------------------------------------ kernels
@@ -314,22 +324,117 @@ ce_backward_q.launches = 0
 ce_backward_x.launches = 0
 
 
-class _StreamingNLL(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, x, bias, cq, scale, margin, target, true_dist):
-        nll, lse = ce_forward(q, x, bias, cq, target, scale, margin, true_dist)
-        ctx.save_for_backward(q, x, bias, cq, scale, margin, target, lse)
-        ctx.true_dist = true_dist
-        return nll
+def _aligned(q, x) -> None:
+    if q.data_ptr() % 16 or x.data_ptr() % 16:
+        raise ValueError("the kernels load rows of q and x as float4: both must be 16-byte aligned")
+
+
+def _plain_vjp(q, x, bias, cq, target, scale, margin, g, true_dist: bool):
+    """(dq, dx, dbias, dc, dscale, dmargin) of ``sum(g * nll)``, by autograd
+    through :func:`streaming_nll_reference`: the backward kernels' plain
+    version."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (q, x, bias, cq, scale, margin)]
+        nll = streaming_nll_reference(ins[0], ins[1], ins[2], target, ins[3], ins[4], ins[5],
+                                      true_dist)
+        return torch.autograd.grad(nll, ins, g)
+
+
+def _per_slice(fn, info, in_dims, args):
+    """``fn.apply`` once per model of a ``vmap`` (B2's queries and
+    candidates both differ per model, so nothing folds); the outputs
+    stacked on a new leading axis."""
+    def pick(a, dim, i):
+        if dim is None or not isinstance(a, torch.Tensor):
+            return a
+        return a.select(dim, i).contiguous()
+
+    outs = [fn.apply(*(pick(a, d, i) for a, d in zip(args, in_dims)))
+            for i in range(info.batch_size)]
+    stacked = tuple(torch.stack(o) for o in zip(*outs))
+    return stacked, (0,) * len(stacked)
+
+
+class _BackwardKernel(torch.autograd.Function):
+    """A backward kernel of B2 as a Function: the kernel on a CUDA tensor,
+    the plain version on a CPU tensor, once per model under ``vmap``; not
+    differentiable itself."""
 
     @staticmethod
-    def backward(ctx, g):
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(*output)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("B2's backward kernels have no gradient of their own")
+
+
+class _BackwardQ(_BackwardKernel):
+    """The query-side backward: (dq, dc, dscale, dmargin)."""
+
+    @staticmethod
+    def forward(q, x, bias, cq, target, scale, margin, lse, g, true_dist):
+        if q.device.type == "cuda":
+            _aligned(q, x)
+            return ce_backward_q(q, x, bias, cq, target, scale, margin, lse, g, true_dist)
+        dq, _, _, dc, dscale, dmargin = _plain_vjp(q, x, bias, cq, target, scale, margin, g,
+                                                   true_dist)
+        return dq, dc, dscale, dmargin
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _per_slice(_BackwardQ, info, in_dims, args)
+
+
+class _BackwardX(_BackwardKernel):
+    """The candidate-side backward: (dx, dbias)."""
+
+    @staticmethod
+    def forward(q, x, bias, cq, target, scale, margin, lse, g, true_dist):
+        if q.device.type == "cuda":
+            _aligned(q, x)
+            return ce_backward_x(q, x, bias, cq, target, scale, margin, lse, g, true_dist)
+        _, dx, dbias, _, _, _ = _plain_vjp(q, x, bias, cq, target, scale, margin, g, true_dist)
+        return dx, dbias
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _per_slice(_BackwardX, info, in_dims, args)
+
+
+class _StreamingNLL(torch.autograd.Function):
+    """B2 as a new-style Function, so that it composes with ``torch.func``:
+    forward (nll, lse), the kernel on a CUDA tensor and the plain version on
+    a CPU tensor; the backward through :class:`_BackwardQ` and
+    :class:`_BackwardX`, which reach their own ``vmap`` rules with plain
+    tensors; under ``vmap``, one launch per model."""
+
+    @staticmethod
+    def forward(q, x, bias, cq, scale, margin, target, true_dist):
+        if q.device.type == "cuda":
+            _aligned(q, x)
+            return ce_forward(q, x, bias, cq, target, scale, margin, true_dist)
+        return ce_forward_plain(q, x, bias, cq, target, scale, margin, true_dist)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, x, bias, cq, scale, margin, target, true_dist = inputs
+        lse = output[1]
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, x, bias, cq, scale, margin, target, lse)
+        ctx.true_dist = true_dist
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
         q, x, bias, cq, scale, margin, target, lse = ctx.saved_tensors
-        g = g.contiguous()
-        dq, dc, dscale, dmargin = ce_backward_q(q, x, bias, cq, target, scale, margin, lse, g,
-                                                ctx.true_dist)
-        dx, dbias = ce_backward_x(q, x, bias, cq, target, scale, margin, lse, g, ctx.true_dist)
+        args = (q, x, bias, cq, target, scale, margin, lse, g.contiguous(), ctx.true_dist)
+        dq, dc, dscale, dmargin = _BackwardQ.apply(*args)
+        dx, dbias = _BackwardX.apply(*args)
         return dq, dx, dbias, dc, dscale, dmargin, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _per_slice(_StreamingNLL, info, in_dims, args)
 
 
 def _check(name, t, shape, dtype, device) -> None:
@@ -345,7 +450,10 @@ def streaming_nll(q, x, bias, target, cq, scale, margin, true_dist: bool = False
     (0-d tensors). target [B] holds candidate indices.
 
     On a CUDA tensor this runs the kernels (each wrapper counts its
-    launches in ``.launches``); on a CPU tensor, the plain version."""
+    launches in ``.launches``); on a CPU tensor, their plain versions.
+    Either way through :class:`_StreamingNLL`, so it composes with
+    ``torch.func``: under ``vmap`` over K models each kernel launches K
+    times."""
     if q.dim() != 2 or x.dim() != 2 or q.shape[1] != x.shape[1]:
         raise ValueError(f"q [B, d] and x [N, d] must share d; got {tuple(q.shape)} and "
                          f"{tuple(x.shape)}")
@@ -354,15 +462,12 @@ def streaming_nll(q, x, bias, target, cq, scale, margin, true_dist: bool = False
     for name, t, shape in (("q", q, (B, d)), ("x", x, (N, d)), ("bias", bias, (N,)),
                            ("cq", cq, (B,)), ("scale", scale, ()), ("margin", margin, ())):
         _check(name, t, shape, torch.float32, dev)
-    if dev.type == "cpu":
-        return streaming_nll_reference(q, x, bias, target, cq, scale, margin, true_dist)
-    if dev.type != "cuda":
+    if dev.type not in rgcn_scatter.devices():
         raise ValueError(f"streaming_nll runs on cuda or cpu, not {dev}")
     target = target.to(torch.int32).contiguous()
     _check("target", target, (B,), torch.int32, dev)
-    if B == 0 or N == 0 or d == 0 or d > MAX_D or d % 4 or max(B, N) * d > _INT_MAX:
+    if dev.type == "cuda" and (B == 0 or N == 0 or d == 0 or d > MAX_D or d % 4
+                               or max(B, N) * d > _INT_MAX):
         raise ValueError(f"the kernels take B, N > 0 and 0 < d <= {MAX_D}, a multiple of 4; got "
                          f"B={B} N={N} d={d}")
-    if q.data_ptr() % 16 or x.data_ptr() % 16:
-        raise ValueError("the kernels load rows of q and x as float4: both must be 16-byte aligned")
-    return _StreamingNLL.apply(q, x, bias, cq, scale, margin, target, bool(true_dist))
+    return _StreamingNLL.apply(q, x, bias, cq, scale, margin, target, bool(true_dist))[0]

@@ -41,8 +41,10 @@ import torch
 from regcn_torch.config import ExperimentConfig, TrainConfig
 from regcn_torch.data.answers import AnswerFilter, build_answer_filters_by_time
 from regcn_torch.data.dataset import TKGData
-from regcn_torch.data.snapshots import build_history, build_snapshot, pad_triples, split_by_time
+from regcn_torch.data.snapshots import (build_history, build_snapshot, dilate_snapshots,
+                                        pad_triples, split_by_time)
 from regcn_torch.models import recurrent
+from regcn_torch.ops.rgcn_scatter import check_impl
 from regcn_torch.train import metrics
 from regcn_torch.train import state as train_state
 from regcn_torch.train.optim import tree_leaves
@@ -216,10 +218,10 @@ def test(
     relation_evaluation: bool = False,
     step_inputs: StepInputs = None,
 ) -> Dict[str, metrics.RankStats]:
-    """Test-split evaluation (``Trainer.test``): history = train + valid,
-    eval = test, with per-timestamp answer filters of the test split."""
-    if tc.dilate_len > 1:
-        raise NotImplementedError("dilated training snapshots (dilate_len > 1) are not ported yet")
+    """Test-split evaluation of the hyperbolic trainers: history = train +
+    valid, eval = test, with per-timestamp answer filters of the test split.
+    The training snapshots are never dilated here: JAX's hyperbolic and
+    HisRES trainers do not read ``dilate_len``."""
     ent_f = build_answer_filters_by_time(data.test, data.num_rels, False)
     rel_f = build_answer_filters_by_time(data.test, data.num_rels, True)
     return evaluate(
@@ -274,24 +276,26 @@ def construct_snap_r(triples: np.ndarray, num_rels: int, rel_scores: np.ndarray,
 class Trainer:
     """RE-GCN training and evaluation on one device.
 
-    Not ported, and raising ``NotImplementedError``: a mesh,
-    ``dist_agg="halo"`` and ``dilate_len > 1``."""
+    With ``dilate_len > 1`` every ``dilate_len`` consecutive training
+    snapshots are merged into one (:func:`dilate_snapshots`), as JAX's
+    trainer does; the valid and test splits stay as they are. ``impl``
+    ("xla" or "pallas", JAX's aggregation routes) takes kernel B1 on the
+    card either way. Not ported, and raising ``NotImplementedError``: a
+    mesh and ``dist_agg="halo"`` (ROADMAP A.11)."""
 
-    def __init__(self, cfg: ExperimentConfig, data: TKGData, *, mesh=None,
+    def __init__(self, cfg: ExperimentConfig, data: TKGData, *, impl: str = "xla", mesh=None,
                  dist_agg: str = "gspmd", run_analysis: bool = False, device="cuda"):
         if dist_agg not in ("gspmd", "halo"):
             raise ValueError(f"dist_agg must be 'gspmd' or 'halo', got {dist_agg!r}")
         if mesh is not None or dist_agg == "halo":
             raise NotImplementedError("multi-device training (a mesh, dist_agg='halo') is not "
-                                      "ported yet")
-        if cfg.train.dilate_len > 1:
-            raise NotImplementedError("dilated training snapshots (dilate_len > 1) are not "
-                                      "ported yet")
+                                      "ported yet (ROADMAP A.11)")
+        check_impl(impl)
         recurrent.check_supported(cfg.model)
         self.cfg, self.data = cfg, data
         self.device = torch.device(device)
         self.num_rels, self.num_nodes = data.num_rels, data.num_nodes
-        self.train_list = split_by_time(data.train)
+        self.train_list = dilate_snapshots(split_by_time(data.train), cfg.train.dilate_len)
         self.valid_list = split_by_time(data.valid)
         self.test_list = split_by_time(data.test)
         self.static_snap = (static_snapshot(data, cfg.train, self.device)

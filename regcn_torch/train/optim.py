@@ -111,4 +111,8 @@ class EuclideanAdam:
         torch._foreach_add_(denom, self.eps)
         update = torch._foreach_div(mu, 1.0 - self.b1 ** count)
         torch._foreach_div_(update, denom)
+        self.apply_update(params, update)
+
+    def apply_update(self, params: List[torch.Tensor], update: List[torch.Tensor]) -> None:
+        """``params -= lr * update``, in place."""
         torch._foreach_add_(params, update, alpha=-self.lr)

@@ -55,8 +55,9 @@ def make_optimizer(tc: TrainConfig) -> EuclideanAdam:
     return EuclideanAdam(tc.lr, tc.grad_norm, tc.weight_decay)
 
 
-def _fields(model_state) -> Dict[str, Any]:
-    return {f.name: getattr(model_state, f.name) for f in dataclasses.fields(model_state)}
+def fields_of(obj) -> Dict[str, Any]:
+    """A dataclass's fields as a dict, the values as they are (not copied)."""
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
 
 
 def state_from(params, model_state, tc: TrainConfig, seed: int, device="cuda") -> TrainState:
@@ -65,7 +66,7 @@ def state_from(params, model_state, tc: TrainConfig, seed: int, device="cuda") -
     seeded with ``seed``."""
     params = tree_map(lambda t: t.detach().to(device, copy=True).requires_grad_(True), params)
     model_state = type(model_state)(**{k: recurrent.tree_to(v, device)
-                                       for k, v in _fields(model_state).items()})
+                                       for k, v in fields_of(model_state).items()})
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return TrainState(params=params, opt_state=make_optimizer(tc).init(tree_leaves(params)),
@@ -107,10 +108,10 @@ def save_checkpoint(path: str, state: TrainState, meta: Optional[Dict[str, Any]]
         "params": tree_map(torch.Tensor.detach, state.params),
         "opt_state": {"count": state.opt_state.count, "mu": state.opt_state.mu,
                       "nu": state.opt_state.nu, "manifold": state.opt_state.manifold},
-        "model_state": _fields(state.model_state),
+        "model_state": fields_of(state.model_state),
         "gen": state.gen.get_state(),
         "step": state.step,
-        "est_state": None if state.est_state is None else _fields(state.est_state),
+        "est_state": None if state.est_state is None else fields_of(state.est_state),
     }
     _write(os.path.join(path, STATE_FILE), lambda f: torch.save(blob, f))
 

@@ -29,6 +29,7 @@ from regcn_tpu.hyperbolic.optim import dual_optimizer as jax_dual_optimizer
 from regcn_tpu.hyperbolic.train import HyperbolicTrainer as JaxTrainer
 from regcn_torch.config import TrainConfig
 from regcn_torch.convert import hyperbolic_params_from_jax
+from regcn_torch.data.snapshots import split_by_time
 from regcn_torch.data.synthetic import generate
 from regcn_torch.hyperbolic import model as PM
 from regcn_torch.hyperbolic.train import HyperbolicTrainer
@@ -138,7 +139,8 @@ def test_run_epoch_reports_mean_losses(data):
 
 @pytest.mark.parametrize("unported", ["triple_batch_size", "dilate_len", "manifold_entities"])
 def test_unported_options_raise(data, unported):
-    """``dilate_len > 1`` is not ported and raises. Triple batching (chunks
+    """``dilate_len > 1``, once refused, is now read as JAX's trainer reads
+    it, not at all: the training list equals JAX's, undilated. Triple batching (chunks
     of 16 rows, mode ``accumulate``) and entities on the ball with
     Riemannian Adam, refused until they were ported, now run: epoch 1 of
     each from JAX's state after epoch 0 (Adam moments that damp the
@@ -147,8 +149,12 @@ def test_unported_options_raise(data, unported):
     within atol 1e-5 + rtol 1e-3."""
     _, _, pcfg, ptc = configs(data)
     if unported == "dilate_len":
-        with pytest.raises(NotImplementedError):
-            HyperbolicTrainer(pcfg, dataclasses.replace(ptc, dilate_len=2), data, device="cpu")
+        jcfg, jtc, pcfg, ptc = configs(data)
+        got = HyperbolicTrainer(pcfg, dataclasses.replace(ptc, dilate_len=2), data, device="cpu")
+        want = JaxTrainer(jcfg, dataclasses.replace(jtc, dilate_len=2), data)
+        assert len(got.train_list) == len(want.train_list) == len(split_by_time(data.train))
+        for g, w in zip(got.train_list, want.train_list):
+            np.testing.assert_array_equal(g, w)
         return
     from regcn_torch.convert import train_state_from_jax
 

@@ -72,3 +72,12 @@ def test_the_hisres_slice_is_covered():
         assert f"regcn_torch/hisres/{name}.py" in checked
     for name in ("ops/segment", "hyperbolic/layers", "hyperbolic/ops", "data/snapshots"):
         assert f"regcn_torch/{name}.py" in checked
+
+
+def test_the_cli_slice_is_covered():
+    """The CLI, the vectorized sweep, the RDF loader and the entity
+    classifier are among the files checked above."""
+    checked = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for name in ("cli", "train/sweep", "data/rdf", "models/entity_classifier",
+                 "utils/profiling"):
+        assert f"regcn_torch/{name}.py" in checked

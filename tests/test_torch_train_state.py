@@ -336,9 +336,13 @@ def test_fit_resumes_where_it_stopped(data, tmp_path):
 
 @pytest.mark.parametrize("unported", ["mesh", "halo", "run_analysis", "dilate_len", "use_static"])
 def test_unported_options_raise(data, jax_run, unported):
-    """A mesh, the halo and ``dilate_len > 1`` are not ported and raise.
-    ``run_analysis`` and the static graph, refused until they were ported,
-    now run and match JAX: the analysis record of JAX's initial state (the
+    """A mesh and the halo are not ported and raise. ``run_analysis``, the
+    static graph and ``dilate_len > 1``, refused until they were ported,
+    now run and match JAX: with ``dilate_len=2`` the dilated training list
+    array for array and a training step on its window 2 (every parameter
+    but the ConvTrans decoders' ``conv_b`` and ``fc_b``, whose true
+    gradient is 0 under the batch-statistics BatchNorm after each, so that
+    Adam moves them by rounding noise), the analysis record of JAX's initial state (the
     global gradient norm, each named parameter norm the two records share,
     within rtol 1e-5, and the entity norms), and a training step with the
     static graph from the same state (the losses within rtol 1e-4 / atol
@@ -355,6 +359,28 @@ def test_unported_options_raise(data, jax_run, unported):
         assert len(shared) >= 11
         for k in shared | {"global_norm"}:
             np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-7, err_msg=k)
+        return
+    if unported == "dilate_len":
+        jcfg, pcfg = configs(data, dilate_len=2)
+        jtrainer = jax_loop.Trainer(jcfg, data)
+        trainer = pt_loop.Trainer(pcfg, data, device="cpu")
+        assert len(trainer.train_list) == len(jtrainer.train_list) == -(
+            -len(split_by_time(data.train)) // 2)
+        for g, w in zip(trainer.train_list, jtrainer.train_list):
+            np.testing.assert_array_equal(g, w)
+        state = train_state_from_jax(init, device="cpu")
+        i = 2
+        jstate, want = jtrainer.train_step(jax.tree.map(jax.numpy.asarray, init),
+                                           jtrainer._history(jtrainer.train_list[0:i]),
+                                           *jtrainer._triples(i))
+        got = trainer.train_step(state, *trainer.window(i))
+        for k in ("entity", "relation"):
+            np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-4, atol=1e-5)
+        want_params = jax.tree.map(np.asarray, jstate.params)
+        for path, leaf in zip(paths(state.params), tree_leaves(state.params)):
+            if path[-1] not in ("conv_b", "fc_b"):
+                np.testing.assert_allclose(leaf.detach().numpy(), by_path(want_params, path),
+                                           rtol=1e-3, atol=1e-5, err_msg=path)
         return
     if unported == "use_static":
         rng = np.random.default_rng(4)
@@ -385,10 +411,8 @@ def test_unported_options_raise(data, jax_run, unported):
     kw = {}
     if unported == "mesh":
         kw["mesh"] = object()
-    elif unported == "halo":
-        kw["dist_agg"] = "halo"
     else:
-        pcfg = dataclasses.replace(pcfg, train=dataclasses.replace(pcfg.train, dilate_len=2))
+        kw["dist_agg"] = "halo"
     with pytest.raises(NotImplementedError):
         pt_loop.Trainer(pcfg, data, device="cpu", **kw)
 
