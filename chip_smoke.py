@@ -171,7 +171,30 @@ Phases, each of which exits non-zero on failure:
    (phase 6's cut data, K = 6): its 3-step check, 10 steady steps with
    each B2 kernel exactly 2 x K a step beside one model's, and the
    headline vmapped over 2 learning rates (B1 folded with each model's
-   radius weight) through the same 3-step check.
+   radius weight) through the same 3-step check;
+19. bf16 compute (``compute_dtype="bfloat16"``: parameters fp32, cast to
+   bf16 inside the loss with JAX's fp32 islands, B1 and B2 fed fp32):
+   the card's bf16 GEMM with an fp32 result against the fp32 product of
+   the same values; then the headline in ``bench.py``'s configuration,
+   config 1, config 3 on phase 6's cut data and HisRES, each with (a) 3
+   steps on the card in bf16, on the CPU in bf16 and on the CPU in fp32
+   from one state (dropouts 0): every loss and parameter of the card
+   within twice the CPU's own bf16 drift from fp32 plus a stated atol;
+   (b) the dtypes: the carry bf16, the scores and the parameters fp32;
+   (c) 20 steady bf16 steps with the fp32 twin's launches of B1 and B2,
+   and a profiled 5, printed beside the fp32 phase's wall, busy and
+   kernels per step; the headline also one epoch through ``fit`` (B1
+   1812) and its test split (B1 186), its entity loss within 5 % and its
+   test entity raw MRR within 0.02 of phase 8's fp32 epoch;
+20. the native snapshot builder, compiled from
+   ``regcn_torch/csrc/graph_builder.cc`` with the host's C++ compiler:
+   (a) its arrays equal numpy's for every snapshot of the three splits;
+   (b) config 1's rolling evaluation of the test split with each builder:
+   the host ms per query snapshot spent building windows, the MRRs
+   within 1e-4 (the card's segment sums add in no fixed order);
+   (c) config 1 served with ``impl="cumsum"``: the aggregation within
+   1e-4 (relative) of B1 at the first test snapshot, the four MRRs within
+   0.01 of B1's, no kernel launched.
 
 The line before the last is ``{"kernels": [...]}``: each row's
 ``launches`` is B1's on the config-1 test split or a B2 kernel's in the
@@ -289,6 +312,18 @@ PROFILE_STEPS = 20  # steady steps timed
 # steps under torch.profiler: its key_averages over a step's thousands of
 # kernels take seconds a step, the most of a phase at 20 steps
 PROFILED_STEPS = 5
+# each path's steady-state step (wall ms) and profiled step (wall and busy
+# ms, kernels and copies), by label, for the bf16 phase's side-by-side
+STEADY: dict = {}
+PROFILES: dict = {}
+# the fp32 headline's epoch (mean losses) and test split (MRRs), which the
+# bf16 phase compares with its own
+EPOCHS: dict = {}
+# the profiles that also print their host time by operator: the bf16
+# phase's and their fp32 twins'
+HOST_BREAKDOWN = {"train step", "config-1 train step", "headline train step",
+                  "hisres train step", "headline bf16 train step", "config-1 bf16 train step",
+                  "config-3 bf16 train step", "hisres bf16 train step"}
 # parameters that no loss reads: the H-PES gate, which only the writeback
 # after the backward reads (JAX's gradient of each is 0)
 NO_GRAD = {"est.slow_threshold", "est.slow_scale"}
@@ -933,6 +968,7 @@ def phase_training(data, dev: torch.device) -> dict:
         trainer.train_step(state, *trainer.window(i), cmax)
     torch.cuda.synchronize()
     steady_s = time.perf_counter() - t0
+    STEADY["train step"] = steady_s / len(order) * 1e3
     print(f"[train] steady state: {len(order)} steps in {steady_s:.3f} s = "
           f"{len(order) / steady_s:.2f} snapshots/s, {steady_s / len(order) * 1e3:.2f} ms "
           "per step", flush=True)
@@ -975,12 +1011,22 @@ def train_profile(label: str, step, order, scatter: bool = False, ce: bool = Fal
                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                      key=lambda e: -e.self_device_time_total)
     busy_us = sum(e.self_device_time_total for e in kernels)
+    PROFILES[label] = dict(wall_ms=wall_us / n / 1e3, busy_ms=busy_us / n / 1e3,
+                           kernels=sum(e.count for e in kernels) / n)
     print(f"[profile] {label} under torch.profiler: wall {wall_us / n / 1e3:.2f} ms, device "
           f"busy {busy_us / n / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f} %), "
           f"{sum(e.count for e in kernels) / n:.0f} kernels and copies per step", flush=True)
     for e in kernels[:10]:
         print(f"[profile]   {e.self_device_time_total / n:9.1f} us/step "
               f"{e.count / n:5.0f}x  {e.key[:90]}", flush=True)
+    if label in HOST_BREAKDOWN:
+        host = sorted((e for e in events if e.device_type == DeviceType.CPU),
+                      key=lambda e: -e.self_cpu_time_total)
+        host_ms = sum(e.self_cpu_time_total for e in host) / n / 1e3
+        print(f"[profile]   host: self CPU time {host_ms:.2f} ms/step, the largest:", flush=True)
+        for e in host[:12]:
+            print(f"[profile]   host {e.self_cpu_time_total / n:9.1f} us/step "
+                  f"{e.count / n:6.0f}x  {e.key[:80]}", flush=True)
     if scatter:
         fwd = [e for e in kernels if "scatter_sorted_kernel" in e.key]
         bwd = [e for e in events if e.key == "_ScatterAddSortedBackward"]
@@ -1367,6 +1413,7 @@ def phase_config1_training(data, cfg: ModelConfig, tc: TrainConfig, dev: torch.d
         trainer.train_step(steady, *trainer.window(i))
     torch.cuda.synchronize()
     steady_s = time.perf_counter() - t0
+    STEADY["config-1 train step"] = steady_s / len(order) * 1e3
     print(f"[train1] (c) steady state: {len(order)} steps in {steady_s:.3f} s = "
           f"{len(order) / steady_s:.2f} snapshots/s, {steady_s / len(order) * 1e3:.2f} ms "
           "per step", flush=True)
@@ -1522,6 +1569,7 @@ def phase_headline_training(data, tc: TrainConfig, dev: torch.device, config=Non
         trainer.train_step(steady, *trainer.window(i), cmax, *trainer.est_window(i))
     torch.cuda.synchronize()
     steady_s = time.perf_counter() - t0
+    STEADY[f"{tag} train step"] = steady_s / len(order) * 1e3
     print(f"[{tag}] (d) steady state: {len(order)} steps in {steady_s:.3f} s = "
           f"{len(order) / steady_s:.2f} snapshots/s, {steady_s / len(order) * 1e3:.2f} ms "
           "per step", flush=True)
@@ -1535,6 +1583,7 @@ def phase_headline_training(data, tc: TrainConfig, dev: torch.device, config=Non
           f"{test_s / n_test * 1e3:.2f} ms per snapshot, {test_counts['rgcn_scatter_sorted']} B1 "
           "launches): MRR " + ", ".join(f"{k} {v.mrr:.6f}" for k, v in stats.items())
           + f" (random init: ent_raw {init_stats['ent_raw'].mrr:.6f})", flush=True)
+    EPOCHS[tag] = dict(losses=row["losses"], test=stats)
 
     # (f) where a step's time goes
     cmax = trainer._curvature_max(2)
@@ -2300,6 +2349,7 @@ def phase_hisres_training(data, tc: TrainConfig, dev: torch.device) -> dict:
     steady_order = trainer.epoch_order(1)[:PROFILE_STEPS]
     steady_out = steady_steps(tag, lambda i: trainer.train_step(steady, *trainer.window(i)),
                               steady_order)
+    STEADY[f"{tag} train step"] = steady_out["ms"]
     want = sum(hisres_launches(cfg, min(i, tc.train_history_len)) for i in steady_order)
     check(steady_out["launches"]["rgcn_scatter_sorted"] == want,
           f"{tag}: {steady_out['launches']} in the steady steps, expected {want} of B1")
@@ -2791,6 +2841,441 @@ def phase_vectorized_hyperbolic(data, tc: TrainConfig, dev: torch.device) -> dic
             "grid headline x2 checked steps": launches}
 
 
+# ----------------------------------------------------------- bf16 compute
+
+# bf16 against fp32 (dropouts 0, the same initial state): the card's bf16
+# may drift from the CPU's fp32 by twice what the CPU's own bf16 drifts,
+# plus this much of |cpu fp32 loss| (each loss) or of the distance the CPU's
+# fp32 run moved the parameter (after the 3 steps: Adam moves an entry by
+# about lr whatever its gradient, so a gradient within bf16 noise of 0 may
+# step either way)
+BF16_LOSS_ATOL = 1e-2
+BF16_STEP_ATOL = 0.5
+# the epoch's mean entity loss and the test split's entity raw MRR of the
+# bf16 headline against its fp32 twin (bench.py's claim for bf16)
+BF16_EPOCH_RTOL = 0.05
+BF16_MRR_ATOL = 0.02
+# the card's bf16 GEMM with an fp32 result against the fp32 product of the
+# same bf16 values: both accumulate exact products in fp32, in another order
+GEMM_ROUTE_TOL = 1e-5
+
+
+def fresh_state(trainer, state):
+    """A new state on ``trainer``'s device around copies of ``state``'s
+    parameters and model state (zero moments)."""
+    if hasattr(trainer, "state_from"):
+        return trainer.state_from(state.params, state.model_state)
+    return train_state.state_from(state.params, state.model_state, trainer.cfg.train, SEED,
+                                  trainer.device)
+
+
+def drift_check(tag: str, what: str, card, cpu16, cpu32, atol: float, ref=None) -> float:
+    """err(card bf16, cpu fp32) <= 2 err(cpu bf16, cpu fp32) + atol * ref
+    (L2 norms; ref = |cpu fp32| unless given); returns the margin used."""
+    c, b, f = (np.asarray(x, np.float64) for x in (card, cpu16, cpu32))
+    e_card, e_cpu = np.linalg.norm(c - f), np.linalg.norm(b - f)
+    ref = np.linalg.norm(f) if ref is None else ref
+    check(math.isfinite(e_card) and e_card <= 2.0 * e_cpu + atol * ref,
+          f"{tag}: {what} bf16 card vs fp32 cpu {e_card:.3e} > 2 x the cpu's bf16 drift "
+          f"{e_cpu:.3e} + {atol} x {ref:.3e}")
+    return e_card / max(2.0 * e_cpu + atol * ref, 1e-30)
+
+
+def bf16_three_steps(tag: str, make, step, dev: torch.device) -> None:
+    """3 bf16 steps on the card, 3 on the CPU in bf16 and 3 on the CPU in
+    fp32, on the first 3 windows of epoch 0, all from the card's initial
+    state (dropouts 0): each step's
+    losses and every parameter after the steps under the drift bound
+    (``drift_check``), the parameters fp32 throughout."""
+    t0 = time.perf_counter()
+    card, cpu16, cpu32 = make(dev, "bfloat16"), make("cpu", "bfloat16"), make("cpu", "float32")
+    s_card = card.init_state(SEED)
+    order = card.epoch_order(0)[:3]
+    runs = {"card": (card, s_card), "cpu16": (cpu16, fresh_state(cpu16, s_card)),
+            "cpu32": (cpu32, fresh_state(cpu32, s_card))}
+    start = [t.detach().cpu().double() for t in tree_leaves(s_card.params)]
+    losses = {k: [] for k in runs}
+    for i in order:
+        for k, (tr, st) in runs.items():
+            losses[k].append({n: float(v) for n, v in step(tr, st, i).items()})
+    worst = 0.0
+    for s in range(len(order)):
+        for n, f in losses["cpu32"][s].items():
+            worst = max(worst, drift_check(tag, f"step {s} {n} loss", losses["card"][s][n],
+                                           losses["cpu16"][s][n], f, BF16_LOSS_ATOL))
+    names = leaf_names(s_card.params)
+    leaves = [tree_leaves(runs[k][1].params) for k in ("card", "cpu16", "cpu32")]
+    for name, a, b, f, s0 in zip(names, *leaves, start):
+        check(a.dtype == b.dtype == f.dtype == torch.float32, f"{tag}: {name} is {a.dtype} after "
+              "the bf16 steps, expected float32 parameters")
+        moved = (f.detach().double() - s0).norm().item()
+        worst = max(worst, drift_check(tag, f"{name} after the steps", a.detach().cpu(),
+                                       b.detach(), f.detach(), BF16_STEP_ATOL, moved))
+    print(f"[{tag}] 3 bf16 steps card vs cpu bf16 vs cpu fp32 from the same state: each loss "
+          f"and parameter within {worst:.3f} of its drift bound; losses card/cpu16/cpu32 "
+          + "; ".join(", ".join(f"{n} {losses['card'][s][n]:.5f}/{losses['cpu16'][s][n]:.5f}/"
+                                f"{losses['cpu32'][s][n]:.5f}" for n in ("entity", "relation"))
+                      for s in range(len(order)))
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def bf16_dtypes(tag: str, carry: torch.Tensor, scores, state) -> None:
+    """The carry in bf16, the scores and the parameters in fp32."""
+    check(carry.dtype == torch.bfloat16, f"{tag}: the evolution's carry is {carry.dtype}, "
+          "expected bfloat16")
+    for s in scores:
+        check(s.dtype == torch.float32 and bool(torch.isfinite(s).all()),
+              f"{tag}: scores {s.dtype}, expected finite float32")
+    check(all(t.dtype == torch.float32 for t in tree_leaves(state.params)),
+          f"{tag}: a parameter is not float32")
+    print(f"[{tag}] dtypes: carry {carry.dtype}, scores "
+          + "/".join(str(s.dtype) for s in scores) + ", parameters torch.float32", flush=True)
+
+
+def bf16_speed(tag: str, fp32_label: str, trainer, step, twin, steady_order, profile_order,
+               b1: int = 0, b2: int = 0) -> dict:
+    """20 steady bf16 steps (their launches: B1 ``b1`` and each B2 kernel
+    ``b2`` in all, as the fp32 twin launches) and a profiled 5, printed
+    beside the fp32 twin's numbers of its phase; then the same 20 windows
+    in blocks that alternate between the fp32 twin (``twin``: its trainer
+    and step, from its own initial state) and bf16, twice each, since the
+    host's speed drifts between phases. The windows are built before the
+    clock starts, as the fp32 twin's were, and one step warms each up."""
+    label = f"{tag} train step"
+    for i in list(steady_order) + list(profile_order):
+        trainer.window(i)
+    step(steady_order[0])
+    out = steady_steps(tag, step, steady_order)
+    launches = out["launches"]
+    check(launches["rgcn_scatter_sorted"] == b1 and all(launches[k] == b2 for k in CE_KERNELS),
+          f"{tag}: launches {launches} in the steady steps, expected {b1} of B1 and {b2} of "
+          "each CE kernel (the fp32 twin's)")
+    train_profile(label, step, profile_order, scatter=b1 > 0, ce=b2 > 0)
+    row = dict(bf16_ms=out["ms"], fp32_ms=STEADY.get(fp32_label),
+               bf16_busy=PROFILES[label]["busy_ms"], fp32_busy=PROFILES[fp32_label]["busy_ms"],
+               bf16_kernels=PROFILES[label]["kernels"],
+               fp32_kernels=PROFILES[fp32_label]["kernels"])
+    fmt = lambda v: "n/a" if v is None else f"{v:.2f}"  # noqa: E731
+    print(f"[bf16] {tag}: steady step fp32 {fmt(row['fp32_ms'])} ms / bf16 "
+          f"{row['bf16_ms']:.2f} ms; device busy fp32 {row['fp32_busy']:.3f} ms / bf16 "
+          f"{row['bf16_busy']:.3f} ms; kernels and copies per step fp32 "
+          f"{row['fp32_kernels']:.0f} / bf16 {row['bf16_kernels']:.0f}; B1 "
+          f"{b1 / len(steady_order):.2f}, each B2 kernel {b2 / len(steady_order):.2f} per step "
+          "in both", flush=True)
+    twin_trainer, twin_step = twin
+    for i in steady_order:
+        twin_trainer.window(i)
+    twin_step(steady_order[0])
+    walls = {"fp32": [], "bf16": []}
+    for _ in range(2):
+        for name, fn in (("fp32", twin_step), ("bf16", step)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in steady_order:
+                fn(i)
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) / len(steady_order) * 1e3)
+    print(f"[bf16] {tag}: alternating blocks of {len(steady_order)} steps, ms per step fp32 "
+          + " / ".join(f"{w:.2f}" for w in walls["fp32"]) + ", bf16 "
+          + " / ".join(f"{w:.2f}" for w in walls["bf16"])
+          + f"; bf16 / fp32 {sum(walls['bf16']) / sum(walls['fp32']):.3f}", flush=True)
+    return launches
+
+
+def gemm_route_check(dev: torch.device) -> None:
+    """``dot_f32`` on the card (``torch.mm(..., out_dtype=float32)``, bf16
+    tensor cores) against the fp32 product of the same bf16 values (the
+    CPU's route, run here on the card with TF32 off) at the decoders' and
+    the edge GEMM's shapes, each also timed."""
+    from regcn_torch.utils.dtypes import dot_f32
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    parts = []
+    for name, (m, k, n) in (("ConvTransE scores", (512, 200, 7128)),
+                            ("edge GEMM", (1024, 200, 200))):
+        a = torch.randn(m, k, generator=g, device=dev).bfloat16()
+        b = torch.randn(k, n, generator=g, device=dev).bfloat16()
+        card = dot_f32(a, b)
+        want = a.float() @ b.float()
+        check(card.dtype == torch.float32, f"dot_f32 on the card gave {card.dtype}")
+        err = (card - want).abs().max().item()
+        scale = max(1.0, want.abs().max().item())
+        check(err <= GEMM_ROUTE_TOL * scale, f"dot_f32 {name} card route vs the fp32 product "
+              f"{err:.3e} > {GEMM_ROUTE_TOL:.0e} * {scale:.3e}")
+        ms = device_time_ms(lambda: dot_f32(a, b))
+        f32_ms = device_time_ms(lambda: a.float() @ b.float())
+        parts.append(f"{name} [{m}, {k}] x [{k}, {n}]: max abs err {err:.3e} (scale "
+                     f"{scale:.3e}), {ms * 1e3:.2f} us against {f32_ms * 1e3:.2f} us")
+    print("[bf16] the bf16 GEMM with an fp32 result, the card's route against the fp32 product "
+          "of the bf16 values: " + "; ".join(parts), flush=True)
+
+
+def phase_bf16(data, cut, cfg: ModelConfig, tc: TrainConfig, dev: torch.device) -> dict:
+    """bf16 compute (``compute_dtype="bfloat16"``) on every family: the
+    card's GEMM route; the headline in ``bench.py``'s configuration (one
+    epoch through ``fit`` and its test split against the fp32 headline of
+    phase 8, B1 1812 / 186), config 1, config 3 on the cut data (B2 2 a
+    kernel a step) and HisRES; each with ``bf16_three_steps``, the dtypes,
+    and 20 steady steps and a profiled 5 beside its fp32 twin's."""
+    from regcn_torch.utils.dtypes import tree_to_compute
+
+    bf = torch.bfloat16
+    gemm_route_check(dev)
+    out = {}
+
+    # the headline
+    tag = "headline bf16"
+    bf16_three_steps(tag, lambda d, dt: HyperbolicTrainer(
+        headline_config(data, compute_dtype=dt, **NO_DROPOUT), tc, data, device=d),
+        lambda tr, st, i: tr.train_step(st, *tr.window(i), tr._curvature_max(0)), dev)
+    hcfg = headline_config(data, compute_dtype="bfloat16")
+    trainer = HyperbolicTrainer(hcfg, tc, data, device=dev)
+    state = trainer.init_state(SEED)
+    order = trainer.epoch_order(0)
+    expected = hcfg.n_layers * sum(min(i, tc.train_history_len) for i in order)
+    info, epoch = fit_one_counted_epoch(trainer, state)
+    launches, row = epoch["launches"], info["history"][0]
+    check(launches["rgcn_scatter_sorted"] == expected and all(launches[k] == 0 for k in CE_KERNELS),
+          f"{tag}: epoch launches {launches}, expected {expected} of B1 (as the fp32 epoch) and "
+          "no CE kernel")
+    n_test = len(trainer.test_list)
+    stats, test_counts, test_s = counted_test(trainer, state,
+                                              hcfg.n_layers * tc.test_history_len * n_test, tag)
+    fp32 = EPOCHS["headline"]
+    l16, l32 = row["losses"]["entity"], fp32["losses"]["entity"]
+    m16, m32 = stats["ent_raw"].mrr, fp32["test"]["ent_raw"].mrr
+    check(abs(l16 - l32) <= BF16_EPOCH_RTOL * abs(l32), f"{tag}: epoch entity loss {l16:.5f}, "
+          f"fp32 {l32:.5f}: more than {BF16_EPOCH_RTOL:.0%} apart")
+    check(abs(m16 - m32) <= BF16_MRR_ATOL, f"{tag}: test ent raw MRR {m16:.5f}, fp32 {m32:.5f}: "
+          f"more than {BF16_MRR_ATOL} apart")
+    print(f"[{tag}] epoch 0 in fit: {len(order)} steps in {epoch['seconds']:.2f} s; mean losses "
+          + ", ".join(f"{k} {v:.5f}" for k, v in row["losses"].items())
+          + f" (fp32 entity {l32:.5f}); launches {launches}; test split ({test_s:.1f} s, "
+          f"{test_counts['rgcn_scatter_sorted']} B1 launches): MRR "
+          + ", ".join(f"{k} {v.mrr:.6f}" for k, v in stats.items())
+          + f" (fp32 ent_raw {m32:.6f})", flush=True)
+    out[f"{tag} training epoch"], out[f"{tag} test split"] = launches, test_counts
+    history, triples, mask = trainer.window(order[0])
+    with torch.inference_mode():
+        carry, _ = hyp_model.evolve(tree_to_compute(state.params, bf), hcfg,
+                                    tree_to_compute(history, bf))
+        scores = trainer._predict()(state.params, state.model_state, hcfg, history, triples, mask)
+    bf16_dtypes(tag, carry, scores, state)
+    cmax = trainer._curvature_max(1)
+    steady = lambda i: trainer.train_step(state, *trainer.window(i), cmax)  # noqa: E731
+    steady_order = trainer.epoch_order(1)[:PROFILE_STEPS]
+    t32 = HyperbolicTrainer(headline_config(data), tc, data, device=dev)
+    s32 = t32.init_state(SEED)
+    twin = (t32, lambda i: t32.train_step(s32, *t32.window(i), cmax))
+    out[f"{tag} steady steps"] = bf16_speed(
+        tag, "headline train step", trainer, steady, twin, steady_order,
+        trainer.epoch_order(2)[:PROFILED_STEPS],
+        b1=hcfg.n_layers * sum(min(i, tc.train_history_len) for i in steady_order))
+    del trainer, state
+
+    # config 1
+    tag = "config-1 bf16"
+    c1 = dataclasses.replace(cfg, dtype="bfloat16")
+    make = lambda d, dt, **kw: loop.Trainer(  # noqa: E731
+        ExperimentConfig(model=dataclasses.replace(cfg, dtype=dt, **kw), train=tc), data, device=d)
+    bf16_three_steps(tag, lambda d, dt: make(d, dt, **NO_DROPOUT),
+                     lambda tr, st, i: tr.train_step(st, *tr.window(i)), dev)
+    trainer = make(dev, "bfloat16")
+    state = trainer.init_state(SEED)
+    history, triples, _ = trainer.window(trainer.epoch_order(0)[0])
+    with torch.inference_mode():
+        params16 = tree_to_compute(state.params, bf)
+        carry, _ = recurrent.evolve(params16, c1, tree_to_compute(history, bf))
+        scores = recurrent.predict(params16, state.model_state, c1,
+                                   tree_to_compute(history, bf), triples)
+    bf16_dtypes(tag, carry, scores, state)
+    steady_order = trainer.epoch_order(1)[:PROFILE_STEPS]
+    t32 = make(dev, "float32")
+    s32 = t32.init_state(SEED)
+    out[f"{tag} steady steps"] = bf16_speed(
+        tag, "config-1 train step", trainer,
+        lambda i: trainer.train_step(state, *trainer.window(i)),
+        (t32, lambda i: t32.train_step(s32, *t32.window(i))), steady_order,
+        trainer.epoch_order(2)[:PROFILED_STEPS],
+        b1=cfg.n_layers * sum(min(i, tc.train_history_len) for i in steady_order))
+    del trainer, state
+
+    # config 3 on the cut data (B2)
+    tag = "config-3 bf16"
+    tc3 = TrainConfig(train_history_len=3, test_history_len=3)
+    make = lambda d, dt, **kw: HyperbolicTrainer(  # noqa: E731
+        config3(cut, compute_dtype=dt, **kw), tc3, cut, curvature_warmup_epochs=5, device=d)
+    bf16_three_steps(tag, lambda d, dt: make(d, dt, **NO_DROPOUT),
+                     lambda tr, st, i: tr.train_step(st, *tr.window(i), tr._curvature_max(0)),
+                     dev)
+    trainer = make(dev, "bfloat16")
+    state = trainer.init_state(SEED)
+    c3 = trainer.cfg
+    history, triples, mask = trainer.window(trainer.epoch_order(0)[0])
+    with torch.inference_mode():
+        carry, _ = hyp_model.evolve(tree_to_compute(state.params, bf), c3,
+                                    tree_to_compute(history, bf))
+        scores = trainer._predict()(state.params, state.model_state, c3, history, triples, mask)
+    bf16_dtypes(tag, carry, scores, state)
+    cmax = trainer._curvature_max(1)
+    steady_order = trainer.epoch_order(1)[:PROFILE_STEPS]
+    t32 = make(dev, "float32")
+    s32 = t32.init_state(SEED)
+    out[f"{tag} steady steps"] = bf16_speed(
+        tag, "train step", trainer, lambda i: trainer.train_step(state, *trainer.window(i), cmax),
+        (t32, lambda i: t32.train_step(s32, *t32.window(i), cmax)), steady_order,
+        trainer.epoch_order(2)[:PROFILED_STEPS], b2=2 * len(steady_order))
+    del trainer, state
+
+    # HisRES
+    tag = "hisres bf16"
+    tch = dataclasses.replace(tc, n_epochs=1)
+    make = lambda d, dt, **kw: HisResTrainer(  # noqa: E731
+        hisres_config(data, compute_dtype=dt, **kw), tch, data, device=d, **HISRES_TRAINER)
+    bf16_three_steps(tag, lambda d, dt: make(d, dt, cand_dropout=0.0, **NO_DROPOUT),
+                     lambda tr, st, i: tr.train_step(st, *tr.window(i)), dev)
+    trainer = make(dev, "bfloat16")
+    state = trainer.init_state(SEED)
+    hc = trainer.cfg
+    inputs = trainer.window(trainer.epoch_order(0)[0])
+    with torch.inference_mode():
+        from regcn_torch.hisres import model as hisres_model
+
+        carry = hisres_model.forward(tree_to_compute(state.params, bf), hc,
+                                     tree_to_compute(inputs[0], bf),
+                                     tree_to_compute(inputs[1], bf))[0]
+        scores = trainer.predict(state, *inputs)
+    bf16_dtypes(tag, carry, scores, state)
+    steady_order = trainer.epoch_order(1)[:PROFILE_STEPS]
+    t32 = make(dev, "float32")
+    s32 = t32.init_state(SEED)
+    out[f"{tag} steady steps"] = bf16_speed(
+        tag, "hisres train step", trainer, lambda i: trainer.train_step(state, *trainer.window(i)),
+        (t32, lambda i: t32.train_step(s32, *t32.window(i))), steady_order,
+        trainer.epoch_order(2)[:PROFILED_STEPS],
+        b1=sum(hisres_launches(hc, min(i, tc.train_history_len)) for i in steady_order))
+    return out
+
+
+# ------------------------------------------ native builder and cumsum
+
+# impl="cumsum" against B1 at config 1's first test snapshot: the fp32
+# running sum over the sorted messages is approximate (JAX measured ~6e-5
+# relative at E = 4M); and its test MRRs against B1's from the same
+# parameters (a near-tie may reorder)
+CUMSUM_REL_TOL = 1e-4
+CUMSUM_MRR_ATOL = 1e-2
+
+
+def phase_native_cumsum(data, cfg: ModelConfig, tc: TrainConfig, dev: torch.device) -> dict:
+    """The native snapshot builder, built from ``regcn_torch/csrc/graph_builder.cc``
+    on this host: (a) its arrays equal numpy's for every snapshot of the
+    three splits, and the time each takes; (b) config 1's rolling
+    evaluation of the test split with each builder, the host ms per query
+    snapshot spent building windows and the wall per snapshot, the same
+    MRRs; (c) config 1 served with ``impl="cumsum"``: the aggregation's
+    max relative error against B1, and the four MRRs beside B1's (no B1
+    launch on the cumsum route)."""
+    import functools
+
+    from regcn_torch.data import native
+    from regcn_torch.data import snapshots as snapshots_mod
+    from regcn_torch.data.snapshots import _ARRAY_FIELDS, _round_up
+
+    t0 = time.perf_counter()
+    path = native.build()
+    print(f"[native] {os.path.relpath(path, ROOT)} ready in {time.perf_counter() - t0:.2f} s "
+          f"(compiled by {native._compiler()} at first use in this run)", flush=True)
+    times = {True: 0.0, False: 0.0}
+    n_snaps = 0
+    for split in ("train", "valid", "test"):
+        for trip in split_by_time(getattr(data, split)):
+            n = len(trip)
+            pads = dict(edge_pad=_round_up(2 * n, tc.edge_bucket),
+                        rc_pad=_round_up(4 * n, tc.rc_bucket))
+            built = {}
+            for use in (True, False):
+                t0 = time.perf_counter()
+                built[use] = build_snapshot(trip, cfg.num_ents, cfg.num_rels, use_native=use,
+                                            **pads)
+                times[use] += time.perf_counter() - t0
+            for f in _ARRAY_FIELDS:
+                a, b = getattr(built[True], f), getattr(built[False], f)
+                check(a.dtype == b.dtype and np.array_equal(a, b),
+                      f"native builder: {f} of a {split} snapshot differs from numpy's")
+            check(built[True].num_edges == built[False].num_edges, "native builder: num_edges")
+            n_snaps += 1
+    print(f"[native] (a) {n_snaps} snapshots of the three splits: every array equal to numpy's; "
+          f"{times[True] / n_snaps * 1e3:.3f} ms a snapshot native, "
+          f"{times[False] / n_snaps * 1e3:.3f} ms numpy", flush=True)
+
+    params, state = recurrent.init_params(torch.Generator().manual_seed(SEED), cfg, device=dev)
+    n_test = len(split_by_time(data.test))
+    builder = snapshots_mod.build_history
+    results = {}
+    for use in (True, False):
+        spent = [0.0]
+
+        def timed_history(*a, _use=use, **kw):
+            t0 = time.perf_counter()
+            out = builder(*a, use_native=_use, **kw)
+            spent[0] += time.perf_counter() - t0
+            return out
+
+        loop.build_history = timed_history
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats = loop.test(params, state, cfg, tc, data, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            loop.build_history = builder
+        results[use] = (stats, wall, spent[0])
+    for key in results[True][0]:
+        # the same arrays; the card's segment sums (index_add_) add in no fixed order
+        check(abs(results[True][0][key].mrr - results[False][0][key].mrr) <= CLI_MRR_TOL,
+              f"native builder: {key} MRR {results[True][0][key].mrr} differs from numpy's "
+              f"{results[False][0][key].mrr}")
+    print("[native] (b) config-1 test split, rolling evaluation with each builder: host ms per "
+          "query snapshot building its window native "
+          f"{results[True][2] / n_test * 1e3:.3f} / numpy {results[False][2] / n_test * 1e3:.3f};"
+          f" wall per snapshot native {results[True][1] / n_test * 1e3:.2f} ms / numpy "
+          f"{results[False][1] / n_test * 1e3:.2f} ms; the MRRs within {CLI_MRR_TOL:.0e}",
+          flush=True)
+
+    # (c) impl="cumsum"
+    snap, _ = first_test_snapshot(data, dev)
+    g = np.random.default_rng(SEED)
+    h = torch.from_numpy(g.normal(size=(cfg.num_ents, cfg.h_dim)).astype(np.float32)).to(dev)
+    rel = torch.from_numpy(g.normal(size=(cfg.num_rels_total, cfg.h_dim)).astype(np.float32)
+                           ).to(dev)
+    w = torch.from_numpy((g.normal(size=(cfg.h_dim, cfg.h_dim)) / math.sqrt(cfg.h_dim)
+                          ).astype(np.float32)).to(dev)
+    args = (h, rel, w, snap.src, snap.dst, snap.rel, snap.edge_mask, snap.in_deg_norm)
+    exact = rgcn_aggregate(*args, dst_sorted=True)
+    approx = rgcn_aggregate(*args, dst_sorted=True, impl="cumsum")
+    rel_err = ((approx - exact).abs().max() / exact.abs().max().clamp(min=1e-30)).item()
+    check(rel_err <= CUMSUM_REL_TOL, f"impl='cumsum' vs B1: max relative error {rel_err:.3e} > "
+          f"{CUMSUM_REL_TOL:.0e}")
+    reset_launches()
+    stats_c = loop.test(params, state, cfg, tc, data, device=dev,
+                        predict=functools.partial(loop.regcn_predict, impl="cumsum"))
+    torch.cuda.synchronize()
+    counts = read_launches()
+    check(all(v == 0 for v in counts.values()), f"impl='cumsum' launched a kernel: {counts}")
+    stats_b = results[True][0]
+    for key, st in stats_c.items():
+        check(math.isfinite(st.mrr) and abs(st.mrr - stats_b[key].mrr) <= CUMSUM_MRR_ATOL,
+              f"impl='cumsum' {key} MRR {st.mrr:.6f} vs B1's {stats_b[key].mrr:.6f}")
+    print(f"[native] (c) impl='cumsum' at config 1's first test snapshot: max relative error "
+          f"{rel_err:.3e} against B1; test split MRR cumsum / B1 "
+          + ", ".join(f"{k} {stats_c[k].mrr:.6f}/{stats_b[k].mrr:.6f}" for k in stats_c)
+          + f"; launches {counts}", flush=True)
+    return {"config-1 test split, cumsum": counts}
+
+
 def config3_data():
     """synthetic-icews14s (seed 123) with its time axis cut to 120
     snapshots split 100 / 10 / 10: the epochs of config 3, config 4 and
@@ -2850,6 +3335,8 @@ def main() -> None:
     by_path.update(grid_paths)
     by_path.update(timed("hyperbolic grid --vectorize", phase_vectorized_hyperbolic, cut, tc,
                          dev))
+    by_path.update(timed("bf16 compute", phase_bf16, data, cut, cfg, tc, dev))
+    by_path.update(timed("native builder and cumsum", phase_native_cumsum, data, cfg, tc, dev))
     launches.update({k: by_path["config-3 training epoch"][k] for k in CE_KERNELS})
     for k in CE_KERNELS:
         timing[k]["shapes"] = [config4_times[k]]

@@ -17,8 +17,13 @@ run every kernel's plain version on the CPU. Without a card, and without
 
 Not ported, and stopping with a message that names the ROADMAP item:
 ``bench`` (A.2: ``bench.py`` measures the JAX package), ``--shards`` and
-``--dist-agg halo`` (A.11, multi-device); ``--compute-dtype bfloat16``
-raises ``NotImplementedError`` in the trainers (A.5).
+``--dist-agg halo`` (A.11, multi-device).
+
+``--compute-dtype bfloat16`` reaches the trainers of ``train``, ``test``,
+``hyperbolic`` and ``hisres`` (and of the sequential ``grid``), as in the
+JAX CLI: bf16 activations with fp32 parameters and fp32 islands
+(``regcn_torch/utils/dtypes.py``). ``grid --vectorize`` trains in fp32
+whatever the flag says, as JAX's vectorized sweep casts nothing.
 
 Hyperparameter grid parity: ref:src/hyperparameter_range.py:6-11.
 """
@@ -171,7 +176,8 @@ def build_parser() -> argparse.ArgumentParser:
     hp.add_argument("--hyp-score-scale-init", type=float, default=1.0)
     hp.add_argument("--compute-dtype", default="float32",
                     choices=["float32", "bfloat16"],
-                    help="bf16 activations with fp32 params (not ported, ROADMAP A.5)")
+                    help="bf16 activations with fp32 params/islands "
+                         "(train/hyperbolic/hisres modes)")
     hp.add_argument("--hyp-score-margin-init", type=float, default=1.0)
     hp.add_argument("--use-entity-euclidean-bias", action="store_true", default=False)
     hp.add_argument("--use-relation-specific-curvature", action="store_true", default=False)

@@ -1,8 +1,8 @@
 """Snapshot graph construction as flat padded edge arrays.
 
-Counterpart of ``regcn_tpu/data/snapshots.py`` (the numpy path). Host
-numpy builds every array; :meth:`Snapshot.to` then makes the tensors on
-a device in one step.
+Counterpart of ``regcn_tpu/data/snapshots.py``. The host builds every
+array, with the native C++ builder by default (``native.py``) or numpy;
+:meth:`Snapshot.to` then makes the tensors on a device in one step.
 
 Semantics (ref:rgcn/utils.py:78-134):
 - inverse edges: for every triple (s, r, o) an edge s->o with type r and
@@ -136,13 +136,39 @@ def build_snapshot(
     rc_pad: int | None = None,
     edge_bucket: int = 1024,
     rc_bucket: int = 1024,
+    use_native: bool | None = None,
     rc_mode: str = "both",
 ) -> Snapshot:
     """Build a padded flat-array snapshot graph from [n,3] (s,r,o) triples;
     ``rc_mode`` picks the relation-context incidence
-    (:func:`_relation_context_pairs`)."""
+    (:func:`_relation_context_pairs`).
+
+    ``use_native`` True or None (the default) builds the arrays with the
+    C++ builder (``regcn_torch/data/native.py``, compiled at first use),
+    False with numpy; given the same padding the two are bit-identical.
+    Without ``rc_pad`` the native builder pads the relation context to
+    ``4 n`` rounded up to ``rc_bucket`` and numpy to the unique pairs'
+    count rounded up, as JAX's two builders do. A module of an older
+    signature falls back to numpy with a warning for ``None`` and raises
+    for True, as in JAX; a build that fails raises either way."""
     triples = np.asarray(triples)[:, :3].astype(np.int64)
     n = len(triples)
+    if use_native is not False:
+        from regcn_torch.data import native
+
+        E = edge_pad if edge_pad is not None else _round_up(2 * n, edge_bucket)
+        M = rc_pad if rc_pad is not None else _round_up(4 * n, rc_bucket)
+        try:
+            (src, dst, rel, emask, norm, has_in, rc_r, rc_e, rc_m, e, nn) = (
+                native.build_snapshot_arrays(triples, num_nodes, num_rels, E, M,
+                                             1 if rc_mode == "src" else 0))
+        except native.StaleNativeError:
+            if use_native is True:
+                raise
+        else:
+            return Snapshot(src=src, dst=dst, rel=rel, edge_mask=emask, in_deg_norm=norm,
+                            has_in_edge=has_in, rc_rel=rc_r, rc_ent=rc_e, rc_mask=rc_m,
+                            num_edges=int(e), num_triples=int(nn), dst_sorted=True)
     s, r, o = triples[:, 0], triples[:, 1], triples[:, 2]
 
     src = np.concatenate([s, o]).astype(np.int32)
@@ -213,13 +239,16 @@ def build_history(
     edge_bucket: int = 1024,
     rc_bucket: int = 1024,
     rc_mode: str = "both",
+    use_native: bool | None = None,
 ) -> Snapshot:
-    """Build + stack a history window, padding all steps to the window max."""
+    """Build + stack a history window, padding all steps to the window max
+    (``use_native`` as in :func:`build_snapshot`)."""
     edge_pad = _round_up(max(2 * len(t) for t in snapshots), edge_bucket)
     # rc pairs <= 4 * triples
     rc_pad = _round_up(4 * max(len(t) for t in snapshots), rc_bucket)
     return stack_history([
-        build_snapshot(t, num_nodes, num_rels, edge_pad=edge_pad, rc_pad=rc_pad, rc_mode=rc_mode)
+        build_snapshot(t, num_nodes, num_rels, edge_pad=edge_pad, rc_pad=rc_pad, rc_mode=rc_mode,
+                       use_native=use_native)
         for t in snapshots
     ])
 

@@ -34,6 +34,7 @@ from regcn_torch.models.decoders import _batch_norm, _init_bn
 from regcn_torch.ops.activations import inverted_dropout, leaky_relu, rrelu
 from regcn_torch.ops.rgcn_scatter import rgcn_aggregate, scatter_add_sorted
 from regcn_torch.ops.segment import segment_softmax
+from regcn_torch.utils.dtypes import mm
 from regcn_torch.utils.init import RELU_GAIN, torch_linear_uniform, xavier_normal, xavier_uniform
 
 Params = Dict[str, torch.Tensor]
@@ -70,11 +71,11 @@ def hisres_union_layer(
     node_repr = rgcn_aggregate(
         h, rel_emb, params["w_neighbor"], snap.src, snap.dst, snap.rel, snap.edge_mask,
         snap.in_deg_norm, dst_sorted=snap.dst_sorted)
-    edge_repr = rel_emb @ params["r_linear_w"].T + params["r_linear_b"]
+    edge_repr = mm(rel_emb, params["r_linear_w"].T) + params["r_linear_b"]
     if "loop_w" in params:
         loop = _dual_self_loop(params, h, snap.has_in_edge)
     if prev_h is not None and "skip_w" in params:
-        gate = torch.sigmoid(prev_h @ params["skip_w"] + params["skip_b"])
+        gate = torch.sigmoid(mm(prev_h, params["skip_w"]) + params["skip_b"])
         if "loop_w" in params:
             node_repr = node_repr + loop
         node_repr = gate * node_repr + (1 - gate) * prev_h
@@ -136,23 +137,27 @@ def cand_rgcn_layer(
 
     # edge attention logits (ref :106-109)
     z = torch.cat([h_src, r_e, h.index_select(0, snap.dst)], dim=-1)
-    logits = (leaky_relu(z @ params["pos_proj_w"].T, 0.01) @ params["attn_fc_w"].T)[:, 0]
+    logits = mm(leaky_relu(mm(z, params["pos_proj_w"].T), 0.01), params["attn_fc_w"].T)[:, 0]
     alpha = segment_softmax(logits, snap.dst, snap.edge_mask, n)
 
     # message: conv1d(1 -> 1, k=1) over bn(h_src + r), then @ W (ref :86-99)
     x, new_bn = _batch_norm(params["bn0"], bn_state, (h_src + r_e)[:, None, :], snap.edge_mask,
                             train=train)
-    msg = (x[:, 0, :] * params["conv_w"][0] + params["conv_b"][0]) @ params["w_neighbor"]
+    msg = mm(x[:, 0, :] * params["conv_w"][0] + params["conv_b"][0], params["w_neighbor"])
 
     # the alpha-weighted sum per destination, on B1: masked edges keyed n
     keys = torch.where(snap.edge_mask > 0, snap.dst, n).to(torch.int32)
     w = alpha * snap.edge_mask
+    # B1 sums in fp32; the sum returns in the dtype of JAX's segment sum of
+    # msg * w (fp32 where the history graph's mask is fp32)
+    agg_dtype = torch.result_type(msg, w)
     if not snap.dst_sorted:
         order = torch.argsort(keys, stable=True)
         keys, w, msg = keys[order], w[order], msg[order]
-    agg = scatter_add_sorted(msg.contiguous(), keys, n, edge_weight=w.contiguous())
+    agg = scatter_add_sorted(msg.float().contiguous(), keys, n,
+                             edge_weight=w.float().contiguous())
 
-    node_repr = agg.to(h.dtype) + _dual_self_loop(params, h, snap.has_in_edge)
+    node_repr = agg.to(agg_dtype) + _dual_self_loop(params, h, snap.has_in_edge)
     return inverted_dropout(rrelu(node_repr), dropout, gen, train), new_bn
 
 

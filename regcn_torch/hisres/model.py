@@ -22,8 +22,11 @@ parameters' device; JAX's and torch's random streams differ, so the two
 packages agree step for step only with every dropout at 0
 (``cand_dropout`` among them).
 
-Not ported yet, and raising: bf16 (ROADMAP A.5) and the multi-device
-aggregation (A.11).
+Under ``compute_dtype="bfloat16"`` the trainer hands the model bf16
+parameters and windows; the time encoding's cosine, the candidate sums
+(B1, fed fp32) and the decoders' scores stay fp32 islands, as in JAX.
+
+Not ported yet, and raising: the multi-device aggregation (ROADMAP A.11).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from regcn_torch.models.layers import gru_cell, init_gru_cell, init_rgcn_block_l
 from regcn_torch.models.recurrent import _masked_ce, _static_init, static_angular_loss, tree_to
 from regcn_torch.ops.activations import l2_normalize
 from regcn_torch.ops.segment import masked_segment_mean
+from regcn_torch.utils.dtypes import compute_dtype, dot_f32, mm
 from regcn_torch.utils.init import torch_linear_uniform, xavier_normal
 
 Params = Dict[str, Any]
@@ -96,9 +100,7 @@ class HisResState:
 
 def check_supported(cfg: HisResConfig) -> None:
     """Raises for the configurations this package does not run yet."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(f"compute dtype {cfg.compute_dtype!r}: only float32 is ported "
-                                  "(ROADMAP A.5)")
+    compute_dtype(cfg.compute_dtype)
     if cfg.impl != "xla":
         raise NotImplementedError(f"impl {cfg.impl!r} (the halo aggregation) is not ported yet "
                                   "(ROADMAP A.11)")
@@ -171,13 +173,13 @@ def _stream(params: Params, cfg: HisResConfig, history, h_init: torch.Tensor, pr
             # LogCL cosine time encoding (ref :274-277), t2 = T - step + 1, in fp32
             h_t = torch.cos(params["weight_t2"].float() * float(T - step + 1)
                             + params["bias_t2"].float()).to(h.dtype)
-            h = torch.cat([h, h_t.expand(h.shape[0], -1)], dim=1) @ params["time_linear_w"].T \
+            h = mm(torch.cat([h, h_t.expand(h.shape[0], -1)], dim=1), params["time_linear_w"].T) \
                 + params["time_linear_b"]
         ctx = masked_segment_mean(h.index_select(0, snap.rc_ent), snap.rc_rel, snap.rc_mask,
                                   cfg.num_rels_total)
         if step == 0:
             # the first step starts h0 from r_linear (ref :285-287)
-            h0 = torch.cat([emb_rel, ctx], dim=1) @ params["r_linear_w"].T + params["r_linear_b"]
+            h0 = mm(torch.cat([emb_rel, ctx], dim=1), params["r_linear_w"].T) + params["r_linear_b"]
             if cfg.layer_norm:
                 h0 = l2_normalize(h0)
         cur_h, cur_r = HLayers.hisres_rgcn_cell(rgcn, h, h0, snap, dropout=cfg.dropout, gen=gen,
@@ -210,7 +212,7 @@ def forward(params: Params, cfg: HisResConfig, history, history_gg, *, static_sn
 
 def fuse_streams(params: Params, g_emb: torch.Tensor, gg_emb: torch.Tensor) -> torch.Tensor:
     """weight_g = sigmoid(linear_g(g_emb)) blend (ref :331-333)."""
-    w = torch.sigmoid(g_emb @ params["linear_g_w"].T + params["linear_g_b"])
+    w = torch.sigmoid(mm(g_emb, params["linear_g_w"].T) + params["linear_g_b"])
     return w * g_emb + (1 - w) * gg_emb
 
 
@@ -225,7 +227,7 @@ def _time_convtrans_score(dec_params, bn_state, embedding, rel_emb, triples, mas
         dec_params, bn_state, torch.stack([e1, other], dim=1), mask,
         input_dropout=cfg.input_dropout, hidden_dropout=cfg.hidden_dropout,
         feat_dropout=cfg.feat_dropout, gen=gen, train=train)
-    scores = x.float() @ (ent_all if mode == "entity" else rel_emb).float().T
+    scores = dot_f32(x, (ent_all if mode == "entity" else rel_emb).T)  # fp32 scores
     if partial is not None:
         scores = scores * partial  # the one-hot history mask (ref decoder :48-51)
     return scores, new_bn
@@ -242,8 +244,8 @@ def _final_embeddings(params, state: HisResState, cfg, pre_emb, r_emb, his_graph
                                         his_graph_inv, dropout=cfg.cand_dropout, gen=gen,
                                         train=train)
     emb_raw, emb_inv = l2_normalize(emb_raw), l2_normalize(emb_inv)
-    w_s = torch.sigmoid(emb_raw @ params["linear_s1_w"].T + params["linear_s1_b"])
-    w_o = torch.sigmoid(emb_inv @ params["linear_o1_w"].T + params["linear_o1_b"])
+    w_s = torch.sigmoid(mm(emb_raw, params["linear_s1_w"].T) + params["linear_s1_b"])
+    w_o = torch.sigmoid(mm(emb_inv, params["linear_o1_w"].T) + params["linear_o1_b"])
     return (w_s * emb_raw + (1 - w_s) * pre_emb, w_o * emb_inv + (1 - w_o) * pre_emb,
             bn_raw, bn_inv)
 

@@ -21,6 +21,10 @@ scan makes it. Each history graph is padded to its own multiple of
 is masked, so the padding changes no value. An eval split's inputs are
 cached the same way, per ``cache_key``.
 
+``compute_dtype="bfloat16"``: the training loss runs in bf16 with JAX's
+fp32 islands, its gradients reach the fp32 parameters in fp32, and
+evaluation runs in fp32, as JAX's ``predict_step`` has no cast.
+
 Not ported yet, and raising: a mesh and ``dist_agg="halo"`` (ROADMAP A.11).
 """
 
@@ -46,6 +50,7 @@ from regcn_torch.train import loop, metrics
 from regcn_torch.train import state as train_state
 from regcn_torch.train.optim import tree_leaves
 from regcn_torch.train.state import TrainState
+from regcn_torch.utils.dtypes import compute_dtype, tree_to_compute, tree_to_fp32
 from regcn_torch.utils.profiling import embedding_stats, gradient_stats
 
 log = logging.getLogger(__name__)
@@ -75,6 +80,7 @@ class HisResTrainer:
             raise NotImplementedError("multi-device training (a mesh, dist_agg='halo') is not "
                                       "ported yet (ROADMAP A.11)")
         hmodel.check_supported(cfg)
+        self.compute_dtype = compute_dtype(cfg.compute_dtype)
         self.cfg, self.tc, self.data = cfg, tc, data
         self.device = torch.device(device)
         self.num_rels, self.num_nodes = data.num_rels, data.num_nodes
@@ -173,11 +179,17 @@ class HisResTrainer:
     def loss(self, state: TrainState, history, history_gg, triples, inv_triples, mask, hg_raw,
              hg_inv, rel_vocab):
         """(total, losses, new HisResState) of a training step: total =
-        tw * entity + (1 - tw) * relation + static."""
+        tw * entity + (1 - tw) * relation + static. The parameters and both
+        streams' windows enter in the compute dtype (the history graphs and
+        the vocabulary stay fp32, as JAX casts only those three), the
+        losses leave in fp32."""
+        cdt = self.compute_dtype
         _, losses, new_model_state = hmodel.get_loss(
-            state.params, state.model_state, self.cfg, history, history_gg, triples,
+            tree_to_compute(state.params, cdt), state.model_state, self.cfg,
+            tree_to_compute(history, cdt), tree_to_compute(history_gg, cdt), triples,
             inv_triples, mask, hg_raw, hg_inv, rel_vocab, static_snap=self.static_snap,
             gen=state.gen, train=True)
+        losses = tree_to_fp32(losses)
         tw = self.tc.task_weight
         total = tw * losses["entity"] + (1.0 - tw) * losses["relation"] + losses["static"]
         return total, losses, new_model_state
@@ -215,7 +227,7 @@ class HisResTrainer:
     # ------------------------------------------------------------------ eval
     def predict(self, state: TrainState, *inputs) -> Tuple[torch.Tensor, torch.Tensor]:
         """Eval-mode scores of ``window``-style inputs: (entity [2B, N],
-        relation [2B, 2R])."""
+        relation [2B, 2R]), in fp32 whatever the compute dtype."""
         return hmodel.predict(state.params, state.model_state, self.cfg, *inputs,
                               static_snap=self.static_snap)
 

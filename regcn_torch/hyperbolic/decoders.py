@@ -18,6 +18,10 @@ Counterpart of ``regcn_tpu/hyperbolic/decoders.py``:
   tangent table, scored with one plain GEMM plus a candidate bias ``b``;
 - DistMult and ComplEx: tangent scores, one plain GEMM each. The JAX
   model calls neither; they are here because the JAX package has them.
+
+Every score product has an fp32 result in every compute dtype
+(``dot_f32``), and the distance losses cast their inputs to fp32 at B2's
+boundary, as JAX's ``streaming_nll`` does.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from regcn_torch.hyperbolic import ops as H
 from regcn_torch.models import decoders as euclidean_decoders
 from regcn_torch.ops.activations import inverted_dropout
 from regcn_torch.ops.streaming_ce import SCORE_EPS, distance_logits, streaming_nll
+from regcn_torch.utils.dtypes import dot_f32, mm
 from regcn_torch.utils.init import xavier_uniform
 
 Params = Dict[str, torch.Tensor]
@@ -194,7 +199,7 @@ def _relation_loss(params, query, rel_embedding, triples, c, mask):
 def _translate(params, rel, mixed, c):
     """mobius_add(mixed, exp_0(rel @ trans_w.T + trans_b)), both projected
     to the ball: the entity decoders' relation translation."""
-    t_r = H.exp_map_zero(rel @ params["trans_w"].T + params["trans_b"], c)
+    t_r = H.exp_map_zero(mm(rel, params["trans_w"].T) + params["trans_b"], c)
     return H.mobius_add(H.project_to_ball(mixed, c), H.project_to_ball(t_r, c), c)
 
 
@@ -232,7 +237,7 @@ def _convtrans_score(params, bn_state, stacked, candidates, mask, dropouts, gen,
     x, new_bn = euclidean_decoders._convtrans_features(
         params, bn_state, stacked, mask, input_dropout=dropouts[0], hidden_dropout=dropouts[1],
         feat_dropout=dropouts[2], gen=gen, train=train)
-    return x @ candidates.T + params["b"], new_bn
+    return dot_f32(x, candidates.T) + params["b"], new_bn
 
 
 def hyperbolic_convtranse_score(params, bn_state, entity_embedding, rel_embedding, triples, c,
@@ -279,7 +284,7 @@ def init_murp(gen: torch.Generator, num_entities, num_rels_total, h_dim, c_init=
 def _murp_query(params, entity_embedding, rel_embedding, triples, c, dropout, gen, train):
     """Diagonal scaling of the subject's tangent, then the translation."""
     rel = rel_embedding.index_select(0, triples[:, 1])
-    rot = rel @ params["rot_w"].T + params["rot_b"]
+    rot = mm(rel, params["rot_w"].T) + params["rot_b"]
     s_tan = _subject_tangent(entity_embedding, triples, c, dropout, gen, train)
     return _translate(params, rel, H.exp_map_zero(rot * s_tan, c), c)
 
@@ -311,7 +316,7 @@ def _murp_rel_query(params, entity_embedding, triples, c, dropout, gen, train):
     o_tan = H.log_map_zero(entity_embedding.index_select(0, triples[:, 2]), c)
     s_tan = inverted_dropout(s_tan, dropout, gen, train)
     o_tan = inverted_dropout(o_tan, dropout, gen, train)
-    return H.exp_map_zero(s_tan @ params["w_s"] + o_tan @ params["w_o"], c)
+    return H.exp_map_zero(mm(s_tan, params["w_s"]) + mm(o_tan, params["w_o"]), c)
 
 
 def murp_rel_score(params, entity_embedding, rel_embedding, triples, c, *, dropout=0.0,
@@ -353,15 +358,15 @@ def init_roth(gen: torch.Generator, num_entities, num_rels_total, h_dim, c_init=
 
 def _reshape_tangent(params, x):
     """Residual tangent MLP before the Givens pairing."""
-    hidden = torch.relu(x @ params["reshape_w1"].T + params["reshape_b1"])
-    return x + hidden @ params["reshape_w2"].T + params["reshape_b2"]
+    hidden = torch.relu(mm(x, params["reshape_w1"].T) + params["reshape_b1"])
+    return x + mm(hidden, params["reshape_w2"].T) + params["reshape_b2"]
 
 
 def _roth_query(params, entity_embedding, rel_embedding, triples, c, dropout, gen, train):
     rel = rel_embedding.index_select(0, triples[:, 1])
     s_tan = _reshape_tangent(params, _subject_tangent(entity_embedding, triples, c, dropout, gen,
                                                       train))
-    angles = rel @ params["rot_w"].T + params["rot_b"]
+    angles = mm(rel, params["rot_w"].T) + params["rot_b"]
     return _translate(params, rel, H.exp_map_zero(givens_rotation(s_tan, angles), c), c)
 
 
@@ -447,9 +452,9 @@ def _atth_query(params, entity_embedding, rel_embedding, triples, c, dropout, ge
     sigmoid(<attn_w_r, [s_tan, rel_r]>), then the translation."""
     rel = rel_embedding.index_select(0, triples[:, 1])
     s_tan = _subject_tangent(entity_embedding, triples, c, dropout, gen, train)
-    rot_s = givens_rotation(s_tan, rel @ params["rot_w"].T + params["rot_b"])
-    ref_s = givens_reflection(s_tan, rel @ params["ref_w"].T + params["ref_b"])
-    attn_w = rel @ params["attn_w"].T + params["attn_b"]
+    rot_s = givens_rotation(s_tan, mm(rel, params["rot_w"].T) + params["rot_b"])
+    ref_s = givens_reflection(s_tan, mm(rel, params["ref_w"].T) + params["ref_b"])
+    attn_w = mm(rel, params["attn_w"].T) + params["attn_b"]
     a = torch.sigmoid(torch.sum(attn_w * torch.cat([s_tan, rel], dim=-1), dim=-1, keepdim=True))
     return _translate(params, rel, _attention_mix(rot_s, ref_s, a, c), c)
 
@@ -487,7 +492,7 @@ def _atth_rel_query(params, entity_embedding, triples, c, dropout, gen, train):
     s_tan = inverted_dropout(s_tan, dropout, gen, train)
     rot_s = givens_rotation(s_tan, params["global_rot"])
     ref_s = givens_reflection(s_tan, params["global_ref"])
-    a = torch.sigmoid(torch.cat([s_tan, o_tan], dim=-1) @ params["attn_weight"])[:, None]
+    a = torch.sigmoid(mm(torch.cat([s_tan, o_tan], dim=-1), params["attn_weight"]))[:, None]
     return H.mobius_add(-_attention_mix(rot_s, ref_s, a, c), obj, c)
 
 
@@ -510,7 +515,7 @@ def distmult_score(entity_embedding, rel_embedding, triples, c, *, dropout=0.0, 
     """[B, N] bilinear tangent scores <s ⊙ r, e> against every entity."""
     ent_tan = inverted_dropout(H.log_map_zero(entity_embedding, c), dropout, gen, train)
     s = ent_tan.index_select(0, triples[:, 0])
-    return (s * rel_embedding.index_select(0, triples[:, 1])) @ ent_tan.T
+    return dot_f32(s * rel_embedding.index_select(0, triples[:, 1]), ent_tan.T)
 
 
 def complex_score(entity_embedding, rel_embedding, triples, c, *, dropout=0.0, gen=None,
@@ -524,4 +529,4 @@ def complex_score(entity_embedding, rel_embedding, triples, c, *, dropout=0.0, g
     r = rel_embedding.index_select(0, triples[:, 1])
     s_re, s_im, r_re, r_im = s[:, :half], s[:, half:], r[:, :half], r[:, half:]
     sr = torch.cat([s_re * r_re - s_im * r_im, s_re * r_im + s_im * r_re], dim=-1)
-    return sr @ ent_tan.T
+    return dot_f32(sr, ent_tan.T)

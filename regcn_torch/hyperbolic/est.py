@@ -41,6 +41,7 @@ from torch import relu
 
 from regcn_torch.hyperbolic import ops as H
 from regcn_torch.models.layers import gru_gates, init_gru_cell
+from regcn_torch.utils.dtypes import linear, mm, promoted
 from regcn_torch.utils.init import torch_linear_uniform, xavier_uniform
 
 Params = Dict[str, torch.Tensor]
@@ -106,7 +107,8 @@ def inject_slow_state(params: Params, h_hyp: torch.Tensor, slow: torch.Tensor, c
     if entity_ids is not None:
         s = s.index_select(0, entity_ids)
     h_tan = torch.clamp(H.log_map_zero(h_hyp, c) + s, -CLAMP, CLAMP)
-    return H.project_to_ball(H.exp_map_zero(h_tan, c), c)
+    # in h_hyp's dtype: the fp32 slow memory must not promote a bf16 carry
+    return H.project_to_ball(H.exp_map_zero(h_tan, c), c).to(h_hyp.dtype)
 
 
 @torch.no_grad()
@@ -118,8 +120,9 @@ def update_states(params: Params, state: ESTState, entity_ids: torch.Tensor, mas
     the fast one through a sigmoid gate on the distance between them; the
     gate's threshold and scale are read detached. Returns a new state."""
     n, d = state.fast.shape
-    ctx = context_tangent.detach()
-    mask = mask.to(ctx.dtype)
+    # fp32, as JAX's product with the fp32 triple mask makes a bf16 context
+    ctx = context_tangent.detach().float()
+    mask = mask.float()
     cnt = mask.new_zeros(n).index_add_(0, entity_ids, mask)
     present = (cnt > 0)[:, None]
     ctx_sum = ctx.new_zeros((n, d)).index_add_(0, entity_ids, ctx * mask[:, None])
@@ -138,10 +141,11 @@ def update_states(params: Params, state: ESTState, entity_ids: torch.Tensor, mas
 def time_delta_tangent(params: Params, deltas: torch.Tensor) -> torch.Tensor:
     """MLP(log1p Δt) tangent features [B, K, d] of the time gaps [B, K]. The
     first layer has one input, so it is a product of each gap with the
-    weight column."""
+    weight column. The gaps' log1p is fp32, so under bf16 compute the MLP
+    runs in fp32 on the bf16 weights' values, as JAX's promotion runs it."""
     x = torch.log1p(deltas.float())[..., None]
     h1 = relu(x * params["tdp_w1"][:, 0] + params["tdp_b1"])
-    return F.linear(h1, params["tdp_w2"], params["tdp_b2"])
+    return linear(h1, params["tdp_w2"], params["tdp_b2"])
 
 
 def time_delta_projection(params: Params, deltas: torch.Tensor, c) -> torch.Tensor:
@@ -248,6 +252,7 @@ def _init_transformer(gen: torch.Generator, d: int, n_layers: int = 2):
 def _layer_norm(x, scale, bias, eps=1e-5):
     """(x - mean) / sqrt(var + eps) * scale + bias with the biased variance,
     as JAX's ``jnp.var``: torch's ``layer_norm`` is that, in one kernel."""
+    x, scale, bias = promoted(x, scale, bias)
     return F.layer_norm(x, x.shape[-1:], scale, bias, eps)
 
 
@@ -262,13 +267,13 @@ def _transformer_encode(tparams, x: torch.Tensor, mask: torch.Tensor, n_heads: i
         return t.reshape(B, K, n_heads, hd).transpose(1, 2)
 
     for lp in tparams["layers"]:
-        q, k, v = F.linear(x, lp["qkv_w"], lp["qkv_b"]).split(d, dim=-1)
+        q, k, v = linear(x, lp["qkv_w"], lp["qkv_b"]).split(d, dim=-1)
         logits = (heads(q) @ heads(k).transpose(-1, -2)) / math.sqrt(hd)
         attn = torch.softmax(logits.masked_fill(pad, MASKED), dim=-1)
         out = (attn @ heads(v)).transpose(1, 2).reshape(B, K, d)
-        x = _layer_norm(x + F.linear(out, lp["out_w"], lp["out_b"]), lp["ln1_scale"],
+        x = _layer_norm(x + linear(out, lp["out_w"], lp["out_b"]), lp["ln1_scale"],
                         lp["ln1_bias"])
-        ff = F.linear(relu(F.linear(x, lp["ff1_w"], lp["ff1_b"])), lp["ff2_w"], lp["ff2_b"])
+        ff = linear(relu(linear(x, lp["ff1_w"], lp["ff1_b"])), lp["ff2_w"], lp["ff2_b"])
         x = _layer_norm(x + ff, lp["ln2_scale"], lp["ln2_bias"])
     return x
 
@@ -279,11 +284,11 @@ def _gru_encode(gp: Params, x: torch.Tensor) -> torch.Tensor:
     is one product, split by ``unbind``: its backward stacks the K
     gradients once, where indexing each step would fill and add a whole
     [K, B, 3d] gradient per step."""
-    gi = F.linear(x.transpose(0, 1), gp["w_ih"], gp["b_ih"])  # [K, B, 3d]
+    gi = linear(x.transpose(0, 1), gp["w_ih"], gp["b_ih"])  # [K, B, 3d]
     h = x.new_zeros((x.shape[0], gp["w_hh"].shape[1]))
     seq = []
     for gi_k in gi.unbind(0):
-        h = gru_gates(gi_k, F.linear(h, gp["w_hh"], gp["b_hh"]), h)
+        h = gru_gates(gi_k, linear(h, gp["w_hh"], gp["b_hh"]), h)
         seq.append(h)
     return torch.stack(seq, dim=1)
 
@@ -303,10 +308,10 @@ def history_encoder_tangent(params: Params, cfg, nb_t: torch.Tensor, rl_t: torch
     """QCHHE on tangent features: (neighbour, relation, Δt) [B, K, d] each,
     the query's tangent [B, d] and the event mask [B, K] -> the tangent
     context [B, d]."""
-    hist = torch.tanh(F.linear(torch.cat([nb_t, rl_t, tm_t], dim=-1), params["hist_proj_w"],
+    hist = torch.tanh(linear(torch.cat([nb_t, rl_t, tm_t], dim=-1), params["hist_proj_w"],
                                params["hist_proj_b"]))
-    bias_in = F.linear(query_tangent, params["cond_in_w"], params["cond_in_b"])[:, None]
-    bias_gate = torch.sigmoid(F.linear(query_tangent, params["cond_gate_w"],
+    bias_in = linear(query_tangent, params["cond_in_w"], params["cond_in_b"])[:, None]
+    bias_gate = torch.sigmoid(linear(query_tangent, params["cond_gate_w"],
                                        params["cond_gate_b"]))[:, None]
     hist = (hist + bias_in) * bias_gate
     if cfg.est_encoder == "gru":
@@ -317,7 +322,7 @@ def history_encoder_tangent(params: Params, cfg, nb_t: torch.Tensor, rl_t: torch
     # the attention logit of [state ; query], its two halves apart
     d = hist_seq.shape[-1]
     w = params["attn_proj_w"][0]
-    scores = (hist_seq @ w[:d]) + (query_tangent @ w[d:] + params["attn_proj_b"])[:, None]
+    scores = mm(hist_seq, w[:d]) + (mm(query_tangent, w[d:]) + params["attn_proj_b"])[:, None]
     attn = torch.softmax(scores.masked_fill(mask <= 0, MASKED), dim=-1) * mask
     attn = attn / torch.clamp(torch.sum(attn, dim=-1, keepdim=True), min=1e-9)
     return torch.sum(hist_seq * attn[..., None], dim=1)
@@ -328,7 +333,7 @@ def history_encoder_tangent(params: Params, cfg, nb_t: torch.Tensor, rl_t: torch
 def fuse_global_local_tangent(params: Params, g_t: torch.Tensor, l_t: torch.Tensor
                               ) -> torch.Tensor:
     """Gated fusion of tangent rows -> tangent rows."""
-    gate = torch.sigmoid(F.linear(torch.cat([g_t, l_t], dim=-1), params["fusion_gate_w"],
+    gate = torch.sigmoid(linear(torch.cat([g_t, l_t], dim=-1), params["fusion_gate_w"],
                                   params["fusion_gate_b"]))
     return torch.clamp(gate * l_t + (1.0 - gate) * g_t, -CLAMP, CLAMP)
 
@@ -390,7 +395,8 @@ def enrich_embeddings(params: Params, cfg, global_emb: torch.Tensor, triples: to
     q_tangent = H.log_map_zero(global_emb.index_select(0, heads), c)
     context_t = history_encoder_tangent(params, cfg, nb_t, rl_t, tm_t, q_tangent, rb.event_mask)
     fused_t = fuse_global_local_tangent(params, q_tangent, H.clamp_tangent_norm(context_t, c))
-    fused = H.project_to_ball(H.exp_map_zero(fused_t, c), c)
+    # in the table's dtype under bf16 compute
+    fused = H.project_to_ball(H.exp_map_zero(fused_t, c), c).to(global_emb.dtype)
     out = set_rows(global_emb, heads, rb.row_mask > 0, fused)
     if return_ctx_tangent:
         return out, H.clamp_tangent_norm(fused_t, c)

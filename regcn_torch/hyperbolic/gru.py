@@ -22,6 +22,7 @@ import torch
 from regcn_torch.hyperbolic import ops as H
 from regcn_torch.models.layers import gru_cell, init_gru_cell
 from regcn_torch.ops.activations import inverted_dropout
+from regcn_torch.utils.dtypes import mm
 from regcn_torch.utils.init import xavier_uniform
 
 Params = Dict[str, torch.Tensor]
@@ -89,7 +90,7 @@ def hyperbolic_entity_gru(params: Params, current_hyp: torch.Tensor, prev_hyp: t
     """gate = sigmoid(prev_tan @ W + b); the two points blended in tangent
     space by it."""
     cur_tan, prev_tan = H.log_map_zero(current_hyp, c), H.log_map_zero(prev_hyp, c)
-    gate = torch.sigmoid(prev_tan @ params["time_gate_w"] + params["time_gate_b"])
+    gate = torch.sigmoid(mm(prev_tan, params["time_gate_w"]) + params["time_gate_b"])
     return H.exp_map_zero(gate * cur_tan + (1.0 - gate) * prev_tan, c)
 
 

@@ -42,6 +42,7 @@ from regcn_torch.models.layers import init_union_rgcn_layer
 from regcn_torch.ops.activations import inverted_dropout, leaky_relu, rrelu
 from regcn_torch.ops.rgcn_scatter import check_impl, rgcn_aggregate
 from regcn_torch.ops.segment import segment_softmax
+from regcn_torch.utils.dtypes import mm, promoted
 from regcn_torch.utils.init import RELU_GAIN, _uniform, xavier_uniform
 
 Params = Dict[str, torch.Tensor]
@@ -52,8 +53,8 @@ ENCODERS = ("hyperbolic_uvrgcn", "fhnn", "lgcn", "hgat")
 
 def _dual_self_loop(params, h_tan, has_in_edge):
     """``loop_w`` for nodes with incoming edges, ``evolve_loop_w`` else."""
-    return torch.where(has_in_edge[:, None] > 0, h_tan @ params["loop_w"],
-                       h_tan @ params["evolve_loop_w"])
+    return torch.where(has_in_edge[:, None] > 0, mm(h_tan, params["loop_w"]),
+                       mm(h_tan, params["evolve_loop_w"]))
 
 
 def init_lgcn_layer(gen: torch.Generator, h_dim, num_rels, n_bases=-1, self_loop=True,
@@ -97,7 +98,7 @@ def lgcn_layer(params: Params, h_hyper: torch.Tensor, rel_emb: Optional[torch.Te
         loop = _dual_self_loop(params, h_tan, snap.has_in_edge)
     if prev_h is not None and "skip_w" in params:
         prev_tan = H.log_map_zero(prev_h, c)
-        gate = torch.sigmoid(prev_tan @ params["skip_w"] + params["skip_b"])
+        gate = torch.sigmoid(mm(prev_tan, params["skip_w"]) + params["skip_b"])
         if "loop_w" in params:
             h_new = h_new + loop
         h_new = gate * h_new + (1 - gate) * prev_tan
@@ -118,7 +119,7 @@ def fhnn_edge_transform(rel_weight: torch.Tensor, tan_src: torch.Tensor, rel: to
     JAX's ``take`` lowering: the [E, d, d] weights gathered per edge, then
     one batched matvec. (JAX picks a one-hot GEMM instead on a TPU only.)"""
     w_e = rel_weight.index_select(0, rel)
-    return torch.bmm(tan_src[:, None, :], w_e)[:, 0, :]
+    return torch.bmm(*promoted(tan_src[:, None, :], w_e))[:, 0, :]
 
 
 def init_fhnn_layer(gen: torch.Generator, h_dim, num_rels, self_loop=True) -> Params:
@@ -156,7 +157,7 @@ def fhnn_layer(params: Params, h_hyper: torch.Tensor, rel_emb: Optional[torch.Te
                                          snap.in_deg_norm[snap.dst] * snap.edge_mask, snap.dst,
                                          n, c)
     if "loop_w" in params:
-        h_new = H.mobius_add(h_new, H.exp_map_zero(h_tan @ params["loop_w"], c), c)
+        h_new = H.mobius_add(h_new, H.exp_map_zero(mm(h_tan, params["loop_w"]), c), c)
     return _tangent_activation(h_new, c, dropout, gen, train).to(h_hyper.dtype)
 
 
@@ -189,7 +190,7 @@ def hgat_layer(params: Params, h_hyper: torch.Tensor, rel_emb: Optional[torch.Te
     h_tan = H.log_map_zero(h_hyper, c)
     w_e = params["rel_weight"].index_select(0, snap.rel)  # [E, heads, d, d]
     src_tan = h_tan.index_select(0, snap.src)
-    msgs_tan = torch.matmul(src_tan[:, None, None, :], w_e)[:, :, 0, :]  # [E, heads, d]
+    msgs_tan = torch.matmul(*promoted(src_tan[:, None, None, :], w_e))[:, :, 0, :]  # [E, heads, d]
     msgs_ball = H.exp_map_zero(msgs_tan, c)
     h_src, h_dst = h_hyper.index_select(0, snap.src), h_hyper.index_select(0, snap.dst)
     diff_tan = H.log_map_zero(H.mobius_add(h_src, -h_dst, c), c)
@@ -200,10 +201,10 @@ def hgat_layer(params: Params, h_hyper: torch.Tensor, rel_emb: Optional[torch.Te
                                        c)  # [N, heads, d]
     h_new = H.exp_map_zero(torch.mean(H.log_map_zero(agg, c), dim=1), c)
     if "loop_w" in params:
-        h_new = H.mobius_add(h_new, H.exp_map_zero(h_tan @ params["loop_w"], c), c)
+        h_new = H.mobius_add(h_new, H.exp_map_zero(mm(h_tan, params["loop_w"]), c), c)
     if prev_h is not None and "skip_w" in params:
         prev_tan = H.log_map_zero(prev_h, c)
-        gate = torch.sigmoid(prev_tan @ params["skip_w"] + params["skip_b"])
+        gate = torch.sigmoid(mm(prev_tan, params["skip_w"]) + params["skip_b"])
         h_new = H.exp_map_zero(gate * H.log_map_zero(h_new, c) + (1 - gate) * prev_tan, c)
     return _tangent_activation(h_new, c, dropout, gen, train).to(h_hyper.dtype)
 
@@ -237,7 +238,7 @@ def hyperbolic_union_layer(params: Params, h_hyper: torch.Tensor, rel_emb: torch
         loop = _dual_self_loop(params, h_tan, snap.has_in_edge)
     if prev_h is not None and "skip_w" in params:
         prev_tan = H.log_map_zero(prev_h, c)
-        gate = torch.sigmoid(prev_tan @ params["skip_w"] + params["skip_b"])
+        gate = torch.sigmoid(mm(prev_tan, params["skip_w"]) + params["skip_b"])
         if "loop_w" in params:
             h_new = h_new + loop
         h_new = gate * h_new + (1 - gate) * prev_tan
@@ -268,7 +269,7 @@ def union_layer_tangent(params: Params, v: torch.Tensor, rel_emb: torch.Tensor, 
     if "loop_w" in params:
         loop = _dual_self_loop(params, v, snap.has_in_edge)
     if prev_v is not None and "skip_w" in params:
-        gate = torch.sigmoid(prev_v @ params["skip_w"] + params["skip_b"])
+        gate = torch.sigmoid(mm(prev_v, params["skip_w"]) + params["skip_b"])
         if "loop_w" in params:
             h_new = h_new + loop
         h_new = gate * h_new + (1 - gate) * prev_v

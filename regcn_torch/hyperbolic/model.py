@@ -41,8 +41,14 @@ of the final table are enriched from their retrieved event histories
 before the decoders; with ``use_time_aware_negative`` the other true
 tails of each training query are squashed out of its entity scores.
 
-Not ported yet, and raising: bf16 (ROADMAP A.5) and the multi-device
-aggregation (A.11).
+Under ``compute_dtype="bfloat16"`` the trainer hands the model bf16
+parameters and windows: the norms, exp / log and radius maps, the
+Lorentz and Einstein aggregations, ``_static_radius``, the scatter's input
+and the scores stay fp32 islands, each returning the carry's dtype where
+JAX's does; a learned curvature promotes what it touches to fp32, as
+JAX's strong fp32 scalar does (:func:`get_curvature`).
+
+Not ported yet, and raising: the multi-device aggregation (ROADMAP A.11).
 """
 
 from __future__ import annotations
@@ -61,6 +67,7 @@ from regcn_torch.models.layers import gru_cell, init_gru_cell, init_rgcn_block_l
 from regcn_torch.models.recurrent import _masked_ce, _static_init, static_angular_loss, tree_to
 from regcn_torch.ops.activations import l2_normalize
 from regcn_torch.ops.rgcn_scatter import check_impl
+from regcn_torch.utils.dtypes import compute_dtype, mm
 from regcn_torch.ops.segment import masked_segment_mean
 from regcn_torch.utils.init import xavier_normal, xavier_uniform
 
@@ -144,10 +151,9 @@ class HypModelState:
 
 
 def check_supported(cfg: HyperbolicConfig) -> None:
-    """Raises for the configurations this package does not run yet."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(f"compute dtype {cfg.compute_dtype!r}: only float32 is ported "
-                                  "(ROADMAP A.5)")
+    """Raises for an unknown compute dtype, encoder x decoder pair or
+    aggregation route."""
+    compute_dtype(cfg.compute_dtype)
     if (cfg.encoder, cfg.decoder) not in PORTED:
         raise ValueError(f"unknown encoder x decoder pair ({cfg.encoder!r}, {cfg.decoder!r}); "
                          f"known: {PORTED}")
@@ -212,10 +218,18 @@ def init_params(gen: torch.Generator, cfg: HyperbolicConfig, radius_target=None,
 
 
 def get_curvature(params: Params, cfg: HyperbolicConfig, curvature_max=None) -> torch.Tensor:
-    """clamp(exp(log_c), c_min, c_max) when learned, else the fixed c."""
+    """clamp(exp(log_c), c_min, c_max) when learned, else the fixed c.
+
+    Under bf16 compute the learned c is returned as a [1] tensor. JAX's is
+    a strongly typed fp32 scalar, which promotes every bf16 operand it
+    meets to fp32 (a Möbius sum, a map to the hyperboloid); torch promotes
+    only for a tensor with an axis, and a [1] tensor broadcasts as the
+    scalar does. The fixed c is weakly typed in JAX (``jnp.asarray`` of a
+    Python float) and promotes nothing, as the 0-d tensor here."""
     if cfg.learn_curvature:
         cmax = cfg.curvature_max if curvature_max is None else curvature_max
-        return H.clip(torch.exp(params["log_c"]), cfg.curvature_min, cmax)
+        c = H.clip(torch.exp(params["log_c"]), cfg.curvature_min, cmax)
+        return c if cfg.compute_dtype == "float32" else c.reshape(1)
     return H.constant(cfg.c, params["emb_rel"].device)
 
 
@@ -224,14 +238,16 @@ def _static_radius(params: Params, cfg: HyperbolicConfig, c) -> torch.Tensor:
     detached c (the reference bounds it with c.detach())."""
     r = H.clip(params["radius_static"], cfg.radius_min, cfg.radius_max)
     max_r = 1.0 / torch.sqrt(torch.as_tensor(c).detach())
-    return H.minimum(r, max_r - 1e-6)
+    # in r's dtype: a learned c must not promote a bf16 radius (nor, through
+    # apply_radius, the carry) to fp32
+    return H.minimum(r, max_r - 1e-6).to(r.dtype)
 
 
 def _radius_evolution(params, cfg, x, static_radius, c):
     """TemporalRadiusEvolution: anchor to the static radius plus a bounded
     learned delta."""
     tangent = H.log_map_zero(x, c)
-    delta = (tangent @ params["radius_mlp_w"].T + params["radius_mlp_b"])[..., 0]
+    delta = (mm(tangent, params["radius_mlp_w"].T) + params["radius_mlp_b"])[..., 0]
     delta = torch.clamp(delta, -cfg.radius_epsilon, cfg.radius_epsilon)
     dynamic_radius = H.get_radius(x)
     base = (cfg.radius_anchor_beta * static_radius
@@ -292,7 +308,7 @@ def evolve(params: Params, cfg: HyperbolicConfig, history, *, static_snap=None,
             cur = H.exp_map_zero(l2_normalize(H.log_map_zero(cur, c)), c)
         cur_tan = torch.clamp(H.log_map_zero(cur, c), -CLAMP, CLAMP)
         prev_tan = torch.clamp(h_tan, -CLAMP, CLAMP)
-        gate = torch.sigmoid(prev_tan @ params["time_gate_w"] + params["time_gate_b"])
+        gate = torch.sigmoid(mm(prev_tan, params["time_gate_w"]) + params["time_gate_b"])
         h_new = H.project_to_ball(H.exp_map_zero(gate * cur_tan + (1.0 - gate) * prev_tan, c), c)
         if cfg.use_residual_evolution:
             h_new = _radius_evolution(params, cfg, h_new, static_radius, c)
@@ -330,10 +346,10 @@ def _evolve_tangent(params, cfg, history, h_init, emb_rel, static_radius, c, *, 
         # then clips: unit rows make the clip a no-op
         cur_tan = l2_normalize(cur) if cfg.layer_norm else torch.clamp(cur, -CLAMP, CLAMP)
         prev_tan = torch.clamp(v, -CLAMP, CLAMP)
-        gate = torch.sigmoid(prev_tan @ params["time_gate_w"] + params["time_gate_b"])
+        gate = torch.sigmoid(mm(prev_tan, params["time_gate_w"]) + params["time_gate_b"])
         v_new = H.clamp_tangent_norm(gate * cur_tan + (1.0 - gate) * prev_tan, c)
         if cfg.use_residual_evolution:
-            delta = (v_new @ params["radius_mlp_w"].T + params["radius_mlp_b"])[..., 0]
+            delta = (mm(v_new, params["radius_mlp_w"].T) + params["radius_mlp_b"])[..., 0]
             delta = torch.clamp(delta, -cfg.radius_epsilon, cfg.radius_epsilon)
             base = (cfg.radius_anchor_beta * static_radius
                     + (1.0 - cfg.radius_anchor_beta) * H.radius_from_tangent(v_new, c))

@@ -229,9 +229,14 @@ def lorentz_centroid_segments(
     ``index_add_``, as the JAX package does them with ``segment_sum``."""
     wsum = weights.new_zeros(num_segments).index_add(0, segment_ids, weights)
     w = weights / (wsum[segment_ids] + eps)
-    centroid = emb.new_zeros((num_segments, emb.shape[-1])).index_add(
-        0, segment_ids, w[:, None] * emb)
-    origin = torch.zeros_like(centroid)
+    contrib = w[:, None] * emb
+    centroid = contrib.new_zeros((num_segments, emb.shape[-1])).index_add(0, segment_ids,
+                                                                           contrib)
+    # the origin in the dtype of 1 / sqrt(c) against the centroid's, as
+    # JAX's ``jnp.full`` makes it: a learned c (strong fp32) upcasts the
+    # normalisation, whose result returns to the points' dtype
+    dtype = torch.result_type(centroid, c) if isinstance(c, torch.Tensor) else centroid.dtype
+    origin = torch.zeros_like(centroid, dtype=dtype)
     origin[:, 0] = 1.0 / sqrt(c)
     centroid = torch.where((wsum <= eps)[:, None], origin, centroid)
     return lorentz_normalize(centroid, c, eps).to(emb.dtype)

@@ -41,6 +41,12 @@ steps in the same order. A window shorter than the history length is
 run as it is: the fused path's empty front snapshots are identity steps,
 so both give the same result.
 
+``compute_dtype="bfloat16"``: each step's loss takes the parameters and
+the history in bf16 (``utils/dtypes.py:tree_to_compute``; 0-d leaves
+such as a learned curvature stay fp32), its gradients and losses come
+back in fp32, and both optimizers stay fp32; evaluation runs in bf16 with
+fp32 scores, as JAX's ``predict_step`` does.
+
 ``dilate_len`` is not read, as JAX's hyperbolic trainer does not read it.
 Not ported yet: meshes and the boundary halo (ROADMAP A.11).
 """
@@ -70,6 +76,7 @@ from regcn_torch.train import loop, metrics
 from regcn_torch.train import state as train_state
 from regcn_torch.train.optim import tree_leaves
 from regcn_torch.train.state import TrainState, copy_state
+from regcn_torch.utils.dtypes import compute_dtype, tree_to_compute, tree_to_fp32
 from regcn_torch.utils.profiling import embedding_stats, gradient_stats
 
 log = logging.getLogger(__name__)
@@ -112,6 +119,7 @@ class HyperbolicTrainer:
                  triple_batch_mode: str = "accumulate", run_analysis: bool = False,
                  device="cuda"):
         hmodel.check_supported(cfg)
+        self.compute_dtype = compute_dtype(cfg.compute_dtype)
         if triple_batch_mode not in ("accumulate", "per_chunk"):
             raise ValueError(f"triple_batch_mode must be 'accumulate' or 'per_chunk', got "
                              f"{triple_batch_mode!r}")
@@ -209,8 +217,20 @@ class HyperbolicTrainer:
         return self._chunks[i]
 
     def _predict(self):
-        """The model's eval-mode scores, the static graph bound in."""
-        return functools.partial(hmodel.predict, static_snap=self.static_snap)
+        """The model's eval-mode scores, the static graph bound in. Under
+        bf16 compute the parameters and the history enter in bf16 and the
+        scores leave in fp32, as JAX's ``predict_step`` runs them."""
+        predict = functools.partial(hmodel.predict, static_snap=self.static_snap)
+        cdt = self.compute_dtype
+        if cdt == torch.float32:
+            return predict
+
+        def predict_compute(params, model_state, cfg, history, triples, mask=None, **kw):
+            s_ob, s_rel = predict(tree_to_compute(params, cdt), model_state, cfg,
+                                  tree_to_compute(history, cdt), triples, mask, **kw)
+            return s_ob.float(), s_rel.float()
+
+        return predict_compute
 
     def _eval_inputs(self, state: TrainState, time_offset: int):
         """``step_inputs`` of the rolling evaluation: EST's retrieval batch of
@@ -240,12 +260,16 @@ class HyperbolicTrainer:
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], HypModelState, Dict]:
         """(total, losses, new HypModelState, aux of ``get_loss``): total = tw *
         entity + (1 - tw) * relation + static + radius, with the dropouts of
-        a training step; ``rb`` and ``tans`` as ``est_window`` gives them."""
+        a training step; ``rb`` and ``tans`` as ``est_window`` gives them.
+        The parameters and the history enter in the compute dtype, the
+        losses leave in fp32."""
         est_inputs = (state.est_state, rb) if (self.cfg.use_est and rb is not None) else None
         _, losses, new_model_state, aux = hmodel.get_loss(
-            state.params, state.model_state, self.cfg, history, triples, mask,
+            tree_to_compute(state.params, self.compute_dtype), state.model_state, self.cfg,
+            tree_to_compute(history, self.compute_dtype), triples, mask,
             static_snap=self.static_snap, est_inputs=est_inputs, tans_mask_coo=tans,
             gen=state.gen, train=True, curvature_max=cmax)
+        losses = tree_to_fp32(losses)
         tw = self.tc.task_weight
         total = (tw * losses["entity"] + (1.0 - tw) * losses["relation"]
                  + losses["static"] + losses["radius"])

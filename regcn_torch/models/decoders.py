@@ -8,6 +8,10 @@ BatchNorm -> relu -> dropout -> channel-major flatten -> Linear(C*d -> d)
 -> dropout -> BatchNorm -> relu -> scores against all candidates in one
 [B,d]x[d,N] GEMM.
 
+Under bf16 compute the features run in bf16, BatchNorm's statistics and
+its affine map in fp32, and the scores come out fp32 (``dot_f32``), as
+JAX's ``preferred_element_type=float32``.
+
 In eval mode BatchNorm uses the running statistics of the model state.
 In train mode it normalises by the batch statistics of the real rows
 only (padded triples are masked out, as in the JAX package), with the
@@ -25,6 +29,7 @@ import torch.nn.functional as F
 from torch import relu
 
 from regcn_torch.ops.activations import inverted_dropout
+from regcn_torch.utils.dtypes import dot_f32, linear
 from regcn_torch.utils.init import torch_linear_uniform
 
 Params = Dict[str, torch.Tensor]
@@ -91,8 +96,8 @@ def _batch_norm(params: Params, state: BNState, x: torch.Tensor,
         mean, var = state["mean"], state["var"]
         new_state = state
     inv = torch.rsqrt(var.reshape(shape) + _BN_EPS)
-    out = (x32 - mean.reshape(shape)) * inv * params["scale"].reshape(shape) \
-        + params["bias"].reshape(shape)
+    out = (x32 - mean.reshape(shape)) * inv * params["scale"].reshape(shape).float() \
+        + params["bias"].reshape(shape).float()
     return out.to(x.dtype), new_state
 
 
@@ -112,11 +117,12 @@ def _convtrans_features(
     new_state = dict(state)
     x, new_state["bn0"] = _batch_norm(params["bn0"], state["bn0"], stacked, mask, train=train)
     x = inverted_dropout(x, input_dropout, gen, train)
-    x = F.conv1d(x, params["conv_w"], params["conv_b"], padding="same")
+    # the weights in the input's dtype, as JAX's convolution takes them
+    x = F.conv1d(x, params["conv_w"].to(x.dtype), params["conv_b"].to(x.dtype), padding="same")
     x, new_state["bn1"] = _batch_norm(params["bn1"], state["bn1"], x, mask, train=train)
     x = inverted_dropout(relu(x), feat_dropout, gen, train)
     x = x.reshape(x.shape[0], -1)  # [B, C*d], channel-major like torch .view
-    x = inverted_dropout(F.linear(x, params["fc_w"], params["fc_b"]), hidden_dropout, gen, train)
+    x = inverted_dropout(linear(x, params["fc_w"], params["fc_b"]), hidden_dropout, gen, train)
     x, new_state["bn2"] = _batch_norm(params["bn2"], state["bn2"], x, mask, train=train)
     return relu(x), new_state
 
@@ -129,7 +135,7 @@ def _score(params, state, stacked, candidates, mask, input_dropout, hidden_dropo
     x, new_state = _convtrans_features(
         params, state, stacked, mask, input_dropout=input_dropout,
         hidden_dropout=hidden_dropout, feat_dropout=feat_dropout, gen=gen, train=train)
-    scores = x @ candidates.T
+    scores = dot_f32(x, candidates.T)  # fp32 scores in every compute dtype
     return (scores, new_state) if train else scores
 
 

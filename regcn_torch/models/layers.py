@@ -36,6 +36,7 @@ from regcn_torch.config import ModelConfig
 from regcn_torch.ops.activations import inverted_dropout, rrelu
 from regcn_torch.ops.rgcn_scatter import rgcn_aggregate, scatter_add_sorted
 from regcn_torch.ops.segment import masked_segment_sum
+from regcn_torch.utils.dtypes import dot_f32, linear, mm
 from regcn_torch.utils.init import RELU_GAIN, gru_uniform, xavier_uniform
 
 Params = Dict[str, torch.Tensor]
@@ -68,20 +69,22 @@ def union_rgcn_layer(
     dropout: float = 0.0,
     gen: Optional[torch.Generator] = None,
     train: bool = False,
+    impl: str = "xla",
 ) -> torch.Tensor:
     node_repr = rgcn_aggregate(
         h, rel_emb, params["w_neighbor"], snap.src, snap.dst, snap.rel,
-        snap.edge_mask, snap.in_deg_norm, dst_sorted=snap.dst_sorted,
+        snap.edge_mask, snap.in_deg_norm, dst_sorted=snap.dst_sorted, impl=impl,
     )
     if "loop_w" in params:
         # dual self-loop: evolve_loop_weight for isolated nodes
-        # (ref:rgcn/layers.py:226-233)
+        # (ref:rgcn/layers.py:226-233); fp32 products, back in h's dtype
         loop = torch.where(snap.has_in_edge[:, None] > 0,
-                           h @ params["loop_w"], h @ params["evolve_loop_w"])
+                           dot_f32(h, params["loop_w"]).to(h.dtype),
+                           dot_f32(h, params["evolve_loop_w"]).to(h.dtype))
         node_repr = node_repr + loop
     if prev_h is not None and "skip_w" in params:
         # sigmoid-gated skip across layers (ref:rgcn/layers.py:234-245)
-        gate = torch.sigmoid(prev_h @ params["skip_w"] + params["skip_b"])
+        gate = torch.sigmoid(mm(prev_h, params["skip_w"]) + params["skip_b"])
         node_repr = gate * node_repr + (1.0 - gate) * prev_h
     return inverted_dropout(rrelu(node_repr), dropout, gen, train)
 
@@ -96,14 +99,14 @@ def init_rgcn_cell(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, list]:
 
 def rgcn_cell(
     params, h: torch.Tensor, rel_emb: torch.Tensor, snap, cfg: ModelConfig, *,
-    gen: Optional[torch.Generator] = None, train: bool = False,
+    gen: Optional[torch.Generator] = None, train: bool = False, impl: str = "xla",
 ) -> torch.Tensor:
     x = h
     prev = None
     for i, lp in enumerate(params["layers"]):
         sc_prev = prev if (cfg.skip_connect and i > 0) else None
         prev, x = x, union_rgcn_layer(lp, x, rel_emb, snap, prev_h=sc_prev,
-                                      dropout=cfg.dropout, gen=gen, train=train)
+                                      dropout=cfg.dropout, gen=gen, train=train, impl=impl)
     return x
 
 
@@ -214,8 +217,8 @@ def gru_cell(params: Params, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """torch GRUCell semantics: r/z gates then candidate with reset on h.
 
     Gate order r, z, n, as in ``torch.nn.GRUCell``."""
-    return gru_gates(torch.nn.functional.linear(x, params["w_ih"], params["b_ih"]),
-                     torch.nn.functional.linear(h, params["w_hh"], params["b_hh"]), h)
+    return gru_gates(linear(x, params["w_ih"], params["b_ih"]),
+                     linear(h, params["w_hh"], params["b_hh"]), h)
 
 
 def gru_gates(gi: torch.Tensor, gh: torch.Tensor, h: torch.Tensor) -> torch.Tensor:

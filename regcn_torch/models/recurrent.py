@@ -14,6 +14,11 @@ starts from the static entity-word graph's embedding, one
 angular constraint between that embedding and each step's evolved one
 (:func:`static_angular_loss`).
 
+Under ``dtype="bfloat16"`` the trainer hands the model bf16 parameters
+and windows; the segment sums, the aggregation's product and scatter, the
+self-loop products, BatchNorm and the scores (fp32) and the CE are fp32
+islands, as in JAX.
+
 Evolution step (one snapshot):
   ctx[r]   = mean_{e incident to r} h[e]                  (segment mean)
   h0       = GRUCell([emb_rel ; ctx], h0)                 (relation GRU)
@@ -42,6 +47,7 @@ from regcn_torch.models.layers import (
 )
 from regcn_torch.ops.activations import l2_normalize
 from regcn_torch.ops.segment import masked_segment_mean
+from regcn_torch.utils.dtypes import compute_dtype, mm
 from regcn_torch.utils.init import xavier_normal, xavier_uniform
 
 Params = Dict[str, Any]
@@ -65,10 +71,8 @@ def tree_to(tree, device):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raises for the configurations this package does not run yet."""
-    if cfg.dtype != "float32":
-        raise NotImplementedError(f"compute dtype {cfg.dtype!r}: only float32 is ported "
-                                  "(ROADMAP A.5)")
+    """Raises for a compute dtype other than float32 and bfloat16."""
+    compute_dtype(cfg.dtype)
 
 
 def init_params(
@@ -110,7 +114,8 @@ def _static_init(params: Params, cfg: ModelConfig, static_snap, *,
 
 
 def evolve(params: Params, cfg: ModelConfig, history, *, static_snap=None,
-           gen: Optional[torch.Generator] = None, train: bool = False, return_all: bool = False):
+           gen: Optional[torch.Generator] = None, train: bool = False, return_all: bool = False,
+           impl: str = "xla"):
     """Run the recurrent evolution over a stacked [T, ...] history window
     (a Snapshot of tensors). Returns (h_final [N, d], r_emb_final [2R, d]);
     with ``return_all``, (h_final, r_emb_final, the static embedding or
@@ -135,10 +140,10 @@ def evolve(params: Params, cfg: ModelConfig, history, *, static_snap=None,
         h0_new = gru_cell(params["gru"], torch.cat([emb_rel, ctx], dim=1), h0)
         if cfg.layer_norm:
             h0_new = l2_normalize(h0_new)
-        cur = rgcn_cell(params["rgcn"], h, h0_new, snap, cfg, gen=gen, train=train)
+        cur = rgcn_cell(params["rgcn"], h, h0_new, snap, cfg, gen=gen, train=train, impl=impl)
         if cfg.layer_norm:
             cur = l2_normalize(cur)
-        gate = torch.sigmoid(h @ params["time_gate_w"] + params["time_gate_b"])
+        gate = torch.sigmoid(mm(h, params["time_gate_w"]) + params["time_gate_b"])
         h_new = gate * cur + (1.0 - gate) * h
         # an empty (all-masked) snapshot is an identity step, for autograd
         # too; decided on the device, so the loop never waits for the host
@@ -201,6 +206,7 @@ def get_loss(
     static_snap=None,
     gen: Optional[torch.Generator] = None,
     train: bool = True,
+    impl: str = "xla",
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], ModelState]:
     """Entity + relation + static losses (ref:src/rrgcn.py:197-248):
     (loss_ent, {"entity", "relation", "static"}, new ModelState). The
@@ -212,9 +218,9 @@ def get_loss(
     static_emb = all_h = None
     if cfg.use_static:
         h, r_emb, static_emb, all_h = evolve(params, cfg, history, static_snap=static_snap,
-                                             gen=gen, train=train, return_all=True)
+                                             gen=gen, train=train, return_all=True, impl=impl)
     else:
-        h, r_emb = evolve(params, cfg, history, gen=gen, train=train)
+        h, r_emb = evolve(params, cfg, history, gen=gen, train=train, impl=impl)
     pre_emb = l2_normalize(h) if cfg.layer_norm else h
     zero = torch.zeros((), device=h.device)
     losses = {"entity": zero, "relation": zero, "static": zero}
@@ -246,9 +252,11 @@ def predict(
     triples: torch.Tensor,  # [B, 3] with inverses, padded
     *,
     static_snap=None,
+    impl: str = "xla",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Eval-mode scores (ref:src/rrgcn.py:183-194): (ent [B,N], rel [B,2R])."""
-    h, r_emb = evolve(params, cfg, history, static_snap=static_snap)
+    """Eval-mode scores (ref:src/rrgcn.py:183-194): (ent [B,N], rel [B,2R]),
+    fp32 in every compute dtype."""
+    h, r_emb = evolve(params, cfg, history, static_snap=static_snap, impl=impl)
     emb = l2_normalize(h) if cfg.layer_norm else h
     scores_ob = decoders.convtranse_score(params["decoder_ob"], state.bn_ob, emb, r_emb, triples)
     scores_rel = decoders.convtransr_score(params["decoder_rel"], state.bn_rel, emb, r_emb, triples)

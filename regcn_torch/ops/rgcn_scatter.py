@@ -7,11 +7,20 @@ graph with E directed edges over N entities,
     msg_e = (H[src_e] + Rel[rel_e]) @ W            # one [E,d]x[d,d] GEMM
     out_v = in_deg_norm_v * sum_{e: dst_e=v} mask_e * w_e * msg_e   # w_e = 1 unless given
 
-The GEMM is ``torch.matmul`` (the JAX package also leaves it to XLA
-outside its kernel). The scatter is the hand-written CUDA kernel
+The GEMM is a library product (the JAX package also leaves it to XLA
+outside its kernel) with an fp32 result in every compute dtype
+(``regcn_torch/utils/dtypes.py:dot_f32``: under bf16 compute, the bf16
+tensor-core GEMM with an fp32 output on the card, the fp32 product of the
+bf16 values on the CPU), as JAX's ``preferred_element_type=float32``.
+The mask, the edge weight and the in-degree norm enter the scatter in
+fp32, and the sum returns in the compute dtype of ``h``. The scatter is
+the hand-written CUDA kernel
 ``regcn_torch/csrc/rgcn_scatter.cu`` on a CUDA tensor, and its plain
 version :func:`scatter_add_sorted_reference` on a CPU tensor. There is
-no switch that sends a CUDA tensor to the plain version.
+no switch that sends a CUDA tensor to the plain version. ``impl="cumsum"``
+is JAX's other single-device route, a cumulative sum over the
+destination-sorted messages (:func:`rgcn_aggregate_cumsum`), plain torch
+on both devices: no Pallas kernel stands behind it.
 
 Both devices differentiate the scatter through one
 ``torch.autograd.Function`` whose backward is plain torch indexing: the
@@ -37,9 +46,10 @@ from typing import Optional, Tuple
 import torch
 
 from regcn_torch.ops import cuda_build
+from regcn_torch.utils.dtypes import dot_f32
 
 _INT_MAX = 2**31 - 1
-IMPLS = ("xla", "pallas")
+IMPLS = ("xla", "pallas", "cumsum")
 _MAX_EDGES = 2**24  # the kernel's per-row counters hold chunk ids below 2^19
 
 
@@ -256,9 +266,12 @@ scatter_add_sorted.launches = 0
 
 def check_impl(impl: str) -> None:
     """Raises unless ``impl`` is one of the JAX package's single-device
-    aggregation routes, "xla" (XLA's segment sum) or "pallas" (kernel B1).
-    Both take the same path here: the kernel on a CUDA tensor, its plain
-    version on a CPU tensor. "halo" is multi-device (ROADMAP A.11)."""
+    aggregation routes: "xla" (XLA's segment sum) or "pallas" (kernel B1),
+    which take the same path here, the kernel on a CUDA tensor and its
+    plain version on a CPU tensor; or "cumsum", the approximate
+    cumulative-sum route (:func:`rgcn_aggregate_cumsum`). The hyperbolic
+    and HisRES layers take B1 for "cumsum" too, as JAX's take their
+    segment sum. "halo" is multi-device (ROADMAP A.11)."""
     if impl == "halo":
         raise NotImplementedError("impl 'halo' (the multi-device boundary exchange) is not "
                                   "ported yet (ROADMAP A.11)")
@@ -278,24 +291,59 @@ def rgcn_aggregate(
     *,
     dst_sorted: bool,
     edge_weight: Optional[torch.Tensor] = None,  # [E] float, multiplies the mask
+    impl: str = "xla",
 ) -> torch.Tensor:
-    """Returns [N, d] aggregated neighborhood messages, each edge's
-    message scaled by ``edge_mask`` (times ``edge_weight`` where given:
-    the hyperbolic uvrgcn's radius weight, which may require grad).
+    """Returns [N, d] aggregated neighborhood messages in ``h``'s dtype,
+    each edge's message scaled by ``edge_mask`` (times ``edge_weight``
+    where given: the hyperbolic uvrgcn's radius weight, which may require
+    grad).
 
     ``dst_sorted=True`` (the edge order of build_snapshot, Snapshot.dst_sorted)
     feeds the edges to the kernel as they are; otherwise they are sorted
-    by key first, their weights with them.
+    by key first, their weights with them. ``impl="cumsum"`` requires
+    ``dst_sorted=True``, as JAX's does, and takes no edge weight.
     """
+    if impl == "cumsum":
+        if not dst_sorted:
+            raise ValueError("impl='cumsum' requires destination-sorted edges")
+        if edge_weight is not None:
+            raise ValueError("impl='cumsum' takes no edge weight")
+        return rgcn_aggregate_cumsum(h, rel_emb, weight, src, dst, rel, edge_mask, in_deg_norm)
     n = h.shape[0]
     # masked edges carry key n. The padded tail stores dst=0, so raw dst is
     # not monotone: keying the mask first keeps the keys ascending.
     keys = torch.where(edge_mask > 0, dst, n).to(torch.int32)
-    w = edge_mask if edge_weight is None else edge_weight * edge_mask
+    w = edge_mask.float() if edge_weight is None else edge_weight.float() * edge_mask.float()
     if not dst_sorted:
         order = torch.argsort(keys, stable=True)
         src, rel, keys, w = src[order], rel[order], keys[order], w[order]
-    msg = (h[src] + rel_emb[rel]) @ weight
+    msg = dot_f32(h[src] + rel_emb[rel], weight)
     agg = scatter_add_sorted(msg, keys, n, edge_weight=w.contiguous(),
-                             row_scale=in_deg_norm.contiguous())
+                             row_scale=in_deg_norm.float().contiguous())
     return agg.to(h.dtype)
+
+
+def rgcn_aggregate_cumsum(h, rel_emb, weight, src, dst, rel, edge_mask, in_deg_norm
+                          ) -> torch.Tensor:
+    """The sorted-segment sum as a cumulative sum and differences at the
+    segment boundaries (``regcn_tpu/ops/rgcn_scatter.py:_rgcn_aggregate_cumsum``):
+
+        S = cumsum(mask * msg);  out[v] = norm_v * (S[end_v] - S[start_v])
+
+    The fp32 running sum makes it approximate (JAX measured a max relative
+    error ~6e-5 at E = 4M), so JAX offers it for large-graph serving only.
+    The segment offsets come from ``searchsorted`` over the running max of
+    the raw ``dst``: the builders zero-fill the padded tail after the sorted
+    real edges, and a masked edge adds a zero message, so giving its empty
+    span to the running-max segment is exact. Its messages are not keyed
+    to n as B1's are: it relies on that layout (every real edge before
+    every padded one, real dst ascending)."""
+    n = h.shape[0]
+    msg = dot_f32(h[src] + rel_emb[rel], weight)
+    msg = msg * edge_mask.float()[:, None]
+    cum = torch.cat([msg.new_zeros((1, msg.shape[1])), torch.cumsum(msg, dim=0)], dim=0)
+    dst_keys = torch.cummax(dst, dim=0).values.contiguous()
+    offsets = torch.searchsorted(dst_keys, torch.arange(n + 1, dtype=dst_keys.dtype,
+                                                        device=dst_keys.device))
+    agg = cum[offsets[1:]] - cum[offsets[:-1]]
+    return (agg * in_deg_norm.float()[:, None]).to(h.dtype)

@@ -34,6 +34,7 @@ from typing import Tuple
 import torch
 
 from regcn_torch.ops import cuda_build, rgcn_scatter
+from regcn_torch.utils.dtypes import dot_f32
 
 SCORE_EPS = 1e-6  # ref SCORE_SCALE_EPSILON
 TILE = 64  # queries and candidates per tile of the backward kernels' clusters
@@ -49,8 +50,9 @@ _INT_MAX = 2**31 - 1
 # ------------------------------------------------------------- plain version
 
 def mobius_diff_norm_sq(query, candidates, c, eps: float = SCORE_EPS) -> torch.Tensor:
-    """[B, N] ||mobius_add(-q, x)||^2 from one GEMM; c is a scalar or [B, 1]."""
-    p = query @ candidates.T
+    """[B, N] ||mobius_add(-q, x)||^2 from one GEMM (fp32 products); c is a
+    scalar or [B, 1]."""
+    p = dot_f32(query, candidates.T)
     qq = torch.sum(query * query, dim=-1, keepdim=True)
     xx = torch.sum(candidates * candidates, dim=-1)[None, :]
     A = 1.0 - 2.0 * c * p + c * xx

@@ -49,6 +49,7 @@ from regcn_torch.train import metrics
 from regcn_torch.train import state as train_state
 from regcn_torch.train.optim import tree_leaves
 from regcn_torch.train.state import TrainState
+from regcn_torch.utils.dtypes import compute_dtype, tree_to_compute, tree_to_fp32
 from regcn_torch.utils.profiling import embedding_stats, gradient_stats
 
 log = logging.getLogger(__name__)
@@ -63,9 +64,11 @@ Predict = Callable[..., tuple]
 StepInputs = Optional[Callable[[int, np.ndarray, np.ndarray], dict]]
 
 
-def regcn_predict(params, model_state, cfg, history, triples, mask, static_snap=None):
+def regcn_predict(params, model_state, cfg, history, triples, mask, static_snap=None,
+                  impl: str = "xla"):
     """RE-GCN's eval-mode scores (the mask is not needed there)."""
-    return recurrent.predict(params, model_state, cfg, history, triples, static_snap=static_snap)
+    return recurrent.predict(params, model_state, cfg, history, triples, static_snap=static_snap,
+                             impl=impl)
 
 
 def static_snapshot(data: TKGData, tc: TrainConfig, device):
@@ -280,8 +283,14 @@ class Trainer:
     snapshots are merged into one (:func:`dilate_snapshots`), as JAX's
     trainer does; the valid and test splits stay as they are. ``impl``
     ("xla" or "pallas", JAX's aggregation routes) takes kernel B1 on the
-    card either way. Not ported, and raising ``NotImplementedError``: a
-    mesh and ``dist_agg="halo"`` (ROADMAP A.11)."""
+    card either way; "cumsum" takes the cumulative-sum route, in training
+    and evaluation alike, as JAX's trainer does. Under ``dtype="bfloat16"``
+    the loss casts the parameters and the history window to bf16
+    (``utils/dtypes.py:tree_to_compute``), and the gradients reach the
+    fp32 parameters in fp32; evaluation runs in fp32, as JAX's
+    ``predict_step`` has no cast, and checkpoints hold the fp32
+    parameters. Not ported, and raising ``NotImplementedError``: a mesh
+    and ``dist_agg="halo"`` (ROADMAP A.11)."""
 
     def __init__(self, cfg: ExperimentConfig, data: TKGData, *, impl: str = "xla", mesh=None,
                  dist_agg: str = "gspmd", run_analysis: bool = False, device="cuda"):
@@ -292,6 +301,8 @@ class Trainer:
                                       "ported yet (ROADMAP A.11)")
         check_impl(impl)
         recurrent.check_supported(cfg.model)
+        self.impl = impl
+        self.compute_dtype = compute_dtype(cfg.model.dtype)
         self.cfg, self.data = cfg, data
         self.device = torch.device(device)
         self.num_rels, self.num_nodes = data.num_rels, data.num_nodes
@@ -321,10 +332,14 @@ class Trainer:
     # ----------------------------------------------------------------- train
     def loss(self, state: TrainState, history, triples, mask):
         """(total, losses, new ModelState) of a training step:
-        total = tw * entity + (1 - tw) * relation + static."""
+        total = tw * entity + (1 - tw) * relation + static; the parameters
+        and the history in the compute dtype, the losses in fp32."""
+        params = tree_to_compute(state.params, self.compute_dtype)
+        history = tree_to_compute(history, self.compute_dtype)
         _, losses, new_model_state = recurrent.get_loss(
-            state.params, state.model_state, self.cfg.model, history, triples, mask,
-            static_snap=self.static_snap, gen=state.gen, train=True)
+            params, state.model_state, self.cfg.model, history, triples, mask,
+            static_snap=self.static_snap, gen=state.gen, train=True, impl=self.impl)
+        losses = tree_to_fp32(losses)
         tw = self.cfg.train.task_weight
         total = tw * losses["entity"] + (1.0 - tw) * losses["relation"] + losses["static"]
         return total, losses, new_model_state
@@ -384,7 +399,8 @@ class Trainer:
         or multi-step (:func:`multi_step_ranks`)."""
         return evaluate(state.params, state.model_state, self.cfg.model, self.cfg.train,
                         history_list, eval_list, ent_filters, rel_filters, self.device,
-                        functools.partial(regcn_predict, static_snap=self.static_snap),
+                        functools.partial(regcn_predict, static_snap=self.static_snap,
+                                          impl=self.impl),
                         multi_step=multi_step, topk=topk,
                         relation_evaluation=relation_evaluation)
 

@@ -23,6 +23,10 @@ per model.
   sequential trainer with its seed draws. JAX's per-model streams depend
   on the model's seed alone in the same way.
 
+The sweep trains in fp32 whatever the config's compute dtype says: JAX's
+sweep casts neither the parameters nor the windows, so its bf16 policy
+never starts there (its islands are no-ops on fp32 inputs).
+
 Shape-changing knobs (n_hidden, n_layers, dropout rates, n_bases) sweep
 sequentially (``regcn_torch/cli.py``'s grid). A mesh (the JAX sweep's
 model axis over devices) is not ported (ROADMAP A.11).
@@ -376,6 +380,8 @@ class HyperbolicSweepRunner(_Sweep):
             raise ValueError("vectorized sweep supports the Euclidean-optimizer, non-EST "
                              "hyperbolic configurations")
         hmodel.check_supported(cfg)
+        # fp32 whatever the config's compute dtype: JAX's sweep casts nothing
+        cfg = dataclasses.replace(cfg, compute_dtype="float32")
         super().__init__(cfg, tc, data, combos, device)
         self.radius_target = compute_radius_targets(
             self.train_list, data.num_nodes, alpha=cfg.radius_alpha, beta=cfg.radius_beta,

@@ -17,9 +17,10 @@ dropout 0, on the CPU (``main(argv, device="cpu")``):
   JAX's trainers as its CLI calls them), and the CLI's results equal the
   port's own trainer called directly with JAX's configs (those trainers
   are held against JAX in their own files);
-- every flag-rejection rule stops as JAX's does; ``bench``, ``--shards``,
-  ``--dist-agg halo`` and ``--compute-dtype bfloat16`` stop naming their
-  ROADMAP items, and a CUDA run without a card stops;
+- every flag-rejection rule stops as JAX's does; ``bench``, ``--shards``
+  and ``--dist-agg halo`` stop naming their ROADMAP items,
+  ``--compute-dtype bfloat16`` reaches the trainer's loss as bf16, and a
+  CUDA run without a card stops;
 - ``--dilate-len 2`` trains on the dilated list, and
   ``dilate_snapshots`` equals JAX's array for array;
 - the profiling helpers: ``parameter_count`` and ``training_summary``
@@ -51,6 +52,7 @@ from regcn_torch.data.snapshots import dilate_snapshots, split_by_time
 from regcn_torch.data.synthetic import generate
 from regcn_torch.train import loop as pt_loop
 from regcn_torch.train import state as pt_state
+from regcn_torch.utils.dtypes import tree_to_compute
 
 TINY = dict(num_ents=60, num_rels=5, num_snaps=12, triples_per_snap=40, split=(8, 2, 2))
 NO_DROPOUT = ["--dropout", "0", "--input-dropout", "0", "--hidden-dropout", "0",
@@ -348,9 +350,21 @@ def test_unported_modes_stop_naming_their_roadmap_item(tiny, tmp_path, argv, ite
         run_cli(cli, argv, tmp_path, device="cpu")
 
 
-def test_bfloat16_and_a_missing_card(tiny, tmp_path):
-    with pytest.raises(NotImplementedError, match="A.5"):
-        run_cli(cli, ["train", *COMMON, "--compute-dtype", "bfloat16"], tmp_path, device="cpu")
+def test_bfloat16_and_a_missing_card(tiny, tmp_path, monkeypatch):
+    """``--compute-dtype bfloat16``, refused until bf16 compute was ported,
+    now trains: every loss of the run casts to bf16, and the test MRRs are
+    finite."""
+    seen = []
+
+    def recording(tree, dtype):
+        seen.append(dtype)
+        return tree_to_compute(tree, dtype)
+
+    monkeypatch.setattr(pt_loop, "tree_to_compute", recording)
+    out = run_cli(cli, ["train", *COMMON, "--compute-dtype", "bfloat16"], tmp_path,
+                  device="cpu")
+    assert seen and set(seen) == {torch.bfloat16}
+    assert all(0.0 < v["mrr"] <= 1.0 for v in out.values()), out
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="CUDA"):
             run_cli(cli, ["train", *COMMON], tmp_path)

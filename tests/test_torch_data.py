@@ -79,9 +79,12 @@ def test_split_by_time_equal(tiny_data):
 @pytest.mark.parametrize("pads", [dict(), dict(edge_bucket=16, rc_bucket=32),
                                   dict(edge_pad=200, rc_pad=400)])
 def test_build_snapshot_equal(tiny_data, pads):
+    """The numpy builders, array for array (the native builder, the port's
+    default, is held against both of JAX's in tests/test_torch_native.py)."""
     pt, _ = tiny_data
     for triples in pt_snapshots.split_by_time(pt.train):
-        got = pt_snapshots.build_snapshot(triples, pt.num_nodes, pt.num_rels, **pads)
+        got = pt_snapshots.build_snapshot(triples, pt.num_nodes, pt.num_rels, use_native=False,
+                                          **pads)
         want = jax_snapshots.build_snapshot(triples, pt.num_nodes, pt.num_rels,
                                             use_native=False, **pads)
         assert_same_snapshot(got, want)

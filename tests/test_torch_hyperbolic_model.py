@@ -258,15 +258,18 @@ def test_predict_matches_jax(data):
     dict(use_static=True), dict(manifold_entities=True),
     dict(compute_dtype="bfloat16"), dict(encoder="fhnn"), dict(encoder="hgat")])
 def test_unported_configs_raise(data, unported):
-    """bf16 is not ported and raises. The static graph, entities on the
-    ball (``manifold_entities``) and the fhnn and hgat encoders, refused
-    until they were ported, now run: the parameters have JAX's keys and
-    shapes (on the ball for ``manifold_entities``), and ``evolve`` matches
-    JAX's."""
+    """The static graph, entities on the ball (``manifold_entities``), the
+    fhnn and hgat encoders and bf16 compute, refused until they were
+    ported, now run: the parameters have JAX's keys and shapes (on the ball
+    for ``manifold_entities``), and ``evolve`` matches JAX's; under bf16
+    the parameters stay fp32, and a dtype JAX does not offer raises."""
     if "compute_dtype" in unported:
         _, pcfg = configs(data, **unported)
-        with pytest.raises(NotImplementedError):
-            PM.init_params(torch.Generator().manual_seed(0), pcfg, device="cpu")
+        got, _ = PM.init_params(torch.Generator().manual_seed(0), pcfg, device="cpu")
+        assert all(t.dtype == torch.float32 for t in tree_leaves(got))
+        with pytest.raises(ValueError, match="compute dtype"):
+            PM.init_params(torch.Generator().manual_seed(0),
+                           dataclasses.replace(pcfg, compute_dtype="float16"), device="cpu")
         return
     if "use_static" in unported:
         unported = dict(unported, num_static_rels=2, num_words=10)

@@ -25,6 +25,7 @@ from regcn_torch.data.synthetic import generate
 from regcn_torch.models import decoders as pt_decoders
 from regcn_torch.models import layers as pt_layers
 from regcn_torch.models import recurrent as pt_recurrent
+from regcn_torch.train.optim import tree_leaves
 
 TINY = dict(num_ents=64, num_rels=6, num_snaps=10, triples_per_snap=40, split=(6, 2, 2))
 RTOL, ATOL = 1e-4, 1e-5
@@ -191,13 +192,18 @@ def static_graph(data, n_words=16, n_rels=3):
 
 @pytest.mark.parametrize("unported", [dict(use_static=True), dict(dtype="bfloat16")])
 def test_unported_configs_raise(data, unported):
-    """bf16 is not ported and raises. The static graph (``use_static``),
-    refused until it was ported, now runs: its parameters have JAX's keys
-    and shapes, and the eval scores from its static start match JAX's."""
+    """The static graph (``use_static``) and bf16 compute, refused until
+    they were ported, now run: the static graph's parameters have JAX's
+    keys and shapes, and the eval scores from its static start match
+    JAX's; under bf16 the parameters stay fp32, and a dtype JAX does not
+    offer raises."""
     if "use_static" not in unported:
         _, pcfg = configs(data, **unported)
-        with pytest.raises(NotImplementedError):
-            pt_recurrent.init_params(torch.Generator().manual_seed(0), pcfg, device="cpu")
+        got, _ = pt_recurrent.init_params(torch.Generator().manual_seed(0), pcfg, device="cpu")
+        assert all(t.dtype == torch.float32 for t in tree_leaves(got))
+        with pytest.raises(ValueError, match="compute dtype"):
+            pt_recurrent.init_params(torch.Generator().manual_seed(0),
+                                     dataclasses.replace(pcfg, dtype="float16"), device="cpu")
         return
     jcfg, pcfg = configs(data, use_static=True, num_static_rels=3, num_words=16, n_bases=8)
     got, _ = pt_recurrent.init_params(torch.Generator().manual_seed(0), pcfg, device="cpu")
