@@ -181,7 +181,7 @@ Phases, each of which exits non-zero on failure:
    from one state (dropouts 0): every loss and parameter of the card
    within twice the CPU's own bf16 drift from fp32 plus a stated atol;
    (b) the dtypes: the carry bf16, the scores and the parameters fp32;
-   (c) 20 steady bf16 steps with the fp32 twin's launches of B1 and B2,
+   (c) 10 steady bf16 steps with the fp32 twin's launches of B1 and B2,
    and a profiled 5, printed beside the fp32 phase's wall, busy and
    kernels per step; the headline also one epoch through ``fit`` (B1
    1812) and its test split (B1 186), its entity loss within 5 % and its
@@ -194,7 +194,30 @@ Phases, each of which exits non-zero on failure:
    within 1e-4 (the card's segment sums add in no fixed order);
    (c) config 1 served with ``impl="cumsum"``: the aggregation within
    1e-4 (relative) of B1 at the first test snapshot, the four MRRs within
-   0.01 of B1's, no kernel launched.
+   0.01 of B1's, no kernel launched; (d) ROADMAP C.8: with ``$CXX`` a
+   missing program and a fresh build directory, the default builder warns
+   once and builds numpy's arrays, ``use_native=True`` raises;
+21. B2 at the widths of ROADMAP C.7 (after phase 5): the three kernels
+   against the plain version at d = 50 (padded to 52 by the wrapper), 300
+   and 512, config 3's entity shape, both distances, the value and every
+   gradient within phase 5's limits, each width timed beside its bound and
+   the matmul; one config-3 step (LGCN + RotH) at n_hidden 50 and 300 on
+   the cut data, each B2 kernel launched twice, the losses finite;
+22. config 1 at full width entity-sharded (``Trainer(mesh=...,
+   dist_agg=...)``, ROADMAP A.11) on phase 6's cut data, G = 2 spawned
+   ranks sharing the card over gloo (a file store): the halo's boundary
+   statistics of the training split; the single-process trainer's epoch
+   and test split as the reference; in each rank and for each of
+   ``gspmd`` and ``halo``: (a) 3 steps against the single-process trainer
+   on the card from the same state, on its branches at the kinks: the
+   losses, every gradient (the entity table gathered), the BN statistics
+   and every parameter after both optimizers step with the same
+   gradients, within the 3-step checks' limits; (b) one epoch with the
+   config's dropouts, B1 launched 2 x the windows' snapshots per rank, as
+   one process launches; (c) the test split, B1 6 a snapshot per rank, the
+   four MRRs within 0.01 of the single process's; each rank's peak memory
+   and walls (gloo stages every collective through the host: no speed is
+   read from them). A failing rank fails the phase.
 
 The line before the last is ``{"kernels": [...]}``: each row's
 ``launches`` is B1's on the config-1 test split or a B2 kernel's in the
@@ -203,7 +226,7 @@ config-3 epoch, and ``launches_by_path`` holds its count on each path
 and the sweeps' among them); B1's ``shapes`` holds its times at six
 shapes (phase 3's three, synthetic-aifb's d=200 and d=4, the folded
 [E, 1200]), each B2 kernel's its times at config 4's entity shape on the
-true distance. The last line is
+true distance, then at d = 50, 300 and 512 (phase 21). The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -214,11 +237,13 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
 import warnings
+from pathlib import Path
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -309,6 +334,9 @@ LEAKY_TIE_TOL = 1e-6
 # state: fp32 scores in another run may reorder near-ties, moving a rank
 CLI_MRR_TOL = 1e-4
 PROFILE_STEPS = 20  # steady steps timed
+# the bf16 phase's steady steps and each of its alternating blocks: 10, not
+# PROFILE_STEPS, to keep the script within its time beside the sharded phase
+BF16_STEADY_STEPS = 10
 # steps under torch.profiler: its key_averages over a step's thousands of
 # kernels take seconds a step, the most of a phase at 20 steps
 PROFILED_STEPS = 5
@@ -398,7 +426,8 @@ def phase_device() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    CARD.append(smi.stdout.strip().splitlines()[0])
+    print(CARD[0], flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
@@ -408,13 +437,21 @@ def phase_device() -> None:
 def phase_build() -> None:
     t0 = time.perf_counter()
     try:
-        logs = cuda_build.build(sorted({k["build"] for k in KERNELS}))
+        names = sorted({k["build"] for k in KERNELS})
+        logs = cuda_build.build(names + [v for v, (src, _) in cuda_build.VARIANTS.items()
+                                         if src in names])
     except RuntimeError as e:
         fail(str(e))
     seconds = time.perf_counter() - t0
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            entry = re.search(r"Compiling entry function '(\S+)'", line)
+            if entry:  # each kernel's counts under its instance's name
+                kernel = re.search(r"(?:^|\d)([a-z][a-z_]*_kernel)", entry.group(1))
+                args = re.findall(r"L[bi](\d+)E", entry.group(1))
+                print(f"[build] {name}: {kernel.group(1) if kernel else entry.group(1)}"
+                      f"<{','.join(args)}>")
+            elif "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
     print(f"[build] {len(logs)} source(s), {len(KERNELS)} kernel wrappers, built in "
           f"{seconds:.2f} s", flush=True)
@@ -841,6 +878,80 @@ def phase_ce_kernels(N: int, R: int, d: int, dev: torch.device) -> dict:
     return {k: dict(max_abs_err=errs[k], **times["entity"][k]) for k in CE_KERNELS}
 
 
+# B2 at the widths it refused until ROADMAP C.7's repair: 50 (padded to 52
+# by the wrapper), and the wide instances at 300 and 512
+CE_WIDTHS = (50, 300, 512)
+
+
+def phase_ce_widths(N: int, cut, dev: torch.device) -> dict:
+    """(a) B2's three kernels against the plain version at each of
+    ``CE_WIDTHS``, at config 3's entity shape (B = 512, N): the proxy with a
+    scalar c and the true distance with per-query c, the value and all six
+    gradients within phase 5's limits, one launch of each kernel a case;
+    each width timed on the proxy (the kernels at the width they launch,
+    the plain version, the matmul of that shape) beside the bound of the
+    function at its own width; (b) one config-3 step (LGCN + RotH) at
+    n_hidden 50 and 300 on the cut data: each B2 kernel launched twice
+    (entity and relation loss), the losses finite."""
+    B = 512
+    out = {k: [] for k in CE_KERNELS}
+    for d in CE_WIDTHS:
+        parts = []
+        for true in (False, True):
+            a = ce_case(B, N, d, dev, true=true, per_query_c=true, masked=True)
+            reset_launches()
+            got, got_g = ce_run(ce.streaming_nll, a)
+            counts = read_launches()
+            check(all(counts[k] == 1 for k in CE_KERNELS),
+                  f"streaming CE at d={d}: launches {counts}, expected one of each kernel")
+            plain, plain_g = ce_run(ce.streaming_nll_reference, a)
+            exact, exact_g = ce_run(ce.streaming_nll_reference, a, torch.float64)
+            torch.cuda.synchronize()
+            for name, tol, (k, p, e) in [("nll", CE_NLL_TOL, (got, plain, exact))] + [
+                    (n, CE_GRAD_TOL, (got_g[n], plain_g[n], exact_g[n])) for n in CE_INPUTS]:
+                err = (k.double() - e).abs().max().item()
+                plain_err = (p.double() - e).abs().max().item()
+                limit = max(tol * max(1.0, e.abs().max().item()), 2 * plain_err)
+                check(k.shape == e.shape and math.isfinite(err) and err <= limit,
+                      f"streaming CE at d={d} ({'true' if true else 'proxy'}): {name} max err "
+                      f"{err:.3e} > {limit:.3e} (plain fp32 err {plain_err:.3e})")
+                parts.append(f"{name} {err:.1e}")
+        a = ce_case(B, N, d, dev)
+        d4 = -(-d // 4) * 4
+        for k in ("q", "x"):  # as the wrapper pads them
+            a[k] = torch.nn.functional.pad(a[k], (0, d4 - d)).contiguous()
+        t = ce_times(a)
+        for name, (bound_ms, bound_by) in ce_bound_ms(B, N, d).items():
+            t[name].update(bound_ms=bound_ms, bound_by=bound_by, d=d)
+            out[name].append(t[name])
+            print(f"[ce-width] {name} at B={B} N={N} d={d} (launched at {d4}): kernel "
+                  f"{t[name]['ms'] * 1e3:.2f} us, plain {t[name]['plain_ms'] * 1e3:.2f} us, "
+                  f"matmul {t[name]['library_ms'] * 1e3:.2f} us, bound "
+                  f"{bound_ms * 1e3:.2f} us ({bound_by})", flush=True)
+        print(f"[ce-width] d={d}: both distances within phase 5's limits, kernel err vs fp64: "
+              + ", ".join(parts), flush=True)
+    tc3 = TrainConfig(train_history_len=3, test_history_len=3)
+    for h, bases in ((50, 50), (300, 100)):
+        trainer = HyperbolicTrainer(dataclasses.replace(config3(cut), h_dim=h, n_bases=bases),
+                                    tc3, cut, curvature_warmup_epochs=5, device=dev)
+        state = trainer.init_state(SEED)
+        i = trainer.epoch_order(0)[0]
+        window = trainer.window(i)
+        reset_launches()
+        losses = trainer.train_step(state, *window, trainer._curvature_max(0))
+        torch.cuda.synchronize()
+        counts = read_launches()
+        check(all(counts[k] == 2 for k in CE_KERNELS),
+              f"config 3 at n_hidden {h}: launches {counts} in a step, expected 2 of each B2 "
+              "kernel")
+        check(all(math.isfinite(float(v)) for v in losses.values()),
+              f"config 3 at n_hidden {h}: losses {losses}")
+        print(f"[ce-width] config 3 (LGCN + RotH) at n_hidden {h}: one step on snapshot {i}, "
+              f"launches {counts}, losses "
+              + ", ".join(f"{k} {float(v):.5f}" for k, v in losses.items()), flush=True)
+    return out
+
+
 # ------------------------------------------------------- training path
 
 def config3(data, **kw) -> HyperbolicConfig:
@@ -1134,14 +1245,19 @@ class PinnedKinks:
         return self._patched(rec_rrelu, rec_relu, rec_leaky, rec_abs)
 
     @contextlib.contextmanager
-    def replay(self):
+    def replay(self, shard=None):
         """Takes the recorded branches, in the order they were recorded,
-        and checks that the replay passed every recorded kink."""
+        and checks that the replay passed every recorded kink. With
+        ``shard`` (a rank's ``RowShard`` of the entity table) the replay
+        runs on the rank's rows of a table whose whole was recorded, and
+        takes those rows of each such mask."""
         queues = {k: iter(v) for k, v in self.masks.items()}
         slope = (RRELU_LOWER + RRELU_UPPER) / 2.0
 
         def pinned(kind, x, own):
             mask = next(queues[kind]).to(x.device)
+            if shard is not None and mask.shape[0] == shard.n and x.shape[0] == shard.rows:
+                mask = mask[shard.row0:shard.row0 + shard.rows]
             flipped = own != mask
             self.flips[kind] += int(flipped.sum())
             self.entries[kind] += mask.numel()
@@ -2934,9 +3050,9 @@ def bf16_dtypes(tag: str, carry: torch.Tensor, scores, state) -> None:
 
 def bf16_speed(tag: str, fp32_label: str, trainer, step, twin, steady_order, profile_order,
                b1: int = 0, b2: int = 0) -> dict:
-    """20 steady bf16 steps (their launches: B1 ``b1`` and each B2 kernel
+    """10 steady bf16 steps (their launches: B1 ``b1`` and each B2 kernel
     ``b2`` in all, as the fp32 twin launches) and a profiled 5, printed
-    beside the fp32 twin's numbers of its phase; then the same 20 windows
+    beside the fp32 twin's numbers of its phase; then the same 10 windows
     in blocks that alternate between the fp32 twin (``twin``: its trainer
     and step, from its own initial state) and bf16, twice each, since the
     host's speed drifts between phases. The windows are built before the
@@ -3017,7 +3133,7 @@ def phase_bf16(data, cut, cfg: ModelConfig, tc: TrainConfig, dev: torch.device) 
     epoch through ``fit`` and its test split against the fp32 headline of
     phase 8, B1 1812 / 186), config 1, config 3 on the cut data (B2 2 a
     kernel a step) and HisRES; each with ``bf16_three_steps``, the dtypes,
-    and 20 steady steps and a profiled 5 beside its fp32 twin's."""
+    and 10 steady steps and a profiled 5 beside its fp32 twin's."""
     from regcn_torch.utils.dtypes import tree_to_compute
 
     bf = torch.bfloat16
@@ -3064,7 +3180,7 @@ def phase_bf16(data, cut, cfg: ModelConfig, tc: TrainConfig, dev: torch.device) 
     bf16_dtypes(tag, carry, scores, state)
     cmax = trainer._curvature_max(1)
     steady = lambda i: trainer.train_step(state, *trainer.window(i), cmax)  # noqa: E731
-    steady_order = trainer.epoch_order(1)[:PROFILE_STEPS]
+    steady_order = trainer.epoch_order(1)[:BF16_STEADY_STEPS]
     t32 = HyperbolicTrainer(headline_config(data), tc, data, device=dev)
     s32 = t32.init_state(SEED)
     twin = (t32, lambda i: t32.train_step(s32, *t32.window(i), cmax))
@@ -3090,7 +3206,7 @@ def phase_bf16(data, cut, cfg: ModelConfig, tc: TrainConfig, dev: torch.device) 
         scores = recurrent.predict(params16, state.model_state, c1,
                                    tree_to_compute(history, bf), triples)
     bf16_dtypes(tag, carry, scores, state)
-    steady_order = trainer.epoch_order(1)[:PROFILE_STEPS]
+    steady_order = trainer.epoch_order(1)[:BF16_STEADY_STEPS]
     t32 = make(dev, "float32")
     s32 = t32.init_state(SEED)
     out[f"{tag} steady steps"] = bf16_speed(
@@ -3119,7 +3235,7 @@ def phase_bf16(data, cut, cfg: ModelConfig, tc: TrainConfig, dev: torch.device) 
         scores = trainer._predict()(state.params, state.model_state, c3, history, triples, mask)
     bf16_dtypes(tag, carry, scores, state)
     cmax = trainer._curvature_max(1)
-    steady_order = trainer.epoch_order(1)[:PROFILE_STEPS]
+    steady_order = trainer.epoch_order(1)[:BF16_STEADY_STEPS]
     t32 = make(dev, "float32")
     s32 = t32.init_state(SEED)
     out[f"{tag} steady steps"] = bf16_speed(
@@ -3147,7 +3263,7 @@ def phase_bf16(data, cut, cfg: ModelConfig, tc: TrainConfig, dev: torch.device) 
                                      tree_to_compute(inputs[1], bf))[0]
         scores = trainer.predict(state, *inputs)
     bf16_dtypes(tag, carry, scores, state)
-    steady_order = trainer.epoch_order(1)[:PROFILE_STEPS]
+    steady_order = trainer.epoch_order(1)[:BF16_STEADY_STEPS]
     t32 = make(dev, "float32")
     s32 = t32.init_state(SEED)
     out[f"{tag} steady steps"] = bf16_speed(
@@ -3176,7 +3292,9 @@ def phase_native_cumsum(data, cfg: ModelConfig, tc: TrainConfig, dev: torch.devi
     snapshot spent building windows and the wall per snapshot, the same
     MRRs; (c) config 1 served with ``impl="cumsum"``: the aggregation's
     max relative error against B1, and the four MRRs beside B1's (no B1
-    launch on the cumsum route)."""
+    launch on the cumsum route); (d) ROADMAP C.8: with ``$CXX`` a missing
+    program and a fresh build directory, the default builder warns once
+    and gives numpy's arrays, and ``use_native=True`` raises."""
     import functools
 
     from regcn_torch.data import native
@@ -3273,7 +3391,295 @@ def phase_native_cumsum(data, cfg: ModelConfig, tc: TrainConfig, dev: torch.devi
           f"{rel_err:.3e} against B1; test split MRR cumsum / B1 "
           + ", ".join(f"{k} {stats_c[k].mrr:.6f}/{stats_b[k].mrr:.6f}" for k in stats_c)
           + f"; launches {counts}", flush=True)
+    native_fallback(data, cfg, tc)
     return {"config-1 test split, cumsum": counts}
+
+
+def native_fallback(data, cfg: ModelConfig, tc: TrainConfig) -> None:
+    """(d) of phase 20: a host without a C++ compiler (``$CXX`` a missing
+    program, a fresh build directory): the first test snapshot built with
+    the default ``use_native``, with one warning, equal to numpy's; a
+    second build warns no more; ``use_native=True`` raises."""
+    from regcn_torch.data import native
+
+    trip = split_by_time(data.test)[0]
+    kw = dict(edge_bucket=tc.edge_bucket, rc_bucket=tc.rc_bucket)
+    want = build_snapshot(trip, cfg.num_ents, cfg.num_rels, use_native=False, **kw)
+    saved = (os.environ.get("CXX"), native.BUILD_DIR, native._module, native._build_failures,
+             native._warned)
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["CXX"] = os.path.join(tmp, "no-such-compiler")
+        native.BUILD_DIR, native._module = Path(tmp) / "build", None
+        native._build_failures, native._warned = {}, [False]
+        try:
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                got = build_snapshot(trip, cfg.num_ents, cfg.num_rels, **kw)
+                build_snapshot(trip, cfg.num_ents, cfg.num_rels, **kw)
+            try:
+                build_snapshot(trip, cfg.num_ents, cfg.num_rels, use_native=True, **kw)
+                raised = False
+            except native.NativeBuildError:
+                raised = True
+        finally:
+            cxx, native.BUILD_DIR, native._module, native._build_failures, native._warned = saved
+            if cxx is None:
+                os.environ.pop("CXX", None)
+            else:
+                os.environ["CXX"] = cxx
+    from regcn_torch.data.snapshots import _ARRAY_FIELDS
+
+    warned = [w for w in seen if issubclass(w.category, RuntimeWarning)]
+    check(len(warned) == 1, f"native fallback: {len(warned)} warnings, expected 1")
+    check(raised, "native fallback: use_native=True did not raise without a compiler")
+    for f in _ARRAY_FIELDS:
+        a, b = getattr(got, f), getattr(want, f)
+        check(a.dtype == b.dtype and np.array_equal(a, b),
+              f"native fallback: {f} differs from numpy's")
+    print(f"[native] (d) no C++ compiler ($CXX missing, a fresh build directory): the default "
+          f"builder warned once ({str(warned[0].message)[:60]}...) and built numpy's arrays; "
+          "use_native=True raised", flush=True)
+
+
+# ------------------------------------------------ entity-sharded RE-GCN
+
+SHARDS = 2  # ranks sharing the one card over gloo
+# the sharded epoch's and test split's MRRs against the single-process
+# trainer's: both take the same steps with the same dropout draws, but the
+# card's index_add_ and the cross-shard sums add in another order, and an
+# epoch of 99 steps carries that apart
+SHARDED_MRR_ATOL = 0.01
+CARD = []  # nvidia-smi's name and power limit, as phase 1 read them
+
+
+def sharded_three_steps(tag: str, data, cfg: ModelConfig, tc: TrainConfig, mesh, mode: str,
+                        dev: torch.device) -> None:
+    """(a) of the sharded phase, in each rank: 3 steps of the sharded
+    trainer against the single-process one on the card, from the same state
+    before each (dropouts 0), the sharded run on the single run's branches
+    at the kinks: the losses, every gradient (the entity table's gathered)
+    and the BN statistics within the 3-step checks' limits; then both
+    optimizers step with the single run's gradients, and every parameter
+    (the entity table gathered) within TRAIN_OPT_TOL. Every rank takes rank
+    0's single-run gradients and statistics, so that the rows the ranks
+    update come from one set of them."""
+    import torch.distributed as dist
+
+    from regcn_torch.parallel import sharding
+    from regcn_torch.parallel.collectives import all_gather_rows
+
+    t0 = time.perf_counter()
+    exp = ExperimentConfig(model=dataclasses.replace(cfg, **NO_DROPOUT), train=tc)
+    plain = loop.Trainer(exp, data, device=dev)
+    sharded = loop.Trainer(exp, data, mesh=mesh, dist_agg=mode, device=dev)
+    shard = sharded.shard
+    s_plain = plain.init_state(SEED)
+    names = leaf_names(s_plain.params)
+    kinks = PinnedKinks()
+    worst = {"loss": 0.0, "grad": 0.0, "bn": 0.0, "opt": 0.0}
+
+    def err(a, b) -> float:
+        return (a.detach() - b.detach()).abs().max().item() / max(1.0, b.abs().max().item())
+
+    for i in plain.epoch_order(0)[:3]:
+        s_sh = sharding.shard_state(train_state.copy_state(s_plain), shard)
+        rules = sharding.state_sharding_rules(s_sh)
+        with kinks.record():
+            total, parts, bn = plain.loss(s_plain, *plain.window(i))
+            grads = torch.autograd.grad(total, tree_leaves(s_plain.params), allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(tree_leaves(s_plain.params), grads)]
+        # every rank's one-process run from rank 0's gradients and statistics:
+        # the card's index_add_ sums in no fixed order, and the sharded
+        # optimizer's rows come from every rank's copy of them
+        with torch.no_grad():
+            for t in grads + model_state_leaves(bn):
+                dist.broadcast(t, src=0, group=shard.group)
+        with kinks.replay(shard):
+            total_s, parts_s, bn_s = sharded.loss(s_sh, *sharded.window(i))
+            grads_s = sharding.sharded_grads(total_s, tree_leaves(s_sh.params),
+                                             [not r for r in rules], shard)
+        for k, b in parts.items():
+            a = float(parts_s[k].detach())
+            b = float(b.detach())
+            check(math.isfinite(a) and abs(a - b) <= TRAIN_LOSS_RTOL * max(1.0, abs(b)),
+                  f"{tag}, step on snapshot {i}: {k} loss sharded {a} vs one process {b}")
+            worst["loss"] = max(worst["loss"], abs(a - b) / max(1.0, abs(b)))
+        for name, g, gs, r in zip(names, grads, grads_s, rules):
+            with torch.no_grad():
+                whole = all_gather_rows(gs, shard.group) if r else gs
+            e = err(whole, g)
+            check(e <= TRAIN_GRAD_TOL, f"{tag}, step on snapshot {i}: {name} gradient sharded "
+                  f"vs one process {e:.3e} > {TRAIN_GRAD_TOL:.0e} of its largest entry")
+            worst["grad"] = max(worst["grad"], e)
+        for a, b in zip(model_state_leaves(bn_s), model_state_leaves(bn)):
+            worst["bn"] = max(worst["bn"], err(a, b))
+        check(worst["bn"] <= TRAIN_GRAD_TOL, f"{tag}, step on snapshot {i}: BN statistics "
+              f"sharded vs one process {worst['bn']:.3e} > {TRAIN_GRAD_TOL:.0e}")
+        plain.opt.step(tree_leaves(s_plain.params), grads, s_plain.opt_state)
+        sharded.opt.shard(rules, shard.group)
+        sharded.opt.step(tree_leaves(s_sh.params),
+                         [g[shard.row0:shard.row0 + shard.rows] if r else g
+                          for g, r in zip(grads, rules)], s_sh.opt_state)
+        whole = sharding.unshard_state(s_sh, shard)
+        for name, a, b in zip(names, tree_leaves(whole.params), tree_leaves(s_plain.params)):
+            e = ((a.detach() - b.detach()).abs() / b.detach().abs().clamp(min=1.0)).max().item()
+            check(e <= TRAIN_OPT_TOL, f"{tag}, step on snapshot {i}: {name} after the "
+                  f"optimizer step sharded vs one process {e:.3e} > {TRAIN_OPT_TOL:.0e}")
+            worst["opt"] = max(worst["opt"], e)
+        s_plain.model_state = bn
+        s_plain.step += 1
+    flips = kinks.check(tag)
+    print(f"[{tag}] (a) 3 steps sharded vs one process on the card from the same state, on its "
+          f"branches at the kinks ({flips.replace('on the cpu', 'in the sharded run')}): losses "
+          f"within {worst['loss']:.2e}, every gradient within {worst['grad']:.2e} of its "
+          f"largest entry, BN statistics within {worst['bn']:.2e}, every parameter (the entity "
+          f"table gathered) after the optimizer step within {worst['opt']:.2e} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def sharded_configs(cut) -> tuple:
+    """Config 1 at full width with buckets of 128, on the cut data."""
+    return (ModelConfig(num_ents=cut.num_nodes, num_rels=cut.num_rels, h_dim=200, n_layers=2),
+            TrainConfig(train_history_len=3, test_history_len=3, edge_bucket=128,
+                        rc_bucket=128, triple_bucket=128))
+
+
+def sharded_rank(rank: int, G: int, workdir: str, dev_type: str = "cuda") -> None:
+    """One rank of the sharded phase: a gloo process group over a file
+    store, the rank on cuda:0 beside the others, a 1 x G mesh; for each
+    ``dist_agg``: ``sharded_three_steps``, then one epoch with the config's
+    dropouts and the test split, B1's launches counted around each; the
+    results into ``workdir``. A failed check exits the rank non-zero.
+    ``dev_type="cpu"`` rehearses it without a card."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from regcn_torch.parallel.mesh import MeshAxes, make_mesh
+
+    cuda = dev_type == "cuda"
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/store", world_size=G,
+                            rank=rank, timeout=datetime.timedelta(seconds=300))
+    cut = config3_data()
+    cfg, tc = sharded_configs(cut)
+    mesh = make_mesh(MeshAxes(1, G), device_type=dev.type)
+    out = {}
+    for mode in ("gspmd", "halo"):
+        tag = f"sharded {mode} rank {rank}"
+        sharded_three_steps(tag, cut, cfg, tc, mesh, mode, dev)
+        trainer = loop.Trainer(ExperimentConfig(model=cfg, train=tc), cut, mesh=mesh,
+                               dist_agg=mode, device=dev)
+        state = trainer.init_state(SEED)
+        order = trainer.epoch_order(0)
+        expected = cfg.n_layers * sum(min(i, tc.train_history_len) for i in order)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        losses = trainer.run_epoch(state, 0)
+        if cuda:
+            torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        epoch_counts = read_launches()
+        check(all(math.isfinite(v) for v in losses.values()), f"{tag}: epoch losses {losses}")
+        check(epoch_counts["rgcn_scatter_sorted"] == expected
+              and all(epoch_counts[k] == 0 for k in CE_KERNELS),
+              f"{tag}: epoch launches {epoch_counts}, expected {expected} of B1 = "
+              f"{cfg.n_layers} layers x the snapshots of the {len(order)} windows, no CE kernel")
+        n_test = len(trainer.test_list)
+        expected_test = cfg.n_layers * tc.test_history_len * n_test
+        reset_launches()
+        t0 = time.perf_counter()
+        stats = trainer.test(state)
+        if cuda:
+            torch.cuda.synchronize()
+        test_s = time.perf_counter() - t0
+        test_counts = read_launches()
+        check(test_counts["rgcn_scatter_sorted"] == expected_test,
+              f"{tag}: test split launches {test_counts}, expected {expected_test} of B1")
+        out[mode] = dict(losses=losses, mrr={k: v.mrr for k, v in stats.items()},
+                         epoch=epoch_counts, test=test_counts, epoch_s=epoch_s, test_s=test_s,
+                         steps=len(order),
+                         peak_mib=torch.cuda.max_memory_allocated() / 2**20 if cuda else 0.0)
+        del trainer, state
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase_sharded(cut, dev: torch.device) -> dict:
+    """Config 1 at full width, entity-sharded (``Trainer(mesh=...,
+    dist_agg=...)``) over SHARDS gloo ranks that share the card, on the cut
+    data: the halo's boundary statistics of the training split; the
+    single-process trainer's epoch (the config's dropouts) and test split
+    as the reference; then the ranks (``sharded_rank``); each rank's MRRs
+    within SHARDED_MRR_ATOL of the reference, its B1 launches as derived
+    from the data (one per layer and window snapshot, as one process
+    launches), its peak memory and walls printed. gloo stages every
+    collective through the host, so the walls say nothing of speed."""
+    from regcn_torch.parallel.halo import build_halo_store
+
+    cfg, tc = sharded_configs(cut)
+    _, stats = build_halo_store(split_by_time(cut.train), cut.num_nodes, cut.num_rels, SHARDS,
+                                edge_bucket=tc.edge_bucket)
+    print(f"[sharded] halo of the training split at G = {SHARDS}: boundary rows "
+          f"{stats['boundary_fraction_of_N_mean']:.3f} of N on average (max "
+          f"{stats['boundary_fraction_of_N_max']:.3f}), halo rows per shard "
+          f"{stats['halo_rows_per_shard']} against the all-gather's "
+          f"{stats['allgather_rows_per_shard']} (ratio {stats['volume_ratio_vs_allgather']:.3f})",
+          flush=True)
+    single = loop.Trainer(ExperimentConfig(model=cfg, train=tc), cut, device=dev)
+    state = single.init_state(SEED)
+    t0 = time.perf_counter()
+    losses = single.run_epoch(state, 0)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    ref = {k: v.mrr for k, v in single.test(state).items()}
+    print(f"[sharded] one process: epoch of {len(single.epoch_order(0))} steps in {epoch_s:.2f} "
+          "s, mean losses " + ", ".join(f"{k} {v:.5f}" for k, v in losses.items())
+          + "; test MRR " + ", ".join(f"{k} {v:.6f}" for k, v in ref.items()), flush=True)
+    del single, state
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        try:
+            torch.multiprocessing.start_processes(sharded_rank, args=(SHARDS, workdir, dev.type),
+                                                  nprocs=SHARDS, join=True, start_method="spawn")
+        except Exception as e:  # a rank failed a check or raised
+            fail(f"sharded phase: {type(e).__name__}: {e}")
+        ranks = []
+        for r in range(SHARDS):
+            with open(os.path.join(workdir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    wall = time.perf_counter() - t0
+    out = {}
+    for mode in ("gspmd", "halo"):
+        for r, res in enumerate(ranks):
+            row = res[mode]
+            for k, v in ref.items():
+                check(abs(row["mrr"][k] - v) <= SHARDED_MRR_ATOL,
+                      f"sharded {mode} rank {r}: test {k} MRR {row['mrr'][k]:.6f}, one process "
+                      f"{v:.6f}: more than {SHARDED_MRR_ATOL} apart")
+            print(f"[sharded] {mode} rank {r}: epoch of {row['steps']} steps in "
+                  f"{row['epoch_s']:.2f} s ({row['epoch_s'] / row['steps'] * 1e3:.1f} ms a step), "
+                  "mean losses " + ", ".join(f"{k} {v:.5f}" for k, v in row["losses"].items())
+                  + f"; B1 {row['epoch']['rgcn_scatter_sorted']} in the epoch, "
+                  f"{row['test']['rgcn_scatter_sorted']} on the test split ({row['test_s']:.2f} "
+                  "s); test MRR " + ", ".join(f"{k} {v:.6f}" for k, v in row["mrr"].items())
+                  + f"; peak memory {row['peak_mib']:.0f} MiB", flush=True)
+        out[f"sharded {mode} epoch (each rank)"] = ranks[0][mode]["epoch"]
+        out[f"sharded {mode} test split (each rank)"] = ranks[0][mode]["test"]
+    print(f"[sharded] {SHARDS} ranks on one card over gloo, both modes, {wall:.1f} s with the "
+          f"spawn ({CARD[0] if CARD else 'card not read'}); the MRRs within "
+          f"{SHARDED_MRR_ATOL} of one process's", flush=True)
+    return out
 
 
 def config3_data():
@@ -3307,13 +3713,14 @@ def main() -> None:
     by_path = {"config-1 test split": dict(launches)}
     timing.update(timed("streaming-CE kernels", phase_ce_kernels, cfg.num_ents, cfg.num_rels,
                         cfg.h_dim, dev))
+    cut = config3_data()
+    ce_widths = timed("streaming-CE widths", phase_ce_widths, cfg.num_ents, cut, dev)
     by_path["config-3 training epoch"] = timed("config-3 training", phase_training,
                                                config3_data(), dev)
     by_path["config-1 training epoch"] = timed(
         "config-1 training", phase_config1_training, data, cfg, tc, dev, serving["ent_raw"].mrr)
     headline = timed("hyperbolic headline training", phase_headline_training, data, tc, dev)
     by_path.update(headline)
-    cut = config3_data()
     config4_paths, config4_times = timed("config-4 training", phase_config4_training, cut, tc,
                                          dev)
     by_path.update(config4_paths)
@@ -3337,9 +3744,10 @@ def main() -> None:
                          dev))
     by_path.update(timed("bf16 compute", phase_bf16, data, cut, cfg, tc, dev))
     by_path.update(timed("native builder and cumsum", phase_native_cumsum, data, cfg, tc, dev))
+    by_path.update(timed("entity-sharded config 1", phase_sharded, cut, dev))
     launches.update({k: by_path["config-3 training epoch"][k] for k in CE_KERNELS})
     for k in CE_KERNELS:
-        timing[k]["shapes"] = [config4_times[k]]
+        timing[k]["shapes"] = [config4_times[k]] + ce_widths[k]
     b1 = timing["rgcn_scatter_sorted"]
     b1["shapes"] += entity_times + [folded_times]
     b1["max_abs_err"] = max(b1["max_abs_err"], entity_err, folded_err)

@@ -15,9 +15,18 @@ and from Python as ``main([...])``, or ``main([...], device="cpu")`` to
 run every kernel's plain version on the CPU. Without a card, and without
 ``device="cpu"``, it stops.
 
+``train`` and ``test`` (and the sequential RE-GCN ``grid``) take
+``--shards G`` and ``--dist-agg {gspmd,halo}``, entity-sharded over G
+processes, one per shard, as ``torchrun`` starts them on a machine with G
+cards (rank r on ``cuda:{LOCAL_RANK}``; the process group comes from
+torchrun's environment with torch's default backend for the device):
+
+    torchrun --nproc-per-node 2 -m regcn_torch.cli train -d synthetic-icews14s --shards 2
+
 Not ported, and stopping with a message that names the ROADMAP item:
-``bench`` (A.2: ``bench.py`` measures the JAX package), ``--shards`` and
-``--dist-agg halo`` (A.11, multi-device).
+``bench`` (A.2: ``bench.py`` measures the JAX package), and ``--shards`` /
+``--dist-agg halo`` for ``hyperbolic``, ``hisres`` and ``grid
+--vectorize`` (A.11b).
 
 ``--compute-dtype bfloat16`` reaches the trainers of ``train``, ``test``,
 ``hyperbolic`` and ``hisres`` (and of the sequential ``grid``), as in the
@@ -144,12 +153,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--impl", default="xla", choices=["xla", "pallas"],
                    help="the aggregation route of the JAX package; both take kernel B1 here")
 
-    # multi-chip (train / hyperbolic / hisres modes): not ported (ROADMAP A.11)
+    # multi-device (train / test; hyperbolic and hisres: ROADMAP A.11b)
     p.add_argument("--shards", type=int, default=None,
-                   help="graph-axis mesh size (multi-device; not ported, ROADMAP A.11)")
+                   help="graph-axis mesh size: shard the entity table, its optimizer "
+                        "moments and the decoder candidate axis over this many processes "
+                        "(torchrun --nproc-per-node N)")
     p.add_argument("--dist-agg", default="gspmd", choices=["gspmd", "halo"],
-                   help="cross-shard RGCN aggregation (multi-device; 'halo' is not ported, "
-                        "ROADMAP A.11)")
+                   help="cross-shard RGCN aggregation: 'gspmd' all-gathers the entity rows; "
+                        "'halo' exchanges the boundary set (regcn_torch/parallel/halo.py)")
 
     # hyperbolic model flags (parity: ref hyperbolic_main.py:708-845)
     hp = p.add_argument_group("hyperbolic")
@@ -215,13 +226,42 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def check_single_device(args) -> None:
-    """Stops on the multi-device flags, which are not ported (ROADMAP A.11)."""
+    """Stops on the multi-device flags in the modes that do not run on a
+    mesh yet (ROADMAP A.11b)."""
     if args.shards:
-        raise SystemExit(f"--shards {args.shards}: multi-device training is not ported to "
-                         "regcn_torch yet (ROADMAP A.11)")
+        raise SystemExit(f"--shards {args.shards}: '{args.mode}' on a mesh is not ported to "
+                         "regcn_torch yet (ROADMAP A.11b)")
     if args.dist_agg != "gspmd":
-        raise SystemExit("--dist-agg requires --shards, and multi-device training is not "
-                         "ported to regcn_torch yet (ROADMAP A.11)")
+        raise SystemExit(f"--dist-agg requires --shards, and '{args.mode}' on a mesh is not "
+                         "ported to regcn_torch yet (ROADMAP A.11b)")
+
+
+def make_cli_mesh(args):
+    """The ``("data", "graph")`` mesh of ``--shards`` over the ranks of the
+    process group, or None: the group is the caller's where one is
+    initialised, else torchrun's (``env://``, torch's default backend for
+    the device), and on a card rank r takes ``cuda:{LOCAL_RANK}``."""
+    if not args.shards:
+        if args.dist_agg != "gspmd":
+            raise SystemExit("--dist-agg requires --shards")
+        return None
+    import torch.distributed as dist
+
+    from regcn_torch.parallel.mesh import MeshAxes, make_mesh
+
+    if not dist.is_initialized():
+        if "WORLD_SIZE" not in os.environ:
+            raise SystemExit(f"--shards {args.shards} runs one process per shard: launch with "
+                             f"torchrun --nproc-per-node {args.shards} -m regcn_torch.cli ...")
+        dist.init_process_group(init_method="env://")
+    world = dist.get_world_size()
+    if world != args.shards:
+        raise SystemExit(f"--shards {args.shards} needs that many processes, the process group "
+                         f"has {world} (torchrun --nproc-per-node {args.shards})")
+    if args.device.type == "cuda":
+        args.device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(args.device)
+    return make_mesh(MeshAxes(data=1, graph=args.shards), device_type=args.device.type)
 
 
 def _device(args) -> torch.device:
@@ -312,11 +352,15 @@ def _load(args):
 
 
 def _report(stats) -> dict:
+    """The stats as JSON, printed once (by rank 0 of a mesh)."""
+    import torch.distributed as dist
+
     result = {
         k: {"mrr": s.mrr, **{f"hits@{h}": v for h, v in s.hits.items()}}
         for k, s in stats.items()
     }
-    print(json.dumps(result, indent=2))
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(json.dumps(result, indent=2))
     return result
 
 
@@ -412,18 +456,17 @@ def model_name(args) -> str:
 
 def run_single(args) -> dict:
     from regcn_torch.train.loop import Trainer
-    from regcn_torch.train.state import create_train_state, restore_checkpoint
+    from regcn_torch.train.state import restore_checkpoint
 
-    check_single_device(args)
+    mesh = make_cli_mesh(args)
     data = _load(args)
     cfg = make_experiment(args, data)
-    trainer = Trainer(cfg, data, impl=args.impl, run_analysis=args.run_analysis,
-                      device=_device(args))
+    trainer = Trainer(cfg, data, impl=args.impl, mesh=mesh, dist_agg=args.dist_agg,
+                      run_analysis=args.run_analysis, device=_device(args))
     ckpt = args.checkpoint or os.path.join(args.models_dir, model_name(args))
 
     if args.mode == "test":
-        tpl = create_train_state(args.seed, cfg.model, cfg.train, _device(args))
-        state, meta = restore_checkpoint(ckpt, tpl)
+        state, meta = restore_checkpoint(ckpt, trainer.init_state(args.seed), trainer.shard)
         log.info("loaded checkpoint %s (meta %s)", ckpt, meta)
     else:
         state, info = trainer.fit(checkpoint_path=ckpt, resume=args.resume,

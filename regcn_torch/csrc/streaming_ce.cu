@@ -127,8 +127,16 @@
 // partials are double-buffered); the splits of a query tile (the wrapper
 // sizes them from the occupancy to fill the SMs in one wave) merge three
 // floats per query through L2.
-// d <= 256, a multiple of 4, and q and x 16-byte aligned (every load is a
-// float4).
+// d <= 512, a multiple of 4, and q and x 16-byte aligned (every load is a
+// float4; the wrapper zero-pads other widths to a multiple of 4, which adds
+// nothing to q.x, |q|^2 or |x|^2).
+//
+// Widths 256 < d <= 512 take the same code with register tiles of 12 or 16
+// float4 columns per warp (d <= 384, d <= 512), so they spill (PERF.md has
+// ptxas's counts),
+// and their forward cannot stage its 128-query tile through shared memory
+// (2 KB a row at d = 512): it loads each lane's queries and |q|^2 straight from
+// device memory instead, the same values in the same order.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -138,7 +146,11 @@
 
 namespace {
 
-constexpr int kMaxD4 = 64;           // d <= 256
+constexpr int kMaxD4 = 128;          // d <= 512
+// instances up to kExactCol4 float4 columns per warp (d <= 256) have exactly
+// ceil(d / 32) of them; the wide ones are built at 12 and 16 columns only (to
+// keep the build short) and stop at each warp's last column at run time
+constexpr int kExactCol4 = 8;
 constexpr float kEps = 1e-6f;
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
@@ -397,6 +409,7 @@ __global__ void __launch_bounds__(bwdx::kThreads, 1)
   // memory, every lane of a warp the same float4)
   const float4* x4 = reinterpret_cast<const float4*>(x);
   const bool last = warp + kWarps * (kCol4 - 1) < sh.d4;  // this warp has column kCol4 - 1
+  const int ncols = (sh.d4 - warp + kWarps - 1) / kWarps;  // this warp's columns (wide instances)
   float4 xr[2][kCol4];
 #pragma unroll
   for (int c = 0; c < 2; ++c) {
@@ -419,15 +432,15 @@ __global__ void __launch_bounds__(bwdx::kThreads, 1)
   for (int i = 0; i < kCands / kWarps; ++i) {
     const int e = warp * (kCands / kWarps) + i;
     const float* row = x + static_cast<size_t>(col0 + e) * d;
-    float v[4 * kMaxD4 / 32];  // every load issued before the first add
+    float v[kCol4];  // every load issued before the first add; d <= 32 kCol4
 #pragma unroll
-    for (int j = 0; j < 4 * kMaxD4 / 32; ++j) {
+    for (int j = 0; j < kCol4; ++j) {
       const int k = lane + 32 * j;
       v[j] = col0 + e < N && k < d ? __ldg(row + k) : 0.f;
     }
     float acc = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4 * kMaxD4 / 32; ++j) acc = fmaf(v[j], v[j], acc);
+    for (int j = 0; j < kCol4; ++j) acc = fmaf(v[j], v[j], acc);
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
     if (lane == 0) red[e] = acc;
@@ -463,7 +476,7 @@ __global__ void __launch_bounds__(bwdx::kThreads, 1)
       for (int s = 0; s < kRowStep; ++s) pp[s][0] = pp[s][1] = 0.f;
 #pragma unroll
       for (int m = 0; m < kCol4; ++m) {
-        if (m == kCol4 - 1 && !last) break;
+        if (kCol4 > kExactCol4 ? m >= ncols : m == kCol4 - 1 && !last) break;
 #pragma unroll
         for (int s = 0; s < kRowStep; ++s) {
           const float4 qv = Qb[(r0 + s) * sh.ld4 + warp + kWarps * m];
@@ -513,7 +526,7 @@ __global__ void __launch_bounds__(bwdx::kThreads, 1)
       }
 #pragma unroll
       for (int m = 0; m < kCol4; ++m) {
-        if (m == kCol4 - 1 && !last) break;
+        if (kCol4 > kExactCol4 ? m >= ncols : m == kCol4 - 1 && !last) break;
         float4 qv[kRowStep];
 #pragma unroll
         for (int s = 0; s < kRowStep; ++s) qv[s] = Qb[(r0 + s) * sh.ld4 + warp + kWarps * m];
@@ -740,15 +753,15 @@ __device__ __forceinline__ void pair_grad(float p, float xx, float b, bool is_ta
   gc = dc + (xx - 2.f * p) * dA - qq * dB + (2.f * c * qq * xx - 2.f * p) * dD;
 }
 
-constexpr int kPerLane = 4 * kMaxD4 / 32;  // elements of a row per lane, d <= 256
-
 // |row|^2 of kN rows of a row-major [*, width] matrix (rows past `valid` give
 // 0), each summed over the warp in the order of bwdx::warp_row_sq (lane-strided,
 // then a butterfly), with every load issued before the first add: out[i] in
-// every lane. Near the ball's edge 1 - c |q|^2 cancels to ~1e-3, and the true
+// every lane. kPerLane elements of a row per lane, width <= 32 kPerLane (the
+// kernels pass kCol4); the zeros past the width add nothing, so any kPerLane
+// that covers the width gives the same sums. Near the ball's edge 1 - c |q|^2 cancels to ~1e-3, and the true
 // distance's artanh amplifies its rounding ~1000x, so |q|^2 keeps the
 // summation order of the earlier kernels.
-template <int kN, typename Load>
+template <int kN, int kPerLane, typename Load>
 __device__ __forceinline__ void warp_rows_sq(Load load, int width, int valid, int lane,
                                              float* out) {
   float v[kN][kPerLane];
@@ -843,6 +856,7 @@ __global__ void __launch_bounds__(bwdq::kThreads, 1)
   // memory, every lane of a warp the same float4)
   const float4* q4 = reinterpret_cast<const float4*>(q);
   const bool last = warp + kWarps * (kCol4 - 1) < sh.d4;  // this warp has column kCol4 - 1
+  const int ncols = (sh.d4 - warp + kWarps - 1) / kWarps;  // this warp's columns (wide instances)
   float4 qr[2][kCol4];
 #pragma unroll
   for (int c = 0; c < 2; ++c) {
@@ -859,7 +873,7 @@ __global__ void __launch_bounds__(bwdq::kThreads, 1)
     const int r0 = warp * kPerWarp;
     const float* qw = q + static_cast<size_t>(row0 + r0) * d;
     float qq_r[kPerWarp];
-    warp_rows_sq<kPerWarp>([&](int i, int k) { return __ldg(qw + static_cast<size_t>(i) * d + k); },
+    warp_rows_sq<kPerWarp, kCol4>([&](int i, int k) { return __ldg(qw + static_cast<size_t>(i) * d + k); },
                            d, B - row0 - r0, lane, qq_r);
     if (lane < kPerWarp) {
       float v = qq_r[0];
@@ -908,7 +922,7 @@ __global__ void __launch_bounds__(bwdq::kThreads, 1)
       constexpr int kPerWarp = kRows / kWarps;
       const float* xw = reinterpret_cast<const float*>(Xb + warp * kPerWarp * sh.ld4);
       float xx_r[kPerWarp];
-      warp_rows_sq<kPerWarp>([&](int i, int k) { return xw[i * 4 * sh.ld4 + k]; }, d, kPerWarp,
+      warp_rows_sq<kPerWarp, kCol4>([&](int i, int k) { return xw[i * 4 * sh.ld4 + k]; }, d, kPerWarp,
                              lane, xx_r);
       float v = xx_r[0];
 #pragma unroll
@@ -923,7 +937,7 @@ __global__ void __launch_bounds__(bwdq::kThreads, 1)
       for (int s = 0; s < kRowStep; ++s) pd[s][0] = pd[s][1] = 0.f;
 #pragma unroll
       for (int m = 0; m < kCol4; ++m) {
-        if (m == kCol4 - 1 && !last) break;
+        if (kCol4 > kExactCol4 ? m >= ncols : m == kCol4 - 1 && !last) break;
 #pragma unroll
         for (int s = 0; s < kRowStep; ++s) {
           const float4 xv = Xb[(j0 + s) * sh.ld4 + warp + kWarps * m];
@@ -975,7 +989,7 @@ __global__ void __launch_bounds__(bwdq::kThreads, 1)
       }
 #pragma unroll
       for (int m = 0; m < kCol4; ++m) {
-        if (m == kCol4 - 1 && !last) break;
+        if (kCol4 > kExactCol4 ? m >= ncols : m == kCol4 - 1 && !last) break;
         float4 xv[kRowStep];
 #pragma unroll
         for (int s = 0; s < kRowStep; ++s) xv[s] = Xb[(j0 + s) * sh.ld4 + warp + kWarps * m];
@@ -1228,16 +1242,20 @@ constexpr int kBatch = 32;   // split partials loaded at once in the merge
 // row stride of the p partials [kWarps][queries][kLd]: float4-aligned, and
 // 80 bytes apart, so the 8 lanes of a quarter-warp hit distinct banks
 constexpr int kLd = kRows + 4;
+// the widest instance that stages its query tile through shared memory (d <=
+// 256); wider ones load their queries from device memory
+constexpr int kStagedCol4 = kExactCol4;
 static_assert(kThreads == bwdx::kThreads, "tiles load through bwdx::load_tile_async");
 static_assert(kRowStep % 4 == 0, "the product stores its partials as float4s");
 
 // two candidate buffers and two of the per-warp p partials, which first
-// hold the query tile [kQueries][ld4]
+// hold the query tile [kQueries][ld4] where it is staged
 size_t smem_bytes(int d) {
   const size_t ld4 = make_shape(d).ld4;
+  const bool staged = (d / 4 + kWarps - 1) / kWarps <= kStagedCol4;
   return 2 * kRows * ld4 * sizeof(float4) +
          std::max(2 * static_cast<size_t>(kWarps) * kQueries * kLd * sizeof(float),
-                  kQueries * ld4 * sizeof(float4));
+                  staged ? kQueries * ld4 * sizeof(float4) : 0);
 }
 
 }  // namespace fwd
@@ -1274,8 +1292,10 @@ __global__ void __launch_bounds__(fwd::kThreads, 1)
     bwdq::load_bias_async(bias_s[0], bias, t_begin * kRows, N, kRows);
   }
   // the query tile, coalesced and read once, in the place of the p partials
+  // (up to d = 256; a wider tile does not fit beside them)
+  constexpr bool kStaged = kCol4 <= kStagedCol4;
   const float4* Qs = reinterpret_cast<const float4*>(red);  // [kQueries][ld4]
-  bwdx::load_tile_async(reinterpret_cast<float4*>(red), q, row0, kQueries, B, sh);
+  if (kStaged) bwdx::load_tile_async(reinterpret_cast<float4*>(red), q, row0, kQueries, B, sh);
   bwdx::cp_async_commit();
   bwdx::cp_async_wait_all();
   __syncthreads();
@@ -1287,8 +1307,13 @@ __global__ void __launch_bounds__(fwd::kThreads, 1)
     for (int h = 0; h < kPerWarp; h += 8) {
       const int r0 = warp * kPerWarp + h;
       float qq_r[8];
-      bwdq::warp_rows_sq<8>([&](int i, int k) { return qf[(r0 + i) * 4 * sh.ld4 + k]; }, d, 8,
-                            lane, qq_r);
+      if (kStaged)
+        bwdq::warp_rows_sq<8, kCol4>([&](int i, int k) { return qf[(r0 + i) * 4 * sh.ld4 + k]; },
+                                     d, 8, lane, qq_r);
+      else
+        bwdq::warp_rows_sq<8, kCol4>(
+            [&](int i, int k) { return __ldg(q + static_cast<size_t>(row0 + r0 + i) * d + k); },
+            d, B - row0 - r0, lane, qq_r);
       if (lane < 8) {
         float v = qq_r[0];
 #pragma unroll
@@ -1302,13 +1327,19 @@ __global__ void __launch_bounds__(fwd::kThreads, 1)
   // whole walk (the product reads only candidate rows from shared memory,
   // every lane of a warp the same float4); rows past B are zero
   const bool last = warp + kWarps * (kCol4 - 1) < sh.d4;  // this warp has column kCol4 - 1
+  const int ncols = (sh.d4 - warp + kWarps - 1) / kWarps;  // this warp's columns (wide instances)
+  const float4* q4 = reinterpret_cast<const float4*>(q);
   float4 qr[kQL][kCol4];
 #pragma unroll
   for (int c = 0; c < kQL; ++c)
 #pragma unroll
     for (int m = 0; m < kCol4; ++m) {
-      const int k = warp + kWarps * m;
-      qr[c][m] = k < sh.d4 ? Qs[(lane + 32 * c) * sh.ld4 + k] : make_float4(0.f, 0.f, 0.f, 0.f);
+      const int k = warp + kWarps * m, row = row0 + lane + 32 * c;
+      qr[c][m] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (kStaged && k < sh.d4)
+        qr[c][m] = Qs[(lane + 32 * c) * sh.ld4 + k];
+      else if (!kStaged && k < sh.d4 && row < B)
+        qr[c][m] = __ldg(q4 + static_cast<size_t>(row) * sh.d4 + k);
     }
   __syncthreads();  // qq_s; Qs is no longer read
   // the elementwise chain: query eq, candidate rows kPairs er + i; rows past
@@ -1387,7 +1418,7 @@ __global__ void __launch_bounds__(fwd::kThreads, 1)
         constexpr int kPerWarp = kRows / kWarps;
         const float* xw = reinterpret_cast<const float*>(Xb + warp * kPerWarp * sh.ld4);
         float xx_r[kPerWarp];
-        bwdq::warp_rows_sq<kPerWarp>([&](int i, int j) { return xw[i * 4 * sh.ld4 + j]; }, d,
+        bwdq::warp_rows_sq<kPerWarp, kCol4>([&](int i, int j) { return xw[i * 4 * sh.ld4 + j]; }, d,
                                      kPerWarp, lane, xx_r);
         float v = xx_r[0];
 #pragma unroll
@@ -1404,7 +1435,7 @@ __global__ void __launch_bounds__(fwd::kThreads, 1)
           for (int c = 0; c < kQL; ++c) dot[s][c] = 0.f;
 #pragma unroll
         for (int m = 0; m < kCol4; ++m) {
-          if (m == kCol4 - 1 && !last) break;
+          if (kCol4 > kExactCol4 ? m >= ncols : m == kCol4 - 1 && !last) break;
 #pragma unroll
           for (int s = 0; s < kRowStep; ++s) {
             const float4 xv = Xb[(j0 + s) * sh.ld4 + warp + kWarps * m];
@@ -1493,6 +1524,17 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// The widths of this library's instances: d <= 256, or, built with
+// STREAMING_CE_WIDE (the wrapper's second library, compiled in parallel with
+// the first), 256 < d <= 512.
+bool in_library(int d) {
+#ifdef STREAMING_CE_WIDE
+  return d > 32 * kExactCol4 && d <= 4 * kMaxD4;
+#else
+  return d >= 4 && d <= 32 * kExactCol4;
+#endif
+}
+
 // Rows of q and x load as float4s: d a multiple of 4, both 16-byte aligned.
 bool float4_rows(const float* q, const float* x, int d) {
   return d % 4 == 0 && aligned16(q) && aligned16(x);
@@ -1501,10 +1543,17 @@ bool float4_rows(const float* q, const float* x, int d) {
 typedef void (*Forward)(const float*, const float*, const float*, const float*, const int*,
                         Scalars, float*, float*, float*, int*, int, int, int);
 
-// The instance of the forward for width d (<= 256).
+// The instance of the forward for width d (<= 512).
 template <bool kTrue>
 Forward forward_kernel(int d) {
   switch ((d / 4 + fwd::kWarps - 1) / fwd::kWarps) {
+#ifdef STREAMING_CE_WIDE
+    case 9:
+    case 10:
+    case 11:
+    case 12: return ce_forward_kernel<kTrue, 12>;
+    default: return ce_forward_kernel<kTrue, 16>;
+#else
     case 1: return ce_forward_kernel<kTrue, 1>;
     case 2: return ce_forward_kernel<kTrue, 2>;
     case 3: return ce_forward_kernel<kTrue, 3>;
@@ -1513,16 +1562,24 @@ Forward forward_kernel(int d) {
     case 6: return ce_forward_kernel<kTrue, 6>;
     case 7: return ce_forward_kernel<kTrue, 7>;
     default: return ce_forward_kernel<kTrue, 8>;
+#endif
   }
 }
 
 typedef void (*BackwardX)(const float*, const float*, const float*, const float*, const int*,
                           Scalars, const float*, const float*, float*, float*, int, int, int);
 
-// The instance of the candidate-side backward for width d (<= 256).
+// The instance of the candidate-side backward for width d (<= 512).
 template <bool kTrue>
 BackwardX backward_x_kernel(int d) {
   switch ((d / 4 + bwdx::kWarps - 1) / bwdx::kWarps) {
+#ifdef STREAMING_CE_WIDE
+    case 9:
+    case 10:
+    case 11:
+    case 12: return ce_backward_x_kernel<kTrue, 12>;
+    default: return ce_backward_x_kernel<kTrue, 16>;
+#else
     case 1: return ce_backward_x_kernel<kTrue, 1>;
     case 2: return ce_backward_x_kernel<kTrue, 2>;
     case 3: return ce_backward_x_kernel<kTrue, 3>;
@@ -1531,6 +1588,7 @@ BackwardX backward_x_kernel(int d) {
     case 6: return ce_backward_x_kernel<kTrue, 6>;
     case 7: return ce_backward_x_kernel<kTrue, 7>;
     default: return ce_backward_x_kernel<kTrue, 8>;
+#endif
   }
 }
 
@@ -1582,10 +1640,17 @@ typedef void (*BackwardQ)(const float*, const float*, const float*, const float*
                           Scalars, const float*, const float*, float*, float*, float*, float*,
                           float*, float*, float*, int*, int, int, int, int);
 
-// The instance of the query-side backward for width d (<= 256).
+// The instance of the query-side backward for width d (<= 512).
 template <bool kTrue>
 BackwardQ backward_q_kernel(int d) {
   switch ((d / 4 + bwdq::kWarps - 1) / bwdq::kWarps) {
+#ifdef STREAMING_CE_WIDE
+    case 9:
+    case 10:
+    case 11:
+    case 12: return ce_backward_q_kernel<kTrue, 12>;
+    default: return ce_backward_q_kernel<kTrue, 16>;
+#else
     case 1: return ce_backward_q_kernel<kTrue, 1>;
     case 2: return ce_backward_q_kernel<kTrue, 2>;
     case 3: return ce_backward_q_kernel<kTrue, 3>;
@@ -1594,6 +1659,7 @@ BackwardQ backward_q_kernel(int d) {
     case 6: return ce_backward_q_kernel<kTrue, 6>;
     case 7: return ce_backward_q_kernel<kTrue, 7>;
     default: return ce_backward_q_kernel<kTrue, 8>;
+#endif
   }
 }
 
@@ -1661,7 +1727,7 @@ cudaError_t backward_q_occupancy(int d, int cluster, int* blocks_per_sm, int* ac
 extern "C" {
 
 // Each function launches one kernel on `stream` and returns cudaGetLastError()
-// (0 = launched). true_dist selects the distance; d <= 256 is a multiple of
+// (0 = launched). true_dist selects the distance; d <= 512 is a multiple of
 // 4 and q and x are 16-byte aligned (else cudaErrorInvalidValue). `counters` are
 // int32 zeros that each launch leaves at zero again: q_tiles of them for the
 // forward, q_tiles + 1 for backward_q; launches sharing counters must not run
@@ -1678,7 +1744,7 @@ int streaming_ce_forward(const float* q, const float* x, const float* bias, cons
                          const int* target, const float* scale, const float* margin, float* part,
                          float* nll, float* lse, int* counters, int B, int N, int d, int splits,
                          int true_dist, cudaStream_t stream) {
-  if (!float4_rows(q, x, d) || splits < 1 || splits > 65535)
+  if (!in_library(d) || !float4_rows(q, x, d) || splits < 1 || splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const Forward kernel = true_dist ? forward_kernel<true>(d) : forward_kernel<false>(d);
   const size_t smem = fwd::smem_bytes(d);
@@ -1701,7 +1767,8 @@ int streaming_ce_backward_q(const float* q, const float* x, const float* bias, c
                             float* scal_part, float* dq, float* dc, float* dscale, float* dmargin,
                             int* counters, int B, int N, int d, int cluster, int splits,
                             int true_dist, cudaStream_t stream) {
-  if (!float4_rows(q, x, d) || cluster < 1 || cluster > bwdq::kMaxCluster || splits < 1)
+  if (!in_library(d) || !float4_rows(q, x, d) || cluster < 1 || cluster > bwdq::kMaxCluster ||
+      splits < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Scalars sc{scale, margin};
   const cudaError_t err =
@@ -1718,7 +1785,7 @@ int streaming_ce_backward_x(const float* q, const float* x, const float* bias, c
                             const int* target, const float* scale, const float* margin,
                             const float* lse, const float* g, float* dx, float* dbias, int B, int N,
                             int d, int splits, int true_dist, cudaStream_t stream) {
-  if (!float4_rows(q, x, d) || splits < 1 || splits > bwdx::kMaxCluster)
+  if (!in_library(d) || !float4_rows(q, x, d) || splits < 1 || splits > bwdx::kMaxCluster)
     return static_cast<int>(cudaErrorInvalidValue);
   const Scalars sc{scale, margin};
   const cudaError_t err =
@@ -1733,7 +1800,7 @@ int streaming_ce_backward_x(const float* q, const float* x, const float* bias, c
 // width d, and the card's SMs.
 int streaming_ce_forward_occupancy(int d, int true_dist, int* queries, int* blocks_per_sm,
                                    int* sms) {
-  if (d < 4 || d > 4 * kMaxD4) return static_cast<int>(cudaErrorInvalidValue);
+  if (!in_library(d)) return static_cast<int>(cudaErrorInvalidValue);
   const Forward kernel = true_dist ? forward_kernel<true>(d) : forward_kernel<false>(d);
   *queries = fwd::kQueries;
   const size_t smem = fwd::smem_bytes(d);
@@ -1750,7 +1817,7 @@ int streaming_ce_forward_occupancy(int d, int true_dist, int* queries, int* bloc
 // `splits` blocks that can be resident at once, at width d.
 int streaming_ce_backward_x_occupancy(int d, int splits, int true_dist, int* blocks_per_sm,
                                       int* active_clusters) {
-  if (d < 4 || d > 4 * kMaxD4 || splits < 1 || splits > bwdx::kMaxCluster)
+  if (!in_library(d) || splits < 1 || splits > bwdx::kMaxCluster)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(true_dist
                               ? backward_x_occupancy<true>(d, splits, blocks_per_sm,
@@ -1764,7 +1831,7 @@ int streaming_ce_backward_x_occupancy(int d, int splits, int true_dist, int* blo
 // width d.
 int streaming_ce_backward_q_occupancy(int d, int cluster, int true_dist, int* blocks_per_sm,
                                       int* active_clusters) {
-  if (d < 4 || d > 4 * kMaxD4 || cluster < 1 || cluster > bwdq::kMaxCluster)
+  if (!in_library(d) || cluster < 1 || cluster > bwdq::kMaxCluster)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(true_dist
                               ? backward_q_occupancy<true>(d, cluster, blocks_per_sm,

@@ -18,7 +18,7 @@ Semantics (ref:rgcn/utils.py:78-134):
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence
+from typing import Any, List, Sequence
 
 import numpy as np
 import torch
@@ -26,6 +26,7 @@ import torch
 _ARRAY_FIELDS = ("src", "dst", "rel", "edge_mask", "in_deg_norm", "has_in_edge",
                  "rc_rel", "rc_ent", "rc_mask")
 _INDEX_FIELDS = ("src", "dst", "rel", "rc_rel", "rc_ent")
+_SHARD_FIELDS = ("halo", "parts")
 
 
 def _round_up(n: int, multiple: int) -> int:
@@ -60,6 +61,12 @@ class Snapshot:
     # last): the scatter kernel then needs no argsort. build_snapshot sets
     # it; hand-built snapshots default to the safe False.
     dst_sorted: bool = False
+    # on an entity-sharded mesh, the rank's own edges of the same snapshots
+    # (``regcn_torch.parallel.halo.LocalEdges``): the boundary-halo partition
+    # (``halo``, dist_agg="halo") or the destination partition (``parts``,
+    # dist_agg="gspmd"); None on one device
+    halo: Any = None
+    parts: Any = None
 
     def to(self, device) -> "Snapshot":
         """The same snapshot as tensors on ``device``."""
@@ -69,11 +76,18 @@ class Snapshot:
             a = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
             a = a.long() if f in _INDEX_FIELDS else a.float()
             fields[f] = a.to(device)
+        for f in _SHARD_FIELDS:
+            if getattr(self, f) is not None:
+                fields[f] = getattr(self, f).to(device)
         return dataclasses.replace(self, **fields)
 
     def step(self, t: int) -> "Snapshot":
         """Step ``t`` of a stacked [T, ...] history."""
-        return dataclasses.replace(self, **{f: getattr(self, f)[t] for f in _ARRAY_FIELDS})
+        fields = {f: getattr(self, f)[t] for f in _ARRAY_FIELDS}
+        for f in _SHARD_FIELDS:
+            if getattr(self, f) is not None:
+                fields[f] = getattr(self, f).step(t)
+        return dataclasses.replace(self, **fields)
 
 
 def split_by_time(data: np.ndarray) -> List[np.ndarray]:
@@ -148,9 +162,11 @@ def build_snapshot(
     False with numpy; given the same padding the two are bit-identical.
     Without ``rc_pad`` the native builder pads the relation context to
     ``4 n`` rounded up to ``rc_bucket`` and numpy to the unique pairs'
-    count rounded up, as JAX's two builders do. A module of an older
-    signature falls back to numpy with a warning for ``None`` and raises
-    for True, as in JAX; a build that fails raises either way."""
+    count rounded up, as JAX's two builders do. Where the module cannot be
+    built (no C++ compiler, a failed build) or has an older signature,
+    ``None`` takes numpy, with numpy's padding, after a warning (once a
+    process for a build), and True raises, as in JAX; an error inside a
+    call of a built module raises either way."""
     triples = np.asarray(triples)[:, :3].astype(np.int64)
     n = len(triples)
     if use_native is not False:
@@ -165,6 +181,10 @@ def build_snapshot(
         except native.StaleNativeError:
             if use_native is True:
                 raise
+        except native.NativeBuildError as exc:
+            if use_native is True:
+                raise
+            native.warn_numpy_fallback(exc)
         else:
             return Snapshot(src=src, dst=dst, rel=rel, edge_mask=emask, in_deg_norm=norm,
                             has_in_edge=has_in, rc_rel=rc_r, rc_ent=rc_e, rc_mask=rc_m,

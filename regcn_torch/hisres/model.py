@@ -102,8 +102,8 @@ def check_supported(cfg: HisResConfig) -> None:
     """Raises for the configurations this package does not run yet."""
     compute_dtype(cfg.compute_dtype)
     if cfg.impl != "xla":
-        raise NotImplementedError(f"impl {cfg.impl!r} (the halo aggregation) is not ported yet "
-                                  "(ROADMAP A.11)")
+        raise NotImplementedError(f"impl {cfg.impl!r} (the halo aggregation): HisRES on a mesh "
+                                  "is not ported yet (ROADMAP A.11b)")
     if cfg.rc_mode not in ("src", "both"):
         raise ValueError(f"rc_mode must be 'both' or 'src', got {cfg.rc_mode!r}")
 

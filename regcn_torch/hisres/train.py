@@ -25,7 +25,7 @@ cached the same way, per ``cache_key``.
 fp32 islands, its gradients reach the fp32 parameters in fp32, and
 evaluation runs in fp32, as JAX's ``predict_step`` has no cast.
 
-Not ported yet, and raising: a mesh and ``dist_agg="halo"`` (ROADMAP A.11).
+Not ported yet, and raising: a mesh and ``dist_agg="halo"`` (ROADMAP A.11b).
 """
 
 from __future__ import annotations
@@ -77,8 +77,8 @@ class HisResTrainer:
         if dist_agg not in ("gspmd", "halo"):
             raise ValueError(f"dist_agg must be 'gspmd' or 'halo', got {dist_agg!r}")
         if mesh is not None or dist_agg == "halo":
-            raise NotImplementedError("multi-device training (a mesh, dist_agg='halo') is not "
-                                      "ported yet (ROADMAP A.11)")
+            raise NotImplementedError("HisRES on a mesh (a mesh, dist_agg='halo') is not ported "
+                                      "yet (ROADMAP A.11b)")
         hmodel.check_supported(cfg)
         self.compute_dtype = compute_dtype(cfg.compute_dtype)
         self.cfg, self.tc, self.data = cfg, tc, data

@@ -28,7 +28,7 @@ relation weights gathered per edge ([E, d, d], or [E, heads, d, d] for
 hgat), then a batched product. The parameter dictionaries have the JAX
 package's keys and layouts.
 
-Not ported yet, and raising: the multi-device halo aggregation (A.11).
+Not ported yet, and raising: the multi-device aggregation (ROADMAP A.11b).
 """
 
 from __future__ import annotations

@@ -48,7 +48,7 @@ and the scores stay fp32 islands, each returning the carry's dtype where
 JAX's does; a learned curvature promotes what it touches to fp32, as
 JAX's strong fp32 scalar does (:func:`get_curvature`).
 
-Not ported yet, and raising: the multi-device aggregation (ROADMAP A.11).
+Not ported yet, and raising: the multi-device aggregation (ROADMAP A.11b).
 """
 
 from __future__ import annotations
@@ -69,6 +69,7 @@ from regcn_torch.ops.activations import l2_normalize
 from regcn_torch.ops.rgcn_scatter import check_impl
 from regcn_torch.utils.dtypes import compute_dtype, mm
 from regcn_torch.ops.segment import masked_segment_mean
+from regcn_torch.ops.streaming_ce import check_width
 from regcn_torch.utils.init import xavier_normal, xavier_uniform
 
 Params = Dict[str, Any]
@@ -158,6 +159,14 @@ def check_supported(cfg: HyperbolicConfig) -> None:
         raise ValueError(f"unknown encoder x decoder pair ({cfg.encoder!r}, {cfg.decoder!r}); "
                          f"known: {PORTED}")
     check_impl(cfg.impl)
+
+
+def check_device(cfg: HyperbolicConfig, device) -> None:
+    """Raises where a distance decoder's embedding width is one that kernel
+    B2 does not take on ``device`` (``streaming_ce.check_width``): the
+    trainers call it at construction."""
+    if cfg.decoder in ENTITY_LOSSES:
+        check_width(cfg.h_dim, device)
 
 
 def init_params(gen: torch.Generator, cfg: HyperbolicConfig, radius_target=None,

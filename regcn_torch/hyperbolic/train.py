@@ -48,7 +48,7 @@ back in fp32, and both optimizers stay fp32; evaluation runs in bf16 with
 fp32 scores, as JAX's ``predict_step`` does.
 
 ``dilate_len`` is not read, as JAX's hyperbolic trainer does not read it.
-Not ported yet: meshes and the boundary halo (ROADMAP A.11).
+Not ported yet: meshes and the boundary halo (ROADMAP A.11b).
 """
 
 from __future__ import annotations
@@ -119,6 +119,7 @@ class HyperbolicTrainer:
                  triple_batch_mode: str = "accumulate", run_analysis: bool = False,
                  device="cuda"):
         hmodel.check_supported(cfg)
+        hmodel.check_device(cfg, device)
         self.compute_dtype = compute_dtype(cfg.compute_dtype)
         if triple_batch_mode not in ("accumulate", "per_chunk"):
             raise ValueError(f"triple_batch_mode must be 'accumulate' or 'per_chunk', got "

@@ -29,6 +29,8 @@ import torch.nn.functional as F
 from torch import relu
 
 from regcn_torch.ops.activations import inverted_dropout
+from regcn_torch.parallel.collectives import (RowShard, all_reduce_max, all_reduce_sum,
+                                              gather_rows)
 from regcn_torch.utils.dtypes import dot_f32, linear
 from regcn_torch.utils.init import torch_linear_uniform
 
@@ -130,6 +132,28 @@ def _convtrans_features(
 Scores = Union[torch.Tensor, Tuple[torch.Tensor, BNState]]
 
 
+def _rows(table: torch.Tensor, idx: torch.Tensor, shard: Optional[RowShard]) -> torch.Tensor:
+    """``table[idx]``; with ``shard``, of the row-sharded table whose rows
+    this rank holds as ``table``."""
+    return table[idx] if shard is None else gather_rows(table, idx, shard)
+
+
+def sharded_masked_ce(scores: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
+                      shard: RowShard) -> torch.Tensor:
+    """The masked-mean CE of ``recurrent._masked_ce`` over scores sharded on
+    the candidate axis (this rank's [B, rows]): the logsumexp from the
+    maximum over ranks and the sum over ranks of the exponentials, the
+    target's logit from its owner, every rank with the same loss."""
+    scores = scores.float()
+    m = all_reduce_max(scores.amax(dim=1), shard.group)
+    lse = m + torch.log(all_reduce_sum(torch.exp(scores - m[:, None]).sum(dim=1), shard.group))
+    local = labels - shard.row0
+    owned = (local >= 0) & (local < scores.shape[1])
+    picked = scores.gather(1, local.clamp(0, scores.shape[1] - 1)[:, None])[:, 0]
+    target = all_reduce_sum(torch.where(owned, picked, torch.zeros_like(picked)), shard.group)
+    return torch.sum((lse - target) * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
 def _score(params, state, stacked, candidates, mask, input_dropout, hidden_dropout,
            feat_dropout, gen, train) -> Scores:
     x, new_state = _convtrans_features(
@@ -152,11 +176,16 @@ def convtranse_score(
     feat_dropout: float = 0.0,
     gen: Optional[torch.Generator] = None,
     train: bool = False,
+    shard: Optional[RowShard] = None,
 ) -> Scores:
     """Entity scores [B, N] (ref:src/decoder.py:78-100); in train mode
-    (scores, new BN state), the dropouts drawn from ``gen``."""
+    (scores, new BN state), the dropouts drawn from ``gen``. With ``shard``
+    the embedding holds this rank's rows of the entity table: the
+    subjects' rows are gathered from their owners, every rank computes the
+    same query features, and the scores are those of the rank's candidates,
+    [B, rows] (:func:`sharded_masked_ce` takes the CE over them)."""
     ent_all = torch.tanh(embedding)
-    stacked = torch.stack([ent_all[triples[:, 0]], rel_emb[triples[:, 1]]], dim=1)
+    stacked = torch.stack([_rows(ent_all, triples[:, 0], shard), rel_emb[triples[:, 1]]], dim=1)
     return _score(params, state, stacked, ent_all, mask, input_dropout, hidden_dropout,
                   feat_dropout, gen, train)
 
@@ -174,10 +203,13 @@ def convtransr_score(
     feat_dropout: float = 0.0,
     gen: Optional[torch.Generator] = None,
     train: bool = False,
+    shard: Optional[RowShard] = None,
 ) -> Scores:
     """Relation scores [B, 2R] (ref:src/decoder.py:29-52); in train mode
-    (scores, new BN state)."""
+    (scores, new BN state). With ``shard`` the subjects' and objects' rows
+    are gathered from their owners, and the scores are replicated."""
     ent_all = torch.tanh(embedding)
-    stacked = torch.stack([ent_all[triples[:, 0]], ent_all[triples[:, 2]]], dim=1)
+    stacked = torch.stack([_rows(ent_all, triples[:, 0], shard),
+                           _rows(ent_all, triples[:, 2], shard)], dim=1)
     return _score(params, state, stacked, rel_emb, mask, input_dropout, hidden_dropout,
                   feat_dropout, gen, train)

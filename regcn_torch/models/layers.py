@@ -33,9 +33,12 @@ from typing import Dict, Optional
 import torch
 
 from regcn_torch.config import ModelConfig
+from regcn_torch.dist import HaloImpl, is_sharded, require_halo, require_parts
 from regcn_torch.ops.activations import inverted_dropout, rrelu
 from regcn_torch.ops.rgcn_scatter import rgcn_aggregate, scatter_add_sorted
 from regcn_torch.ops.segment import masked_segment_sum
+from regcn_torch.parallel.halo import halo_rgcn_aggregate, sharded_rgcn_aggregate
+from regcn_torch.parallel.mesh import graph_rank, graph_size
 from regcn_torch.utils.dtypes import dot_f32, linear, mm
 from regcn_torch.utils.init import RELU_GAIN, gru_uniform, xavier_uniform
 
@@ -71,14 +74,29 @@ def union_rgcn_layer(
     train: bool = False,
     impl: str = "xla",
 ) -> torch.Tensor:
-    node_repr = rgcn_aggregate(
-        h, rel_emb, params["w_neighbor"], snap.src, snap.dst, snap.rel,
-        snap.edge_mask, snap.in_deg_norm, dst_sorted=snap.dst_sorted, impl=impl,
-    )
+    """With ``impl`` a :class:`~regcn_torch.dist.HaloImpl` or
+    :class:`~regcn_torch.dist.GspmdImpl`, ``h`` holds this rank's rows of
+    the entity table and the layer returns its rows: the aggregation over
+    the rank's partition of the edges (``snap.halo`` / ``snap.parts``; JAX
+    ``layers.py:63-70``), the self-loop over its rows, and the dropout's
+    mask drawn for the whole table, as one device draws it."""
+    rows = None  # (the table's rows, the first of this rank's) on a mesh
+    if is_sharded(impl):
+        halo = isinstance(impl, HaloImpl)
+        edges = require_halo(snap) if halo else require_parts(snap)
+        aggregate = halo_rgcn_aggregate if halo else sharded_rgcn_aggregate
+        node_repr = aggregate(impl.mesh, h, rel_emb, params["w_neighbor"], edges)
+        rows = (graph_size(impl.mesh) * h.shape[0], graph_rank(impl.mesh) * h.shape[0])
+    else:
+        edges = snap
+        node_repr = rgcn_aggregate(
+            h, rel_emb, params["w_neighbor"], snap.src, snap.dst, snap.rel,
+            snap.edge_mask, snap.in_deg_norm, dst_sorted=snap.dst_sorted, impl=impl,
+        )
     if "loop_w" in params:
         # dual self-loop: evolve_loop_weight for isolated nodes
         # (ref:rgcn/layers.py:226-233); fp32 products, back in h's dtype
-        loop = torch.where(snap.has_in_edge[:, None] > 0,
+        loop = torch.where(edges.has_in_edge[:, None] > 0,
                            dot_f32(h, params["loop_w"]).to(h.dtype),
                            dot_f32(h, params["evolve_loop_w"]).to(h.dtype))
         node_repr = node_repr + loop
@@ -86,7 +104,7 @@ def union_rgcn_layer(
         # sigmoid-gated skip across layers (ref:rgcn/layers.py:234-245)
         gate = torch.sigmoid(mm(prev_h, params["skip_w"]) + params["skip_b"])
         node_repr = gate * node_repr + (1.0 - gate) * prev_h
-    return inverted_dropout(rrelu(node_repr), dropout, gen, train)
+    return inverted_dropout(rrelu(node_repr), dropout, gen, train, rows=rows)
 
 
 def init_rgcn_cell(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, list]:

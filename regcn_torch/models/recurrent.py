@@ -36,6 +36,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from regcn_torch.config import ModelConfig
+from regcn_torch.dist import is_sharded
 from regcn_torch.models import decoders
 from regcn_torch.models.layers import (
     gru_cell,
@@ -47,6 +48,8 @@ from regcn_torch.models.layers import (
 )
 from regcn_torch.ops.activations import l2_normalize
 from regcn_torch.ops.segment import masked_segment_mean
+from regcn_torch.parallel.collectives import RowShard, gather_rows
+from regcn_torch.parallel.mesh import graph_size, row_shard
 from regcn_torch.utils.dtypes import compute_dtype, mm
 from regcn_torch.utils.init import xavier_normal, xavier_uniform
 
@@ -121,8 +124,15 @@ def evolve(params: Params, cfg: ModelConfig, history, *, static_snap=None,
     with ``return_all``, (h_final, r_emb_final, the static embedding or
     None, every step's h [T, N, d]). With ``use_static`` and a
     ``static_snap`` (the static graph's Snapshot) the evolution starts
-    from the static embedding."""
+    from the static embedding.
+
+    With ``impl`` an entity-sharded marker (``regcn_torch/dist.py``),
+    ``params["dynamic_emb"]`` holds this rank's rows and so does h: the
+    relation context gathers its entities' rows from their owners, the
+    layers aggregate over the rank's edges, and the time gate runs on the
+    rank's rows; the relation embeddings stay replicated."""
     check_supported(cfg)
+    shard = _shard(impl, params)
     static_emb = None
     if cfg.use_static and static_snap is not None:
         static_emb = _static_init(params, cfg, static_snap, gen=gen, train=train)
@@ -136,7 +146,8 @@ def evolve(params: Params, cfg: ModelConfig, history, *, static_snap=None,
         snap = history.step(t)
         # relation context: masked segment-mean of current entity states over
         # the (relation, incident-entity) pair list
-        ctx = masked_segment_mean(h[snap.rc_ent], snap.rc_rel, snap.rc_mask, cfg.num_rels_total)
+        ent = h[snap.rc_ent] if shard is None else gather_rows(h, snap.rc_ent, shard)
+        ctx = masked_segment_mean(ent, snap.rc_rel, snap.rc_mask, cfg.num_rels_total)
         h0_new = gru_cell(params["gru"], torch.cat([emb_rel, ctx], dim=1), h0)
         if cfg.layer_norm:
             h0_new = l2_normalize(h0_new)
@@ -154,6 +165,18 @@ def evolve(params: Params, cfg: ModelConfig, history, *, static_snap=None,
     if return_all:
         return h, h0, static_emb, torch.stack(all_h)
     return h, h0
+
+
+def _shard(impl, params: Params) -> Optional[RowShard]:
+    """This rank's rows of the entity table under a sharded ``impl``, else
+    None."""
+    if not is_sharded(impl):
+        return None
+    if "words_emb" in params:
+        raise NotImplementedError("the static graph on a mesh (config 2's sharded words_emb) is "
+                                  "not ported yet (ROADMAP A.11b)")
+    g = graph_size(impl.mesh)
+    return row_shard(impl.mesh, g * params["dynamic_emb"].shape[0])
 
 
 def _masked_ce(scores: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -213,8 +236,12 @@ def get_loss(
     static loss is the angular constraint with ``use_static`` and a
     ``static_snap``, else 0. In train mode the decoders' BatchNorms use the
     batch statistics of the real triples and the new state holds their
-    updated running statistics."""
+    updated running statistics. Under a sharded ``impl`` (:func:`evolve`)
+    the entity scores are the rank's candidates' and the entity CE is taken
+    across ranks (``decoders.sharded_masked_ce``); every rank returns the
+    same losses."""
     check_supported(cfg)
+    shard = _shard(impl, params)
     static_emb = all_h = None
     if cfg.use_static:
         h, r_emb, static_emb, all_h = evolve(params, cfg, history, static_snap=static_snap,
@@ -226,12 +253,13 @@ def get_loss(
     losses = {"entity": zero, "relation": zero, "static": zero}
     bn_ob, bn_rel = state.bn_ob, state.bn_rel
     kw = dict(input_dropout=cfg.input_dropout, hidden_dropout=cfg.hidden_dropout,
-              feat_dropout=cfg.feat_dropout, gen=gen, train=train)
+              feat_dropout=cfg.feat_dropout, gen=gen, train=train, shard=shard)
     if cfg.entity_prediction:
         out = decoders.convtranse_score(params["decoder_ob"], bn_ob, pre_emb, r_emb, triples,
                                         triple_mask, **kw)
         scores, bn_ob = out if train else (out, bn_ob)
-        losses["entity"] = _masked_ce(scores, triples[:, 2], triple_mask)
+        losses["entity"] = (_masked_ce(scores, triples[:, 2], triple_mask) if shard is None else
+                            decoders.sharded_masked_ce(scores, triples[:, 2], triple_mask, shard))
     if cfg.relation_prediction:
         # the candidates are the EVOLVED relation embeddings (ref:src/rrgcn.py:222)
         out = decoders.convtransr_score(params["decoder_rel"], bn_rel, pre_emb, r_emb, triples,
@@ -255,9 +283,13 @@ def predict(
     impl: str = "xla",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eval-mode scores (ref:src/rrgcn.py:183-194): (ent [B,N], rel [B,2R]),
-    fp32 in every compute dtype."""
+    fp32 in every compute dtype; under a sharded ``impl`` the entity scores
+    are the rank's candidates', [B, rows]."""
+    shard = _shard(impl, params)
     h, r_emb = evolve(params, cfg, history, static_snap=static_snap, impl=impl)
     emb = l2_normalize(h) if cfg.layer_norm else h
-    scores_ob = decoders.convtranse_score(params["decoder_ob"], state.bn_ob, emb, r_emb, triples)
-    scores_rel = decoders.convtransr_score(params["decoder_rel"], state.bn_rel, emb, r_emb, triples)
+    scores_ob = decoders.convtranse_score(params["decoder_ob"], state.bn_ob, emb, r_emb, triples,
+                                          shard=shard)
+    scores_rel = decoders.convtransr_score(params["decoder_rel"], state.bn_rel, emb, r_emb,
+                                           triples, shard=shard)
     return scores_ob, scores_rel

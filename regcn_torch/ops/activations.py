@@ -63,20 +63,26 @@ class DropoutDraws:
 
 
 def inverted_dropout(x: torch.Tensor, rate: float,
-                     gen: Union[torch.Generator, DropoutDraws, None], train: bool
-                     ) -> torch.Tensor:
+                     gen: Union[torch.Generator, DropoutDraws, None], train: bool,
+                     rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Inverted dropout: keep each entry with probability ``1 - rate`` and
     scale the survivors by ``1 / (1 - rate)``; the identity outside
     training, at rate 0 or without a generator. The mask is drawn from
     ``gen``, which must live on ``x``'s device, or taken from a
-    :class:`DropoutDraws`."""
+    :class:`DropoutDraws`. With ``rows`` = (n, row0), ``x`` holds rows
+    ``row0 ..`` of an [n, ...] table sharded over ranks: the mask of the
+    whole table is drawn (every rank's generator alike) and ``x`` keeps its
+    rows, so a sharded run draws what the unsharded one draws."""
     if not train or rate <= 0.0 or gen is None:
         return x
+    shape = x.shape if rows is None else (rows[0],) + tuple(x.shape[1:])
     if isinstance(gen, DropoutDraws):
-        keep = gen.uniform(x.shape, x.device) < 1.0 - rate
-        return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
-    if gen.device.type != x.device.type:
-        raise ValueError(f"dropout on a {x.device.type} tensor needs a generator on that "
-                         f"device, got one on {gen.device}")
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+        keep = gen.uniform(shape, x.device) < 1.0 - rate
+    else:
+        if gen.device.type != x.device.type:
+            raise ValueError(f"dropout on a {x.device.type} tensor needs a generator on that "
+                             f"device, got one on {gen.device}")
+        keep = torch.rand(shape, generator=gen, device=x.device) < 1.0 - rate
+    if rows is not None:
+        keep = keep[rows[1]:rows[1] + x.shape[0]]
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))

@@ -3,7 +3,9 @@
 Each ``regcn_torch/csrc/<name>.cu`` exposes a plain C interface and is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into
 ``regcn_torch/_build/lib<name>-<hash>.so``, where the hash covers the
-source and the flags, so an edited source is rebuilt. The library is
+source and the flags, so an edited source is rebuilt. A library of
+``VARIANTS`` is a source built again with a macro that selects another
+part of its template instances, so that the parts compile in parallel. The library is
 loaded with ctypes. Nothing here runs at import time: the CPU tests
 import every module on machines without ``nvcc``.
 """
@@ -26,6 +28,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 _NVCC_TIMEOUT_S = 600
+# library -> (source under csrc/, extra nvcc flags): streaming_ce.cu's
+# instances for 256 < d <= 512 (the forward and both backward kernels at 12
+# and 16 float4 columns a warp) in a library of their own
+VARIANTS = {"streaming_ce_wide": ("streaming_ce", ("-DSTREAMING_CE_WIDE",))}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -43,9 +49,16 @@ def _nvcc() -> str:
     return found
 
 
+def _source(name: str) -> tuple:
+    """(source path, extra flags) of library ``name``."""
+    src, flags = VARIANTS.get(name, (name, ()))
+    return CSRC_DIR / f"{src}.cu", flags
+
+
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    src, flags = _source(name)
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS + flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -62,7 +75,8 @@ def build(names: Sequence[str]) -> Dict[str, str]:
             continue
         nvcc = nvcc or _nvcc()
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        src, flags = _source(name)
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-o", str(tmp), str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, tmp, out)
     logs, errors = {}, []
@@ -84,7 +98,8 @@ def build(names: Sequence[str]) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The built library for ``csrc/<name>.cu``, building it if needed."""
+    """The built library ``name`` (``csrc/<name>.cu`` or a variant), building
+    it if needed."""
     if name not in _loaded:
         build([name])
         _loaded[name] = ctypes.CDLL(str(library_path(name)))

@@ -45,6 +45,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from regcn_torch.dist import is_sharded
 from regcn_torch.ops import cuda_build
 from regcn_torch.utils.dtypes import dot_f32
 
@@ -264,17 +265,23 @@ def scatter_add_sorted(
 scatter_add_sorted.launches = 0
 
 
-def check_impl(impl: str) -> None:
+def check_impl(impl) -> None:
     """Raises unless ``impl`` is one of the JAX package's single-device
     aggregation routes: "xla" (XLA's segment sum) or "pallas" (kernel B1),
     which take the same path here, the kernel on a CUDA tensor and its
     plain version on a CPU tensor; or "cumsum", the approximate
     cumulative-sum route (:func:`rgcn_aggregate_cumsum`). The hyperbolic
     and HisRES layers take B1 for "cumsum" too, as JAX's take their
-    segment sum. "halo" is multi-device (ROADMAP A.11)."""
+    segment sum. The entity-sharded markers of ``regcn_torch/dist.py`` run
+    RE-GCN's UnionRGCN layer only (``models/layers.py``), and "halo" names
+    no single-device route: the boundary halo runs on a mesh."""
+    if is_sharded(impl):
+        raise NotImplementedError(f"impl {impl!r}: entity-sharded aggregation is ported for "
+                                  "RE-GCN only; the hyperbolic and HisRES layers on a mesh are "
+                                  "ROADMAP A.11b")
     if impl == "halo":
-        raise NotImplementedError("impl 'halo' (the multi-device boundary exchange) is not "
-                                  "ported yet (ROADMAP A.11)")
+        raise ValueError("impl 'halo' names no single-device route: the boundary halo runs on "
+                         "a mesh, Trainer(mesh=..., dist_agg='halo')")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
 
@@ -303,6 +310,9 @@ def rgcn_aggregate(
     by key first, their weights with them. ``impl="cumsum"`` requires
     ``dst_sorted=True``, as JAX's does, and takes no edge weight.
     """
+    if is_sharded(impl):
+        raise ValueError(f"rgcn_aggregate aggregates on one device; impl {impl!r} is "
+                         "regcn_torch.parallel.halo's (models/layers.py dispatches it)")
     if impl == "cumsum":
         if not dst_sorted:
             raise ValueError("impl='cumsum' requires destination-sorted edges")

@@ -32,6 +32,7 @@ import math
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from regcn_torch.ops import cuda_build, rgcn_scatter
 from regcn_torch.utils.dtypes import dot_f32
@@ -43,7 +44,10 @@ BWD_X_ROWS = 32  # queries per tile of the candidate-side backward's walk
 BWD_Q_ROWS = 32  # candidates per tile of the query-side backward's walk
 MAX_CLUSTER = 8  # blocks of one candidate tile in the candidate-side backward
 MAX_CLUSTER_Q = 16  # blocks of one query tile in the query-side backward
-MAX_D = 256  # widest embedding the kernels take
+MAX_D = 512  # widest embedding the kernels take
+# widest of the first library's instances; wider ones are in the second
+# (cuda_build.VARIANTS), which builds in parallel with it
+NARROW_D = 256
 _INT_MAX = 2**31 - 1
 
 
@@ -105,9 +109,14 @@ def streaming_nll_reference(q, x, bias, target, cq, scale, margin,
 
 # ------------------------------------------------------------------ kernels
 
+def _lib(d: int) -> ctypes.CDLL:
+    """The library whose instances take width ``d``."""
+    return _kernel_lib(d > NARROW_D)
+
+
 @functools.cache
-def _kernel_lib() -> ctypes.CDLL:
-    lib = cuda_build.load("streaming_ce")
+def _kernel_lib(wide: bool = False) -> ctypes.CDLL:
+    lib = cuda_build.load("streaming_ce_wide" if wide else "streaming_ce")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.streaming_ce_forward.argtypes = [ptr] * 11 + [i32] * 5 + [ptr]
     lib.streaming_ce_backward_q.argtypes = [ptr] * 17 + [i32] * 6 + [ptr]
@@ -155,7 +164,7 @@ def _forward_occupancy(device: torch.device, d: int, true_dist: bool) -> Tuple[i
     """(queries per block, blocks per SM, SMs of the card) of the forward."""
     queries, per_sm, sms = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device):
-        err = _kernel_lib().streaming_ce_forward_occupancy(
+        err = _lib(d).streaming_ce_forward_occupancy(
             d, int(true_dist), ctypes.addressof(queries), ctypes.addressof(per_sm),
             ctypes.addressof(sms))
     _raise_on(err, "streaming_ce_forward_occupancy")
@@ -190,7 +199,7 @@ def ce_forward(q, x, bias, cq, target, scale, margin, true_dist: bool, splits: i
     lse = torch.empty(B, dtype=torch.float32, device=q.device)
     counters = _counters_for("forward", q.device, -(-B // plan["queries"]))
     with torch.cuda.device(q.device):
-        err = _kernel_lib().streaming_ce_forward(
+        err = _lib(d).streaming_ce_forward(
             q.data_ptr(), x.data_ptr(), bias.data_ptr(), cq.data_ptr(), target.data_ptr(),
             scale.data_ptr(), margin.data_ptr(), part.data_ptr(), nll.data_ptr(),
             lse.data_ptr(), counters.data_ptr(), B, N, d, splits, int(true_dist), _stream(q))
@@ -206,7 +215,7 @@ def _backward_q_occupancy(device: torch.device, d: int, cluster: int, true_dist:
     0 clusters if none of this size fits the card."""
     per_sm, clusters = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device):
-        err = _kernel_lib().streaming_ce_backward_q_occupancy(
+        err = _lib(d).streaming_ce_backward_q_occupancy(
             d, cluster, int(true_dist), ctypes.addressof(per_sm), ctypes.addressof(clusters))
     _raise_on(err, "streaming_ce_backward_q_occupancy")
     return per_sm.value, clusters.value
@@ -259,7 +268,7 @@ def ce_backward_q(q, x, bias, cq, target, scale, margin, lse, g, true_dist: bool
     dscale, dmargin = torch.empty((), **f32), torch.empty((), **f32)
     counters = _counters_for("backward_q", q.device, q_tiles + 1)
     with torch.cuda.device(q.device):
-        err = _kernel_lib().streaming_ce_backward_q(
+        err = _lib(d).streaming_ce_backward_q(
             q.data_ptr(), x.data_ptr(), bias.data_ptr(), cq.data_ptr(), target.data_ptr(),
             scale.data_ptr(), margin.data_ptr(), lse.data_ptr(), g.data_ptr(),
             dq_part.data_ptr(), rows_part.data_ptr(), scal_part.data_ptr(), dq.data_ptr(),
@@ -276,7 +285,7 @@ def _backward_x_occupancy(device: torch.device, d: int, cluster: int, true_dist:
     """(blocks per SM, clusters resident at once) of the candidate-side backward."""
     per_sm, clusters = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device):
-        err = _kernel_lib().streaming_ce_backward_x_occupancy(
+        err = _lib(d).streaming_ce_backward_x_occupancy(
             d, cluster, int(true_dist), ctypes.addressof(per_sm), ctypes.addressof(clusters))
     _raise_on(err, "streaming_ce_backward_x_occupancy")
     return per_sm.value, clusters.value
@@ -312,7 +321,7 @@ def ce_backward_x(q, x, bias, cq, target, scale, margin, lse, g, true_dist: bool
     f32 = dict(dtype=torch.float32, device=q.device)
     dx, dbias = torch.empty((N, d), **f32), torch.empty(N, **f32)
     with torch.cuda.device(q.device):
-        err = _kernel_lib().streaming_ce_backward_x(
+        err = _lib(d).streaming_ce_backward_x(
             q.data_ptr(), x.data_ptr(), bias.data_ptr(), cq.data_ptr(), target.data_ptr(),
             scale.data_ptr(), margin.data_ptr(), lse.data_ptr(), g.data_ptr(), dx.data_ptr(),
             dbias.data_ptr(), B, N, d, splits, int(true_dist), _stream(q))
@@ -446,6 +455,16 @@ def _check(name, t, shape, dtype, device) -> None:
                          f"on {device}; got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+def check_width(d: int, device) -> None:
+    """Raises ``ValueError`` where the kernels do not take embedding width
+    ``d`` on ``device`` (above :data:`MAX_D` on a CUDA device; the plain
+    version takes any width): the trainers call it at construction, so
+    that no epoch stops at its first step."""
+    if torch.device(device).type == "cuda" and not 0 < d <= MAX_D:
+        raise ValueError(f"kernel B2 (streaming_ce.cu) takes embedding widths up to {MAX_D} on "
+                         f"the card; got d={d}")
+
+
 def streaming_nll(q, x, bias, target, cq, scale, margin, true_dist: bool = False) -> torch.Tensor:
     """Per-query NLL [B] over all N candidates, differentiable in q [B,d],
     x [N,d], bias [N], cq [B] (per-query curvature), scale and margin
@@ -455,7 +474,11 @@ def streaming_nll(q, x, bias, target, cq, scale, margin, true_dist: bool = False
     launches in ``.launches``); on a CPU tensor, their plain versions.
     Either way through :class:`_StreamingNLL`, so it composes with
     ``torch.func``: under ``vmap`` over K models each kernel launches K
-    times."""
+    times. A width that is not a multiple of 4 is zero-padded to the next
+    one on both devices (the kernels load rows as float4): the kernels see
+    q and x only through q.x, |q|^2 and |x|^2, to which zero columns add
+    nothing, and autograd drops the padded columns' gradients. The padded
+    copies are fresh, so 16-byte aligned."""
     if q.dim() != 2 or x.dim() != 2 or q.shape[1] != x.shape[1]:
         raise ValueError(f"q [B, d] and x [N, d] must share d; got {tuple(q.shape)} and "
                          f"{tuple(x.shape)}")
@@ -468,8 +491,10 @@ def streaming_nll(q, x, bias, target, cq, scale, margin, true_dist: bool = False
         raise ValueError(f"streaming_nll runs on cuda or cpu, not {dev}")
     target = target.to(torch.int32).contiguous()
     _check("target", target, (B,), torch.int32, dev)
-    if dev.type == "cuda" and (B == 0 or N == 0 or d == 0 or d > MAX_D or d % 4
-                               or max(B, N) * d > _INT_MAX):
-        raise ValueError(f"the kernels take B, N > 0 and 0 < d <= {MAX_D}, a multiple of 4; got "
-                         f"B={B} N={N} d={d}")
+    d4 = -(-d // 4) * 4
+    if dev.type == "cuda" and (B == 0 or N == 0 or d == 0 or d > MAX_D
+                               or max(B, N) * d4 > _INT_MAX):
+        raise ValueError(f"the kernels take B, N > 0 and 0 < d <= {MAX_D}; got B={B} N={N} d={d}")
+    if d4 != d:
+        q, x = F.pad(q, (0, d4 - d)), F.pad(x, (0, d4 - d))
     return _StreamingNLL.apply(q, x, bias, cq, scale, margin, target, bool(true_dist))[0]

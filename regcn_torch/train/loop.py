@@ -43,8 +43,11 @@ from regcn_torch.data.answers import AnswerFilter, build_answer_filters_by_time
 from regcn_torch.data.dataset import TKGData
 from regcn_torch.data.snapshots import (build_history, build_snapshot, dilate_snapshots,
                                         pad_triples, split_by_time)
+from regcn_torch.dist import check_impl_compatible, sharded_impl
 from regcn_torch.models import recurrent
 from regcn_torch.ops.rgcn_scatter import check_impl
+from regcn_torch.parallel import sharding
+from regcn_torch.parallel.mesh import DATA_AXIS, axis_size, check_entity_divisibility, row_shard
 from regcn_torch.train import metrics
 from regcn_torch.train import state as train_state
 from regcn_torch.train.optim import tree_leaves
@@ -94,16 +97,21 @@ def rolling_ranks(
     device="cuda",
     predict: Predict = regcn_predict,
     step_inputs: StepInputs = None,
+    sharded=None,
 ) -> Dict[str, List[np.ndarray]]:
     """Per eval snapshot, the ranks of its real queries under each of
-    ``RANK_KEYS`` (entity/relation, raw/filtered)."""
+    ``RANK_KEYS`` (entity/relation, raw/filtered). On an entity-sharded
+    mesh ``sharded`` (a ``regcn_torch.parallel.sharding.ShardedEval``)
+    builds the windows with the rank's partition and ranks the candidates
+    across the shards; every rank gets the same ranks."""
     window = list(history_list[-tc.test_history_len:])
     if not window:
         raise ValueError("rolling evaluation needs at least one history snapshot")
     ranks: Dict[str, List[np.ndarray]] = {k: [] for k in RANK_KEYS}
     for t, snap in enumerate(eval_list):
-        history = build_history(window, cfg.num_ents, cfg.num_rels,
-                                edge_bucket=tc.edge_bucket, rc_bucket=tc.rc_bucket).to(device)
+        history = (sharded.window(window) if sharded is not None else
+                   build_history(window, cfg.num_ents, cfg.num_rels, edge_bucket=tc.edge_bucket,
+                                 rc_bucket=tc.rc_bucket).to(device))
         triples, mask = pad_triples(snap, cfg.num_rels, tc.triple_bucket)
         er, ec = metrics.filter_coo_padded(
             ent_filters[t] if ent_filters else None, triples[:, [0, 1]], triples[:, 2])
@@ -114,12 +122,13 @@ def rolling_ranks(
         s_ob, s_rel = predict(params, model_state, cfg, history, trip,
                               torch.from_numpy(mask).to(device),
                               **(step_inputs(t, triples, mask) if step_inputs else {}))
-        step = torch.stack([
-            metrics.device_ranks(s_ob, trip[:, 2]),
-            metrics.device_filtered_ranks(s_ob, trip[:, 2], er, ec),
-            metrics.device_ranks(s_rel, trip[:, 1]),
-            metrics.device_filtered_ranks(s_rel, trip[:, 1], rr, rc),
-        ]).cpu().numpy()
+        step = (sharded.ranks(s_ob, s_rel, trip, er, ec, rr, rc) if sharded is not None else
+                torch.stack([
+                    metrics.device_ranks(s_ob, trip[:, 2]),
+                    metrics.device_filtered_ranks(s_ob, trip[:, 2], er, ec),
+                    metrics.device_ranks(s_rel, trip[:, 1]),
+                    metrics.device_filtered_ranks(s_rel, trip[:, 1], rr, rc),
+                ])).cpu().numpy()
         valid = mask > 0
         for key, row in zip(RANK_KEYS, step):
             ranks[key].append(row[valid])
@@ -143,24 +152,30 @@ def multi_step_ranks(
     topk: int = 10,
     relation_evaluation: bool = False,
     step_inputs: StepInputs = None,
+    sharded=None,
 ) -> Dict[str, List[np.ndarray]]:
     """Multi-step evaluation (ref:src/main.py:33-107): as
     :func:`rolling_ranks`, but each snapshot's top-k predictions, of
     entities or with ``relation_evaluation`` of relations, take the oldest
-    snapshot's place in the window instead of the snapshot itself."""
+    snapshot's place in the window instead of the snapshot itself. With
+    ``sharded`` (``dist_agg="gspmd"``) every rank gathers the whole score
+    matrix and takes the same steps."""
     window = list(history_list[-tc.test_history_len:])
     ranks: Dict[str, List[np.ndarray]] = {k: [] for k in RANK_KEYS}
     for t, snap in enumerate(eval_list):
-        history = build_history(window, cfg.num_ents, cfg.num_rels,
-                                edge_bucket=tc.edge_bucket, rc_bucket=tc.rc_bucket)
+        history = (sharded.window(window) if sharded is not None else
+                   build_history(window, cfg.num_ents, cfg.num_rels, edge_bucket=tc.edge_bucket,
+                                 rc_bucket=tc.rc_bucket).to(device))
         triples, mask = pad_triples(snap, cfg.num_rels, tc.triple_bucket)
         valid = mask > 0
         tq = triples[valid]
         with torch.inference_mode():
-            s_ob, s_rel = predict(params, model_state, cfg, history.to(device),
+            s_ob, s_rel = predict(params, model_state, cfg, history,
                                   torch.from_numpy(triples).long().to(device),
                                   torch.from_numpy(mask).to(device),
                                   **(step_inputs(t, triples, mask) if step_inputs else {}))
+            if sharded is not None:
+                s_ob = sharded.full_scores(s_ob)
         # the dense scores go to the host, in float64 as in the JAX loop
         s_ob = s_ob.cpu().numpy().astype(np.float64)[valid]
         s_rel = s_rel.cpu().numpy().astype(np.float64)[valid]
@@ -195,16 +210,17 @@ def evaluate(
     topk: int = 10,
     relation_evaluation: bool = False,
     step_inputs: StepInputs = None,
+    sharded=None,
 ) -> Dict[str, metrics.RankStats]:
     """Rolling-window evaluation, single-step or with ``multi_step``
     (:func:`multi_step_ranks`): ``RANK_KEYS`` -> RankStats."""
     if multi_step:
         ranks = multi_step_ranks(params, model_state, cfg, tc, history_list, eval_list,
                                  ent_filters, rel_filters, device, predict, topk,
-                                 relation_evaluation, step_inputs)
+                                 relation_evaluation, step_inputs, sharded)
     else:
         ranks = rolling_ranks(params, model_state, cfg, tc, history_list, eval_list,
-                              ent_filters, rel_filters, device, predict, step_inputs)
+                              ent_filters, rel_filters, device, predict, step_inputs, sharded)
     return {k: metrics.stat_ranks(v) for k, v in ranks.items()}
 
 
@@ -289,20 +305,45 @@ class Trainer:
     (``utils/dtypes.py:tree_to_compute``), and the gradients reach the
     fp32 parameters in fp32; evaluation runs in fp32, as JAX's
     ``predict_step`` has no cast, and checkpoints hold the fp32
-    parameters. Not ported, and raising ``NotImplementedError``: a mesh
-    and ``dist_agg="halo"`` (ROADMAP A.11)."""
+    parameters.
+
+    ``mesh`` (``regcn_torch.parallel.mesh.make_mesh``, with a ``graph``
+    axis over the ranks of an initialised process group; every rank builds
+    its own Trainer and calls the same methods) trains entity-sharded, as
+    JAX's ``Trainer(mesh=...)``: the state holds this rank's rows of the
+    entity table and its Adam moments, the rest replicated, and
+    ``dist_agg`` picks the cross-shard aggregation, ``"gspmd"`` (an
+    all-gather of the entity rows) or ``"halo"`` (the boundary-set
+    ``all_to_all``). ``init_state`` and the checkpoints take and give
+    whole states' rows; multi-step evaluation needs ``"gspmd"``, as in
+    JAX. Not ported on a mesh yet, and raising ``NotImplementedError``
+    (ROADMAP A.11b): the static graph, bf16 compute, ``run_analysis``,
+    ``impl="cumsum"`` and a ``data`` axis above 1."""
 
     def __init__(self, cfg: ExperimentConfig, data: TKGData, *, impl: str = "xla", mesh=None,
                  dist_agg: str = "gspmd", run_analysis: bool = False, device="cuda"):
         if dist_agg not in ("gspmd", "halo"):
             raise ValueError(f"dist_agg must be 'gspmd' or 'halo', got {dist_agg!r}")
-        if mesh is not None or dist_agg == "halo":
-            raise NotImplementedError("multi-device training (a mesh, dist_agg='halo') is not "
-                                      "ported yet (ROADMAP A.11)")
+        if mesh is None and dist_agg == "halo":
+            raise ValueError("dist_agg='halo' requires a mesh")
+        check_impl_compatible(impl, dist_agg)
         check_impl(impl)
         recurrent.check_supported(cfg.model)
-        self.impl = impl
         self.compute_dtype = compute_dtype(cfg.model.dtype)
+        self.mesh, self.dist_agg, self.shard = mesh, dist_agg, None
+        if mesh is not None:
+            check_entity_divisibility(data.num_nodes, mesh)
+            for unported, what in ((axis_size(mesh, DATA_AXIS) != 1, "a data axis above 1"),
+                                   (impl == "cumsum", "impl='cumsum'"),
+                                   (cfg.model.use_static, "the static graph"),
+                                   (self.compute_dtype != torch.float32, "bf16 compute"),
+                                   (run_analysis, "run_analysis")):
+                if unported:
+                    raise NotImplementedError(f"{what} on a mesh is not ported yet "
+                                              "(ROADMAP A.11b)")
+            self.shard = row_shard(mesh, data.num_nodes)
+            impl = sharded_impl(mesh, dist_agg)
+        self.impl = impl
         self.cfg, self.data = cfg, data
         self.device = torch.device(device)
         self.num_rels, self.num_nodes = data.num_rels, data.num_nodes
@@ -317,17 +358,35 @@ class Trainer:
 
     def init_state(self, seed: Optional[int] = None) -> TrainState:
         """Random parameters from ``seed`` (default ``tc.seed``) on the
-        trainer's device."""
+        trainer's device; on a mesh, this rank's rows of them."""
         seed = self.cfg.train.seed if seed is None else seed
-        return train_state.create_train_state(seed, self.cfg.model, self.cfg.train, self.device)
+        state = train_state.create_train_state(seed, self.cfg.model, self.cfg.train, self.device)
+        return state if self.shard is None else sharding.shard_state(state, self.shard)
 
     # ------------------------------------------------------------------ data
     def window(self, i: int) -> tuple:
-        """(history, triples, mask) of training snapshot ``i``, built once."""
+        """(history, triples, mask) of training snapshot ``i``, built once;
+        on a mesh the history carries this rank's partition of its edges."""
         if i not in self._windows:
-            self._windows[i] = train_window(self.train_list, i, self.num_nodes, self.num_rels,
-                                            self.cfg.train, self.device)
+            if self.shard is None:
+                self._windows[i] = train_window(self.train_list, i, self.num_nodes,
+                                                self.num_rels, self.cfg.train, self.device)
+            else:
+                tc = self.cfg.train
+                triples, mask = pad_triples(self.train_list[i], self.num_rels, tc.triple_bucket)
+                self._windows[i] = (
+                    self._sharded_eval().window(
+                        self.train_list[max(0, i - tc.train_history_len):i]),
+                    torch.from_numpy(triples).long().to(self.device),
+                    torch.from_numpy(mask).to(self.device))
         return self._windows[i]
+
+    def _sharded_eval(self):
+        """The rank's windows and ranks on a mesh, else None."""
+        if self.shard is None:
+            return None
+        return sharding.ShardedEval(self.cfg.model, self.cfg.train, self.dist_agg, self.shard,
+                                    self.device)
 
     # ----------------------------------------------------------------- train
     def loss(self, state: TrainState, history, triples, mask):
@@ -349,7 +408,12 @@ class Trainer:
         (0-d tensors on the device, not synchronised)."""
         total, losses, new_model_state = self.loss(state, history, triples, mask)
         leaves = tree_leaves(state.params)
-        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        if self.shard is None:
+            grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        else:
+            rules = sharding.state_sharding_rules(state)
+            self.opt.shard(rules, self.shard.group)
+            grads = sharding.sharded_grads(total, leaves, [not r for r in rules], self.shard)
         self.opt.step(leaves, grads, state.opt_state)
         state.model_state = new_model_state
         state.step += 1
@@ -396,13 +460,19 @@ class Trainer:
                  multi_step: bool = False, topk: int = 10, relation_evaluation: bool = False
                  ) -> Dict[str, metrics.RankStats]:
         """Rolling-window evaluation (ref:src/main.py:33-107), single-step
-        or multi-step (:func:`multi_step_ranks`)."""
+        or multi-step (:func:`multi_step_ranks`; not under
+        ``dist_agg="halo"``, as in JAX)."""
+        if multi_step and self.mesh is not None and self.dist_agg == "halo":
+            raise ValueError(
+                "multi-step inference rebuilds history from predictions "
+                "per step (host loop) and is not supported under "
+                "dist_agg='halo'; use dist_agg='gspmd' mesh mode for it")
         return evaluate(state.params, state.model_state, self.cfg.model, self.cfg.train,
                         history_list, eval_list, ent_filters, rel_filters, self.device,
                         functools.partial(regcn_predict, static_snap=self.static_snap,
                                           impl=self.impl),
                         multi_step=multi_step, topk=topk,
-                        relation_evaluation=relation_evaluation)
+                        relation_evaluation=relation_evaluation, sharded=self._sharded_eval())
 
     def test(self, state: TrainState, multi_step: bool = False, topk: int = 10,
              relation_evaluation: bool = False) -> Dict[str, metrics.RankStats]:
@@ -437,7 +507,7 @@ class Trainer:
         state = state or self.init_state()
         if resume and train_state.has_resumable_checkpoint(checkpoint_path):
             state, start_epoch, best_mrr, best_epoch = train_state.restore_for_resume(
-                checkpoint_path, state)
+                checkpoint_path, state, shard=self.shard)
             log.info("resumed from %s at epoch %d (best MRR %.4f @ %d)", checkpoint_path,
                      start_epoch, best_mrr, best_epoch)
         ent_f = build_answer_filters_by_time(self.data.valid, self.num_rels, False)
@@ -471,10 +541,11 @@ class Trainer:
                     best_state = train_state.copy_state(state)
                     if checkpoint_path:
                         train_state.save_checkpoint(checkpoint_path, state,
-                                                    {"epoch": epoch, "mrr": mrr})
+                                                    {"epoch": epoch, "mrr": mrr},
+                                                    shard=self.shard)
             # every epoch, evaluated or not, so resume never re-runs one
             if checkpoint_path:
                 train_state.save_last_checkpoint(checkpoint_path, state, epoch, best_mrr,
-                                                 best_epoch)
+                                                 best_epoch, shard=self.shard)
         return best_state, {"best_valid_mrr_raw": best_mrr, "selection_metric": selection_metric,
                             "history": rows}

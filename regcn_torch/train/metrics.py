@@ -13,6 +13,8 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
+from regcn_torch.parallel.collectives import all_reduce_sum
+
 FILTER_VALUE = -1e7  # parity with ref:rgcn/utils.py:60
 
 
@@ -53,6 +55,33 @@ def device_filtered_ranks(scores, targets, mask_rows, mask_cols) -> torch.Tensor
     idx = torch.where(mask_rows < B, mask_rows * N + mask_cols, B * N)
     flat[idx] = FILTER_VALUE
     return device_ranks(flat[: B * N].view(B, N), targets)
+
+
+def sharded_ranks(scores: torch.Tensor, targets: torch.Tensor, shard) -> torch.Tensor:
+    """:func:`device_ranks` of scores sharded on the candidate axis (this
+    rank's [B, rows] of the ``RowShard``): the target's score from its
+    owner, each rank's count of strictly greater scores, summed over ranks
+    (in float64, exact for any count), so ties count as in
+    :func:`device_ranks`; every rank gets the same [B] ranks."""
+    local = targets - shard.row0
+    owned = (local >= 0) & (local < scores.shape[1])
+    picked = scores.gather(1, local.clamp(0, scores.shape[1] - 1)[:, None])[:, 0]
+    tgt = all_reduce_sum(torch.where(owned, picked, torch.zeros_like(picked)), shard.group)
+    count = (scores > tgt[:, None]).sum(dim=1).double()
+    return 1 + all_reduce_sum(count, shard.group).long()
+
+
+def sharded_filtered_ranks(scores, targets, mask_rows, mask_cols, shard) -> torch.Tensor:
+    """:func:`device_filtered_ranks` of scores sharded on the candidate
+    axis: each rank squashes the entries of the padded COO that fall in its
+    columns, then :func:`sharded_ranks`."""
+    B, n = scores.shape
+    local = mask_cols - shard.row0
+    keep = (mask_rows < B) & (local >= 0) & (local < n)
+    flat = torch.empty(B * n + 1, dtype=scores.dtype, device=scores.device)
+    flat[: B * n] = scores.reshape(-1)
+    flat[torch.where(keep, mask_rows * n + local, B * n)] = FILTER_VALUE
+    return sharded_ranks(flat[: B * n].view(B, n), targets, shard)
 
 
 def filter_coo_padded(answer_filter, queries, targets, bucket: int = 4096):

@@ -24,6 +24,7 @@ import dataclasses
 from typing import Callable, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 
 def tree_map(fn: Callable, tree):
@@ -44,6 +45,21 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     return [tree]
 
 
+def global_norm(grads: Sequence[torch.Tensor], sharded: Optional[Sequence[bool]] = None,
+                group=None) -> torch.Tensor:
+    """The float64 global norm of ``grads``; with ``sharded``, the squares
+    of the marked leaves are summed over the ranks of ``group`` (each rank
+    holds its rows of them) and the replicated leaves counted once."""
+    norms = torch._foreach_norm(list(grads), 2, dtype=torch.float64)
+    if not sharded or not any(sharded):
+        return torch.linalg.vector_norm(torch.stack(norms))
+    sq = [n * n for n in norms]
+    local = torch.stack([q for q, s in zip(sq, sharded) if s]).sum()
+    dist.all_reduce(local, group=group)
+    rest = [q for q, s in zip(sq, sharded) if not s]
+    return torch.sqrt(local + (torch.stack(rest).sum() if rest else 0.0))
+
+
 @dataclasses.dataclass
 class AdamState:
     count: int
@@ -61,6 +77,16 @@ class EuclideanAdam:
 
     def __init__(self, lr: float, grad_norm: float = 1.0, weight_decay: float = 1e-5):
         self.lr, self.grad_norm, self.weight_decay = lr, grad_norm, weight_decay
+        # on an entity-sharded mesh: per leaf, whether each rank holds only
+        # its rows of it, and the process group of those ranks
+        self.sharded: Optional[List[bool]] = None
+        self.group = None
+
+    def shard(self, sharded: Sequence[bool], group) -> None:
+        """Take the clip's global norm across the ranks of ``group``, where
+        the leaves marked in ``sharded`` (in the order of the parameters)
+        hold each rank's rows only."""
+        self.sharded, self.group = list(sharded), group
 
     def init(self, params: Sequence[torch.Tensor]) -> AdamState:
         return AdamState(count=0, mu=[torch.zeros_like(p) for p in params],
@@ -87,8 +113,7 @@ class EuclideanAdam:
         # the card's keeps, so the clip factor, and with it every update
         # whose gradient nearly cancels its weight decay, would differ
         # between devices
-        g_norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads, 2, dtype=torch.float64)))
+        g_norm = global_norm(grads, self.sharded, self.group)
         # optax: keep the grads while the norm is below the limit, else
         # g / norm * limit; decided on the device
         factor = torch.where(g_norm < self.grad_norm, torch.ones_like(g_norm),

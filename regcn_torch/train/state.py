@@ -15,6 +15,13 @@ beside its final name and moved into place with ``os.replace``, and
 leaves a ``meta.json`` without its state: at worst the state is one save
 ahead of a stale ``meta.json``, and resume re-runs one epoch. Saves are
 synchronous. Orbax checkpoints of the JAX package are not read.
+
+On an entity-sharded mesh (``shard``, this rank's
+``regcn_torch.parallel.collectives.RowShard``) a checkpoint keeps the
+unsharded format: every rank gathers the whole state and rank 0 writes it;
+a restore reads the whole state and keeps the rank's rows. So a sharded
+run resumes from an unsharded checkpoint and the other way round, as JAX
+restores, then shards.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from regcn_torch.config import ModelConfig, TrainConfig
 from regcn_torch.models import recurrent
@@ -100,9 +108,19 @@ def _write(path: str, write) -> None:
     os.replace(tmp, path)
 
 
-def save_checkpoint(path: str, state: TrainState, meta: Optional[Dict[str, Any]] = None) -> None:
+def save_checkpoint(path: str, state: TrainState, meta: Optional[Dict[str, Any]] = None,
+                    shard=None) -> None:
     """The whole train state to ``<path>/state.pt``, then ``meta`` to
-    ``<path>/meta.json``."""
+    ``<path>/meta.json``; with ``shard``, gathered over the ranks (a
+    collective) and written by rank 0, the other ranks waiting for it."""
+    if shard is not None:
+        from regcn_torch.parallel.sharding import unshard_state
+
+        whole = unshard_state(state, shard)
+        if shard.rank == 0:
+            save_checkpoint(path, whole, meta)
+        dist.barrier(group=shard.group)
+        return
     os.makedirs(path, exist_ok=True)
     blob = {
         "params": tree_map(torch.Tensor.detach, state.params),
@@ -122,13 +140,20 @@ def save_checkpoint(path: str, state: TrainState, meta: Optional[Dict[str, Any]]
     _write(os.path.join(path, META_FILE), dump)
 
 
-def restore_checkpoint(path: str, template: TrainState) -> Tuple[TrainState, Dict[str, Any]]:
+def restore_checkpoint(path: str, template: TrainState, shard=None
+                       ) -> Tuple[TrainState, Dict[str, Any]]:
     """(state, meta) from ``path``, on the device of ``template``'s
-    parameters; the checkpoint must hold a tree of the same shapes."""
+    parameters; the checkpoint must hold a tree of the same shapes (with
+    ``shard``, of the whole state, of which this rank keeps its rows)."""
     device = tree_leaves(template.params)[0].device
     blob = torch.load(os.path.join(path, STATE_FILE), map_location=device, weights_only=True)
-    got, want = tree_leaves(blob["params"]), tree_leaves(template.params)
-    if [t.shape for t in got] != [t.shape for t in want]:
+    got, want = tree_leaves(blob["params"]), [t.shape for t in tree_leaves(template.params)]
+    if shard is not None:
+        from regcn_torch.parallel.sharding import param_sharding_rules
+
+        want = [(shard.n,) + tuple(w[1:]) if s else w
+                for w, s in zip(want, param_sharding_rules(template.params))]
+    if [t.shape for t in got] != [torch.Size(w) for w in want]:
         raise ValueError(f"checkpoint {path} holds parameters of other shapes than the model's")
     if (blob.get("est_state") is None) != (template.est_state is None):
         raise ValueError(f"checkpoint {path} and the model differ in holding an EST state")
@@ -148,29 +173,33 @@ def restore_checkpoint(path: str, template: TrainState) -> Tuple[TrainState, Dic
     if os.path.exists(meta_path):
         with open(meta_path) as f:
             meta = json.load(f)
+    if shard is not None:
+        from regcn_torch.parallel.sharding import shard_state
+
+        state = shard_state(state, shard)
     return state, meta
 
 
 def save_last_checkpoint(path: str, state: TrainState, epoch: int, best_mrr: float,
-                         best_epoch: int) -> None:
+                         best_epoch: int, shard=None) -> None:
     """The state at the last completed epoch under ``<path>/last``: the
     root holds the best state, saved only on improvement, so resuming
     from it alone would re-run (and re-randomise) every epoch after it."""
     save_checkpoint(os.path.join(path, "last"), state,
                     {"epoch": int(epoch), "best_mrr": float(best_mrr),
-                     "best_epoch": int(best_epoch)})
+                     "best_epoch": int(best_epoch)}, shard=shard)
 
 
-def restore_for_resume(path: str, template: TrainState):
+def restore_for_resume(path: str, template: TrainState, shard=None):
     """(state, start_epoch, best_mrr, best_epoch) for ``fit(resume=True)``,
     from ``<path>/last`` where it is complete, else from the best state at
     the root (where last == best)."""
     last = os.path.join(path, "last")
     if _complete_checkpoint(last):
-        state, meta = restore_checkpoint(last, template)
+        state, meta = restore_checkpoint(last, template, shard)
         return (state, int(meta["epoch"]) + 1, float(meta.get("best_mrr", 0.0)),
                 int(meta.get("best_epoch", -1)))
-    state, meta = restore_checkpoint(path, template)
+    state, meta = restore_checkpoint(path, template, shard)
     epoch = int(meta.get("epoch", -1))
     return state, epoch + 1, float(meta.get("mrr", 0.0)), epoch
 

@@ -29,7 +29,7 @@ never starts there (its islands are no-ops on fp32 inputs).
 
 Shape-changing knobs (n_hidden, n_layers, dropout rates, n_bases) sweep
 sequentially (``regcn_torch/cli.py``'s grid). A mesh (the JAX sweep's
-model axis over devices) is not ported (ROADMAP A.11).
+model axis over devices) is not ported (ROADMAP A.11b).
 """
 
 from __future__ import annotations
@@ -338,7 +338,7 @@ class SweepRunner(_Sweep):
     As in JAX's runner the training snapshots are not dilated and the
     static graph is not used (a ``use_static`` model gets a static loss of
     0). ``impl`` is "xla" or "pallas" (both take kernel B1); a ``mesh``
-    raises (ROADMAP A.11)."""
+    raises (ROADMAP A.11b)."""
 
     loss_keys = ("entity", "relation", "static")
     model_state_type = recurrent.ModelState
@@ -346,7 +346,7 @@ class SweepRunner(_Sweep):
     def __init__(self, cfg: ModelConfig, tc: TrainConfig, data, combos: Dict[str, Sequence],
                  impl: str = "xla", mesh=None, device="cuda"):
         if mesh is not None:
-            raise NotImplementedError("a sweep over a mesh is not ported yet (ROADMAP A.11)")
+            raise NotImplementedError("a sweep over a mesh is not ported yet (ROADMAP A.11b)")
         check_impl(impl)
         recurrent.check_supported(cfg)
         super().__init__(cfg, tc, data, combos, device)
@@ -380,6 +380,7 @@ class HyperbolicSweepRunner(_Sweep):
             raise ValueError("vectorized sweep supports the Euclidean-optimizer, non-EST "
                              "hyperbolic configurations")
         hmodel.check_supported(cfg)
+        hmodel.check_device(cfg, device)
         # fp32 whatever the config's compute dtype: JAX's sweep casts nothing
         cfg = dataclasses.replace(cfg, compute_dtype="float32")
         super().__init__(cfg, tc, data, combos, device)

@@ -342,12 +342,22 @@ def test_rejections_match_jax(tiny, tmp_path, argv):
 
 @pytest.mark.parametrize("argv, item", [
     (["bench", "-d", "synthetic-small"], "A.2"),
-    (["train", "-d", "synthetic-small", "--shards", "2"], "A.11"),
-    (["hyperbolic", "-d", "synthetic-small", "--dist-agg", "halo"], "A.11"),
+    (["hisres", "-d", "synthetic-small", "--shards", "2"], "A.11b"),
+    (["hyperbolic", "-d", "synthetic-small", "--dist-agg", "halo"], "A.11b"),
 ], ids=["bench", "shards", "halo"])
 def test_unported_modes_stop_naming_their_roadmap_item(tiny, tmp_path, argv, item):
     with pytest.raises(SystemExit, match=item):
         run_cli(cli, argv, tmp_path, device="cpu")
+
+
+def test_shards_outside_torchrun_stops_naming_it(tiny, tmp_path, monkeypatch):
+    """``train --shards 2`` runs one process per shard: without torchrun's
+    environment and without a process group it stops, naming torchrun
+    (``tests/test_torch_sharded_train.py`` runs it on gloo ranks)."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node 2"):
+        run_cli(cli, ["train", "-d", "synthetic-small", "--shards", "2"], tmp_path,
+                device="cpu")
 
 
 def test_bfloat16_and_a_missing_card(tiny, tmp_path, monkeypatch):

@@ -318,7 +318,7 @@ def jax_enrichment(jp, jcfg, triples, arrays, rb, w_out, w_ctx):
                                         return_ctx_tangent=True)
         return jnp.sum(out * w_out) + jnp.sum(ctx * w_ctx), (out, ctx)
 
-    return jax.value_and_grad(jfn, argnums=(0, 1, 2, 3), has_aux=True)(
+    return jax.jit(jax.value_and_grad(jfn, argnums=(0, 1, 2, 3), has_aux=True))(
         jp, *(jnp.asarray(arrays[k]) for k in ("global_emb", "dyn", "rel")))
 
 

@@ -225,7 +225,7 @@ def compare(jax_fn, torch_fn, params_np, h, rel, n_out):
         *outs, aux = jax_fn(p, hh, rr)
         return sum(jnp.sum(o * pr) for o, pr in zip(outs, n_out)), (outs, aux)
 
-    want_g, (want, want_aux) = jax.grad(j, argnums=(0, 1, 2), has_aux=True)(
+    want_g, (want, want_aux) = jax.jit(jax.grad(j, argnums=(0, 1, 2), has_aux=True))(
         jax.tree.map(jnp.asarray, params_np), jnp.asarray(h), jnp.asarray(rel))
     params = torch_tree(params_np)
     th, tr = torch.from_numpy(h).requires_grad_(True), torch.from_numpy(rel).requires_grad_(True)
@@ -351,7 +351,8 @@ def test_get_loss_every_gradient_and_predict_match_jax(stores, snaps, data, use_
         return 0.7 * losses["entity"] + 0.3 * losses["relation"] + losses["static"], (losses,
                                                                                      new)
 
-    want_g, (want, want_state) = jax.grad(total, has_aux=True)(jax.tree.map(jnp.asarray, jp))
+    want_g, (want, want_state) = jax.jit(jax.grad(total, has_aux=True))(
+        jax.tree.map(jnp.asarray, jp))
     leaves = tree_leaves(cp)
     for p in leaves:
         p.requires_grad_(True)

@@ -14,10 +14,11 @@
   atth} through the hyperbolic model: ``init_params``' leaves,
   ``get_loss``'s four losses and ``predict``; the gradient of the
   trainer's total by every parameter for the convtranse pairs. JAX's
-  eager gradient of the whole model takes 10-25 s a pair, so the distance
-  decoders, which ``tests/test_torch_hyperbolic_pairs.py`` holds with
-  every gradient, are held by their losses here, and the encoders' own
-  gradients by the layer and cell tests above.
+  gradient of the whole model (compiled once, as its trainer compiles it)
+  takes 8-12 s a pair, so the distance decoders, which
+  ``tests/test_torch_hyperbolic_pairs.py`` holds with every gradient, are
+  held by their losses here, and the encoders' own gradients by the layer
+  and cell tests above.
 
 The same parameters (JAX's, converted) and the same snapshot arrays go
 to both packages, with dropout at 0. Tolerances: fp32 on both sides with
@@ -226,7 +227,7 @@ def compare_layer(data, jax_call, torch_call, params_np):
         out = jax_call(params, hh, rr, jx_snap, c)
         return jnp.sum(out * probe), out
 
-    want_g, want = jax.grad(jax_fn, argnums=(0, 1, 2, 3), has_aux=True)(
+    want_g, want = jax.jit(jax.grad(jax_fn, argnums=(0, 1, 2, 3), has_aux=True))(
         jax.tree.map(jnp.asarray, params_np), jnp.asarray(h), jnp.asarray(rel), jnp.float32(C))
     params = torch_tree(params_np)
     th = torch.from_numpy(h.copy()).requires_grad_(True)
@@ -340,7 +341,7 @@ def test_pair_matches_jax(data, encoder, decoder):
     jp_dev = jax.tree.map(jnp.asarray, jp)
     grads_wanted = decoder in WITH_GRADIENTS
     if grads_wanted:
-        want_g, want = jax.grad(total, has_aux=True)(jp_dev)
+        want_g, want = jax.jit(jax.grad(total, has_aux=True))(jp_dev)
     else:
         _, want = total(jp_dev)
     leaves = tree_leaves(cp)

@@ -183,7 +183,7 @@ def jax_loss_and_grads(jcfg, jp, js, jx_hist, triples, mask, cmax):
                 + losses["radius"]), losses
 
     params = jax.tree.map(jnp.asarray, jp)
-    grads, losses = jax.grad(total, has_aux=True)(params)
+    grads, losses = jax.jit(jax.grad(total, has_aux=True))(params)
     return jax.tree.map(np.asarray, losses), grads
 
 

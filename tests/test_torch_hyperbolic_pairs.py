@@ -167,7 +167,7 @@ def test_pair_get_loss_and_every_gradient_match_jax(data, encoder, decoder):
         return (0.7 * losses["entity"] + 0.3 * losses["relation"] + losses["static"]
                 + losses["radius"]), losses
 
-    want_g, want = jax.grad(total, has_aux=True)(jp)
+    want_g, want = jax.jit(jax.grad(total, has_aux=True))(jp)
     leaves = tree_leaves(cp)
     for p in leaves:
         p.requires_grad_(True)

@@ -400,7 +400,7 @@ def test_get_loss_matches_jax(data, learn_curvature):
                  + losses["radius"])
         return total, (losses, new_state)
 
-    want_grads, (want_losses, want_state) = jax.grad(jax_fn, has_aux=True)(jp)
+    want_grads, (want_losses, want_state) = jax.jit(jax.grad(jax_fn, has_aux=True))(jp)
     for p in tree_leaves(cp):
         p.requires_grad_(True)
     loss_ent, losses, new_state, _ = PM.get_loss(cp, cs, pcfg, pt_hist, t(triples).long(),

@@ -145,6 +145,36 @@ def test_failing_build_raises_with_the_compilers_message(tmp_path, monkeypatch):
     assert list(tmp_path.iterdir()) == []
 
 
+def test_default_takes_numpy_on_a_host_without_a_compiler(tmp_path, monkeypatch):
+    """ROADMAP C.8: with ``$CXX`` a missing program and a fresh build
+    directory, the default builds numpy's arrays (numpy's relation-context
+    padding) after one warning for the process, and tries the compiler
+    once; ``use_native=True`` raises."""
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_module", None)
+    monkeypatch.setattr(native, "_build_failures", {})
+    monkeypatch.setattr(native, "_warned", [False])
+    calls = []
+    build = native.build
+    monkeypatch.setattr(native, "build", lambda *a: calls.append(a) or build(*a))
+    triples = triples_of("random")
+    kw = dict(edge_bucket=64, rc_bucket=128)
+    with pytest.warns(RuntimeWarning, match="cannot be built") as record:
+        got = pt_snapshots.build_snapshot(triples, N_ENTS, N_RELS, **kw)
+        hist = pt_snapshots.build_history([triples, triples[:7]], N_ENTS, N_RELS, **kw)
+    assert len(record) == 1 and len(calls) == 1
+    assert_same(got, pt_snapshots.build_snapshot(triples, N_ENTS, N_RELS, use_native=False, **kw),
+                "numpy fallback")
+    assert_same(got, jax_snapshots.build_snapshot(triples, N_ENTS, N_RELS, use_native=False, **kw),
+                "JAX's numpy builder")
+    assert_same(hist, pt_snapshots.build_history([triples, triples[:7]], N_ENTS, N_RELS,
+                                                 use_native=False, **kw), "history")
+    with pytest.raises(native.NativeBuildError, match="no-such-compiler"):
+        pt_snapshots.build_snapshot(triples, N_ENTS, N_RELS, use_native=True, **kw)
+    assert not (tmp_path / "build").exists() or not any((tmp_path / "build").iterdir())
+
+
 def test_stale_module_falls_back_to_numpy(monkeypatch):
     """JAX's stale-signature check: the default falls back to numpy with a
     warning, ``use_native=True`` raises; any other TypeError propagates."""

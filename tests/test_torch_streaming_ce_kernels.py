@@ -349,9 +349,9 @@ def test_dist_ce_loss_on_cuda_never_runs_the_plain_version(cuda, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", ["wide", "odd_width", "misaligned"])
+@pytest.mark.parametrize("shape", ["wide", "misaligned"])
 def test_shapes_the_kernels_do_not_take_raise_on_cuda(cuda, shape):
-    d = {"wide": 264, "odd_width": 37, "misaligned": 200}[shape]
+    d = {"wide": S.MAX_D + 4, "misaligned": 200}[shape]
     q, x, bias, target, cq, scale, margin, _ = make_case(8, 20, d)
     q, x, bias, target, cq, scale, margin = (t.to(cuda) for t in (q, x, bias, target, cq, scale,
                                                                    margin))
@@ -359,6 +359,53 @@ def test_shapes_the_kernels_do_not_take_raise_on_cuda(cuda, shape):
         x = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(20, d)
     with pytest.raises(ValueError):
         S.streaming_nll(q, x, bias, target, cq, scale, margin)
+
+
+def test_odd_width_is_padded_exactly_on_cpu():
+    """Widths that are no multiple of 4 (ROADMAP C.7): the wrapper pads q
+    and x with zero columns, which add nothing to q.x, |q|^2 or |x|^2, and
+    drops the padded columns' gradients. At d = 50 on the CPU the padded
+    path equals the unpadded plain version (within fp32 rounding of the
+    GEMM's other blocking: rtol 1e-6), values and every gradient, and its
+    gradients keep the width 50."""
+    case = make_case(48, 130, 50, true=True, per_query_c=True)
+    for true in (False, True):
+        got, got_g = run(S.streaming_nll, case, true, "cpu")
+        want, want_g = run(S.streaming_nll_reference, case, true, "cpu")
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+        for n, a, b in zip(NAMES, got_g, want_g):
+            assert a.shape == b.shape, n
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7, msg=n)
+
+
+def test_widths_past_the_kernels_limit_raise_at_trainer_construction():
+    """d > MAX_D on the card raises at construction, naming the limit and
+    the width; the plain version on the CPU takes any width."""
+    S.check_width(S.MAX_D, "cuda")
+    S.check_width(S.MAX_D + 4, "cpu")
+    with pytest.raises(ValueError, match=f"up to {S.MAX_D}.*d={S.MAX_D + 4}"):
+        S.check_width(S.MAX_D + 4, "cuda")
+    from regcn_torch.config import TrainConfig
+    from regcn_torch.data import load_data
+    from regcn_torch.hyperbolic.model import HyperbolicConfig
+    from regcn_torch.hyperbolic.train import HyperbolicTrainer
+    data = load_data("synthetic-small", seed=123)
+    cfg = HyperbolicConfig(num_ents=data.num_nodes, num_rels=data.num_rels, h_dim=S.MAX_D + 4,
+                           encoder="lgcn", decoder="roth")
+    with pytest.raises(ValueError, match=f"d={S.MAX_D + 4}"):
+        HyperbolicTrainer(cfg, TrainConfig(), data, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [50, 300, 512])
+@pytest.mark.parametrize("true", [False, True], ids=["proxy", "true_per_query_c"])
+def test_kernels_at_the_widths_jax_trains(cuda, d, true):
+    """ROADMAP C.7: the widths the kernels once refused, at config 3's
+    entity shape: d = 50 (padded to 52), and d = 300 and 512 (the wide
+    instances): one launch of each kernel, within the file's tolerances."""
+    case = make_case(512, 7128, d, true=true, per_query_c=true)
+    case[-1][512 - 512 // 5:] = 0.0
+    assert_kernels_match_float64(case, true, cuda, True)
 
 
 @pytest.mark.cuda

@@ -21,6 +21,7 @@ on, to 1e-6.
 import dataclasses
 import json
 import os
+import types
 
 import jax
 import numpy as np
@@ -336,7 +337,11 @@ def test_fit_resumes_where_it_stopped(data, tmp_path):
 
 @pytest.mark.parametrize("unported", ["mesh", "halo", "run_analysis", "dilate_len", "use_static"])
 def test_unported_options_raise(data, jax_run, unported):
-    """A mesh and the halo are not ported and raise. ``run_analysis``, the
+    """A mesh and the halo, refused until they were ported, are checked as
+    JAX checks them: a mesh whose ``graph`` axis does not divide the
+    entities raises JAX's divisibility error, and ``dist_agg="halo"``
+    without a mesh raises (``tests/test_torch_sharded_train.py`` runs
+    both on gloo ranks). ``run_analysis``, the
     static graph and ``dilate_len > 1``, refused until they were ported,
     now run and match JAX: with ``dilate_len=2`` the dilated training list
     array for array and a training step on its window 2 (every parameter
@@ -408,13 +413,14 @@ def test_unported_options_raise(data, jax_run, unported):
                                        rtol=1e-3, atol=1e-5, err_msg=path)
         return
     _, pcfg = configs(data)
-    kw = {}
     if unported == "mesh":
-        kw["mesh"] = object()
+        mesh = types.SimpleNamespace(mesh_dim_names=("data", "graph"), shape=(1, 3))
+        assert data.num_nodes % 3
+        with pytest.raises(ValueError, match="not divisible by the 'graph' mesh axis"):
+            pt_loop.Trainer(pcfg, data, device="cpu", mesh=mesh)
     else:
-        kw["dist_agg"] = "halo"
-    with pytest.raises(NotImplementedError):
-        pt_loop.Trainer(pcfg, data, device="cpu", **kw)
+        with pytest.raises(ValueError, match="requires a mesh"):
+            pt_loop.Trainer(pcfg, data, device="cpu", dist_agg="halo")
 
 
 def paths(tree, prefix=()):
