@@ -94,7 +94,7 @@ Phases, each of which exits non-zero on failure:
    (H-PES memories, alpha 0.2; ETNR retrieval of K = 32 events; the QCHHE
    GRU) and TANS negatives, on synthetic-gdelt (seed 123, GDELT's 7691
    entities, 240 relations and 700 triples a snapshot, the time axis cut
-   to 185 snapshots split 154/15/16), through phase 8's steps: (a) 3 steps
+   to 100 snapshots split 80/10/10), through phase 8's steps: (a) 3 steps
    cuda vs cpu, the cpu also on the card's branches at H-TDP's relu, the
    H-PES memories compared after each device's writeback; (b) one epoch
    through ``fit(checkpoint_path)`` (B1 2 x the window's snapshots, no
@@ -108,17 +108,19 @@ Phases, each of which exits non-zero on failure:
    n_bases 100, static weight 0.5, angle 10, discount 1), h=200, 2
    layers, history 3, dropouts 0.2, on synthetic-icews18 (seed 123,
    ICEWS18's 23033 entities, 256 relations and 1200 triples a snapshot,
-   240/30/34 snapshots, 3 static links an entity) through
+   3 static links an entity) with its time axis cut to 120 snapshots
+   (100 / 10 / 10) through
    ``loop.Trainer``: (a) 3 steps cuda vs cpu, the static loss among the
    losses, the cpu on the card's branches at every rrelu (the static
-   layer's too); (b) one epoch through ``fit(checkpoint_path)`` (B1 1428,
-   no B2); (c) the resume; (d) 20 steady steps and their peak memory; (e)
-   the test split at random init and after the epoch (B1 204); (f) a
+   layer's too); (b) one epoch through ``fit(checkpoint_path)`` (B1 2 x
+   the windows' snapshots, 588, no B2); (c) the resume; (d) 20 steady
+   steps and their peak memory; (e) the test split at random init and
+   after the epoch (B1 60); (f) a
    profile of a step, and the static layer profiled alone with its share
    of the step's device time;
 12. the hyperbolic headline with the static graph on the same data: (a) 3
    steps cuda vs cpu with B1's dw; (b) one epoch through ``fit`` (B1
-   1428); (e) the test split (B1 204);
+   588); (e) the test split (B1 60);
 13. the rest of the hyperbolic trainer on phase 6's cut of synthetic-icews14s, the
    headline with its entities on the ball and Riemannian Adam
    (``manifold_entities``): (a) 3 snapshots cuda vs cpu in triple batches
@@ -129,7 +131,7 @@ Phases, each of which exits non-zero on failure:
    ``analysis_record`` on the card and the CPU; (d) 3 windows through
    ``evolve(tangent_fast=False)``, the uvrgcn's ball-space layer on B1
    (2 launches per window snapshot), cuda vs cpu with every gradient;
-14. HisRES (``regcn_torch.hisres.train.HisResTrainer``) on
+14. HisRES (``regcn_torch.hisres.train.HisResTrainer``) on phase 6's cut of
    synthetic-icews14s with ``run_hisres``'s defaults (h=200, 2 layers,
    history 3, history rate 0.3, dropouts 0.2, ``rc_mode="src"``, relation
    history over the whole window, history graphs in buckets of 4096 edges
@@ -138,14 +140,15 @@ Phases, each of which exits non-zero on failure:
    the attention's leaky relu, B1's dw (the attention weight's gradient)
    among the checks; (b) one epoch through ``fit(checkpoint_path)``, B1
    exactly 2 x (T + max(T - 1, 1)) + 4 times a step (T the window's
-   snapshots; 4232 at this data), no B2; the history graphs' real edges
+   snapshots; 1376 at this data), no B2; the history graphs' real edges
    and how many hit the cap; (c) the resume; (d) 20 steady steps, their
    launches and peak memory; (e) the test split at random init and after
-   the epoch (B1 14 a snapshot, 434), the entity raw MRR above the
+   the epoch (B1 14 a snapshot, 140), the entity raw MRR above the
    random-init one; (f) a profile of a step;
 15. config 3 with the FHNN, then the HGAT encoder (RotH / RotH-Rel, c =
-   0.01 learned; buckets of 128): (a) 3 steps cuda vs cpu, HGAT's
-   attention leaky relu pinned; (b) 20 steady steps with their peak
+   0.01 learned; buckets of 128) on phase 6's cut data: (a) 3 steps cuda
+   vs cpu, HGAT's attention leaky relu pinned; (b) 10 steady steps with
+   their peak
    memory, each B2 kernel exactly twice a step, no B1; (c) the test split
    after them; (d) a profile of a step;
 16. the CLI: ``regcn_torch.cli.main(["train", "-d", "synthetic-icews14s",
@@ -176,13 +179,13 @@ Phases, each of which exits non-zero on failure:
    bf16 inside the loss with JAX's fp32 islands, B1 and B2 fed fp32):
    the card's bf16 GEMM with an fp32 result against the fp32 product of
    the same values; then the headline in ``bench.py``'s configuration,
-   config 1, config 3 on phase 6's cut data and HisRES, each with (a) 3
+   config 1, and config 3 and HisRES on phase 6's cut data, each with (a) 3
    steps on the card in bf16, on the CPU in bf16 and on the CPU in fp32
    from one state (dropouts 0): every loss and parameter of the card
    within twice the CPU's own bf16 drift from fp32 plus a stated atol;
    (b) the dtypes: the carry bf16, the scores and the parameters fp32;
    (c) 10 steady bf16 steps with the fp32 twin's launches of B1 and B2,
-   and a profiled 5, printed beside the fp32 phase's wall, busy and
+   and a profiled 3, printed beside the fp32 phase's wall, busy and
    kernels per step; the headline also one epoch through ``fit`` (B1
    1812) and its test split (B1 186), its entity loss within 5 % and its
    test entity raw MRR within 0.02 of phase 8's fp32 epoch;
@@ -203,21 +206,27 @@ Phases, each of which exits non-zero on failure:
    gradient within phase 5's limits, each width timed beside its bound and
    the matmul; one config-3 step (LGCN + RotH) at n_hidden 50 and 300 on
    the cut data, each B2 kernel launched twice, the losses finite;
-22. config 1 at full width entity-sharded (``Trainer(mesh=...,
-   dist_agg=...)``, ROADMAP A.11) on phase 6's cut data, G = 2 spawned
-   ranks sharing the card over gloo (a file store): the halo's boundary
-   statistics of the training split; the single-process trainer's epoch
-   and test split as the reference; in each rank and for each of
-   ``gspmd`` and ``halo``: (a) 3 steps against the single-process trainer
-   on the card from the same state, on its branches at the kinks: the
-   losses, every gradient (the entity table gathered), the BN statistics
-   and every parameter after both optimizers step with the same
-   gradients, within the 3-step checks' limits; (b) one epoch with the
-   config's dropouts, B1 launched 2 x the windows' snapshots per rank, as
-   one process launches; (c) the test split, B1 6 a snapshot per rank, the
-   four MRRs within 0.01 of the single process's; each rank's peak memory
-   and walls (gloo stages every collective through the host: no speed is
-   read from them). A failing rank fails the phase.
+22. entity-sharded training at full width (``mesh=..., dist_agg=...``,
+   ROADMAP A.11 and A.11b) of four paths: config 1, the hyperbolic
+   headline, config 3 (LGCN + RotH, B2 over the all-gathered table on
+   every rank) and HisRES, on synthetic-icews14s cut to 40 snapshots
+   (30 / 5 / 5), G = 2 spawned ranks for each mode sharing the card over
+   gloo (a file store each; the two modes' groups side by side): the
+   halo's boundary statistics of the training split; each
+   single-process trainer's epoch and test split as the reference; in
+   each rank, for each path and each of ``gspmd`` and ``halo``: (a) 3
+   steps against the single-process trainer on the card from the same
+   state, on its branches at the kinks (the headline's radius-weight
+   signs edge by edge): the losses, every gradient (the entity table
+   gathered), the model state and every parameter after both optimizers
+   step with the same gradients, within the 3-step checks' limits; (b)
+   one epoch with the config's dropouts, B1 and B2 launched per rank as
+   one process launches (B1 2 x the windows' snapshots, HisRES
+   ``hisres_launches``, config 3's B2 kernels twice a step); (c) the test
+   split, B1 per rank as one process, the four MRRs within 0.01 of the
+   single process's; each rank's peak memory and walls (gloo stages every
+   collective through the host: no speed is read from them). A failing
+   rank fails the phase.
 
 The line before the last is ``{"kernels": [...]}``: each row's
 ``launches`` is B1's on the config-1 test split or a B2 kernel's in the
@@ -337,9 +346,13 @@ PROFILE_STEPS = 20  # steady steps timed
 # the bf16 phase's steady steps and each of its alternating blocks: 10, not
 # PROFILE_STEPS, to keep the script within its time beside the sharded phase
 BF16_STEADY_STEPS = 10
+# the fhnn and hgat phase's steady steps, for the same reason
+ENCODER_STEADY_STEPS = 10
 # steps under torch.profiler: its key_averages over a step's thousands of
-# kernels take seconds a step, the most of a phase at 20 steps
-PROFILED_STEPS = 5
+# kernels take seconds a step, the most of a phase at 20 steps; 3 (5 until
+# the sharded phase took four paths) keep the script within its time on a
+# slow host
+PROFILED_STEPS = 3
 # each path's steady-state step (wall ms) and profiled step (wall and busy
 # ms, kernels and copies), by label, for the bf16 phase's side-by-side
 STEADY: dict = {}
@@ -1245,14 +1258,32 @@ class PinnedKinks:
         return self._patched(rec_rrelu, rec_relu, rec_leaky, rec_abs)
 
     @contextlib.contextmanager
-    def replay(self, shard=None):
+    def replay(self, shard=None, edge_keys=None):
         """Takes the recorded branches, in the order they were recorded,
         and checks that the replay passed every recorded kink. With
         ``shard`` (a rank's ``RowShard`` of the entity table) the replay
         runs on the rank's rows of a table whose whole was recorded, and
-        takes those rows of each such mask."""
+        takes those rows of each such mask; with ``edge_keys`` (per radius
+        weight call, the recorded edges' keys and the rank's,
+        ``radius_edge_keys``) each rank edge takes the sign of its own edge
+        in the recorded run."""
         queues = {k: iter(v) for k, v in self.masks.items()}
+        keys = None if edge_keys is None else iter(edge_keys)
         slope = (RRELU_LOWER + RRELU_UPPER) / 2.0
+
+        def pinned_edges(d, own):
+            rec_mask = next(queues["abs"]).to(d.device)
+            rec_keys, mine = next(keys)
+            real = rec_keys >= 0
+            mask = own
+            if real.any():
+                sk, order = torch.sort(rec_keys[real])
+                pos = torch.searchsorted(sk, mine).clamp(max=sk.numel() - 1)
+                found = (mine >= 0) & (sk[pos] == mine)
+                mask = torch.where(found, rec_mask[real][order][pos], own)
+            self.flips["abs"] += int((own != mask).sum())
+            self.entries["abs"] += mask.numel()
+            return mask
 
         def pinned(kind, x, own):
             mask = next(queues[kind]).to(x.device)
@@ -1277,7 +1308,7 @@ class PinnedKinks:
 
         def rep_abs(a, b):
             d = a - b
-            mask = pinned("abs", d, d >= 0)
+            mask = pinned("abs", d, d >= 0) if keys is None else pinned_edges(d, d >= 0)
             flipped = d.detach()[mask != (d >= 0)]
             if flipped.numel():
                 self.abs_flip_max = max(self.abs_flip_max, flipped.abs().max().item())
@@ -1778,9 +1809,9 @@ def config5(data, **kw) -> HyperbolicConfig:
 
 def gdelt_data():
     """synthetic-gdelt (GDELT's 7691 entities, 240 relations and 700
-    triples a snapshot) with its time axis cut to 185 snapshots split
-    154 / 15 / 16: an epoch of 153 steps."""
-    return generate("synthetic-gdelt", seed=SEED, num_snaps=185, split=(154, 15, 16))
+    triples a snapshot) with its time axis cut to 100 snapshots split
+    80 / 10 / 10: an epoch of 79 steps."""
+    return generate("synthetic-gdelt", seed=SEED, num_snaps=100, split=(80, 10, 10))
 
 
 # ------------------------------------------------------- config-4 training
@@ -1907,9 +1938,12 @@ def phase_config4_training(data, tc: TrainConfig, dev: torch.device) -> tuple:
 
 def icews18_data():
     """synthetic-icews18 (ICEWS18's 23033 entities, 256 relations and 1200
-    triples a snapshot, 240 / 30 / 34 snapshots) with its static
-    entity-word graph: 3 links from each entity, inverse edges added."""
-    return generate("synthetic-icews18", seed=SEED, with_static=True)
+    triples a snapshot) with its static entity-word graph (3 links from
+    each entity, inverse edges added) and its time axis cut to 120
+    snapshots split 100 / 10 / 10: the epochs of config 2 and the static
+    headline are 99 steps."""
+    return generate("synthetic-icews18", seed=SEED, with_static=True, num_snaps=120,
+                    split=(100, 10, 10))
 
 
 def config2(data, **kw) -> ModelConfig:
@@ -2495,7 +2529,7 @@ def phase_hyperbolic_encoders(data, tc: TrainConfig, dev: torch.device) -> dict:
     RotH-Rel, c = 0.01 learned with a 5-epoch warmup, radius supervision):
     (a) 3 steps cuda vs cpu (``three_steps``, dropouts 0), the cpu on the
     card's branches at the rrelu and, for HGAT, at the attention's leaky
-    relu; (b) 20 steady steps, their wall time and peak memory, B2's three
+    relu; (b) 10 steady steps, their wall time and peak memory, B2's three
     kernels exactly twice a step (entity and relation loss) and no B1; (c)
     the test split after them (no kernel: eval scores are plain distance
     logits); (d) a profile of a step, B2's kernels apart."""
@@ -2518,7 +2552,7 @@ def phase_hyperbolic_encoders(data, tc: TrainConfig, dev: torch.device) -> dict:
 
         trainer = HyperbolicTrainer(cfg(), tc, data, curvature_warmup_epochs=5, device=dev)
         state = trainer.init_state(SEED)
-        order = trainer.epoch_order(0)[:PROFILE_STEPS]
+        order = trainer.epoch_order(0)[:ENCODER_STEADY_STEPS]
         E = sorted({trainer.window(i)[0].src.shape[1] for i in order})
         cmax = trainer._curvature_max(0)
         steady = steady_steps(encoder, lambda i: trainer.train_step(state, *trainer.window(i),
@@ -3051,7 +3085,7 @@ def bf16_dtypes(tag: str, carry: torch.Tensor, scores, state) -> None:
 def bf16_speed(tag: str, fp32_label: str, trainer, step, twin, steady_order, profile_order,
                b1: int = 0, b2: int = 0) -> dict:
     """10 steady bf16 steps (their launches: B1 ``b1`` and each B2 kernel
-    ``b2`` in all, as the fp32 twin launches) and a profiled 5, printed
+    ``b2`` in all, as the fp32 twin launches) and a profiled 3, printed
     beside the fp32 twin's numbers of its phase; then the same 10 windows
     in blocks that alternate between the fp32 twin (``twin``: its trainer
     and step, from its own initial state) and bf16, twice each, since the
@@ -3131,9 +3165,9 @@ def phase_bf16(data, cut, cfg: ModelConfig, tc: TrainConfig, dev: torch.device) 
     """bf16 compute (``compute_dtype="bfloat16"``) on every family: the
     card's GEMM route; the headline in ``bench.py``'s configuration (one
     epoch through ``fit`` and its test split against the fp32 headline of
-    phase 8, B1 1812 / 186), config 1, config 3 on the cut data (B2 2 a
-    kernel a step) and HisRES; each with ``bf16_three_steps``, the dtypes,
-    and 10 steady steps and a profiled 5 beside its fp32 twin's."""
+    phase 8, B1 1812 / 186), config 1, config 3 (B2 2 a kernel a step) and
+    HisRES on the cut data; each with ``bf16_three_steps``, the dtypes,
+    and 10 steady steps and a profiled 3 beside its fp32 twin's."""
     from regcn_torch.utils.dtypes import tree_to_compute
 
     bf = torch.bfloat16
@@ -3248,7 +3282,7 @@ def phase_bf16(data, cut, cfg: ModelConfig, tc: TrainConfig, dev: torch.device) 
     tag = "hisres bf16"
     tch = dataclasses.replace(tc, n_epochs=1)
     make = lambda d, dt, **kw: HisResTrainer(  # noqa: E731
-        hisres_config(data, compute_dtype=dt, **kw), tch, data, device=d, **HISRES_TRAINER)
+        hisres_config(cut, compute_dtype=dt, **kw), tch, cut, device=d, **HISRES_TRAINER)
     bf16_three_steps(tag, lambda d, dt: make(d, dt, cand_dropout=0.0, **NO_DROPOUT),
                      lambda tr, st, i: tr.train_step(st, *tr.window(i)), dev)
     trainer = make(dev, "bfloat16")
@@ -3441,24 +3475,123 @@ def native_fallback(data, cfg: ModelConfig, tc: TrainConfig) -> None:
           "use_native=True raised", flush=True)
 
 
-# ------------------------------------------------ entity-sharded RE-GCN
+# ------------------------------------------------ entity-sharded training
 
 SHARDS = 2  # ranks sharing the one card over gloo
 # the sharded epoch's and test split's MRRs against the single-process
 # trainer's: both take the same steps with the same dropout draws, but the
 # card's index_add_ and the cross-shard sums add in another order, and an
-# epoch of 99 steps carries that apart
+# epoch carries that apart
 SHARDED_MRR_ATOL = 0.01
 CARD = []  # nvidia-smi's name and power limit, as phase 1 read them
+SHARDED_PATHS = ("config 1", "headline", "config 3", "hisres")
 
 
-def sharded_three_steps(tag: str, data, cfg: ModelConfig, tc: TrainConfig, mesh, mode: str,
-                        dev: torch.device) -> None:
+def sharded_data():
+    """synthetic-icews14s (seed 123) with its time axis cut to 40 snapshots
+    split 30 / 5 / 5: the sharded phase's epochs are 29 steps."""
+    return generate("synthetic-icews14s", seed=SEED, num_snaps=40, split=(30, 5, 5))
+
+
+def sharded_configs(cut) -> tuple:
+    """Config 1 at full width with buckets of 128, on the cut data."""
+    return (ModelConfig(num_ents=cut.num_nodes, num_rels=cut.num_rels, h_dim=200, n_layers=2),
+            TrainConfig(train_history_len=3, test_history_len=3, edge_bucket=128,
+                        rc_bucket=128, triple_bucket=128))
+
+
+def sharded_trainer(path: str, cut, dev, dropout: bool = True, **mesh_kw):
+    """The trainer of a sharded phase's path at full width on the cut data
+    (``mesh_kw``: ``mesh`` and ``dist_agg``, or nothing for one process):
+    config 1, the headline (uvrgcn + tangent ConvTransE/R), config 3 (LGCN
+    + RotH, learned c) or HisRES (``run_hisres``'s defaults), each with
+    its dropouts or, without ``dropout``, every one at 0."""
+    cfg1, tc = sharded_configs(cut)
+    off = {} if dropout else NO_DROPOUT
+    if path == "config 1":
+        return loop.Trainer(ExperimentConfig(model=dataclasses.replace(cfg1, **off), train=tc),
+                            cut, device=dev, **mesh_kw)
+    if path == "hisres":
+        off = off and dict(off, cand_dropout=0.0)
+        return HisResTrainer(hisres_config(cut, **off), tc, cut, device=dev, **HISRES_TRAINER,
+                             **mesh_kw)
+    cfg = headline_config(cut, **off) if path == "headline" else config3(cut, **off)
+    return HyperbolicTrainer(cfg, tc, cut, device=dev, **mesh_kw)
+
+
+def trainer_parts(trainer) -> tuple:
+    """(model config, train config) of any of the three trainers."""
+    if isinstance(trainer, loop.Trainer):
+        return trainer.cfg.model, trainer.cfg.train
+    return trainer.cfg, trainer.tc
+
+
+def step_loss(trainer, state, i: int) -> tuple:
+    """(total, losses, new model state) of a training step on window i."""
+    if isinstance(trainer, HyperbolicTrainer):
+        return trainer.loss(state, *trainer.window(i), trainer._curvature_max(0))[:3]
+    return trainer.loss(state, *trainer.window(i))
+
+
+def sharded_launches(path: str, trainer, order) -> tuple:
+    """(B1, each B2 kernel) launches that one process takes on the steps of
+    ``order``, and (B1) on the test split, from the data: 2 layers x each
+    window's snapshots (HisRES: ``hisres_launches``), no B1 on config 3,
+    whose B2 kernels launch twice a step; B2 on no test split."""
+    cfg, tc = trainer_parts(trainer)
+    if path == "hisres":
+        b1 = sum(hisres_launches(cfg, min(i, tc.train_history_len)) for i in order)
+        test = hisres_launches(cfg, tc.test_history_len)
+    elif path == "config 3":
+        b1 = test = 0
+    else:
+        b1 = cfg.n_layers * sum(min(i, tc.train_history_len) for i in order)
+        test = cfg.n_layers * tc.test_history_len
+    return b1, 2 * len(order) if path == "config 3" else 0, test * len(trainer.test_list)
+
+
+def radius_edge_keys(plain, sharded, i: int, mode: str) -> list:
+    """The uvrgcn's radius-weight calls in a loss on window i, in order (each
+    layer of each snapshot): (the one-process edges' keys src * N + dst,
+    the rank's edges' keys), -1 on a masked edge, both on global ids, so
+    that ``PinnedKinks.replay`` takes each rank edge's sign of r_src - r_dst
+    from the same edge of the recorded run. Under the halo a source slot of
+    the halo buffer is mapped back to its owner's row through the host
+    partition's ``send_idx``."""
+    from regcn_torch.parallel.halo import build_halo_store
+
+    cfg, tc = trainer_parts(plain)
+    shard, N = sharded.shard, plain.num_nodes
+    hist, hs = plain.window(i)[0], sharded.window(i)[0]
+    snaps = plain.train_list[max(0, i - tc.train_history_len):i]
+    send = None
+    if mode == "halo":
+        store, _ = build_halo_store(snaps, N, plain.num_rels, shard.size,
+                                    edge_bucket=tc.edge_bucket)
+        send = torch.from_numpy(store.send_idx.astype(np.int64)).to(hist.src.device)
+    out = []
+    for t in range(hist.src.shape[0]):
+        st = hist.step(t)
+        rec = torch.where(st.edge_mask > 0, st.src.long() * N + st.dst.long(), -1)
+        e = (hs.halo if mode == "halo" else hs.parts).step(t)
+        src = e.src
+        if send is not None:
+            slot = (e.src - e.rows).clamp(min=0)
+            g, p = slot // store.halo_per_pair, slot % store.halo_per_pair
+            src = torch.where(e.src < e.rows, shard.row0 + e.src,
+                              g * e.rows + send[t, g, shard.rank, p])
+        mine = torch.where(e.edge_mask > 0, src * N + shard.row0 + e.dst, -1)
+        out += [(rec, mine)] * cfg.n_layers
+    return out
+
+
+def sharded_three_steps(tag: str, path: str, cut, mesh, mode: str, dev: torch.device) -> None:
     """(a) of the sharded phase, in each rank: 3 steps of the sharded
     trainer against the single-process one on the card, from the same state
     before each (dropouts 0), the sharded run on the single run's branches
-    at the kinks: the losses, every gradient (the entity table's gathered)
-    and the BN statistics within the 3-step checks' limits; then both
+    at the kinks (the headline's radius-weight signs edge by edge): the
+    losses, every gradient (the entity table's gathered) and the model
+    state (BN statistics) within the 3-step checks' limits; then both
     optimizers step with the single run's gradients, and every parameter
     (the entity table gathered) within TRAIN_OPT_TOL. Every rank takes rank
     0's single-run gradients and statistics, so that the rows the ranks
@@ -3469,9 +3602,8 @@ def sharded_three_steps(tag: str, data, cfg: ModelConfig, tc: TrainConfig, mesh,
     from regcn_torch.parallel.collectives import all_gather_rows
 
     t0 = time.perf_counter()
-    exp = ExperimentConfig(model=dataclasses.replace(cfg, **NO_DROPOUT), train=tc)
-    plain = loop.Trainer(exp, data, device=dev)
-    sharded = loop.Trainer(exp, data, mesh=mesh, dist_agg=mode, device=dev)
+    plain = sharded_trainer(path, cut, dev, dropout=False)
+    sharded = sharded_trainer(path, cut, dev, dropout=False, mesh=mesh, dist_agg=mode)
     shard = sharded.shard
     s_plain = plain.init_state(SEED)
     names = leaf_names(s_plain.params)
@@ -3485,7 +3617,7 @@ def sharded_three_steps(tag: str, data, cfg: ModelConfig, tc: TrainConfig, mesh,
         s_sh = sharding.shard_state(train_state.copy_state(s_plain), shard)
         rules = sharding.state_sharding_rules(s_sh)
         with kinks.record():
-            total, parts, bn = plain.loss(s_plain, *plain.window(i))
+            total, parts, bn = step_loss(plain, s_plain, i)
             grads = torch.autograd.grad(total, tree_leaves(s_plain.params), allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(tree_leaves(s_plain.params), grads)]
@@ -3495,8 +3627,9 @@ def sharded_three_steps(tag: str, data, cfg: ModelConfig, tc: TrainConfig, mesh,
         with torch.no_grad():
             for t in grads + model_state_leaves(bn):
                 dist.broadcast(t, src=0, group=shard.group)
-        with kinks.replay(shard):
-            total_s, parts_s, bn_s = sharded.loss(s_sh, *sharded.window(i))
+        keys = radius_edge_keys(plain, sharded, i, mode) if path == "headline" else None
+        with kinks.replay(shard, keys):
+            total_s, parts_s, bn_s = step_loss(sharded, s_sh, i)
             grads_s = sharding.sharded_grads(total_s, tree_leaves(s_sh.params),
                                              [not r for r in rules], shard)
         for k, b in parts.items():
@@ -3533,25 +3666,20 @@ def sharded_three_steps(tag: str, data, cfg: ModelConfig, tc: TrainConfig, mesh,
     print(f"[{tag}] (a) 3 steps sharded vs one process on the card from the same state, on its "
           f"branches at the kinks ({flips.replace('on the cpu', 'in the sharded run')}): losses "
           f"within {worst['loss']:.2e}, every gradient within {worst['grad']:.2e} of its "
-          f"largest entry, BN statistics within {worst['bn']:.2e}, every parameter (the entity "
+          f"largest entry, model state within {worst['bn']:.2e}, every parameter (the entity "
           f"table gathered) after the optimizer step within {worst['opt']:.2e} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
-def sharded_configs(cut) -> tuple:
-    """Config 1 at full width with buckets of 128, on the cut data."""
-    return (ModelConfig(num_ents=cut.num_nodes, num_rels=cut.num_rels, h_dim=200, n_layers=2),
-            TrainConfig(train_history_len=3, test_history_len=3, edge_bucket=128,
-                        rc_bucket=128, triple_bucket=128))
-
-
-def sharded_rank(rank: int, G: int, workdir: str, dev_type: str = "cuda") -> None:
+def sharded_rank(rank: int, G: int, workdir: str, dev_type: str = "cuda",
+                 paths=SHARDED_PATHS, modes=("gspmd", "halo")) -> None:
     """One rank of the sharded phase: a gloo process group over a file
     store, the rank on cuda:0 beside the others, a 1 x G mesh; for each
-    ``dist_agg``: ``sharded_three_steps``, then one epoch with the config's
-    dropouts and the test split, B1's launches counted around each; the
-    results into ``workdir``. A failed check exits the rank non-zero.
-    ``dev_type="cpu"`` rehearses it without a card."""
+    path and each ``dist_agg`` of ``modes``: ``sharded_three_steps``, then
+    one epoch with the config's dropouts and the test split, the kernels'
+    launches counted around each against one process's (each process
+    counts its own); the results into ``workdir``. A failed check exits
+    the rank non-zero. ``dev_type="cpu"`` rehearses it without a card."""
     import datetime
 
     import torch.distributed as dist
@@ -3566,64 +3694,62 @@ def sharded_rank(rank: int, G: int, workdir: str, dev_type: str = "cuda") -> Non
     dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
     dist.init_process_group("gloo", init_method=f"file://{workdir}/store", world_size=G,
                             rank=rank, timeout=datetime.timedelta(seconds=300))
-    cut = config3_data()
-    cfg, tc = sharded_configs(cut)
+    cut = sharded_data()
     mesh = make_mesh(MeshAxes(1, G), device_type=dev.type)
     out = {}
-    for mode in ("gspmd", "halo"):
-        tag = f"sharded {mode} rank {rank}"
-        sharded_three_steps(tag, cut, cfg, tc, mesh, mode, dev)
-        trainer = loop.Trainer(ExperimentConfig(model=cfg, train=tc), cut, mesh=mesh,
-                               dist_agg=mode, device=dev)
-        state = trainer.init_state(SEED)
-        order = trainer.epoch_order(0)
-        expected = cfg.n_layers * sum(min(i, tc.train_history_len) for i in order)
-        if cuda:
-            torch.cuda.reset_peak_memory_stats()
-            torch.cuda.synchronize()
-        reset_launches()
-        t0 = time.perf_counter()
-        losses = trainer.run_epoch(state, 0)
-        if cuda:
-            torch.cuda.synchronize()
-        epoch_s = time.perf_counter() - t0
-        epoch_counts = read_launches()
-        check(all(math.isfinite(v) for v in losses.values()), f"{tag}: epoch losses {losses}")
-        check(epoch_counts["rgcn_scatter_sorted"] == expected
-              and all(epoch_counts[k] == 0 for k in CE_KERNELS),
-              f"{tag}: epoch launches {epoch_counts}, expected {expected} of B1 = "
-              f"{cfg.n_layers} layers x the snapshots of the {len(order)} windows, no CE kernel")
-        n_test = len(trainer.test_list)
-        expected_test = cfg.n_layers * tc.test_history_len * n_test
-        reset_launches()
-        t0 = time.perf_counter()
-        stats = trainer.test(state)
-        if cuda:
-            torch.cuda.synchronize()
-        test_s = time.perf_counter() - t0
-        test_counts = read_launches()
-        check(test_counts["rgcn_scatter_sorted"] == expected_test,
-              f"{tag}: test split launches {test_counts}, expected {expected_test} of B1")
-        out[mode] = dict(losses=losses, mrr={k: v.mrr for k, v in stats.items()},
-                         epoch=epoch_counts, test=test_counts, epoch_s=epoch_s, test_s=test_s,
-                         steps=len(order),
-                         peak_mib=torch.cuda.max_memory_allocated() / 2**20 if cuda else 0.0)
-        del trainer, state
+    for path in paths:
+        for mode in modes:
+            tag = f"sharded {path} {mode} rank {rank}"
+            sharded_three_steps(tag, path, cut, mesh, mode, dev)
+            trainer = sharded_trainer(path, cut, dev, mesh=mesh, dist_agg=mode)
+            state = trainer.init_state(SEED)
+            order = trainer.epoch_order(0)
+            b1, b2, b1_test = sharded_launches(path, trainer, order)
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            losses = trainer.run_epoch(state, 0)
+            if cuda:
+                torch.cuda.synchronize()
+            epoch_s = time.perf_counter() - t0
+            epoch_counts = read_launches()
+            check(all(math.isfinite(v) for v in losses.values()), f"{tag}: epoch losses {losses}")
+            check(epoch_counts["rgcn_scatter_sorted"] == b1
+                  and all(epoch_counts[k] == b2 for k in CE_KERNELS),
+                  f"{tag}: epoch launches {epoch_counts}, expected {b1} of B1 and {b2} of each "
+                  "B2 kernel, as one process launches")
+            reset_launches()
+            t0 = time.perf_counter()
+            stats = trainer.test(state)
+            if cuda:
+                torch.cuda.synchronize()
+            test_s = time.perf_counter() - t0
+            test_counts = read_launches()
+            check(test_counts["rgcn_scatter_sorted"] == b1_test
+                  and all(test_counts[k] == 0 for k in CE_KERNELS),
+                  f"{tag}: test split launches {test_counts}, expected {b1_test} of B1")
+            out[f"{path} {mode}"] = dict(
+                losses=losses, mrr={k: v.mrr for k, v in stats.items()}, epoch=epoch_counts,
+                test=test_counts, epoch_s=epoch_s, test_s=test_s, steps=len(order),
+                peak_mib=torch.cuda.max_memory_allocated() / 2**20 if cuda else 0.0)
+            del trainer, state
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
 
 
-def phase_sharded(cut, dev: torch.device) -> dict:
-    """Config 1 at full width, entity-sharded (``Trainer(mesh=...,
-    dist_agg=...)``) over SHARDS gloo ranks that share the card, on the cut
-    data: the halo's boundary statistics of the training split; the
-    single-process trainer's epoch (the config's dropouts) and test split
-    as the reference; then the ranks (``sharded_rank``); each rank's MRRs
-    within SHARDED_MRR_ATOL of the reference, its B1 launches as derived
-    from the data (one per layer and window snapshot, as one process
-    launches), its peak memory and walls printed. gloo stages every
-    collective through the host, so the walls say nothing of speed."""
+def phase_sharded(cut, dev: torch.device, paths=SHARDED_PATHS) -> dict:
+    """Config 1, the hyperbolic headline, config 3 and HisRES at full width,
+    entity-sharded (each trainer with ``mesh=..., dist_agg=...``) over
+    SHARDS gloo ranks that share the card, on the cut data: the halo's
+    boundary statistics of the training split; each single-process
+    trainer's epoch (the config's dropouts) and test split as the
+    reference; then the ranks (``sharded_rank``); each rank's MRRs within
+    SHARDED_MRR_ATOL of the reference, its launches as one process's, its
+    peak memory and walls printed. gloo stages every collective through
+    the host, so the walls say nothing of speed."""
     from regcn_torch.parallel.halo import build_halo_store
 
     cfg, tc = sharded_configs(cut)
@@ -3635,50 +3761,72 @@ def phase_sharded(cut, dev: torch.device) -> dict:
           f"{stats['halo_rows_per_shard']} against the all-gather's "
           f"{stats['allgather_rows_per_shard']} (ratio {stats['volume_ratio_vs_allgather']:.3f})",
           flush=True)
-    single = loop.Trainer(ExperimentConfig(model=cfg, train=tc), cut, device=dev)
-    state = single.init_state(SEED)
+    ref = {}
+    for path in paths:
+        single = sharded_trainer(path, cut, dev)
+        state = single.init_state(SEED)
+        t0 = time.perf_counter()
+        losses = single.run_epoch(state, 0)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        ref[path] = {k: v.mrr for k, v in single.test(state).items()}
+        print(f"[sharded] {path}, one process: epoch of {len(single.epoch_order(0))} steps in "
+              f"{epoch_s:.2f} s, mean losses "
+              + ", ".join(f"{k} {v:.5f}" for k, v in losses.items())
+              + "; test MRR " + ", ".join(f"{k} {v:.6f}" for k, v in ref[path].items()),
+              flush=True)
+        del single, state
     t0 = time.perf_counter()
-    losses = single.run_epoch(state, 0)
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    epoch_s = time.perf_counter() - t0
-    ref = {k: v.mrr for k, v in single.test(state).items()}
-    print(f"[sharded] one process: epoch of {len(single.epoch_order(0))} steps in {epoch_s:.2f} "
-          "s, mean losses " + ", ".join(f"{k} {v:.5f}" for k, v in losses.items())
-          + "; test MRR " + ", ".join(f"{k} {v:.6f}" for k, v in ref.items()), flush=True)
-    del single, state
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as workdir:
+    # each mode's SHARDS ranks in a process group of their own, the two
+    # groups side by side: gloo stages every collective through the host,
+    # so one group alone leaves most of the host's cores and the card idle
+    with tempfile.TemporaryDirectory() as root:
+        groups = []
+        for mode in ("gspmd", "halo"):
+            workdir = os.path.join(root, mode)
+            os.makedirs(workdir)
+            groups.append((workdir, torch.multiprocessing.start_processes(
+                sharded_rank, args=(SHARDS, workdir, dev.type, paths, (mode,)), nprocs=SHARDS,
+                join=False, start_method="spawn")))
         try:
-            torch.multiprocessing.start_processes(sharded_rank, args=(SHARDS, workdir, dev.type),
-                                                  nprocs=SHARDS, join=True, start_method="spawn")
+            for _, ctx in groups:
+                while not ctx.join():
+                    pass
         except Exception as e:  # a rank failed a check or raised
             fail(f"sharded phase: {type(e).__name__}: {e}")
-        ranks = []
-        for r in range(SHARDS):
-            with open(os.path.join(workdir, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
+        ranks = [{} for _ in range(SHARDS)]
+        for workdir, _ in groups:
+            for r in range(SHARDS):
+                with open(os.path.join(workdir, f"rank{r}.json")) as f:
+                    ranks[r].update(json.load(f))
     wall = time.perf_counter() - t0
     out = {}
-    for mode in ("gspmd", "halo"):
-        for r, res in enumerate(ranks):
-            row = res[mode]
-            for k, v in ref.items():
-                check(abs(row["mrr"][k] - v) <= SHARDED_MRR_ATOL,
-                      f"sharded {mode} rank {r}: test {k} MRR {row['mrr'][k]:.6f}, one process "
-                      f"{v:.6f}: more than {SHARDED_MRR_ATOL} apart")
-            print(f"[sharded] {mode} rank {r}: epoch of {row['steps']} steps in "
-                  f"{row['epoch_s']:.2f} s ({row['epoch_s'] / row['steps'] * 1e3:.1f} ms a step), "
-                  "mean losses " + ", ".join(f"{k} {v:.5f}" for k, v in row["losses"].items())
-                  + f"; B1 {row['epoch']['rgcn_scatter_sorted']} in the epoch, "
-                  f"{row['test']['rgcn_scatter_sorted']} on the test split ({row['test_s']:.2f} "
-                  "s); test MRR " + ", ".join(f"{k} {v:.6f}" for k, v in row["mrr"].items())
-                  + f"; peak memory {row['peak_mib']:.0f} MiB", flush=True)
-        out[f"sharded {mode} epoch (each rank)"] = ranks[0][mode]["epoch"]
-        out[f"sharded {mode} test split (each rank)"] = ranks[0][mode]["test"]
-    print(f"[sharded] {SHARDS} ranks on one card over gloo, both modes, {wall:.1f} s with the "
-          f"spawn ({CARD[0] if CARD else 'card not read'}); the MRRs within "
-          f"{SHARDED_MRR_ATOL} of one process's", flush=True)
+    for path in paths:
+        for mode in ("gspmd", "halo"):
+            key = f"{path} {mode}"
+            for r, res in enumerate(ranks):
+                row = res[key]
+                for k, v in ref[path].items():
+                    check(abs(row["mrr"][k] - v) <= SHARDED_MRR_ATOL,
+                          f"sharded {key} rank {r}: test {k} MRR {row['mrr'][k]:.6f}, one "
+                          f"process {v:.6f}: more than {SHARDED_MRR_ATOL} apart")
+                ce_each = row["epoch"][CE_KERNELS[0]]
+                print(f"[sharded] {key} rank {r}: epoch of {row['steps']} steps in "
+                      f"{row['epoch_s']:.2f} s ({row['epoch_s'] / row['steps'] * 1e3:.1f} ms a "
+                      "step), mean losses "
+                      + ", ".join(f"{k} {v:.5f}" for k, v in row["losses"].items())
+                      + f"; B1 {row['epoch']['rgcn_scatter_sorted']} and each B2 kernel "
+                      f"{ce_each} in the epoch, B1 {row['test']['rgcn_scatter_sorted']} on the "
+                      f"test split ({row['test_s']:.2f} s); test MRR "
+                      + ", ".join(f"{k} {v:.6f}" for k, v in row["mrr"].items())
+                      + f"; peak memory {row['peak_mib']:.0f} MiB", flush=True)
+            out[f"sharded {key} epoch (each rank)"] = ranks[0][key]["epoch"]
+            out[f"sharded {key} test split (each rank)"] = ranks[0][key]["test"]
+    print(f"[sharded] {SHARDS} ranks a mode on one card over gloo, both modes' groups side by "
+          f"side, {len(paths)} paths, {wall:.1f} s with the spawn "
+          f"({CARD[0] if CARD else 'card not read'}); the MRRs "
+          f"within {SHARDED_MRR_ATOL} of one process's", flush=True)
     return out
 
 
@@ -3732,8 +3880,8 @@ def main() -> None:
     del data18
     by_path.update(timed("hyperbolic trainer options", phase_hyperbolic_options, cut, tc, dev,
                          cfg))
-    by_path.update(timed("hisres training", phase_hisres_training, data, tc, dev))
-    by_path.update(timed("fhnn and hgat encoders", phase_hyperbolic_encoders, data, tc, dev))
+    by_path.update(timed("hisres training", phase_hisres_training, cut, tc, dev))
+    by_path.update(timed("fhnn and hgat encoders", phase_hyperbolic_encoders, cut, tc, dev))
     by_path.update(timed("cli train and test", phase_cli_train_test, dev))
     entity_paths, entity_times, entity_err = timed("cli entity", phase_entity, dev)
     by_path.update(entity_paths)
@@ -3744,7 +3892,7 @@ def main() -> None:
                          dev))
     by_path.update(timed("bf16 compute", phase_bf16, data, cut, cfg, tc, dev))
     by_path.update(timed("native builder and cumsum", phase_native_cumsum, data, cfg, tc, dev))
-    by_path.update(timed("entity-sharded config 1", phase_sharded, cut, dev))
+    by_path.update(timed("entity-sharded training", phase_sharded, sharded_data(), dev))
     launches.update({k: by_path["config-3 training epoch"][k] for k in CE_KERNELS})
     for k in CE_KERNELS:
         timing[k]["shapes"] = [config4_times[k]] + ce_widths[k]

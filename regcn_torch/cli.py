@@ -15,18 +15,22 @@ and from Python as ``main([...])``, or ``main([...], device="cpu")`` to
 run every kernel's plain version on the CPU. Without a card, and without
 ``device="cpu"``, it stops.
 
-``train`` and ``test`` (and the sequential RE-GCN ``grid``) take
-``--shards G`` and ``--dist-agg {gspmd,halo}``, entity-sharded over G
-processes, one per shard, as ``torchrun`` starts them on a machine with G
-cards (rank r on ``cuda:{LOCAL_RANK}``; the process group comes from
-torchrun's environment with torch's default backend for the device):
+``train``, ``test``, ``hyperbolic`` and ``hisres`` (and the sequential
+RE-GCN ``grid``) take ``--shards G`` and ``--dist-agg {gspmd,halo}``,
+entity-sharded over G processes, one per shard, as ``torchrun`` starts
+them on a machine with G cards (rank r on ``cuda:{LOCAL_RANK}``; the
+process group comes from torchrun's environment with torch's default
+backend for the device):
 
     torchrun --nproc-per-node 2 -m regcn_torch.cli train -d synthetic-icews14s --shards 2
+    torchrun --nproc-per-node 2 -m regcn_torch.cli hyperbolic -d synthetic-icews14s \
+        --shards 2 --dist-agg halo
 
 Not ported, and stopping with a message that names the ROADMAP item:
-``bench`` (A.2: ``bench.py`` measures the JAX package), and ``--shards`` /
-``--dist-agg halo`` for ``hyperbolic``, ``hisres`` and ``grid
---vectorize`` (A.11b).
+``bench`` (A.2: ``bench.py`` measures the JAX package); ``--shards`` for
+``grid --vectorize``, and in ``hyperbolic`` / ``hisres`` with EST, TANS,
+gspmd triple batching, the static graph, bf16 or ``--run-analysis``
+(A.11b).
 
 ``--compute-dtype bfloat16`` reaches the trainers of ``train``, ``test``,
 ``hyperbolic`` and ``hisres`` (and of the sequential ``grid``), as in the
@@ -153,7 +157,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--impl", default="xla", choices=["xla", "pallas"],
                    help="the aggregation route of the JAX package; both take kernel B1 here")
 
-    # multi-device (train / test; hyperbolic and hisres: ROADMAP A.11b)
+    # multi-device (train / test / hyperbolic / hisres)
     p.add_argument("--shards", type=int, default=None,
                    help="graph-axis mesh size: shard the entity table, its optimizer "
                         "moments and the decoder candidate axis over this many processes "
@@ -226,14 +230,34 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def check_single_device(args) -> None:
-    """Stops on the multi-device flags in the modes that do not run on a
-    mesh yet (ROADMAP A.11b)."""
+    """Stops on the multi-device flags where the JAX package has no mesh
+    either (the vectorized grid's model axis, ROADMAP A.11b)."""
     if args.shards:
         raise SystemExit(f"--shards {args.shards}: '{args.mode}' on a mesh is not ported to "
                          "regcn_torch yet (ROADMAP A.11b)")
     if args.dist_agg != "gspmd":
         raise SystemExit(f"--dist-agg requires --shards, and '{args.mode}' on a mesh is not "
                          "ported to regcn_torch yet (ROADMAP A.11b)")
+
+
+def check_mesh_options(args) -> None:
+    """Stops, before any process group is made, on the options that the
+    ``hyperbolic`` and ``hisres`` modes do not run on a mesh yet (ROADMAP
+    A.11b); the trainers raise for them too."""
+    if not args.shards:
+        return
+    hyperbolic = args.mode == "hyperbolic"
+    for unported, flag in (
+            (hyperbolic and (args.use_est or args.use_time_aware_negative),
+             "--use-est / --use-time-aware-negative"),
+            (hyperbolic and args.triple_batch_size and args.dist_agg == "gspmd",
+             "--triple-batch-size"),
+            (args.add_static_graph, "--add-static-graph"),
+            (args.compute_dtype != "float32", f"--compute-dtype {args.compute_dtype}"),
+            (args.run_analysis, "--run-analysis")):
+        if unported:
+            raise SystemExit(f"{flag} with --shards: '{args.mode}' on a mesh does not run it "
+                             "yet (ROADMAP A.11b)")
 
 
 def make_cli_mesh(args):
@@ -367,14 +391,15 @@ def _report(stats) -> dict:
 def run_hyperbolic(args) -> dict:
     from regcn_torch.hyperbolic.train import HyperbolicTrainer
 
-    check_single_device(args)
+    check_mesh_options(args)
+    mesh = make_cli_mesh(args)
     data = _load(args)
     cfg, tc = make_hyperbolic_configs(args, data)
     trainer = HyperbolicTrainer(
         cfg, tc, data, triple_batch_size=args.triple_batch_size,
         triple_batch_mode=args.triple_batch_mode,
-        curvature_warmup_epochs=args.curvature_warmup_epochs,
-        run_analysis=args.run_analysis, device=_device(args),
+        curvature_warmup_epochs=args.curvature_warmup_epochs, mesh=mesh,
+        dist_agg=args.dist_agg, run_analysis=args.run_analysis, device=_device(args),
     )
     ckpt = args.checkpoint or os.path.join(args.models_dir, "hyp-" + model_name(args))
     best, info = trainer.fit(patience=args.patience, checkpoint_path=ckpt,
@@ -389,10 +414,12 @@ def run_hyperbolic(args) -> dict:
 def run_hisres(args) -> dict:
     from regcn_torch.hisres.train import HisResTrainer
 
-    check_single_device(args)
+    check_mesh_options(args)
+    mesh = make_cli_mesh(args)
     data = _load(args)
     cfg, tc = make_hisres_configs(args, data)
-    trainer = HisResTrainer(cfg, tc, data, rel_window_mode=args.rel_window_mode,
+    trainer = HisResTrainer(cfg, tc, data, mesh=mesh, dist_agg=args.dist_agg,
+                            rel_window_mode=args.rel_window_mode,
                             run_analysis=args.run_analysis, device=_device(args))
     ckpt = args.checkpoint or os.path.join(args.models_dir, "hisres-" + model_name(args))
     best, info = trainer.fit(checkpoint_path=ckpt, resume=args.resume,

@@ -20,7 +20,9 @@ have the JAX package's keys and layouts (weights applied as ``x @ W``,
   gradient B1's backward gives as ``dw``; the dual self-loop.
 
 Both layers apply the fixed-slope rrelu (the reference's ``F.rrelu`` with
-its default ``training=False``), then dropout in training.
+its default ``training=False``), then dropout in training. On a mesh the
+union layer runs on the rank's rows; the candidate layers stay dense, on
+the all-gathered table (``hisres/model.py``), as JAX keeps them.
 """
 
 from __future__ import annotations
@@ -29,11 +31,13 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from regcn_torch.dist import is_sharded
 from regcn_torch.hyperbolic.layers import _dual_self_loop
 from regcn_torch.models.decoders import _batch_norm, _init_bn
 from regcn_torch.ops.activations import inverted_dropout, leaky_relu, rrelu
 from regcn_torch.ops.rgcn_scatter import rgcn_aggregate, scatter_add_sorted
 from regcn_torch.ops.segment import segment_softmax
+from regcn_torch.parallel.halo import mesh_edges, mesh_rgcn_aggregate, table_rows
 from regcn_torch.utils.dtypes import mm
 from regcn_torch.utils.init import RELU_GAIN, torch_linear_uniform, xavier_normal, xavier_uniform
 
@@ -66,14 +70,24 @@ def hisres_union_layer(
     dropout: float = 0.0,
     gen: Optional[torch.Generator] = None,
     train: bool = False,
+    impl="xla",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(node_repr [N, d], edge_repr [2R, d])."""
-    node_repr = rgcn_aggregate(
-        h, rel_emb, params["w_neighbor"], snap.src, snap.dst, snap.rel, snap.edge_mask,
-        snap.in_deg_norm, dst_sorted=snap.dst_sorted)
+    """(node_repr [N, d], edge_repr [2R, d]). With ``impl`` a sharded marker
+    (``regcn_torch/dist.py``) ``h`` and ``node_repr`` are this rank's rows,
+    aggregated over its partition of the edges on B1 as JAX's halo path
+    does (``regcn_tpu/hisres/layers.py:56-63``); ``edge_repr`` is
+    replicated."""
+    if is_sharded(impl):
+        edges = mesh_edges(impl, snap)
+        node_repr = mesh_rgcn_aggregate(impl, h, rel_emb, params["w_neighbor"], edges)
+    else:
+        edges = snap
+        node_repr = rgcn_aggregate(
+            h, rel_emb, params["w_neighbor"], snap.src, snap.dst, snap.rel, snap.edge_mask,
+            snap.in_deg_norm, dst_sorted=snap.dst_sorted)
     edge_repr = mm(rel_emb, params["r_linear_w"].T) + params["r_linear_b"]
     if "loop_w" in params:
-        loop = _dual_self_loop(params, h, snap.has_in_edge)
+        loop = _dual_self_loop(params, h, edges.has_in_edge)
     if prev_h is not None and "skip_w" in params:
         gate = torch.sigmoid(mm(prev_h, params["skip_w"]) + params["skip_b"])
         if "loop_w" in params:
@@ -81,7 +95,7 @@ def hisres_union_layer(
         node_repr = gate * node_repr + (1 - gate) * prev_h
     elif "loop_w" in params:
         node_repr = node_repr + loop
-    return (inverted_dropout(rrelu(node_repr), dropout, gen, train),
+    return (inverted_dropout(rrelu(node_repr), dropout, gen, train, rows=table_rows(impl, h)),
             inverted_dropout(rrelu(edge_repr), dropout, gen, train))
 
 
@@ -93,12 +107,13 @@ def init_hisres_rgcn_cell(gen: torch.Generator, h_dim, n_layers, self_loop=True,
 
 def hisres_rgcn_cell(params, h: torch.Tensor, rel_emb: torch.Tensor, snap, *,
                      dropout: float = 0.0, gen: Optional[torch.Generator] = None,
-                     train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                     train: bool = False, impl="xla") -> Tuple[torch.Tensor, torch.Tensor]:
     """Threads the evolving relation embedding through the layer stack
     (ref:hisres_src/hisres.py:33-41): x, r = layer(g, x, r)."""
     x, r = h, rel_emb
     for lp in params["layers"]:
-        x, r = hisres_union_layer(lp, x, r, snap, dropout=dropout, gen=gen, train=train)
+        x, r = hisres_union_layer(lp, x, r, snap, dropout=dropout, gen=gen, train=train,
+                                  impl=impl)
     return x, r
 
 

@@ -26,7 +26,16 @@ Under ``compute_dtype="bfloat16"`` the trainer hands the model bf16
 parameters and windows; the time encoding's cosine, the candidate sums
 (B1, fed fp32) and the decoders' scores stay fp32 islands, as in JAX.
 
-Not ported yet, and raising: the multi-device aggregation (ROADMAP A.11).
+On an entity-sharded mesh (``cfg.impl`` a marker of ``regcn_torch/dist.py``,
+which ``HisResTrainer(mesh=...)`` sets) ``dynamic_emb`` holds this rank's
+rows: both recurrent streams run on them, their relation contexts gather
+rows by global id and their union layers aggregate over the rank's
+partition of each graph. The fused table is then all-gathered: the
+candidate cells run whole on every rank over the replicated history
+graphs, as JAX keeps them dense, and so do the decoders' queries; the
+entity decoders score the rank's candidate columns, with the CE across
+ranks. Not ported on a mesh yet, and raising (ROADMAP A.11b): the static
+graph and bf16 compute.
 """
 
 from __future__ import annotations
@@ -36,12 +45,16 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from regcn_torch.dist import is_sharded
 from regcn_torch.hisres import layers as HLayers
 from regcn_torch.models import decoders as D
 from regcn_torch.models.layers import gru_cell, init_gru_cell, init_rgcn_block_layer
 from regcn_torch.models.recurrent import _masked_ce, _static_init, static_angular_loss, tree_to
 from regcn_torch.ops.activations import l2_normalize
+from regcn_torch.ops.rgcn_scatter import check_impl
 from regcn_torch.ops.segment import masked_segment_mean
+from regcn_torch.parallel.collectives import RowShard, rows_of, whole_rows
+from regcn_torch.parallel.mesh import table_shard
 from regcn_torch.utils.dtypes import compute_dtype, dot_f32, mm
 from regcn_torch.utils.init import torch_linear_uniform, xavier_normal
 
@@ -99,11 +112,16 @@ class HisResState:
 
 
 def check_supported(cfg: HisResConfig) -> None:
-    """Raises for the configurations this package does not run yet."""
+    """Raises for an unknown compute dtype, aggregation route or relation
+    context, and on a mesh for what it does not run yet."""
     compute_dtype(cfg.compute_dtype)
-    if cfg.impl != "xla":
-        raise NotImplementedError(f"impl {cfg.impl!r} (the halo aggregation): HisRES on a mesh "
-                                  "is not ported yet (ROADMAP A.11b)")
+    check_impl(cfg.impl)
+    if is_sharded(cfg.impl):
+        for unported, what in ((cfg.use_static, "the static graph"),
+                               (cfg.compute_dtype != "float32", "bf16 compute")):
+            if unported:
+                raise NotImplementedError(f"{what} on a mesh (HisRES) is not ported yet "
+                                          "(ROADMAP A.11b)")
     if cfg.rc_mode not in ("src", "both"):
         raise ValueError(f"rc_mode must be 'both' or 'src', got {cfg.rc_mode!r}")
 
@@ -156,10 +174,18 @@ def init_params(gen: torch.Generator, cfg: HisResConfig, device="cuda"
         **{f.name: tree_to(getattr(state, f.name), device) for f in dataclasses.fields(state)})
 
 
+def _shard(cfg: HisResConfig, params: Params) -> Optional[RowShard]:
+    """This rank's rows of the entity table under a sharded ``cfg.impl``,
+    else None."""
+    return table_shard(cfg.impl, params["dynamic_emb"].shape[0])
+
+
 def _stream(params: Params, cfg: HisResConfig, history, h_init: torch.Tensor, prefix: str,
-            time_encode: bool, gen: Optional[torch.Generator], train: bool):
+            time_encode: bool, gen: Optional[torch.Generator], train: bool,
+            shard: Optional[RowShard] = None):
     """One recurrent stream over a stacked [T, ...] window (ref :272-313):
-    (h_final, h0_final, every step's h [T, N, d])."""
+    (h_final, h0_final, every step's h [T, N, d]); with ``shard``, of this
+    rank's rows."""
     emb_rel = params["emb_rel"]
     k = 1 if prefix == "g" else 2
     rel_cell, ent_cell = params[f"relation_cell_{k}"], params[f"entity_cell_{k}"]
@@ -175,7 +201,7 @@ def _stream(params: Params, cfg: HisResConfig, history, h_init: torch.Tensor, pr
                             + params["bias_t2"].float()).to(h.dtype)
             h = mm(torch.cat([h, h_t.expand(h.shape[0], -1)], dim=1), params["time_linear_w"].T) \
                 + params["time_linear_b"]
-        ctx = masked_segment_mean(h.index_select(0, snap.rc_ent), snap.rc_rel, snap.rc_mask,
+        ctx = masked_segment_mean(rows_of(h, snap.rc_ent, shard), snap.rc_rel, snap.rc_mask,
                                   cfg.num_rels_total)
         if step == 0:
             # the first step starts h0 from r_linear (ref :285-287)
@@ -183,7 +209,7 @@ def _stream(params: Params, cfg: HisResConfig, history, h_init: torch.Tensor, pr
             if cfg.layer_norm:
                 h0 = l2_normalize(h0)
         cur_h, cur_r = HLayers.hisres_rgcn_cell(rgcn, h, h0, snap, dropout=cfg.dropout, gen=gen,
-                                                train=train)
+                                                train=train, impl=cfg.impl)
         h = gru_cell(ent_cell, cur_h, h)
         if cfg.layer_norm:
             h = l2_normalize(h)
@@ -199,14 +225,16 @@ def forward(params: Params, cfg: HisResConfig, history, history_gg, *, static_sn
     """Both streams: (g_emb, gg_emb, r_emb, static_emb, the g stream's
     every step h [T, N, d]). ``history`` and ``history_gg`` are stacked
     windows (Snapshots of tensors); with ``use_static`` and a
-    ``static_snap`` both start from the static graph's embedding."""
+    ``static_snap`` both start from the static graph's embedding. On a
+    mesh the entity tables are this rank's rows."""
     check_supported(cfg)
+    shard = _shard(cfg, params)
     if cfg.use_static and static_snap is not None:
         h_init = _static_init(params, cfg, static_snap, gen=gen, train=train)
     else:
         h_init = l2_normalize(params["dynamic_emb"]) if cfg.layer_norm else params["dynamic_emb"]
-    g_emb, r_emb, all_h = _stream(params, cfg, history, h_init, "g", True, gen, train)
-    gg_emb, _, _ = _stream(params, cfg, history_gg, h_init, "gg", False, gen, train)
+    g_emb, r_emb, all_h = _stream(params, cfg, history, h_init, "g", True, gen, train, shard)
+    gg_emb, _, _ = _stream(params, cfg, history_gg, h_init, "gg", False, gen, train, shard)
     return g_emb, gg_emb, r_emb, h_init, all_h
 
 
@@ -217,9 +245,11 @@ def fuse_streams(params: Params, g_emb: torch.Tensor, gg_emb: torch.Tensor) -> t
 
 
 def _time_convtrans_score(dec_params, bn_state, embedding, rel_emb, triples, mask, cfg, gen,
-                          train: bool, mode: str, partial=None):
+                          train: bool, mode: str, partial=None, shard: Optional[RowShard] = None):
     """TimeConvTransE/R (ref:hisres_src/decoder.py): (scores, new BN
-    state); ``partial`` [B, 2R] multiplies the relation scores."""
+    state); ``partial`` [B, 2R] multiplies the relation scores. With
+    ``shard`` the (whole) ``embedding`` is scored on this rank's candidate
+    columns only: entity scores [B, rows]."""
     ent_all = torch.tanh(embedding)
     e1 = ent_all[triples[:, 0]]
     other = rel_emb[triples[:, 1]] if mode == "entity" else ent_all[triples[:, 2]]
@@ -227,6 +257,8 @@ def _time_convtrans_score(dec_params, bn_state, embedding, rel_emb, triples, mas
         dec_params, bn_state, torch.stack([e1, other], dim=1), mask,
         input_dropout=cfg.input_dropout, hidden_dropout=cfg.hidden_dropout,
         feat_dropout=cfg.feat_dropout, gen=gen, train=train)
+    if mode == "entity" and shard is not None:
+        ent_all = ent_all[shard.row0:shard.row0 + shard.rows]
     scores = dot_f32(x, (ent_all if mode == "entity" else rel_emb).T)  # fp32 scores
     if partial is not None:
         scores = scores * partial  # the one-hot history mask (ref decoder :48-51)
@@ -271,11 +303,16 @@ def get_loss(
     train mode every BatchNorm normalises by the batch statistics of the
     real rows (real edges in the candidate cells), and the new state
     holds their updated running statistics."""
+    shard = _shard(cfg, params)
     g_emb, gg_emb, r_emb, static_emb, all_h = forward(
         params, cfg, history, history_gg, static_snap=static_snap, gen=gen, train=train)
-    pre_emb = fuse_streams(params, g_emb, gg_emb)
+    pre_emb = whole_rows(fuse_streams(params, g_emb, gg_emb), shard)
     final_raw, final_inv, bn_cand_raw, bn_cand_inv = _final_embeddings(
         params, state, cfg, pre_emb, r_emb, his_graph_raw, his_graph_inv, gen, train)
+
+    def entity_ce(scores, labels):
+        return (_masked_ce(scores, labels, mask) if shard is None
+                else D.sharded_masked_ce(scores, labels, mask, shard))
 
     zero = torch.zeros((), device=pre_emb.device)
     losses = {"entity": zero, "relation": zero, "static": zero}
@@ -284,12 +321,12 @@ def get_loss(
     if cfg.entity_prediction:
         preds, new["bn_ob_raw"] = _time_convtrans_score(
             params["decoder_ob_raw"], state.bn_ob_raw, final_raw, r_emb, triples, mask, cfg,
-            gen, train, "entity")
+            gen, train, "entity", shard=shard)
         predo, new["bn_ob_inv"] = _time_convtrans_score(
             params["decoder_ob_inv"], state.bn_ob_inv, final_inv, r_emb, inv_triples, mask, cfg,
-            gen, train, "entity")
-        losses["entity"] = 0.5 * _masked_ce(preds, triples[:, 2], mask) + \
-            0.5 * _masked_ce(predo, inv_triples[:, 2], mask)
+            gen, train, "entity", shard=shard)
+        losses["entity"] = 0.5 * entity_ce(preds, triples[:, 2]) + \
+            0.5 * entity_ce(predo, inv_triples[:, 2])
     if cfg.relation_prediction:
         all_triples = torch.cat([triples, inv_triples])
         all_mask = torch.cat([mask, mask])
@@ -324,16 +361,18 @@ def predict(
     static_snap=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eval scores (ref :394-434): (entity [2B, N], relation [2B, 2R]), the
-    rows stacked [raw; inverse] as the queries ``[triples; inv_triples]``."""
+    rows stacked [raw; inverse] as the queries ``[triples; inv_triples]``;
+    on a mesh the entity scores are this rank's candidates', [2B, rows]."""
+    shard = _shard(cfg, params)
     g_emb, gg_emb, r_emb, _, _ = forward(params, cfg, history, history_gg,
                                          static_snap=static_snap)
-    pre_emb = fuse_streams(params, g_emb, gg_emb)
+    pre_emb = whole_rows(fuse_streams(params, g_emb, gg_emb), shard)
     final_raw, final_inv, _, _ = _final_embeddings(params, state, cfg, pre_emb, r_emb,
                                                    his_graph_raw, his_graph_inv, None, False)
     preds, _ = _time_convtrans_score(params["decoder_ob_raw"], state.bn_ob_raw, final_raw, r_emb,
-                                     triples, mask, cfg, None, False, "entity")
+                                     triples, mask, cfg, None, False, "entity", shard=shard)
     predo, _ = _time_convtrans_score(params["decoder_ob_inv"], state.bn_ob_inv, final_inv, r_emb,
-                                     inv_triples, mask, cfg, None, False, "entity")
+                                     inv_triples, mask, cfg, None, False, "entity", shard=shard)
     all_triples = torch.cat([triples, inv_triples])
     all_mask = torch.cat([mask, mask])
     s_raw, _ = _time_convtrans_score(params["decoder_rel_raw"], state.bn_rel_raw, pre_emb, r_emb,

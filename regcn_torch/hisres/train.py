@@ -25,7 +25,17 @@ cached the same way, per ``cache_key``.
 fp32 islands, its gradients reach the fp32 parameters in fp32, and
 evaluation runs in fp32, as JAX's ``predict_step`` has no cast.
 
-Not ported yet, and raising: a mesh and ``dist_agg="halo"`` (ROADMAP A.11b).
+``mesh`` (``regcn_torch.parallel.mesh.make_mesh``; every rank builds its
+own trainer and calls the same methods) trains entity-sharded, as JAX's
+``HisResTrainer(mesh=...)``: the state holds this rank's rows of
+``dynamic_emb`` and of its Adam moments; ``dist_agg`` (``"gspmd"`` or
+``"halo"``) picks both recurrent streams' cross-shard aggregation, and
+each stream's window carries the rank's partition of its own graphs (the
+2-snapshot unions are graphs of their own); the history graphs and the
+vocabularies stay replicated; evaluation, single- and multi-step, ranks
+across the candidate shards; checkpoints hold whole states. Not ported on
+a mesh yet, and raising ``NotImplementedError`` (ROADMAP A.11b): the
+static graph, bf16 compute, ``run_analysis`` and a ``data`` axis above 1.
 """
 
 from __future__ import annotations
@@ -43,9 +53,12 @@ from regcn_torch.config import TrainConfig
 from regcn_torch.data.answers import build_answer_filters_by_time
 from regcn_torch.data.dataset import TKGData
 from regcn_torch.data.snapshots import _round_up, build_history, split_by_time
+from regcn_torch.dist import sharded_impl
 from regcn_torch.hisres import model as hmodel
 from regcn_torch.hisres.history import HistoryStore
 from regcn_torch.hisres.model import HisResConfig
+from regcn_torch.parallel import sharding
+from regcn_torch.parallel.mesh import DATA_AXIS, axis_size, check_entity_divisibility, row_shard
 from regcn_torch.train import loop, metrics
 from regcn_torch.train import state as train_state
 from regcn_torch.train.optim import tree_leaves
@@ -68,7 +81,8 @@ def union_snapshots(input_list: List[np.ndarray]) -> List[np.ndarray]:
 
 
 class HisResTrainer:
-    """HisRES training and evaluation on one device."""
+    """HisRES training and evaluation on one device, or entity-sharded on a
+    mesh (see the module)."""
 
     def __init__(self, cfg: HisResConfig, tc: TrainConfig, data: TKGData,
                  his_edge_bucket: int = 4096, his_max_edges: Optional[int] = 65536,
@@ -76,10 +90,21 @@ class HisResTrainer:
                  run_analysis: bool = False, device="cuda"):
         if dist_agg not in ("gspmd", "halo"):
             raise ValueError(f"dist_agg must be 'gspmd' or 'halo', got {dist_agg!r}")
-        if mesh is not None or dist_agg == "halo":
-            raise NotImplementedError("HisRES on a mesh (a mesh, dist_agg='halo') is not ported "
-                                      "yet (ROADMAP A.11b)")
+        if dist_agg == "halo" and mesh is None:
+            raise ValueError("dist_agg='halo' requires a mesh")
         hmodel.check_supported(cfg)
+        self.mesh, self.dist_agg, self.shard = mesh, dist_agg, None
+        if mesh is not None:
+            check_entity_divisibility(data.num_nodes, mesh)
+            for unported, what in ((axis_size(mesh, DATA_AXIS) != 1, "a data axis above 1"),
+                                   (run_analysis, "run_analysis")):
+                if unported:
+                    raise NotImplementedError(f"{what} on a mesh (HisRES) is not ported yet "
+                                              "(ROADMAP A.11b)")
+            # both recurrent streams dispatch on the marker
+            cfg = dataclasses.replace(cfg, impl=sharded_impl(mesh, dist_agg))
+            hmodel.check_supported(cfg)
+            self.shard = row_shard(mesh, data.num_nodes)
         self.compute_dtype = compute_dtype(cfg.compute_dtype)
         self.cfg, self.tc, self.data = cfg, tc, data
         self.device = torch.device(device)
@@ -103,9 +128,11 @@ class HisResTrainer:
     # ----------------------------------------------------------------- state
     def state_from(self, params, model_state, seed: Optional[int] = None) -> TrainState:
         """A fresh training state (zero Adam moments) around copies of
-        ``params`` and ``model_state`` on the trainer's device."""
-        return train_state.state_from(params, model_state, self.tc,
-                                      self.tc.seed + 1 if seed is None else seed, self.device)
+        ``params`` and ``model_state`` on the trainer's device; on a mesh,
+        this rank's rows of the whole ``params``."""
+        state = train_state.state_from(params, model_state, self.tc,
+                                       self.tc.seed + 1 if seed is None else seed, self.device)
+        return state if self.shard is None else sharding.shard_state(state, self.shard)
 
     def init_state(self, seed: Optional[int] = None) -> TrainState:
         """Random parameters from ``torch.Generator().manual_seed(seed)``
@@ -117,7 +144,11 @@ class HisResTrainer:
 
     # ------------------------------------------------------------------ data
     def _history(self, snaps: Sequence[np.ndarray]):
+        """A stream's window on the device; on a mesh with the rank's
+        partition of its graphs' edges."""
         tc = self.tc
+        if self.shard is not None:
+            return self._sharded_eval().window(snaps)
         return build_history(list(snaps), self.num_nodes, self.num_rels,
                              edge_bucket=tc.edge_bucket, rc_bucket=tc.rc_bucket,
                              rc_mode=self.cfg.rc_mode).to(self.device)
@@ -198,9 +229,8 @@ class HisResTrainer:
         """One optimizer step on ``window(i)``'s inputs, in place on
         ``state``; returns the losses (0-d tensors, not synchronised)."""
         total, losses, new_model_state = self.loss(state, *inputs)
-        leaves = tree_leaves(state.params)
-        grads = torch.autograd.grad(total, leaves, allow_unused=True)
-        self.opt.step(leaves, grads, state.opt_state)
+        grads = sharding.train_grads(total, state, self.opt, self.shard)
+        self.opt.step(tree_leaves(state.params), grads, state.opt_state)
         state.model_state = new_model_state
         state.step += 1
         return {k: v.detach() for k, v in losses.items()}
@@ -249,18 +279,27 @@ class HisResTrainer:
             window = (window + [snap])[-self.tc.test_history_len:]
         return steps
 
+    def _sharded_eval(self):
+        """The rank's windows and ranks on a mesh, else None."""
+        if self.shard is None:
+            return None
+        return sharding.ShardedEval(self.cfg, self.tc, self.dist_agg, self.shard, self.device,
+                                    self.cfg.rc_mode)
+
     @torch.inference_mode()
     def _rolling_ranks(self, state, steps) -> Dict[str, List[np.ndarray]]:
         ranks = {k: [] for k in loop.RANK_KEYS}
+        sharded = self._sharded_eval()
         for inputs, (er, ec, rr, rc), allm in steps:
             s_ent, s_rel = self.predict(state, *self._dense(inputs))
             allq = torch.cat([inputs[2], inputs[3]])
-            step = torch.stack([
-                metrics.device_ranks(s_ent, allq[:, 2]),
-                metrics.device_filtered_ranks(s_ent, allq[:, 2], er, ec),
-                metrics.device_ranks(s_rel, allq[:, 1]),
-                metrics.device_filtered_ranks(s_rel, allq[:, 1], rr, rc),
-            ]).cpu().numpy()
+            step = (sharded.ranks(s_ent, s_rel, allq, er, ec, rr, rc) if sharded is not None else
+                    torch.stack([
+                        metrics.device_ranks(s_ent, allq[:, 2]),
+                        metrics.device_filtered_ranks(s_ent, allq[:, 2], er, ec),
+                        metrics.device_ranks(s_rel, allq[:, 1]),
+                        metrics.device_filtered_ranks(s_rel, allq[:, 1], rr, rc),
+                    ])).cpu().numpy()
             for key, row in zip(loop.RANK_KEYS, step):
                 ranks[key].append(row[allm])
         return ranks
@@ -278,6 +317,8 @@ class HisResTrainer:
             inputs = self._dense(self._inputs(window, snap, time_offset))
             with torch.inference_mode():
                 s_ent, s_rel = self.predict(state, *inputs)
+                if self.shard is not None:
+                    s_ent = self._sharded_eval().full_scores(s_ent)
             allq = torch.cat([inputs[2], inputs[3]]).cpu().numpy()
             m = inputs[4].cpu().numpy()
             allm = np.concatenate([m, m]) > 0
@@ -367,7 +408,7 @@ class HisResTrainer:
         start_epoch, best_mrr, best_epoch = 0, 0.0, -1
         if resume and train_state.has_resumable_checkpoint(checkpoint_path):
             state, start_epoch, best_mrr, best_epoch = train_state.restore_for_resume(
-                checkpoint_path, state)
+                checkpoint_path, state, shard=self.shard)
             log.info("resumed from %s at epoch %d (best MRR %.4f @ %d)", checkpoint_path,
                      start_epoch, best_mrr, best_epoch)
         ent_f = build_answer_filters_by_time(self.data.valid, self.num_rels, False)
@@ -396,9 +437,9 @@ class HisResTrainer:
                 best_state = train_state.copy_state(state)
                 if checkpoint_path:
                     train_state.save_checkpoint(checkpoint_path, state,
-                                                {"epoch": epoch, "mrr": mrr})
+                                                {"epoch": epoch, "mrr": mrr}, shard=self.shard)
             if checkpoint_path:
                 train_state.save_last_checkpoint(checkpoint_path, state, epoch, best_mrr,
-                                                 best_epoch)
+                                                 best_epoch, shard=self.shard)
         return best_state, {"best_valid_mrr_raw": best_mrr, "selection_metric": selection_metric,
                             "history": rows}

@@ -27,7 +27,7 @@ boundary, as JAX's ``streaming_nll`` does.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -35,6 +35,7 @@ from regcn_torch.hyperbolic import ops as H
 from regcn_torch.models import decoders as euclidean_decoders
 from regcn_torch.ops.activations import inverted_dropout
 from regcn_torch.ops.streaming_ce import SCORE_EPS, distance_logits, streaming_nll
+from regcn_torch.parallel.collectives import rows_of
 from regcn_torch.utils.dtypes import dot_f32, mm
 from regcn_torch.utils.init import xavier_uniform
 
@@ -161,12 +162,17 @@ def _distance_args(params, triples, c, rel_curvature_max, use_hyperbolic_distanc
 
 
 def _entity_scores(params, query, entity_embedding, triples, c, rel_curvature_max,
-                   use_hyperbolic_distance=None):
-    """[B, N] scores of ``query`` against every entity; with an entity bias,
-    the subject's bias is added to its whole row, as JAX's eval does."""
-    scores = dist_score(query, entity_embedding, c,
-                        **_distance_args(params, triples, c, rel_curvature_max,
-                                         use_hyperbolic_distance))
+                   use_hyperbolic_distance=None, columns: Optional[slice] = None):
+    """[B, N] scores of ``query`` against every entity, or against the
+    entities of ``columns`` (a rank's candidates on a mesh, [B, rows]);
+    with an entity bias, the subject's bias is added to its whole row, as
+    JAX's eval does."""
+    args = _distance_args(params, triples, c, rel_curvature_max, use_hyperbolic_distance)
+    if columns is not None:
+        entity_embedding = entity_embedding[columns]
+        if args["candidate_bias"] is not None:
+            args["candidate_bias"] = args["candidate_bias"][columns]
+    scores = dist_score(query, entity_embedding, c, **args)
     if "entity_bias" in params:
         scores = scores + params["entity_bias"][triples[:, 0]][:, None]
     return scores
@@ -233,37 +239,43 @@ def _leaky_tanh(x: torch.Tensor) -> torch.Tensor:
     return 0.9 * torch.tanh(x) + 0.1 * x
 
 
-def _convtrans_score(params, bn_state, stacked, candidates, mask, dropouts, gen, train):
+def _convtrans_score(params, bn_state, stacked, candidates, bias, mask, dropouts, gen, train):
     x, new_bn = euclidean_decoders._convtrans_features(
         params, bn_state, stacked, mask, input_dropout=dropouts[0], hidden_dropout=dropouts[1],
         feat_dropout=dropouts[2], gen=gen, train=train)
-    return dot_f32(x, candidates.T) + params["b"], new_bn
+    return dot_f32(x, candidates.T) + bias, new_bn
 
 
 def hyperbolic_convtranse_score(params, bn_state, entity_embedding, rel_embedding, triples, c,
                                 mask=None, *, dropouts=(0.0, 0.0, 0.0), gen=None, train=False,
-                                ent_tan=None) -> Tuple[torch.Tensor, BNState]:
+                                ent_tan=None, shard=None) -> Tuple[torch.Tensor, BNState]:
     """(entity scores [B, N], new BN state) on tangent embeddings. ``ent_tan``,
     if given, is the leaky-tanh tangent table, shared by both decoders;
     otherwise it is derived from the ball points ``entity_embedding``.
-    ``dropouts`` are (input, hidden, feat), drawn from ``gen`` in training."""
+    ``dropouts`` are (input, hidden, feat), drawn from ``gen`` in training.
+    With ``shard`` the tables hold this rank's rows: the subjects' rows are
+    gathered from their owners and the scores are the rank's candidates',
+    [B, rows], with their slice of the bias ``b``."""
     if ent_tan is None:
         ent_tan = _leaky_tanh(H.log_map_zero(entity_embedding, c))
-    stacked = torch.stack([ent_tan.index_select(0, triples[:, 0]),
+    stacked = torch.stack([rows_of(ent_tan, triples[:, 0], shard),
                            rel_embedding.index_select(0, triples[:, 1])], dim=1)
-    return _convtrans_score(params, bn_state, stacked, ent_tan, mask, dropouts, gen, train)
+    bias = params["b"] if shard is None else params["b"][shard.row0:shard.row0 + shard.rows]
+    return _convtrans_score(params, bn_state, stacked, ent_tan, bias, mask, dropouts, gen, train)
 
 
 def hyperbolic_convtransr_score(params, bn_state, entity_embedding, rel_embedding, triples, c,
                                 mask=None, *, dropouts=(0.0, 0.0, 0.0), gen=None, train=False,
-                                ent_tan=None) -> Tuple[torch.Tensor, BNState]:
+                                ent_tan=None, shard=None) -> Tuple[torch.Tensor, BNState]:
     """(relation scores [B, 2R], new BN state); the candidates are the
-    evolved relation embeddings."""
+    evolved relation embeddings. With ``shard`` the subjects' and objects'
+    rows are gathered from their owners; the scores are replicated."""
     if ent_tan is None:
         ent_tan = _leaky_tanh(H.log_map_zero(entity_embedding, c))
-    stacked = torch.stack([ent_tan.index_select(0, triples[:, 0]),
-                           ent_tan.index_select(0, triples[:, 2])], dim=1)
-    return _convtrans_score(params, bn_state, stacked, rel_embedding, mask, dropouts, gen, train)
+    stacked = torch.stack([rows_of(ent_tan, triples[:, 0], shard),
+                           rows_of(ent_tan, triples[:, 2], shard)], dim=1)
+    return _convtrans_score(params, bn_state, stacked, rel_embedding, params["b"], mask,
+                            dropouts, gen, train)
 
 
 # ----------------------------------------------------------------- MuRP
@@ -290,10 +302,10 @@ def _murp_query(params, entity_embedding, rel_embedding, triples, c, dropout, ge
 
 
 def murp_score(params, entity_embedding, rel_embedding, triples, c, *, dropout=0.0, gen=None,
-               train=False, rel_curvature_max=None, use_hyperbolic_distance=None):
+               train=False, rel_curvature_max=None, use_hyperbolic_distance=None, columns=None):
     query = _murp_query(params, entity_embedding, rel_embedding, triples, c, dropout, gen, train)
     return _entity_scores(params, query, entity_embedding, triples, c, rel_curvature_max,
-                          use_hyperbolic_distance)
+                          use_hyperbolic_distance, columns)
 
 
 def murp_loss(params, entity_embedding, rel_embedding, triples, c, *, mask=None, dropout=0.0,
@@ -371,9 +383,10 @@ def _roth_query(params, entity_embedding, rel_embedding, triples, c, dropout, ge
 
 
 def roth_score(params, entity_embedding, rel_embedding, triples, c, *, dropout=0.0, gen=None,
-               train=False, rel_curvature_max=None):
+               train=False, rel_curvature_max=None, columns=None):
     query = _roth_query(params, entity_embedding, rel_embedding, triples, c, dropout, gen, train)
-    return _entity_scores(params, query, entity_embedding, triples, c, rel_curvature_max)
+    return _entity_scores(params, query, entity_embedding, triples, c, rel_curvature_max,
+                          columns=columns)
 
 
 def roth_loss(params, entity_embedding, rel_embedding, triples, c, *, mask=None, dropout=0.0,
@@ -460,9 +473,10 @@ def _atth_query(params, entity_embedding, rel_embedding, triples, c, dropout, ge
 
 
 def atth_score(params, entity_embedding, rel_embedding, triples, c, *, dropout=0.0, gen=None,
-               train=False, rel_curvature_max=None):
+               train=False, rel_curvature_max=None, columns=None):
     query = _atth_query(params, entity_embedding, rel_embedding, triples, c, dropout, gen, train)
-    return _entity_scores(params, query, entity_embedding, triples, c, rel_curvature_max)
+    return _entity_scores(params, query, entity_embedding, triples, c, rel_curvature_max,
+                          columns=columns)
 
 
 def atth_loss(params, entity_embedding, rel_embedding, triples, c, *, mask=None, dropout=0.0,

@@ -28,7 +28,15 @@ relation weights gathered per edge ([E, d, d], or [E, heads, d, d] for
 hgat), then a batched product. The parameter dictionaries have the JAX
 package's keys and layouts.
 
-Not ported yet, and raising: the multi-device aggregation (ROADMAP A.11b).
+On an entity-sharded mesh (``impl`` a marker of ``regcn_torch/dist.py``)
+each layer takes and returns this rank's rows, as JAX's layers dispatch
+(``regcn_tpu/hyperbolic/layers.py``): the uvrgcn's radius-weighted sum
+runs on B1 over the rank's edges, with the per-row radii of the gathered
+table or halo buffer (``parallel/halo.py:mesh_rgcn_aggregate``); LGCN's
+Lorentz centroid, FHNN's Einstein midpoint and HGAT's segment softmax
+reduce over destination segments, so they run shard-local on the
+exchanged source rows (``mesh_local_aggregate``). Each dropout draws the
+whole table's mask and keeps the rank's rows.
 """
 
 from __future__ import annotations
@@ -40,8 +48,11 @@ import torch
 from regcn_torch.hyperbolic import ops as H
 from regcn_torch.models.layers import init_union_rgcn_layer
 from regcn_torch.ops.activations import inverted_dropout, leaky_relu, rrelu
+from regcn_torch.dist import is_sharded
 from regcn_torch.ops.rgcn_scatter import check_impl, rgcn_aggregate
 from regcn_torch.ops.segment import segment_softmax
+from regcn_torch.parallel.halo import (mesh_edges, mesh_local_aggregate, mesh_rgcn_aggregate,
+                                       table_rows)
 from regcn_torch.utils.dtypes import mm, promoted
 from regcn_torch.utils.init import RELU_GAIN, _uniform, xavier_uniform
 
@@ -73,29 +84,44 @@ def init_lgcn_layer(gen: torch.Generator, h_dim, num_rels, n_bases=-1, self_loop
     return p
 
 
+def _local_or_mesh(impl, snap, table: torch.Tensor, local_fn):
+    """(``local_fn`` over this rank's destination rows or, off a mesh, over
+    every row, the edges whose ``has_in_edge`` the self-loop reads)."""
+    if is_sharded(impl):
+        edges = mesh_edges(impl, snap)
+        return mesh_local_aggregate(impl, table, edges, local_fn), edges
+    return local_fn(table, snap.src, snap.dst, snap.edge_mask, snap.rel, snap.in_deg_norm,
+                    snap.has_in_edge, table.shape[0]), snap
+
+
 def lgcn_layer(params: Params, h_hyper: torch.Tensor, rel_emb: Optional[torch.Tensor], snap, c,
                n_bases: int, *, prev_h=None, dropout: float = 0.0,
-               gen: Optional[torch.Generator] = None, train: bool = False) -> torch.Tensor:
-    """One LGCN layer on ball points [N, d]; returns ball points."""
-    n, d = h_hyper.shape
+               gen: Optional[torch.Generator] = None, train: bool = False,
+               impl: str = "xla") -> torch.Tensor:
+    """One LGCN layer on ball points [N, d] (this rank's rows on a mesh);
+    returns ball points."""
+    d = h_hyper.shape[1]
     nb, sub = n_bases, d // n_bases
     h_tan = H.log_map_zero(h_hyper, c)
 
-    # per-edge block-diagonal transform: nb blocks of [sub, sub]. Gathers
-    # are index_select: its backward is one index_add_, where indexing's
-    # sorts its indices first
-    w_e = params["weight"].index_select(0, snap.rel).reshape(-1, nb, sub, sub)
-    src_feat = h_tan.index_select(0, snap.src).reshape(-1, nb, sub, 1)
-    msg_tan = torch.sum(src_feat * w_e, dim=2).reshape(-1, d)
-    if rel_emb is not None:
-        msg_tan = msg_tan + rel_emb.index_select(0, snap.rel)
-    msg_lorentz = H.to_lorentz(H.exp_map_zero(msg_tan, c), c)
-    agg = H.lorentz_centroid_segments(
-        msg_lorentz, snap.in_deg_norm[snap.dst] * snap.edge_mask, snap.dst, n, c)
-    h_new = torch.clamp(H.log_map_zero(H.to_poincare(agg, c), c), -CLAMP, CLAMP)
+    def local_fn(tan, src, dst, mask, rel, norm, has_in, rows):
+        # per-edge block-diagonal transform: nb blocks of [sub, sub]. Gathers
+        # are index_select: its backward is one index_add_, where indexing's
+        # sorts its indices first
+        w_e = params["weight"].index_select(0, rel).reshape(-1, nb, sub, sub)
+        src_feat = tan.index_select(0, src).reshape(-1, nb, sub, 1)
+        msg_tan = torch.sum(src_feat * w_e, dim=2).reshape(-1, d)
+        if rel_emb is not None:
+            msg_tan = msg_tan + rel_emb.index_select(0, rel)
+        msg_lorentz = H.to_lorentz(H.exp_map_zero(msg_tan, c), c)
+        agg = H.lorentz_centroid_segments(msg_lorentz, norm[dst] * mask, dst, rows, c)
+        return torch.clamp(H.log_map_zero(H.to_poincare(agg, c), c), -CLAMP, CLAMP)
+
+    # the messages read the sources' tangent rows, which travel between ranks
+    h_new, edges = _local_or_mesh(impl, snap, h_tan, local_fn)
 
     if "loop_w" in params:
-        loop = _dual_self_loop(params, h_tan, snap.has_in_edge)
+        loop = _dual_self_loop(params, h_tan, edges.has_in_edge)
     if prev_h is not None and "skip_w" in params:
         prev_tan = H.log_map_zero(prev_h, c)
         gate = torch.sigmoid(mm(prev_tan, params["skip_w"]) + params["skip_b"])
@@ -109,7 +135,7 @@ def lgcn_layer(params: Params, h_hyper: torch.Tensor, rel_emb: Optional[torch.Te
     # the eval-mode rrelu even while training: the reference calls
     # F.rrelu with its default training=False
     h_new = rrelu(h_new)
-    h_new = inverted_dropout(h_new, dropout, gen, train)
+    h_new = inverted_dropout(h_new, dropout, gen, train, rows=table_rows(impl, h_hyper))
     return H.exp_map_zero(h_new, c).to(h_hyper.dtype)
 
 
@@ -132,33 +158,38 @@ def init_fhnn_layer(gen: torch.Generator, h_dim, num_rels, self_loop=True) -> Pa
     return p
 
 
-def _tangent_activation(h_new: torch.Tensor, c, dropout: float, gen, train) -> torch.Tensor:
+def _tangent_activation(h_new: torch.Tensor, c, dropout: float, gen, train, rows=None
+                        ) -> torch.Tensor:
     """The rrelu in tangent space, then dropout in tangent space
-    (ref :466-475), each between log_0 and exp_0."""
+    (ref :466-475), each between log_0 and exp_0; ``rows`` as
+    ``inverted_dropout`` takes it on a mesh."""
     h_new = H.exp_map_zero(rrelu(H.log_map_zero(h_new, c)), c)
     if train and dropout > 0 and gen is not None:
-        h_new = H.exp_map_zero(inverted_dropout(H.log_map_zero(h_new, c), dropout, gen, train),
-                               c)
+        h_new = H.exp_map_zero(inverted_dropout(H.log_map_zero(h_new, c), dropout, gen, train,
+                                                rows=rows), c)
     return h_new
 
 
 def fhnn_layer(params: Params, h_hyper: torch.Tensor, rel_emb: Optional[torch.Tensor], snap, c,
                *, prev_h=None, dropout: float = 0.0, gen: Optional[torch.Generator] = None,
-               train: bool = False) -> torch.Tensor:
-    """One FHNN layer on ball points [N, d]; returns ball points.
-    ``prev_h`` is ignored, as in the reference (ref :444)."""
-    n = h_hyper.shape[0]
+               train: bool = False, impl: str = "xla") -> torch.Tensor:
+    """One FHNN layer on ball points [N, d] (this rank's rows on a mesh);
+    returns ball points. ``prev_h`` is ignored, as in the reference
+    (ref :444)."""
     h_tan = H.log_map_zero(h_hyper, c)
-    msg_tan = fhnn_edge_transform(params["rel_weight"], h_tan.index_select(0, snap.src),
-                                  snap.rel)
-    if rel_emb is not None:
-        msg_tan = msg_tan + rel_emb.index_select(0, snap.rel)
-    h_new = H.einstein_midpoint_segments(H.exp_map_zero(msg_tan, c),
-                                         snap.in_deg_norm[snap.dst] * snap.edge_mask, snap.dst,
-                                         n, c)
+
+    def local_fn(tan, src, dst, mask, rel, norm, has_in, rows):
+        msg_tan = fhnn_edge_transform(params["rel_weight"], tan.index_select(0, src), rel)
+        if rel_emb is not None:
+            msg_tan = msg_tan + rel_emb.index_select(0, rel)
+        return H.einstein_midpoint_segments(H.exp_map_zero(msg_tan, c), norm[dst] * mask, dst,
+                                            rows, c)
+
+    h_new, _ = _local_or_mesh(impl, snap, h_tan, local_fn)
     if "loop_w" in params:
         h_new = H.mobius_add(h_new, H.exp_map_zero(mm(h_tan, params["loop_w"]), c), c)
-    return _tangent_activation(h_new, c, dropout, gen, train).to(h_hyper.dtype)
+    return _tangent_activation(h_new, c, dropout, gen, train,
+                               table_rows(impl, h_hyper)).to(h_hyper.dtype)
 
 
 def init_hgat_layer(gen: torch.Generator, h_dim, num_rels, num_heads=4, self_loop=True,
@@ -181,32 +212,48 @@ def init_hgat_layer(gen: torch.Generator, h_dim, num_rels, num_heads=4, self_loo
 
 def hgat_layer(params: Params, h_hyper: torch.Tensor, rel_emb: Optional[torch.Tensor], snap, c,
                *, prev_h: Optional[torch.Tensor] = None, dropout: float = 0.0,
-               gen: Optional[torch.Generator] = None, train: bool = False) -> torch.Tensor:
-    """One HGAT layer on ball points [N, d]; returns ball points.
-    ``rel_emb`` takes no part in the attention (ref :882). JAX maps a
-    function over the heads; here every head runs in one batched product,
-    one segment softmax and one Einstein midpoint over [E, heads, ...]."""
-    n = h_hyper.shape[0]
+               gen: Optional[torch.Generator] = None, train: bool = False,
+               impl: str = "xla") -> torch.Tensor:
+    """One HGAT layer on ball points [N, d] (this rank's rows on a mesh);
+    returns ball points. ``rel_emb`` takes no part in the attention
+    (ref :882). JAX maps a function over the heads; here every head runs
+    in one batched product, one segment softmax and one Einstein midpoint
+    over [E, heads, ...]. The attention reads the ball points of both ends
+    and the messages the sources' tangent rows: on a mesh both travel,
+    side by side in one [rows, 2d] table."""
+    d = h_hyper.shape[1]
     h_tan = H.log_map_zero(h_hyper, c)
-    w_e = params["rel_weight"].index_select(0, snap.rel)  # [E, heads, d, d]
-    src_tan = h_tan.index_select(0, snap.src)
-    msgs_tan = torch.matmul(*promoted(src_tan[:, None, None, :], w_e))[:, :, 0, :]  # [E, heads, d]
-    msgs_ball = H.exp_map_zero(msgs_tan, c)
-    h_src, h_dst = h_hyper.index_select(0, snap.src), h_hyper.index_select(0, snap.dst)
-    diff_tan = H.log_map_zero(H.mobius_add(h_src, -h_dst, c), c)
-    av = params["attn_vec"].index_select(0, snap.rel)  # [E, heads, d]
-    scores = leaky_relu(torch.sum(av * diff_tan[:, None, :], dim=-1), 0.2)  # [E, heads]
-    alpha = segment_softmax(scores, snap.dst, snap.edge_mask, n)
-    agg = H.einstein_midpoint_segments(msgs_ball, alpha * snap.edge_mask[:, None], snap.dst, n,
-                                       c)  # [N, heads, d]
-    h_new = H.exp_map_zero(torch.mean(H.log_map_zero(agg, c), dim=1), c)
+
+    def aggregate(ball, tan, src, dst, mask, rel, rows):
+        w_e = params["rel_weight"].index_select(0, rel)  # [E, heads, d, d]
+        src_tan = tan.index_select(0, src)
+        msgs_tan = torch.matmul(*promoted(src_tan[:, None, None, :], w_e))[:, :, 0, :]
+        msgs_ball = H.exp_map_zero(msgs_tan, c)  # [E, heads, d]
+        h_src, h_dst = ball.index_select(0, src), ball.index_select(0, dst)
+        diff_tan = H.log_map_zero(H.mobius_add(h_src, -h_dst, c), c)
+        av = params["attn_vec"].index_select(0, rel)  # [E, heads, d]
+        scores = leaky_relu(torch.sum(av * diff_tan[:, None, :], dim=-1), 0.2)  # [E, heads]
+        alpha = segment_softmax(scores, dst, mask, rows)
+        agg = H.einstein_midpoint_segments(msgs_ball, alpha * mask[:, None], dst, rows,
+                                           c)  # [rows, heads, d]
+        return H.exp_map_zero(torch.mean(H.log_map_zero(agg, c), dim=1), c)
+
+    if is_sharded(impl):
+        h_new = mesh_local_aggregate(
+            impl, torch.cat([h_hyper, h_tan.to(h_hyper.dtype)], dim=1), mesh_edges(impl, snap),
+            lambda both, src, dst, mask, rel, norm, has_in, rows: aggregate(
+                both[:, :d], both[:, d:], src, dst, mask, rel, rows))
+    else:
+        h_new = aggregate(h_hyper, h_tan, snap.src, snap.dst, snap.edge_mask, snap.rel,
+                          h_hyper.shape[0])
     if "loop_w" in params:
         h_new = H.mobius_add(h_new, H.exp_map_zero(mm(h_tan, params["loop_w"]), c), c)
     if prev_h is not None and "skip_w" in params:
         prev_tan = H.log_map_zero(prev_h, c)
         gate = torch.sigmoid(mm(prev_tan, params["skip_w"]) + params["skip_b"])
         h_new = H.exp_map_zero(gate * H.log_map_zero(h_new, c) + (1 - gate) * prev_tan, c)
-    return _tangent_activation(h_new, c, dropout, gen, train).to(h_hyper.dtype)
+    return _tangent_activation(h_new, c, dropout, gen, train,
+                               table_rows(impl, h_hyper)).to(h_hyper.dtype)
 
 
 def _abs_diff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -217,25 +264,46 @@ def _abs_diff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(d >= 0, d, -d)
 
 
+def _radius_weight(radius_gamma: float):
+    """The uvrgcn's edge weight exp(-γ|r_src - r_dst|) of the two ends' radii."""
+    return lambda r_src, r_dst: torch.exp(-radius_gamma * _abs_diff(r_src, r_dst))
+
+
+def _union_sum(params: Params, v: torch.Tensor, rel_emb: torch.Tensor, snap, c, radius,
+               radius_gamma: float, impl):
+    """(the radius-weighted union sum [N, d] on B1 of the tangent rows ``v``,
+    the edges whose ``has_in_edge`` the self-loop reads). ``radius`` [N] are
+    the rows' radii off a mesh; on a mesh (this rank's rows) the radii come
+    per row of the gathered table or halo buffer, from the tangent rows, as
+    JAX's halo path takes them."""
+    if is_sharded(impl):
+        edges = mesh_edges(impl, snap)
+        return mesh_rgcn_aggregate(impl, v, rel_emb, params["w_neighbor"], edges,
+                                   row_scalar_fn=lambda rows: H.radius_from_tangent(rows, c),
+                                   edge_weight_fn=_radius_weight(radius_gamma)), edges
+    rw = _radius_weight(radius_gamma)(radius.index_select(0, snap.src),
+                                      radius.index_select(0, snap.dst))
+    return rgcn_aggregate(v, rel_emb, params["w_neighbor"], snap.src, snap.dst, snap.rel,
+                          snap.edge_mask, snap.in_deg_norm, dst_sorted=snap.dst_sorted,
+                          edge_weight=rw), snap
+
+
 def hyperbolic_union_layer(params: Params, h_hyper: torch.Tensor, rel_emb: torch.Tensor, snap,
                            c, *, prev_h: Optional[torch.Tensor] = None,
                            radius_gamma: float = 1.0, dropout: float = 0.0,
-                           gen: Optional[torch.Generator] = None, train: bool = False
-                           ) -> torch.Tensor:
-    """One UnionRGCN layer on ball points [N, d]; returns ball points. The
-    radius weight comes from the points' norms (``get_radius``), and B1
-    sums the weighted messages, with the weight's gradient ``dw``."""
+                           gen: Optional[torch.Generator] = None, train: bool = False,
+                           impl: str = "xla") -> torch.Tensor:
+    """One UnionRGCN layer on ball points [N, d] (this rank's rows on a
+    mesh); returns ball points. The radius weight comes from the points'
+    norms (``get_radius``), and B1 sums the weighted messages, with the
+    weight's gradient ``dw``."""
     h_tan = H.log_map_zero(h_hyper, c)
-    radius = H.get_radius(h_hyper)
-    rw = torch.exp(-radius_gamma * _abs_diff(radius.index_select(0, snap.src),
-                                             radius.index_select(0, snap.dst)))
-    h_new = rgcn_aggregate(h_tan, rel_emb, params["w_neighbor"], snap.src, snap.dst, snap.rel,
-                           snap.edge_mask, snap.in_deg_norm, dst_sorted=snap.dst_sorted,
-                           edge_weight=rw)
+    radius = None if is_sharded(impl) else H.get_radius(h_hyper)
+    h_new, edges = _union_sum(params, h_tan, rel_emb, snap, c, radius, radius_gamma, impl)
     h_new = torch.clamp(h_new, -CLAMP, CLAMP)
 
     if "loop_w" in params:
-        loop = _dual_self_loop(params, h_tan, snap.has_in_edge)
+        loop = _dual_self_loop(params, h_tan, edges.has_in_edge)
     if prev_h is not None and "skip_w" in params:
         prev_tan = H.log_map_zero(prev_h, c)
         gate = torch.sigmoid(mm(prev_tan, params["skip_w"]) + params["skip_b"])
@@ -246,28 +314,25 @@ def hyperbolic_union_layer(params: Params, h_hyper: torch.Tensor, rel_emb: torch
         h_new = h_new + loop
 
     h_new = torch.clamp(h_new, -CLAMP, CLAMP)
-    h_new = inverted_dropout(rrelu(h_new), dropout, gen, train)
+    h_new = inverted_dropout(rrelu(h_new), dropout, gen, train, rows=table_rows(impl, h_hyper))
     return H.exp_map_zero(h_new, c).to(h_hyper.dtype)
 
 
 def union_layer_tangent(params: Params, v: torch.Tensor, rel_emb: torch.Tensor, snap, c, *,
                         prev_v: Optional[torch.Tensor] = None, radius_gamma: float = 1.0,
                         dropout: float = 0.0, gen: Optional[torch.Generator] = None,
-                        train: bool = False) -> torch.Tensor:
+                        train: bool = False, impl: str = "xla") -> torch.Tensor:
     """One UnionRGCN layer on tangent vectors v [N, d] (``v = log_0`` of the
-    ball points); returns the raw tangent output, which the caller clamps
-    with :func:`H.clamp_tangent_norm`. The radius weight of each edge
-    requires grad through v, so B1's backward computes its ``dw``."""
-    radius = H.radius_from_tangent(v, c)
-    rw = torch.exp(-radius_gamma * _abs_diff(radius.index_select(0, snap.src),
-                                             radius.index_select(0, snap.dst)))
-    h_new = rgcn_aggregate(v, rel_emb, params["w_neighbor"], snap.src, snap.dst, snap.rel,
-                           snap.edge_mask, snap.in_deg_norm, dst_sorted=snap.dst_sorted,
-                           edge_weight=rw)
+    ball points; this rank's rows on a mesh); returns the raw tangent
+    output, which the caller clamps with :func:`H.clamp_tangent_norm`. The
+    radius weight of each edge requires grad through v, so B1's backward
+    computes its ``dw``."""
+    radius = None if is_sharded(impl) else H.radius_from_tangent(v, c)
+    h_new, edges = _union_sum(params, v, rel_emb, snap, c, radius, radius_gamma, impl)
     h_new = torch.clamp(h_new, -CLAMP, CLAMP)
 
     if "loop_w" in params:
-        loop = _dual_self_loop(params, v, snap.has_in_edge)
+        loop = _dual_self_loop(params, v, edges.has_in_edge)
     if prev_v is not None and "skip_w" in params:
         gate = torch.sigmoid(mm(prev_v, params["skip_w"]) + params["skip_b"])
         if "loop_w" in params:
@@ -277,13 +342,13 @@ def union_layer_tangent(params: Params, v: torch.Tensor, rel_emb: torch.Tensor, 
         h_new = h_new + loop
 
     h_new = torch.clamp(h_new, -CLAMP, CLAMP)
-    return inverted_dropout(rrelu(h_new), dropout, gen, train)
+    return inverted_dropout(rrelu(h_new), dropout, gen, train, rows=table_rows(impl, v))
 
 
 def uvrgcn_cell_tangent(params, v: torch.Tensor, rel_emb: torch.Tensor, snap, c, *,
                         radius_gamma: float = 1.0, dropout: float = 0.0,
-                        gen: Optional[torch.Generator] = None, train: bool = False
-                        ) -> torch.Tensor:
+                        gen: Optional[torch.Generator] = None, train: bool = False,
+                        impl: str = "xla") -> torch.Tensor:
     """The uvrgcn layer stack on the tangent carry; between layers (and
     after the last) the norm clamp that stands for the ball path's
     exp_0 -> project -> log_0."""
@@ -291,7 +356,7 @@ def uvrgcn_cell_tangent(params, v: torch.Tensor, rel_emb: torch.Tensor, snap, c,
     for i, lp in enumerate(params["layers"]):
         new_x = union_layer_tangent(lp, x, rel_emb, snap, c, prev_v=prev if i > 0 else None,
                                     radius_gamma=radius_gamma, dropout=dropout, gen=gen,
-                                    train=train)
+                                    train=train, impl=impl)
         prev, x = x, H.clamp_tangent_norm(new_x, c)
     return x
 
@@ -324,12 +389,14 @@ def encoder_cell(params, encoder: str, h_hyper: torch.Tensor, rel_emb: torch.Ten
                  dropout: float = 0.0, gen: Optional[torch.Generator] = None,
                  train: bool = False, impl: str = "xla") -> torch.Tensor:
     """The ball-space layer stack: ``evolve``'s path for LGCN, FHNN and
-    HGAT, and for the uvrgcn with ``tangent_fast=False``."""
+    HGAT, and for the uvrgcn with ``tangent_fast=False``; ``impl`` a
+    sharded marker runs it on this rank's rows."""
     _check_encoder(encoder)
     check_impl(impl)
     x, prev = h_hyper, None
     for i, lp in enumerate(params["layers"]):
-        kw = dict(prev_h=prev if i > 0 else None, dropout=dropout, gen=gen, train=train)
+        kw = dict(prev_h=prev if i > 0 else None, dropout=dropout, gen=gen, train=train,
+                  impl=impl)
         if encoder == "hyperbolic_uvrgcn":
             new_x = hyperbolic_union_layer(lp, x, rel_emb, snap, c, radius_gamma=radius_gamma,
                                            **kw)

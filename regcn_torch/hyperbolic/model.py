@@ -48,7 +48,16 @@ and the scores stay fp32 islands, each returning the carry's dtype where
 JAX's does; a learned curvature promotes what it touches to fp32, as
 JAX's strong fp32 scalar does (:func:`get_curvature`).
 
-Not ported yet, and raising: the multi-device aggregation (ROADMAP A.11b).
+On an entity-sharded mesh (``cfg.impl`` a marker of ``regcn_torch/dist.py``,
+which ``HyperbolicTrainer(mesh=...)`` sets) ``dynamic_emb`` holds this
+rank's rows: the evolution, its per-row maps and the decoders' tables run
+on them, the relation context and the queries gather their rows by
+global id, a replicated [N] leaf (``radius_static``, the ConvTransE bias)
+meets the table through the rank's slice, the tangent ConvTransE scores
+the rank's candidates with the CE across ranks, and the distance
+decoders' CE runs B2 over the all-gathered table on every rank. Not
+ported on a mesh yet, and raising (ROADMAP A.11b): EST, TANS, the static
+graph and bf16 compute.
 """
 
 from __future__ import annotations
@@ -59,16 +68,20 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from regcn_torch.dist import is_sharded
 from regcn_torch.hyperbolic import decoders as HD
 from regcn_torch.hyperbolic import est
 from regcn_torch.hyperbolic import layers as HL
 from regcn_torch.hyperbolic import ops as H
+from regcn_torch.models.decoders import sharded_masked_ce
 from regcn_torch.models.layers import gru_cell, init_gru_cell, init_rgcn_block_layer
 from regcn_torch.models.recurrent import _masked_ce, _static_init, static_angular_loss, tree_to
 from regcn_torch.ops.activations import l2_normalize
 from regcn_torch.ops.rgcn_scatter import check_impl
-from regcn_torch.utils.dtypes import compute_dtype, mm
 from regcn_torch.ops.segment import masked_segment_mean
+from regcn_torch.parallel.collectives import RowShard, rows_of, whole_rows
+from regcn_torch.parallel.mesh import table_shard
+from regcn_torch.utils.dtypes import compute_dtype, mm
 from regcn_torch.ops.streaming_ce import check_width
 from regcn_torch.utils.init import xavier_normal, xavier_uniform
 
@@ -153,12 +166,19 @@ class HypModelState:
 
 def check_supported(cfg: HyperbolicConfig) -> None:
     """Raises for an unknown compute dtype, encoder x decoder pair or
-    aggregation route."""
+    aggregation route, and on a mesh for what it does not run yet."""
     compute_dtype(cfg.compute_dtype)
     if (cfg.encoder, cfg.decoder) not in PORTED:
         raise ValueError(f"unknown encoder x decoder pair ({cfg.encoder!r}, {cfg.decoder!r}); "
                          f"known: {PORTED}")
     check_impl(cfg.impl)
+    if is_sharded(cfg.impl):
+        for unported, what in ((cfg.use_est or cfg.use_time_aware_negative,
+                                "EST and TANS (config 5)"),
+                               (cfg.use_static, "the static graph"),
+                               (cfg.compute_dtype != "float32", "bf16 compute")):
+            if unported:
+                raise NotImplementedError(f"{what} on a mesh is not ported yet (ROADMAP A.11b)")
 
 
 def check_device(cfg: HyperbolicConfig, device) -> None:
@@ -242,6 +262,17 @@ def get_curvature(params: Params, cfg: HyperbolicConfig, curvature_max=None) -> 
     return H.constant(cfg.c, params["emb_rel"].device)
 
 
+def _shard(cfg: HyperbolicConfig, params: Params) -> Optional[RowShard]:
+    """This rank's rows of the entity table under a sharded ``cfg.impl``,
+    else None."""
+    return table_shard(cfg.impl, params["dynamic_emb"].shape[0])
+
+
+def _my_rows(t: torch.Tensor, shard: Optional[RowShard]) -> torch.Tensor:
+    """This rank's rows of a replicated [N, ...] leaf (all of it off a mesh)."""
+    return t if shard is None else t[shard.row0:shard.row0 + shard.rows]
+
+
 def _static_radius(params: Params, cfg: HyperbolicConfig, c) -> torch.Tensor:
     """clip(radius_static, r_min, r_max), then below the ball boundary of a
     detached c (the reference bounds it with c.detach())."""
@@ -278,6 +309,7 @@ def evolve(params: Params, cfg: HyperbolicConfig, history, *, static_snap=None,
     ``est_slow_state`` [N, d] is injected into them."""
     check_supported(cfg)
     c = get_curvature(params, cfg, curvature_max)
+    shard = _shard(cfg, params)
     static_emb = None
     if cfg.use_static and static_snap is not None:
         static_emb = _static_init(params, cfg, static_snap, gen=gen, train=train)
@@ -288,7 +320,7 @@ def evolve(params: Params, cfg: HyperbolicConfig, history, *, static_snap=None,
     else:
         emb = params["dynamic_emb"]
         h = H.exp_map_zero(l2_normalize(emb) if cfg.layer_norm else emb, c)
-    static_radius = _static_radius(params, cfg, c)
+    static_radius = _my_rows(_static_radius(params, cfg, c), shard)
     h = H.apply_radius(h, static_radius, c)
     if cfg.use_est and est_slow_state is not None:
         h = est.inject_slow_state(params["est"], h, est_slow_state, c)
@@ -297,14 +329,14 @@ def evolve(params: Params, cfg: HyperbolicConfig, history, *, static_snap=None,
         tangent_fast = cfg.encoder == "hyperbolic_uvrgcn"
     if tangent_fast and cfg.encoder == "hyperbolic_uvrgcn":
         h, h0, all_h = _evolve_tangent(params, cfg, history, h, emb_rel, static_radius, c,
-                                       gen=gen, train=train, return_all=return_all)
+                                       gen=gen, train=train, return_all=return_all, shard=shard)
         return (h, h0, static_emb, all_h) if return_all else (h, h0)
     h0 = emb_rel
     all_h = []
     for t in range(history.src.shape[0]):
         snap = history.step(t)
         h_tan = H.log_map_zero(h, c)
-        ctx = masked_segment_mean(h_tan.index_select(0, snap.rc_ent), snap.rc_rel, snap.rc_mask,
+        ctx = masked_segment_mean(rows_of(h_tan, snap.rc_ent, shard), snap.rc_rel, snap.rc_mask,
                                   cfg.num_rels_total)
         h0_new = gru_cell(params["gru"], torch.cat([emb_rel, ctx], dim=1), h0)
         if cfg.layer_norm:
@@ -333,7 +365,7 @@ def evolve(params: Params, cfg: HyperbolicConfig, history, *, static_snap=None,
 
 
 def _evolve_tangent(params, cfg, history, h_init, emb_rel, static_radius, c, *, gen, train,
-                    return_all=False):
+                    return_all=False, shard=None):
     """The evolution with its carry in tangent space, v = log_0(h) exactly
     (eps clamps included): each exp_0 -> project -> log_0 of the ball path
     is one ``clamp_tangent_norm``, and the ball points are made at the end:
@@ -343,14 +375,14 @@ def _evolve_tangent(params, cfg, history, h_init, emb_rel, static_radius, c, *, 
     all_v = []
     for t in range(history.src.shape[0]):
         snap = history.step(t)
-        ctx = masked_segment_mean(v.index_select(0, snap.rc_ent), snap.rc_rel, snap.rc_mask,
+        ctx = masked_segment_mean(rows_of(v, snap.rc_ent, shard), snap.rc_rel, snap.rc_mask,
                                   cfg.num_rels_total)
         h0_new = gru_cell(params["gru"], torch.cat([emb_rel, ctx], dim=1), h0)
         if cfg.layer_norm:
             h0_new = l2_normalize(h0_new)
         cur = HL.uvrgcn_cell_tangent(params["rgcn"], v, h0_new, snap, c,
                                      radius_gamma=cfg.radius_msg_gamma, dropout=cfg.dropout,
-                                     gen=gen, train=train)
+                                     gen=gen, train=train, impl=cfg.impl)
         # the ball path projects (the cell's last clamp), tangent-normalises,
         # then clips: unit rows make the clip a no-op
         cur_tan = l2_normalize(cur) if cfg.layer_norm else torch.clamp(cur, -CLAMP, CLAMP)
@@ -404,28 +436,30 @@ RELATION_LOSSES = {"murp": HD.murp_rel_loss, "roth": HD.roth_rel_loss,
 
 
 def entity_scores(params, state, cfg, pre_emb, r_emb, triples, mask, c, *, gen=None,
-                  train=False, ent_tan=None) -> Tuple[torch.Tensor, Any]:
+                  train=False, ent_tan=None, shard=None) -> Tuple[torch.Tensor, Any]:
     """(entity scores [B, N], new ``bn_ob``; the old one for the distance
-    decoders)."""
+    decoders). With ``shard`` the tables hold this rank's rows and the
+    scores are its candidates', [B, rows]."""
     if cfg.decoder == "hyperbolic_convtranse":
         return HD.hyperbolic_convtranse_score(
             params["decoder_ob"], state.bn_ob, pre_emb, r_emb, triples, c, mask,
-            dropouts=_decoder_dropouts(cfg), gen=gen, train=train, ent_tan=ent_tan)
-    return ENTITY_SCORES[cfg.decoder](params["decoder_ob"], pre_emb, r_emb, triples, c,
-                                      dropout=cfg.input_dropout, gen=gen,
-                                      train=train), state.bn_ob
+            dropouts=_decoder_dropouts(cfg), gen=gen, train=train, ent_tan=ent_tan, shard=shard)
+    columns = None if shard is None else slice(shard.row0, shard.row0 + shard.rows)
+    return ENTITY_SCORES[cfg.decoder](params["decoder_ob"], whole_rows(pre_emb, shard), r_emb,
+                                      triples, c, dropout=cfg.input_dropout, gen=gen,
+                                      train=train, columns=columns), state.bn_ob
 
 
 def relation_scores(params, state, cfg, pre_emb, r_emb, triples, mask, c, *, gen=None,
-                    train=False, ent_tan=None) -> Tuple[torch.Tensor, Any]:
+                    train=False, ent_tan=None, shard=None) -> Tuple[torch.Tensor, Any]:
     """(relation scores [B, 2R], new ``bn_rel``; the old one for the
-    distance decoders)."""
+    distance decoders); replicated on a mesh."""
     if cfg.decoder == "hyperbolic_convtranse":
         return HD.hyperbolic_convtransr_score(
             params["decoder_rel"], state.bn_rel, pre_emb, r_emb, triples, c, mask,
-            dropouts=_decoder_dropouts(cfg), gen=gen, train=train, ent_tan=ent_tan)
-    return RELATION_SCORES[cfg.decoder](params["decoder_rel"], pre_emb, r_emb, triples, c,
-                                        dropout=cfg.input_dropout, gen=gen,
+            dropouts=_decoder_dropouts(cfg), gen=gen, train=train, ent_tan=ent_tan, shard=shard)
+    return RELATION_SCORES[cfg.decoder](params["decoder_rel"], whole_rows(pre_emb, shard), r_emb,
+                                        triples, c, dropout=cfg.input_dropout, gen=gen,
                                         train=train), state.bn_rel
 
 
@@ -483,6 +517,7 @@ def get_loss(params: Params, state: HypModelState, cfg: HyperbolicConfig, histor
     ``tans_mask_coo``: (rows, cols) of entity scores squashed to -1e9 in
     training with ``use_time_aware_negative`` (rows >= B are padding)."""
     c = get_curvature(params, cfg, curvature_max)
+    shard = _shard(cfg, params)
     slow = est_inputs[0].slow if cfg.use_est and est_inputs is not None else None
     static_emb = all_h = None
     kw = dict(static_snap=static_snap, est_slow_state=slow, gen=gen, train=train,
@@ -501,27 +536,33 @@ def get_loss(params: Params, state: HypModelState, cfg: HyperbolicConfig, histor
     losses = {"entity": zero, "relation": zero, "static": zero}
     bn_ob, bn_rel = state.bn_ob, state.bn_rel
     convtrans = cfg.decoder == "hyperbolic_convtranse"
+    # the distance decoders' CE is B2 over every candidate: on a mesh each
+    # rank runs it over the all-gathered table, the loss replicated
+    whole = None if convtrans else whole_rows(pre_emb, shard)
     if cfg.entity_prediction:
         if convtrans:
             scores, bn_ob = entity_scores(params, state, cfg, pre_emb, r_emb, triples,
-                                          triple_mask, c, gen=gen, train=train, ent_tan=ent_tan)
+                                          triple_mask, c, gen=gen, train=train, ent_tan=ent_tan,
+                                          shard=shard)
             if cfg.use_time_aware_negative and tans_mask_coo is not None and train:
                 scores = est.squash_entries(scores, *tans_mask_coo)
-            losses["entity"] = _masked_ce(scores, triples[:, 2], triple_mask)
+            losses["entity"] = (
+                _masked_ce(scores, triples[:, 2], triple_mask) if shard is None
+                else sharded_masked_ce(scores, triples[:, 2], triple_mask, shard))
         else:
             losses["entity"] = ENTITY_LOSSES[cfg.decoder](
-                params["decoder_ob"], pre_emb, r_emb, triples, c, mask=triple_mask,
+                params["decoder_ob"], whole, r_emb, triples, c, mask=triple_mask,
                 dropout=cfg.input_dropout, gen=gen, train=train,
                 rel_curvature_max=curvature_max)
     if cfg.relation_prediction:
         if convtrans:
             scores, bn_rel = relation_scores(params, state, cfg, pre_emb, r_emb, triples,
                                              triple_mask, c, gen=gen, train=train,
-                                             ent_tan=ent_tan)
+                                             ent_tan=ent_tan, shard=shard)
             losses["relation"] = _masked_ce(scores, triples[:, 1], triple_mask)
         else:
             losses["relation"] = RELATION_LOSSES[cfg.decoder](
-                params["decoder_rel"], pre_emb, r_emb, triples, c, mask=triple_mask,
+                params["decoder_rel"], whole, r_emb, triples, c, mask=triple_mask,
                 dropout=cfg.input_dropout, gen=gen, train=train)
     if static_emb is not None:
         active = (history.edge_mask.amax(dim=1) > 0).float()
@@ -535,13 +576,14 @@ def predict(params: Params, state: HypModelState, cfg: HyperbolicConfig, history
             triples: torch.Tensor, triple_mask=None, *, static_snap=None, est_inputs=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eval-mode scores: (entity [B, N], relation [B, 2R]); ``static_snap``
-    and ``est_inputs`` as in :func:`get_loss`."""
+    and ``est_inputs`` as in :func:`get_loss`. On a mesh the entity scores
+    are this rank's candidates', [B, rows]."""
     c = get_curvature(params, cfg)
     slow = est_inputs[0].slow if cfg.use_est and est_inputs is not None else None
     h, r_emb = evolve(params, cfg, history, static_snap=static_snap, est_slow_state=slow)
     emb, ent_tan = _decoder_inputs(h, cfg, c)
     if slow is not None and est_inputs[1] is not None:
         emb, ent_tan, _ = _enrich(params, cfg, est_inputs, emb, ent_tan, triples, r_emb, c)
-    kw = dict(ent_tan=ent_tan)
+    kw = dict(ent_tan=ent_tan, shard=_shard(cfg, params))
     return (entity_scores(params, state, cfg, emb, r_emb, triples, triple_mask, c, **kw)[0],
             relation_scores(params, state, cfg, emb, r_emb, triples, triple_mask, c, **kw)[0])

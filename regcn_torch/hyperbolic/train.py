@@ -48,7 +48,21 @@ back in fp32, and both optimizers stay fp32; evaluation runs in bf16 with
 fp32 scores, as JAX's ``predict_step`` does.
 
 ``dilate_len`` is not read, as JAX's hyperbolic trainer does not read it.
-Not ported yet: meshes and the boundary halo (ROADMAP A.11b).
+
+``mesh`` (``regcn_torch.parallel.mesh.make_mesh`` over an initialised
+process group; every rank builds its own trainer and calls the same
+methods) trains entity-sharded, as JAX's ``HyperbolicTrainer(mesh=...)``:
+the state holds this rank's rows of ``dynamic_emb`` and of its optimizer
+moments, every other leaf replicated; ``dist_agg`` picks the cross-shard
+aggregation of every encoder, ``"gspmd"`` (an all-gather of the rows) or
+``"halo"`` (the boundary-set ``all_to_all``), set as ``cfg.impl``. Each
+training window and evaluation window carries the rank's partition of
+its edges; multi-step evaluation runs in both modes (JAX rebuilds each
+window's halo on the host too); checkpoints hold whole states. Not ported
+on a mesh yet, and raising ``NotImplementedError`` (ROADMAP A.11b): EST
+and TANS, triple batching under ``"gspmd"`` (under ``"halo"`` JAX refuses
+it with a ``ValueError``, and so does this trainer), the static graph,
+bf16 compute, ``run_analysis`` and a ``data`` axis above 1.
 """
 
 from __future__ import annotations
@@ -67,11 +81,14 @@ from regcn_torch.config import TrainConfig
 from regcn_torch.data.answers import build_answer_filters_by_time
 from regcn_torch.data.dataset import TKGData
 from regcn_torch.data.snapshots import pad_triples, split_by_time
+from regcn_torch.dist import sharded_impl
 from regcn_torch.hyperbolic import est
 from regcn_torch.hyperbolic import model as hmodel
 from regcn_torch.hyperbolic import ops as H
 from regcn_torch.hyperbolic.model import HyperbolicConfig, HypModelState
 from regcn_torch.hyperbolic.optim import dual_optimizer, manifold_mask
+from regcn_torch.parallel import sharding
+from regcn_torch.parallel.mesh import DATA_AXIS, axis_size, check_entity_divisibility, row_shard
 from regcn_torch.train import loop, metrics
 from regcn_torch.train import state as train_state
 from regcn_torch.train.optim import tree_leaves
@@ -116,14 +133,35 @@ def compute_radius_targets(
 class HyperbolicTrainer:
     def __init__(self, cfg: HyperbolicConfig, tc: TrainConfig, data: TKGData, *,
                  curvature_warmup_epochs: int = 0, triple_batch_size: Optional[int] = None,
-                 triple_batch_mode: str = "accumulate", run_analysis: bool = False,
-                 device="cuda"):
-        hmodel.check_supported(cfg)
-        hmodel.check_device(cfg, device)
-        self.compute_dtype = compute_dtype(cfg.compute_dtype)
+                 triple_batch_mode: str = "accumulate", mesh=None, dist_agg: str = "gspmd",
+                 run_analysis: bool = False, device="cuda"):
         if triple_batch_mode not in ("accumulate", "per_chunk"):
             raise ValueError(f"triple_batch_mode must be 'accumulate' or 'per_chunk', got "
                              f"{triple_batch_mode!r}")
+        if dist_agg not in ("gspmd", "halo"):
+            raise ValueError(f"dist_agg must be 'gspmd' or 'halo', got {dist_agg!r}")
+        if dist_agg == "halo":
+            if mesh is None:
+                raise ValueError("dist_agg='halo' requires a mesh")
+            if triple_batch_size:
+                raise ValueError("dist_agg='halo' runs the fused-epoch path only; "
+                                 "triple_batch_size chunking is not supported with it")
+        hmodel.check_supported(cfg)
+        hmodel.check_device(cfg, device)
+        self.compute_dtype = compute_dtype(cfg.compute_dtype)
+        self.mesh, self.dist_agg, self.shard = mesh, dist_agg, None
+        if mesh is not None:
+            check_entity_divisibility(data.num_nodes, mesh)
+            for unported, what in ((axis_size(mesh, DATA_AXIS) != 1, "a data axis above 1"),
+                                   (bool(triple_batch_size), "triple batching"),
+                                   (run_analysis, "run_analysis")):
+                if unported:
+                    raise NotImplementedError(f"{what} on a mesh is not ported yet "
+                                              "(ROADMAP A.11b)")
+            # every encoder and decoder dispatches on the marker
+            cfg = dataclasses.replace(cfg, impl=sharded_impl(mesh, dist_agg))
+            hmodel.check_supported(cfg)
+            self.shard = row_shard(mesh, data.num_nodes)
         self.cfg, self.tc, self.data = cfg, tc, data
         self.device = torch.device(device)
         self.curvature_warmup_epochs = curvature_warmup_epochs
@@ -154,14 +192,14 @@ class HyperbolicTrainer:
         """A fresh training state (zero Adam moments; with EST, zero H-PES
         memories; with ``manifold_entities`` the entity table marked for
         Riemannian Adam) around ``params``, copied onto the trainer's
-        device."""
+        device; on a mesh, this rank's rows of the whole ``params``."""
         state = train_state.state_from(params, model_state, self.tc,
                                        self.tc.seed + 1 if seed is None else seed, self.device)
         if self.cfg.manifold_entities:
             state.opt_state.manifold = manifold_mask(state.params)
         if self.cfg.use_est:
             state.est_state = est.init_est_state(self.cfg.num_ents, self.cfg.h_dim, self.device)
-        return state
+        return state if self.shard is None else sharding.shard_state(state, self.shard)
 
     def init_state(self, seed: Optional[int] = None) -> TrainState:
         """Random parameters from ``torch.Generator().manual_seed(seed)``
@@ -174,11 +212,22 @@ class HyperbolicTrainer:
     # ------------------------------------------------------------------ data
     def window(self, i: int):
         """(history, triples, mask) on the device for training snapshot i:
-        the window is ``train_list[max(0, i - hlen):i]``; built once."""
+        the window is ``train_list[max(0, i - hlen):i]``, on a mesh with the
+        rank's partition of its edges; built once."""
         if i not in self._windows:
-            self._windows[i] = loop.train_window(self.train_list, i, self.num_nodes,
-                                                 self.num_rels, self.tc, self.device)
+            if self.shard is None:
+                self._windows[i] = loop.train_window(self.train_list, i, self.num_nodes,
+                                                     self.num_rels, self.tc, self.device)
+            else:
+                self._windows[i] = loop.sharded_train_window(self.train_list, i, self.num_rels,
+                                                             self.tc, self._sharded_eval())
         return self._windows[i]
+
+    def _sharded_eval(self):
+        """The rank's windows and ranks on a mesh, else None."""
+        if self.shard is None:
+            return None
+        return sharding.ShardedEval(self.cfg, self.tc, self.dist_agg, self.shard, self.device)
 
     def est_window(self, i: int) -> tuple:
         """(retrieval batch, TANS COO) on the device for training snapshot i,
@@ -298,7 +347,7 @@ class HyperbolicTrainer:
         ``update_states`` does."""
         total, losses, new_model_state, aux = self.loss(state, history, triples, mask, cmax, rb,
                                                         tans)
-        grads = torch.autograd.grad(total, tree_leaves(state.params), allow_unused=True)
+        grads = sharding.train_grads(total, state, self.opt, self.shard)
         self.est_update(state, triples, mask, aux)
         state.model_state = new_model_state
         return {k: v.detach() for k, v in losses.items()}, grads
@@ -388,7 +437,7 @@ class HyperbolicTrainer:
         return loop.evaluate(state.params, state.model_state, self.cfg, self.tc, history_list,
                              eval_list, ent_filters, rel_filters, self.device, self._predict(),
                              multi_step, topk, relation_evaluation,
-                             self._eval_inputs(state, time_offset))
+                             self._eval_inputs(state, time_offset), self._sharded_eval())
 
     def test(self, state: TrainState, multi_step: bool = False, topk: int = 10,
              relation_evaluation: bool = False) -> Dict[str, metrics.RankStats]:
@@ -396,7 +445,8 @@ class HyperbolicTrainer:
         feeds the top-k predictions back (ref:hyperbolic_main.py:135-142)."""
         return loop.test(state.params, state.model_state, self.cfg, self.tc, self.data,
                          self.device, self._predict(), multi_step, topk, relation_evaluation,
-                         self._eval_inputs(state, len(self.train_list) + len(self.valid_list)))
+                         self._eval_inputs(state, len(self.train_list) + len(self.valid_list)),
+                         self._sharded_eval())
 
     def fit(self, state: Optional[TrainState] = None, n_epochs: Optional[int] = None,
             patience: int = 20, checkpoint_path: Optional[str] = None, resume: bool = False,
@@ -417,7 +467,7 @@ class HyperbolicTrainer:
         start_epoch, best_mrr, best_epoch = 0, 0.0, -1
         if resume and train_state.has_resumable_checkpoint(checkpoint_path):
             state, start_epoch, best_mrr, best_epoch = train_state.restore_for_resume(
-                checkpoint_path, state)
+                checkpoint_path, state, shard=self.shard)
             log.info("resumed from %s at epoch %d (best MRR %.4f @ %d)", checkpoint_path,
                      start_epoch, best_mrr, best_epoch)
         ent_f = build_answer_filters_by_time(self.data.valid, self.num_rels, False)
@@ -448,12 +498,12 @@ class HyperbolicTrainer:
                 best_mrr, best_state, best_epoch, bad_epochs = mrr, copy_state(state), epoch, 0
                 if checkpoint_path:
                     train_state.save_checkpoint(checkpoint_path, state,
-                                                {"epoch": epoch, "mrr": mrr})
+                                                {"epoch": epoch, "mrr": mrr}, shard=self.shard)
             else:
                 bad_epochs += 1
             if checkpoint_path:
                 train_state.save_last_checkpoint(checkpoint_path, state, epoch, best_mrr,
-                                                 best_epoch)
+                                                 best_epoch, shard=self.shard)
             if bad_epochs >= patience:
                 log.info("early stop at epoch %d (patience %d)", epoch, patience)
                 break

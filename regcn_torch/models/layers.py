@@ -33,12 +33,11 @@ from typing import Dict, Optional
 import torch
 
 from regcn_torch.config import ModelConfig
-from regcn_torch.dist import HaloImpl, is_sharded, require_halo, require_parts
+from regcn_torch.dist import is_sharded
 from regcn_torch.ops.activations import inverted_dropout, rrelu
 from regcn_torch.ops.rgcn_scatter import rgcn_aggregate, scatter_add_sorted
 from regcn_torch.ops.segment import masked_segment_sum
-from regcn_torch.parallel.halo import halo_rgcn_aggregate, sharded_rgcn_aggregate
-from regcn_torch.parallel.mesh import graph_rank, graph_size
+from regcn_torch.parallel.halo import mesh_edges, mesh_rgcn_aggregate, table_rows
 from regcn_torch.utils.dtypes import dot_f32, linear, mm
 from regcn_torch.utils.init import RELU_GAIN, gru_uniform, xavier_uniform
 
@@ -80,13 +79,9 @@ def union_rgcn_layer(
     the rank's partition of the edges (``snap.halo`` / ``snap.parts``; JAX
     ``layers.py:63-70``), the self-loop over its rows, and the dropout's
     mask drawn for the whole table, as one device draws it."""
-    rows = None  # (the table's rows, the first of this rank's) on a mesh
     if is_sharded(impl):
-        halo = isinstance(impl, HaloImpl)
-        edges = require_halo(snap) if halo else require_parts(snap)
-        aggregate = halo_rgcn_aggregate if halo else sharded_rgcn_aggregate
-        node_repr = aggregate(impl.mesh, h, rel_emb, params["w_neighbor"], edges)
-        rows = (graph_size(impl.mesh) * h.shape[0], graph_rank(impl.mesh) * h.shape[0])
+        edges = mesh_edges(impl, snap)
+        node_repr = mesh_rgcn_aggregate(impl, h, rel_emb, params["w_neighbor"], edges)
     else:
         edges = snap
         node_repr = rgcn_aggregate(
@@ -104,7 +99,8 @@ def union_rgcn_layer(
         # sigmoid-gated skip across layers (ref:rgcn/layers.py:234-245)
         gate = torch.sigmoid(mm(prev_h, params["skip_w"]) + params["skip_b"])
         node_repr = gate * node_repr + (1.0 - gate) * prev_h
-    return inverted_dropout(rrelu(node_repr), dropout, gen, train, rows=rows)
+    return inverted_dropout(rrelu(node_repr), dropout, gen, train,
+                            rows=table_rows(impl, h))
 
 
 def init_rgcn_cell(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, list]:

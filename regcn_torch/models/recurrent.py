@@ -49,7 +49,7 @@ from regcn_torch.models.layers import (
 from regcn_torch.ops.activations import l2_normalize
 from regcn_torch.ops.segment import masked_segment_mean
 from regcn_torch.parallel.collectives import RowShard, gather_rows
-from regcn_torch.parallel.mesh import graph_size, row_shard
+from regcn_torch.parallel.mesh import table_shard
 from regcn_torch.utils.dtypes import compute_dtype, mm
 from regcn_torch.utils.init import xavier_normal, xavier_uniform
 
@@ -170,13 +170,10 @@ def evolve(params: Params, cfg: ModelConfig, history, *, static_snap=None,
 def _shard(impl, params: Params) -> Optional[RowShard]:
     """This rank's rows of the entity table under a sharded ``impl``, else
     None."""
-    if not is_sharded(impl):
-        return None
-    if "words_emb" in params:
+    if is_sharded(impl) and "words_emb" in params:
         raise NotImplementedError("the static graph on a mesh (config 2's sharded words_emb) is "
                                   "not ported yet (ROADMAP A.11b)")
-    g = graph_size(impl.mesh)
-    return row_shard(impl.mesh, g * params["dynamic_emb"].shape[0])
+    return table_shard(impl, params["dynamic_emb"].shape[0])
 
 
 def _masked_ce(scores: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

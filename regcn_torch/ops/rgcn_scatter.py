@@ -272,13 +272,12 @@ def check_impl(impl) -> None:
     plain version on a CPU tensor; or "cumsum", the approximate
     cumulative-sum route (:func:`rgcn_aggregate_cumsum`). The hyperbolic
     and HisRES layers take B1 for "cumsum" too, as JAX's take their
-    segment sum. The entity-sharded markers of ``regcn_torch/dist.py`` run
-    RE-GCN's UnionRGCN layer only (``models/layers.py``), and "halo" names
-    no single-device route: the boundary halo runs on a mesh."""
+    segment sum. The entity-sharded markers of ``regcn_torch/dist.py``
+    pass: every layer of the three families dispatches them to
+    ``regcn_torch/parallel/halo.py``. "halo" names no single-device route:
+    the boundary halo runs on a mesh."""
     if is_sharded(impl):
-        raise NotImplementedError(f"impl {impl!r}: entity-sharded aggregation is ported for "
-                                  "RE-GCN only; the hyperbolic and HisRES layers on a mesh are "
-                                  "ROADMAP A.11b")
+        return
     if impl == "halo":
         raise ValueError("impl 'halo' names no single-device route: the boundary halo runs on "
                          "a mesh, Trainer(mesh=..., dist_agg='halo')")

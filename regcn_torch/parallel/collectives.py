@@ -133,6 +133,18 @@ def gather_rows(h_local: torch.Tensor, idx: torch.Tensor, shard: RowShard) -> to
     return all_reduce_sum(torch.where(mask, picked, torch.zeros_like(picked)), group)
 
 
+def rows_of(table: torch.Tensor, idx: torch.Tensor, shard: Optional[RowShard]) -> torch.Tensor:
+    """``table.index_select(0, idx)``; with ``shard``, of the row-sharded
+    table whose rows this rank holds as ``table`` (:func:`gather_rows`)."""
+    return table.index_select(0, idx) if shard is None else gather_rows(table, idx, shard)
+
+
+def whole_rows(x: torch.Tensor, shard: Optional[RowShard]) -> torch.Tensor:
+    """``x`` whole: with ``shard``, every rank's rows all-gathered (each
+    row's gradient summed over the ranks to its owner), else ``x``."""
+    return x if shard is None else all_gather_rows(x, shard.group)
+
+
 def all_reduce_replicated(grads: Sequence[Optional[torch.Tensor]], params: Sequence[torch.Tensor],
                           replicated: Sequence[bool], group) -> List[torch.Tensor]:
     """``grads`` with those of the replicated parameters summed over ranks

@@ -24,7 +24,12 @@ halo buffer) and sum them with ONE launch of B1
 (``regcn_torch/ops/rgcn_scatter.py:scatter_add_sorted``) per layer and
 snapshot, as many as the unsharded path launches. The interior/remote
 split of JAX's halo partition becomes the order of that one edge list:
-interior edges first, then remote ones, for each destination.
+interior edges first, then remote ones, for each destination. The
+aggregations other than the sum (the hyperbolic encoders' midpoint,
+centroid and attention) take the same exchange with a local function
+(:func:`halo_local_aggregate`, :func:`sharded_local_aggregate`); the
+layers of all three families reach these through :func:`mesh_edges`,
+:func:`mesh_rgcn_aggregate` and :func:`mesh_local_aggregate`.
 """
 
 from __future__ import annotations
@@ -35,9 +40,10 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from regcn_torch.dist import HaloImpl, require_halo, require_parts
 from regcn_torch.ops.rgcn_scatter import scatter_add_sorted
 from regcn_torch.parallel.collectives import all_gather_rows, all_to_all
-from regcn_torch.parallel.mesh import graph_group, graph_size
+from regcn_torch.parallel.mesh import graph_group, graph_rank, graph_size, table_shard
 from regcn_torch.utils.dtypes import dot_f32
 
 # ------------------------------------------------------------------ host side
@@ -407,6 +413,15 @@ def _aggregate(table, rel_emb, weight, edges: LocalEdges, edge_weight=None) -> t
                               row_scale=edges.in_deg_norm.float().contiguous())
 
 
+def _edge_weight(table, src, dst, row_scalar_fn, edge_weight_fn) -> Optional[torch.Tensor]:
+    """``edge_weight_fn(s[src], s[dst])`` of the per-row scalars ``s =
+    row_scalar_fn(table)``: O(rows) scalars, gathered per edge."""
+    if edge_weight_fn is None:
+        return None
+    s = row_scalar_fn(table)
+    return edge_weight_fn(s[src], s[dst])
+
+
 def _check_rows(mesh, h: torch.Tensor, edges: LocalEdges) -> None:
     if h.shape[0] != edges.rows:
         raise ValueError(f"the rank holds {h.shape[0]} rows, its edges expect {edges.rows} "
@@ -419,13 +434,20 @@ def sharded_rgcn_aggregate(
     rel_emb: torch.Tensor,  # [2R, d] replicated
     weight: torch.Tensor,  # [d, d] replicated
     edges: LocalEdges,  # this rank's edges (global sources)
+    *,
+    row_scalar_fn=None,  # rows [n, d] -> [n] per-row scalar (e.g. radius)
+    edge_weight_fn=None,  # (scalar_src [E], scalar_dst [E]) -> [E] weight
 ) -> torch.Tensor:
     """Shard-local scatter with an all-gather of the source rows (JAX's
     ``sharded_rgcn_aggregate``; what GSPMD inserts for its trainer): the
-    rank's aggregated [rows, d] rows, in ``h``'s dtype."""
+    rank's aggregated [rows, d] rows, in ``h``'s dtype. ``row_scalar_fn`` /
+    ``edge_weight_fn`` as in :func:`halo_rgcn_aggregate`, the scalars taken
+    of the gathered table (a destination is row ``row0 + dst`` there)."""
     _check_rows(mesh, h, edges)
     h_full = all_gather_rows(h, graph_group(mesh))  # [G * rows, d]
-    return _aggregate(h_full, rel_emb, weight, edges).to(h.dtype)
+    row0 = graph_rank(mesh) * edges.rows
+    w = _edge_weight(h_full, edges.src, edges.dst + row0, row_scalar_fn, edge_weight_fn)
+    return _aggregate(h_full, rel_emb, weight, edges, w).to(h.dtype)
 
 
 def halo_buffer(mesh, h: torch.Tensor, edges: LocalEdges) -> torch.Tensor:
@@ -434,6 +456,12 @@ def halo_buffer(mesh, h: torch.Tensor, edges: LocalEdges) -> torch.Tensor:
     send = h[edges.send_idx]  # [G requesters, P, d]
     halo = all_to_all(send, graph_group(mesh))
     return torch.cat([h, halo.reshape(-1, h.shape[1])], dim=0)
+
+
+def _run_local(edges: LocalEdges, local_fn: Callable, hbuf: torch.Tensor, src: torch.Tensor
+               ) -> torch.Tensor:
+    return local_fn(hbuf, src, edges.dst, edges.edge_mask, edges.rel, edges.in_deg_norm,
+                    edges.has_in_edge, edges.rows)
 
 
 def halo_local_aggregate(mesh, h: torch.Tensor, edges: LocalEdges,
@@ -446,11 +474,22 @@ def halo_local_aggregate(mesh, h: torch.Tensor, edges: LocalEdges,
     rank and must return ``[rows, d_out]``: ``hbuf`` [rows + G*P, d] is the
     rank's rows followed by the received halo buffer; ``src`` [E] indexes
     ``hbuf``, ``dst`` / ``mask`` / ``rel`` [E] with ``dst`` local (sorted,
-    masked edges last); ``norm`` / ``has_in`` [rows]."""
+    masked edges last), so ``hbuf[dst]`` is the destination's row;
+    ``norm`` / ``has_in`` [rows]."""
     _check_rows(mesh, h, edges)
-    hbuf = halo_buffer(mesh, h, edges)
-    return local_fn(hbuf, edges.src, edges.dst, edges.edge_mask, edges.rel, edges.in_deg_norm,
-                    edges.has_in_edge, edges.rows)
+    return _run_local(edges, local_fn, halo_buffer(mesh, h, edges), edges.src)
+
+
+def sharded_local_aggregate(mesh, h: torch.Tensor, edges: LocalEdges,
+                            local_fn: Callable) -> torch.Tensor:
+    """The ``dist_agg="gspmd"`` counterpart of :func:`halo_local_aggregate`
+    (what GSPMD makes of JAX's dense layer): an all-gather of the rows,
+    then ``local_fn`` over the rank's destination partition, with the same
+    contract: ``hbuf`` [rows + N, d] is the rank's rows followed by the
+    gathered table, ``src`` indexes it (``rows +`` the global id)."""
+    _check_rows(mesh, h, edges)
+    hbuf = torch.cat([h, all_gather_rows(h, graph_group(mesh))], dim=0)
+    return _run_local(edges, local_fn, hbuf, edges.src + edges.rows)
 
 
 def halo_rgcn_aggregate(
@@ -473,8 +512,36 @@ def halo_rgcn_aggregate(
     ``h.dtype``."""
     _check_rows(mesh, h, edges)
     hbuf = halo_buffer(mesh, h, edges)
-    w = None
-    if edge_weight_fn is not None:
-        s = row_scalar_fn(hbuf)  # [rows + G*P]
-        w = edge_weight_fn(s[edges.src], s[edges.dst])
+    w = _edge_weight(hbuf, edges.src, edges.dst, row_scalar_fn, edge_weight_fn)
     return _aggregate(hbuf, rel_emb, weight, edges, w).to(h.dtype)
+
+
+# ------------------------------------------------ the layers' entry points
+
+
+def mesh_edges(impl, snap) -> LocalEdges:
+    """The rank's partition of ``snap``'s edges that ``impl`` (a sharded
+    marker of ``regcn_torch/dist.py``) aggregates over, or a loud error."""
+    return require_halo(snap) if isinstance(impl, HaloImpl) else require_parts(snap)
+
+
+def mesh_rgcn_aggregate(impl, h, rel_emb, weight, edges: LocalEdges, **weight_fns):
+    """:func:`halo_rgcn_aggregate` or :func:`sharded_rgcn_aggregate`, as
+    ``impl`` selects: one B1 launch over the rank's edges."""
+    fn = halo_rgcn_aggregate if isinstance(impl, HaloImpl) else sharded_rgcn_aggregate
+    return fn(impl.mesh, h, rel_emb, weight, edges, **weight_fns)
+
+
+def mesh_local_aggregate(impl, h, edges: LocalEdges, local_fn: Callable) -> torch.Tensor:
+    """:func:`halo_local_aggregate` or :func:`sharded_local_aggregate`, as
+    ``impl`` selects."""
+    fn = halo_local_aggregate if isinstance(impl, HaloImpl) else sharded_local_aggregate
+    return fn(impl.mesh, h, edges, local_fn)
+
+
+def table_rows(impl, h: torch.Tensor) -> Optional[Tuple[int, int]]:
+    """(the whole table's rows, this rank's first) where ``h`` holds this
+    rank's rows under a sharded ``impl``, else None: the ``rows`` argument
+    of ``inverted_dropout``, which draws the whole table's mask."""
+    shard = table_shard(impl, h.shape[0])
+    return None if shard is None else (shard.n, shard.row0)

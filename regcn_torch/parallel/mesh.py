@@ -97,3 +97,14 @@ def row_shard(mesh, num_rows: int):
 
     g = graph_size(mesh)
     return RowShard(graph_group(mesh), graph_rank(mesh), g, num_rows // g)
+
+
+def table_shard(impl, rows: int):
+    """This rank's ``RowShard`` of the entity table, of which it holds
+    ``rows`` rows, under a sharded ``impl`` (``regcn_torch/dist.py``), else
+    None."""
+    from regcn_torch.dist import is_sharded
+
+    if not is_sharded(impl):
+        return None
+    return row_shard(impl.mesh, graph_size(impl.mesh) * rows)

@@ -21,12 +21,13 @@ route ``models/``). What the JAX module's functions become:
   :func:`shard_state` cut a whole tree into this rank's rows, and
   :func:`unshard_state` gathers them back (for a checkpoint, which keeps
   the unsharded format);
-- ``make_sharded_train_step``: ``Trainer.train_step`` under a mesh, whose
-  backward takes :func:`sharded_grads` (each rank's share of the loss,
-  then the replicated gradients summed over ranks) and whose optimizer
-  takes the clip's global norm across ranks (``EuclideanAdam.shard``);
-  ``predict_step``: ``recurrent.predict`` under the sharded ``impl``,
-  scored by :class:`ShardedEval`;
+- ``make_sharded_train_step``: each trainer's step under a mesh (RE-GCN's,
+  the hyperbolic one's, HisRES's), whose backward takes
+  :func:`train_grads` (each rank's share of the loss, then the replicated
+  gradients summed over ranks) and whose optimizer takes the clip's
+  global norm across ranks (``EuclideanAdam.shard``); ``predict_step``:
+  each family's ``predict`` under the sharded ``impl``, scored by
+  :class:`ShardedEval`;
 - ``shard_snapshot_store`` / ``make_sharded_epoch_fn``: each training
   window carries the rank's partition of its edges (:func:`attach_partition`),
   and ``Trainer.run_epoch`` takes the port's eager epoch, the fused
@@ -145,6 +146,19 @@ def sharded_grads(total: torch.Tensor, leaves: Sequence[torch.Tensor], replicate
     return all_reduce_replicated(grads, leaves, replicated, shard.group)
 
 
+def train_grads(total: torch.Tensor, state, opt, shard=None) -> list:
+    """The gradients of a training step's loss ``total`` by every parameter
+    of ``state`` (``tree_leaves`` order, None where a leaf has none): off a
+    mesh plain ``autograd.grad``; on one (``shard``) :func:`sharded_grads`,
+    with ``opt``'s clip norm taken across the ranks."""
+    leaves = tree_leaves(state.params)
+    if shard is None:
+        return list(torch.autograd.grad(total, leaves, allow_unused=True))
+    rules = state_sharding_rules(state)
+    opt.shard(rules, shard.group)
+    return sharded_grads(total, leaves, [not r for r in rules], shard)
+
+
 def attach_partition(history: Snapshot, snaps: Sequence[np.ndarray], num_nodes: int,
                      num_rels: int, dist_agg: str, shard: RowShard,
                      edge_bucket: int = 256) -> Snapshot:
@@ -162,19 +176,25 @@ def attach_partition(history: Snapshot, snaps: Sequence[np.ndarray], num_nodes: 
 
 @dataclasses.dataclass
 class ShardedEval:
-    """The rolling evaluation's sharded steps (``train/loop.py:rolling_ranks``):
-    windows with the rank's partition, ranks across the candidate shards,
-    and the whole score matrix for multi-step inference."""
+    """A trainer's sharded windows and ranks, in training and in the
+    rolling evaluation (``train/loop.py:rolling_ranks``, HisRES's own
+    loops): windows with the rank's partition of their edges, ranks across
+    the candidate shards, and the whole score matrix for multi-step
+    inference. ``cfg`` is any family's model config (``num_ents``,
+    ``num_rels``); ``rc_mode`` the windows' relation-context incidence
+    (HisRES's streams take ``"src"``)."""
 
-    cfg: Any  # ModelConfig
+    cfg: Any  # ModelConfig, HyperbolicConfig or HisResConfig
     tc: Any  # TrainConfig
     dist_agg: str
     shard: RowShard
     device: Any
+    rc_mode: str = "both"
 
     def window(self, snaps: Sequence[np.ndarray]) -> Snapshot:
         hist = build_history(list(snaps), self.cfg.num_ents, self.cfg.num_rels,
-                             edge_bucket=self.tc.edge_bucket, rc_bucket=self.tc.rc_bucket)
+                             edge_bucket=self.tc.edge_bucket, rc_bucket=self.tc.rc_bucket,
+                             rc_mode=self.rc_mode)
         return attach_partition(hist, snaps, self.cfg.num_ents, self.cfg.num_rels, self.dist_agg,
                                 self.shard, self.tc.edge_bucket).to(self.device)
 

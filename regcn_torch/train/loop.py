@@ -159,7 +159,8 @@ def multi_step_ranks(
     entities or with ``relation_evaluation`` of relations, take the oldest
     snapshot's place in the window instead of the snapshot itself. With
     ``sharded`` (``dist_agg="gspmd"``) every rank gathers the whole score
-    matrix and takes the same steps."""
+    matrix and takes the same steps (the hyperbolic trainer's under
+    ``"halo"`` too: the window's halo is rebuilt on the host each step)."""
     window = list(history_list[-tc.test_history_len:])
     ranks: Dict[str, List[np.ndarray]] = {k: [] for k in RANK_KEYS}
     for t, snap in enumerate(eval_list):
@@ -236,17 +237,20 @@ def test(
     topk: int = 10,
     relation_evaluation: bool = False,
     step_inputs: StepInputs = None,
+    sharded=None,
 ) -> Dict[str, metrics.RankStats]:
     """Test-split evaluation of the hyperbolic trainers: history = train +
-    valid, eval = test, with per-timestamp answer filters of the test split.
-    The training snapshots are never dilated here: JAX's hyperbolic and
-    HisRES trainers do not read ``dilate_len``."""
+    valid, eval = test, with per-timestamp answer filters of the test split;
+    ``sharded`` as in :func:`rolling_ranks`. The training snapshots are
+    never dilated here: JAX's hyperbolic and HisRES trainers do not read
+    ``dilate_len``."""
     ent_f = build_answer_filters_by_time(data.test, data.num_rels, False)
     rel_f = build_answer_filters_by_time(data.test, data.num_rels, True)
     return evaluate(
         params, model_state, cfg, tc,
         split_by_time(data.train) + split_by_time(data.valid), split_by_time(data.test),
         ent_f, rel_f, device, predict, multi_step, topk, relation_evaluation, step_inputs,
+        sharded,
     )
 
 
@@ -259,6 +263,16 @@ def train_window(train_list: Sequence[np.ndarray], i: int, num_nodes: int, num_r
     triples, mask = pad_triples(train_list[i], num_rels, tc.triple_bucket)
     return (hist.to(device), torch.from_numpy(triples).long().to(device),
             torch.from_numpy(mask).to(device))
+
+
+def sharded_train_window(train_list: Sequence[np.ndarray], i: int, num_rels: int,
+                         tc: TrainConfig, sharded) -> tuple:
+    """:func:`train_window` on a mesh: the history carries this rank's
+    partition of its edges (``sharded``, a ``ShardedEval``)."""
+    triples, mask = pad_triples(train_list[i], num_rels, tc.triple_bucket)
+    return (sharded.window(train_list[max(0, i - tc.train_history_len):i]),
+            torch.from_numpy(triples).long().to(sharded.device),
+            torch.from_numpy(mask).to(sharded.device))
 
 
 def construct_snap(triples: np.ndarray, num_rels: int, scores: np.ndarray, topk: int
@@ -372,13 +386,8 @@ class Trainer:
                 self._windows[i] = train_window(self.train_list, i, self.num_nodes,
                                                 self.num_rels, self.cfg.train, self.device)
             else:
-                tc = self.cfg.train
-                triples, mask = pad_triples(self.train_list[i], self.num_rels, tc.triple_bucket)
-                self._windows[i] = (
-                    self._sharded_eval().window(
-                        self.train_list[max(0, i - tc.train_history_len):i]),
-                    torch.from_numpy(triples).long().to(self.device),
-                    torch.from_numpy(mask).to(self.device))
+                self._windows[i] = sharded_train_window(self.train_list, i, self.num_rels,
+                                                        self.cfg.train, self._sharded_eval())
         return self._windows[i]
 
     def _sharded_eval(self):
@@ -407,14 +416,8 @@ class Trainer:
         """One optimizer step, in place on ``state``; returns the losses
         (0-d tensors on the device, not synchronised)."""
         total, losses, new_model_state = self.loss(state, history, triples, mask)
-        leaves = tree_leaves(state.params)
-        if self.shard is None:
-            grads = torch.autograd.grad(total, leaves, allow_unused=True)
-        else:
-            rules = sharding.state_sharding_rules(state)
-            self.opt.shard(rules, self.shard.group)
-            grads = sharding.sharded_grads(total, leaves, [not r for r in rules], self.shard)
-        self.opt.step(leaves, grads, state.opt_state)
+        grads = sharding.train_grads(total, state, self.opt, self.shard)
+        self.opt.step(tree_leaves(state.params), grads, state.opt_state)
         state.model_state = new_model_state
         state.step += 1
         return {k: v.detach() for k, v in losses.items()}

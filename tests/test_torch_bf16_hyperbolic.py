@@ -33,6 +33,8 @@ is of the order of the sum itself.
   fp32 loss (their criterion).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -122,6 +124,20 @@ def jax_window(trainer, i):
     return history, jnp.asarray(triples), jnp.asarray(mask)
 
 
+def jax_train_step(trainer, grad_fn, state, window, cmax):
+    """JAX's ``train_step`` (dropouts 0, no EST) in its two parts: the
+    loss's gradient, brought to fp32 for the optimizer, then the
+    optimizer's update (``apply_accumulated``: ``opt.update`` and
+    ``apply_updates``, as ``train_step`` applies them) and the new BN
+    statistics: (new state, fp32 losses)."""
+    from regcn_tpu.utils.dtypes import tree_to_fp32
+
+    grads, (losses, model_state, _) = grad_fn(state.params, state.model_state, *window,
+                                              jax.random.PRNGKey(1), cmax, None, None)
+    state = trainer.apply_accumulated(state, tree_to_fp32(grads))
+    return dataclasses.replace(state, model_state=model_state), tree_to_fp32(losses)
+
+
 @pytest.fixture(scope="module", params=sorted(MODELS))
 def hyperbolic_runs(request, data):
     """Per compute dtype, JAX's loss and gradients on window 4, its eval
@@ -136,15 +152,17 @@ def hyperbolic_runs(request, data):
         init = jax.tree.map(np.asarray, (state.params, state.model_state))
         cmax = jnp.asarray(trainer._curvature_max(0), jnp.float32)
         history, triples, mask = jax_window(trainer, 4)
-        grads, (losses, _, _) = jax.jit(jax.grad(trainer._loss_fn, has_aux=True))(
-            state.params, state.model_state, history, triples, mask, jax.random.PRNGKey(1),
-            cmax, None, None)
+        # one compile of the loss's gradient serves the window-4 case and
+        # the steps (every window of ORDER has window 4's shapes)
+        grad_fn = jax.jit(jax.grad(trainer._loss_fn, has_aux=True))
+        grads, (losses, _, _) = grad_fn(state.params, state.model_state, history, triples, mask,
+                                        jax.random.PRNGKey(1), cmax, None, None)
         scores = trainer.predict_step(state, history, triples, mask)
         run = dict(losses=jax.tree.map(float, losses), scores=jax.tree.map(np.asarray, scores),
                    grads=jax.tree.map(lambda a: np.asarray(a, np.float32), grads), init=init)
         step_losses = []
         for i in ORDER:
-            state, ls = trainer.train_step(state, *jax_window(trainer, i), cmax)
+            state, ls = jax_train_step(trainer, grad_fn, state, jax_window(trainer, i), cmax)
             step_losses.append(jax.tree.map(float, ls))
         run.update(step_losses=step_losses, params=jax.tree.map(np.asarray, state.params))
         out[f"jax_{dt}"] = run

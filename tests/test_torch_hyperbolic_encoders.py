@@ -136,7 +136,7 @@ def test_segment_softmax_matches_jax(heads):
                           in_axes=1, out_axes=1)(x)
         return jnp.sum(out * probe), out
 
-    want_g, want = jax.grad(jax_fn, has_aux=True)(jnp.asarray(logits))
+    want_g, want = jax.jit(jax.grad(jax_fn, has_aux=True))(jnp.asarray(logits))
     x = torch.from_numpy(logits).requires_grad_(True)
     got = segment_softmax(x, torch.from_numpy(ids), torch.from_numpy(mask), 7)
     close(got, want)
@@ -169,7 +169,7 @@ def test_einstein_midpoint_matches_jax(heads):
                 pp, ww, jnp.asarray(ids), 5, c), in_axes=(1, 1), out_axes=1)(p, w)
         return jnp.sum(out * probe), out
 
-    want_g, want = jax.grad(jax_fn, argnums=(0, 1, 2), has_aux=True)(
+    want_g, want = jax.jit(jax.grad(jax_fn, argnums=(0, 1, 2), has_aux=True))(
         jnp.asarray(points), jnp.asarray(weights), jnp.float32(C))
     p = torch.from_numpy(points).requires_grad_(True)
     w = torch.from_numpy(weights).requires_grad_(True)
@@ -343,7 +343,7 @@ def test_pair_matches_jax(data, encoder, decoder):
     if grads_wanted:
         want_g, want = jax.jit(jax.grad(total, has_aux=True))(jp_dev)
     else:
-        _, want = total(jp_dev)
+        _, want = jax.jit(total)(jp_dev)
     leaves = tree_leaves(cp)
     for p in leaves:
         p.requires_grad_(True)
@@ -364,7 +364,8 @@ def test_pair_matches_jax(data, encoder, decoder):
     with torch.no_grad():
         s_ob, s_rel = PM.predict(tree_map(torch.Tensor.detach, cp), cs, pcfg, pt_hist,
                                  torch.from_numpy(triples).long(), torch.from_numpy(mask))
-    j_ob, j_rel = JM.predict(jp_dev, jax.tree.map(jnp.asarray, js), jcfg, jx_hist,
-                             jnp.asarray(triples), jnp.asarray(mask))
+    j_ob, j_rel = jax.jit(lambda p, s: JM.predict(p, s, jcfg, jx_hist, jnp.asarray(triples),
+                                                  jnp.asarray(mask)))(
+        jp_dev, jax.tree.map(jnp.asarray, js))
     close(s_ob, j_ob)
     close(s_rel, j_rel)
