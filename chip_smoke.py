@@ -207,24 +207,38 @@ Phases, each of which exits non-zero on failure:
    the matmul; one config-3 step (LGCN + RotH) at n_hidden 50 and 300 on
    the cut data, each B2 kernel launched twice, the losses finite;
 22. entity-sharded training at full width (``mesh=..., dist_agg=...``,
-   ROADMAP A.11 and A.11b) of four paths: config 1, the hyperbolic
+   ROADMAP A.11 and A.11b) of nine paths: config 1, the hyperbolic
    headline, config 3 (LGCN + RotH, B2 over the all-gathered table on
-   every rank) and HisRES, on synthetic-icews14s cut to 40 snapshots
-   (30 / 5 / 5), G = 2 spawned ranks for each mode sharing the card over
-   gloo (a file store each; the two modes' groups side by side): the
-   halo's boundary statistics of the training split; each
-   single-process trainer's epoch and test split as the reference; in
-   each rank, for each path and each of ``gspmd`` and ``halo``: (a) 3
-   steps against the single-process trainer on the card from the same
-   state, on its branches at the kinks (the headline's radius-weight
-   signs edge by edge): the losses, every gradient (the entity table
-   gathered), the model state and every parameter after both optimizers
-   step with the same gradients, within the 3-step checks' limits; (b)
-   one epoch with the config's dropouts, B1 and B2 launched per rank as
-   one process launches (B1 2 x the windows' snapshots, HisRES
-   ``hisres_launches``, config 3's B2 kernels twice a step); (c) the test
-   split, B1 per rank as one process, the four MRRs within 0.01 of the
-   single process's; each rank's peak memory and walls (gloo stages every
+   every rank), HisRES and config 5 (the headline with EST and TANS: the
+   memories replicated, the enrichment's rows gathered by global id, the
+   TANS COO cut to the rank's columns) in both modes, config 3
+   triple-batched (chunks of 128 triples, ``accumulate``) under ``gspmd``,
+   on synthetic-icews14s cut to 40 snapshots (30 / 5 / 5); and with the
+   static graph (``words_emb`` row-sharded, the block layer whole on the
+   gathered tables) config 2 in both modes, the static headline and
+   HisRES under ``gspmd``, on synthetic-icews05-15 with its static graph
+   cut alike (its 10488 entities and its words divide by 2, as the sharded
+   words_emb needs); G = 2 spawned ranks for each of three groups of
+   (path, mode) runs sharing the card over gloo (a file store each; the
+   groups side by side): the halo's boundary statistics of each training
+   split; meanwhile each single-process trainer's epoch and test split as
+   the reference; in each rank, for each of its runs: (a) 3 steps against
+   the single-process trainer on the card from the same state, on rank 0's
+   one-process branches at the kinks (the uvrgcn's radius-weight signs
+   edge by edge):
+   the losses, every gradient (the entity and word tables gathered) and
+   the model state of each chunk, with EST the memories after each
+   write-back (within the gradients' limit of one process's, bit-equal on
+   every rank), and every parameter after both optimizers step with the
+   same gradients, within the 3-step checks' limits; (b) one epoch with
+   the config's dropouts (none on ``NOISY_PATHS``, config 5 and HisRES
+   with the static graph), B1 and B2 launched per rank as one process
+   launches, each count printed beside its prediction from the data (B1 2
+   x the windows' snapshots, HisRES ``hisres_launches``, config 3's B2
+   kernels twice a step or, triple-batched, twice a chunk), with EST the
+   memories after it bit-equal on every rank; (c) the test split, B1 per
+   rank as one process, the four MRRs within 0.01 of the single
+   process's; each rank's peak memory and walls (gloo stages every
    collective through the host: no speed is read from them). A failing
    rank fails the phase.
 
@@ -1189,9 +1203,9 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
 class PinnedKinks:
     """The branches a model takes at its kinks, recorded on one device and
     replayed on another: the fixed-slope rrelu of the RGCN layers (RE-GCN's,
-    the hyperbolic encoders' and HisRES's), the decoders' and EST's H-TDP
-    relu, the leaky relu of the attention logits (HisRES's candidate layers,
-    HGAT), and
+    the hyperbolic encoders' and HisRES's), the decoders', EST's H-TDP and
+    the static angular loss's relu (its hinge over [T, N]), the leaky relu
+    of the attention logits (HisRES's candidate layers, HGAT), and
     the sign of r_src - r_dst in the uvrgcn's radius weight
     exp(-γ|r_src - r_dst|), each patched by its name in its module. An fp32 value within rounding
     of 0 may take the other branch on the other device, and a few such
@@ -1220,17 +1234,17 @@ class PinnedKinks:
     @contextlib.contextmanager
     def _patched(self, rrelu, relu, leaky, abs_diff):
         saved = (model_layers.rrelu, hyp_layers.rrelu, hisres_layers.rrelu, model_decoders.relu,
-                 hyp_est.relu, hyp_layers.leaky_relu, hisres_layers.leaky_relu,
+                 hyp_est.relu, recurrent.relu, hyp_layers.leaky_relu, hisres_layers.leaky_relu,
                  hyp_layers._abs_diff)
         model_layers.rrelu = hyp_layers.rrelu = hisres_layers.rrelu = rrelu
-        model_decoders.relu = hyp_est.relu = relu
+        model_decoders.relu = hyp_est.relu = recurrent.relu = relu
         hyp_layers.leaky_relu = hisres_layers.leaky_relu = leaky
         hyp_layers._abs_diff = abs_diff
         try:
             yield
         finally:
             (model_layers.rrelu, hyp_layers.rrelu, hisres_layers.rrelu, model_decoders.relu,
-             hyp_est.relu, hyp_layers.leaky_relu, hisres_layers.leaky_relu,
+             hyp_est.relu, recurrent.relu, hyp_layers.leaky_relu, hisres_layers.leaky_relu,
              hyp_layers._abs_diff) = saved
 
     def record(self):
@@ -1256,6 +1270,20 @@ class PinnedKinks:
             return abs_diff(a, b)
 
         return self._patched(rec_rrelu, rec_relu, rec_leaky, rec_abs)
+
+    def share(self, group) -> None:
+        """Every rank of ``group`` takes its first rank's recorded branches
+        (a collective): ranks that compare their parts of a sharded run with
+        one process's run, each recorded in its own process, must replay
+        one run's branches, those of the run whose gradients they take."""
+        import torch.distributed as dist
+
+        src = dist.get_global_rank(group, 0)
+        for masks in self.masks.values():
+            for k, mask in enumerate(masks):
+                byte = mask.to(torch.uint8).contiguous()
+                dist.broadcast(byte, src=src, group=group)
+                masks[k] = byte.bool()
 
     @contextlib.contextmanager
     def replay(self, shard=None, edge_keys=None):
@@ -1287,8 +1315,10 @@ class PinnedKinks:
 
         def pinned(kind, x, own):
             mask = next(queues[kind]).to(x.device)
-            if shard is not None and mask.shape[0] == shard.n and x.shape[0] == shard.rows:
-                mask = mask[shard.row0:shard.row0 + shard.rows]
+            if shard is not None and mask.shape != x.shape:  # the rank's rows of the entity axis
+                axis = next(i for i, (m, n) in enumerate(zip(mask.shape, x.shape))
+                            if m == shard.n and n == shard.rows)
+                mask = mask.narrow(axis, shard.row0, shard.rows)
             flipped = own != mask
             self.flips[kind] += int(flipped.sum())
             self.entries[kind] += mask.numel()
@@ -3484,13 +3514,45 @@ SHARDS = 2  # ranks sharing the one card over gloo
 # epoch carries that apart
 SHARDED_MRR_ATOL = 0.01
 CARD = []  # nvidia-smi's name and power limit, as phase 1 read them
-SHARDED_PATHS = ("config 1", "headline", "config 3", "hisres")
+# the paths on config 2's data: the static entity-word graph, whose
+# words_emb is row-sharded as the entity table is
+STATIC_PATHS = ("config 2", "static headline", "hisres static")
+SHARDED_TRIPLE_BATCH = 128  # config 3 triple-batched: the padded triples in chunks of 128
+# paths whose epoch runs with every dropout at 0: with their dropouts config 5
+# and HisRES with the static graph train chaotically on the card, one
+# process's own test MRR moving by about SHARDED_MRR_ATOL or more between runs
+# of the same epoch (without dropout it stays put;
+# tools/static_spread_diagnosis.py), so no one process's run can stand for them
+NOISY_PATHS = ("config 5", "hisres static")
+# the (path, mode) runs of the sharded phase in three groups of SHARDS ranks
+# each, side by side: config 1, the headline, config 3, HisRES, config 5
+# (EST and TANS) and config 2 in both modes; config 3 triple-batched, the
+# static headline and HisRES with the static graph under gspmd (JAX refuses
+# triple batching under halo; the static layer is GSPMD's in both modes)
+SHARDED_GROUPS = (
+    (("config 1", "gspmd"), ("config 1", "halo"), ("headline", "gspmd"), ("headline", "halo"),
+     ("config 3", "gspmd"), ("config 3", "halo"), ("hisres static", "gspmd")),
+    (("hisres", "gspmd"), ("hisres", "halo"), ("config 5", "gspmd"), ("config 5", "halo"),
+     ("config 2", "halo")),
+    (("config 3 triple", "gspmd"), ("config 2", "gspmd"), ("static headline", "gspmd")),
+)
 
 
 def sharded_data():
     """synthetic-icews14s (seed 123) with its time axis cut to 40 snapshots
     split 30 / 5 / 5: the sharded phase's epochs are 29 steps."""
     return generate("synthetic-icews14s", seed=SEED, num_snaps=40, split=(30, 5, 5))
+
+
+def sharded_static_data():
+    """synthetic-icews05-15 (seed 123) with its static entity-word graph, its
+    time axis cut to 40 snapshots split 30 / 5 / 5 as ``sharded_data``'s: of
+    the repo's synthetic datasets with a static graph, the one whose entity
+    count and word count (10488 and 5196 with numpy 2.0's generator; the
+    words depend on numpy's version) both divide by 2 and 4, as a sharded
+    words_emb needs, JAX's too."""
+    return generate("synthetic-icews05-15", seed=SEED, with_static=True, num_snaps=40,
+                    split=(30, 5, 5))
 
 
 def sharded_configs(cut) -> tuple:
@@ -3501,22 +3563,34 @@ def sharded_configs(cut) -> tuple:
 
 
 def sharded_trainer(path: str, cut, dev, dropout: bool = True, **mesh_kw):
-    """The trainer of a sharded phase's path at full width on the cut data
+    """The trainer of a sharded phase's path at full width on its cut data
     (``mesh_kw``: ``mesh`` and ``dist_agg``, or nothing for one process):
     config 1, the headline (uvrgcn + tangent ConvTransE/R), config 3 (LGCN
-    + RotH, learned c) or HisRES (``run_hisres``'s defaults), each with
-    its dropouts or, without ``dropout``, every one at 0."""
+    + RotH, learned c; ``config 3 triple`` in chunks of
+    SHARDED_TRIPLE_BATCH triples, ``accumulate``), HisRES (``run_hisres``'s
+    defaults), config 5 (the headline with EST and TANS), and with the
+    static graph config 2, the static headline and HisRES, each with its
+    dropouts or, without ``dropout`` or on NOISY_PATHS, every one at 0."""
     cfg1, tc = sharded_configs(cut)
-    off = {} if dropout else NO_DROPOUT
+    off = {} if dropout and path not in NOISY_PATHS else NO_DROPOUT
     if path == "config 1":
         return loop.Trainer(ExperimentConfig(model=dataclasses.replace(cfg1, **off), train=tc),
                             cut, device=dev, **mesh_kw)
-    if path == "hisres":
+    if path == "config 2":
+        return loop.Trainer(ExperimentConfig(model=config2(cut, **off), train=tc), cut,
+                            device=dev, **mesh_kw)
+    static = (dict(use_static=True, num_static_rels=cut.num_static_rels,
+                   num_words=cut.num_words) if path in STATIC_PATHS else {})
+    if path.startswith("hisres"):
         off = off and dict(off, cand_dropout=0.0)
-        return HisResTrainer(hisres_config(cut, **off), tc, cut, device=dev, **HISRES_TRAINER,
-                             **mesh_kw)
-    cfg = headline_config(cut, **off) if path == "headline" else config3(cut, **off)
-    return HyperbolicTrainer(cfg, tc, cut, device=dev, **mesh_kw)
+        return HisResTrainer(hisres_config(cut, **static, **off), tc, cut, device=dev,
+                             **HISRES_TRAINER, **mesh_kw)
+    if path.startswith("config 3"):
+        triple = (dict(triple_batch_size=SHARDED_TRIPLE_BATCH, triple_batch_mode="accumulate")
+                  if path == "config 3 triple" else {})
+        return HyperbolicTrainer(config3(cut, **off), tc, cut, device=dev, **triple, **mesh_kw)
+    config = config5 if path == "config 5" else headline_config
+    return HyperbolicTrainer(config(cut, **static, **off), tc, cut, device=dev, **mesh_kw)
 
 
 def trainer_parts(trainer) -> tuple:
@@ -3526,28 +3600,39 @@ def trainer_parts(trainer) -> tuple:
     return trainer.cfg, trainer.tc
 
 
-def step_loss(trainer, state, i: int) -> tuple:
-    """(total, losses, new model state) of a training step on window i."""
-    if isinstance(trainer, HyperbolicTrainer):
-        return trainer.loss(state, *trainer.window(i), trainer._curvature_max(0))[:3]
-    return trainer.loss(state, *trainer.window(i))
+def step_inputs(trainer, i: int) -> list:
+    """``loss``'s inputs after the state for the training step on window i:
+    one tuple (with EST's retrieval batch and TANS COO for a hyperbolic
+    trainer), or one per chunk of a triple-batched step."""
+    if not isinstance(trainer, HyperbolicTrainer):
+        return [trainer.window(i)]
+    cmax = trainer._curvature_max(0)
+    chunks = trainer.chunks(i) if trainer.triple_batch_size else []
+    if chunks:
+        history = trainer.window(i)[0]
+        return [(history, tr, mk, cmax, rb, tans) for tr, mk, rb, tans in chunks]
+    return [(*trainer.window(i), cmax, *trainer.est_window(i))]
 
 
 def sharded_launches(path: str, trainer, order) -> tuple:
     """(B1, each B2 kernel) launches that one process takes on the steps of
     ``order``, and (B1) on the test split, from the data: 2 layers x each
     window's snapshots (HisRES: ``hisres_launches``), no B1 on config 3,
-    whose B2 kernels launch twice a step; B2 on no test split."""
+    whose B2 kernels launch twice a step, or with triple batching twice a
+    chunk (a snapshot that fits one chunk is one step); B2 on no test
+    split."""
     cfg, tc = trainer_parts(trainer)
-    if path == "hisres":
+    if path.startswith("config 3"):
+        steps = (sum(len(trainer.chunks(i)) or 1 for i in order) if trainer.triple_batch_size
+                 else len(order))
+        return 0, 2 * steps, 0
+    if path.startswith("hisres"):
         b1 = sum(hisres_launches(cfg, min(i, tc.train_history_len)) for i in order)
         test = hisres_launches(cfg, tc.test_history_len)
-    elif path == "config 3":
-        b1 = test = 0
     else:
         b1 = cfg.n_layers * sum(min(i, tc.train_history_len) for i in order)
         test = cfg.n_layers * tc.test_history_len
-    return b1, 2 * len(order) if path == "config 3" else 0, test * len(trainer.test_list)
+    return b1, 0, test * len(trainer.test_list)
 
 
 def radius_edge_keys(plain, sharded, i: int, mode: str) -> list:
@@ -3585,17 +3670,32 @@ def radius_edge_keys(plain, sharded, i: int, mode: str) -> list:
     return out
 
 
+def memories_alike(tag: str, est_state, group) -> None:
+    """Fails unless EST's replicated memories are bit-equal on every rank."""
+    import torch.distributed as dist
+
+    for name in ("fast", "slow"):
+        mine = getattr(est_state, name).contiguous()
+        every = [torch.empty_like(mine) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(every, mine, group=group)
+        check(all(torch.equal(every[0], m) for m in every[1:]),
+              f"{tag}: EST's {name} memory differs between the ranks")
+
+
 def sharded_three_steps(tag: str, path: str, cut, mesh, mode: str, dev: torch.device) -> None:
     """(a) of the sharded phase, in each rank: 3 steps of the sharded
     trainer against the single-process one on the card, from the same state
-    before each (dropouts 0), the sharded run on the single run's branches
-    at the kinks (the headline's radius-weight signs edge by edge): the
-    losses, every gradient (the entity table's gathered) and the model
-    state (BN statistics) within the 3-step checks' limits; then both
-    optimizers step with the single run's gradients, and every parameter
-    (the entity table gathered) within TRAIN_OPT_TOL. Every rank takes rank
-    0's single-run gradients and statistics, so that the rows the ranks
-    update come from one set of them."""
+    before each (dropouts 0), the sharded run on rank 0's single run's
+    branches at the kinks (the uvrgcn's radius-weight signs edge by edge):
+    the losses, every gradient (the entity and word tables gathered) and the
+    model state (BN statistics) of each chunk (one where the step is not
+    triple-batched) within the 3-step checks' limits; with EST, after each
+    write-back, the memories within TRAIN_GRAD_TOL of one process's and
+    bit-equal on every rank; then both optimizers step with the single
+    run's gradients (summed over the chunks), and every parameter (the
+    tables gathered) within TRAIN_OPT_TOL. Every rank takes rank 0's
+    single-run gradients, statistics and memories, so that the rows the
+    ranks update come from one set of them."""
     import torch.distributed as dist
 
     from regcn_torch.parallel import sharding
@@ -3607,8 +3707,10 @@ def sharded_three_steps(tag: str, path: str, cut, mesh, mode: str, dev: torch.de
     shard = sharded.shard
     s_plain = plain.init_state(SEED)
     names = leaf_names(s_plain.params)
+    uvrgcn = getattr(trainer_parts(plain)[0], "encoder", None) == "hyperbolic_uvrgcn"
     kinks = PinnedKinks()
-    worst = {"loss": 0.0, "grad": 0.0, "bn": 0.0, "opt": 0.0}
+    worst = {"loss": 0.0, "grad": 0.0, "bn": 0.0, "opt": 0.0, "est": 0.0}
+    chunks = 0
 
     def err(a, b) -> float:
         return (a.detach() - b.detach()).abs().max().item() / max(1.0, b.abs().max().item())
@@ -3616,70 +3718,93 @@ def sharded_three_steps(tag: str, path: str, cut, mesh, mode: str, dev: torch.de
     for i in plain.epoch_order(0)[:3]:
         s_sh = sharding.shard_state(train_state.copy_state(s_plain), shard)
         rules = sharding.state_sharding_rules(s_sh)
-        with kinks.record():
-            total, parts, bn = step_loss(plain, s_plain, i)
-            grads = torch.autograd.grad(total, tree_leaves(s_plain.params), allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(tree_leaves(s_plain.params), grads)]
-        # every rank's one-process run from rank 0's gradients and statistics:
-        # the card's index_add_ sums in no fixed order, and the sharded
-        # optimizer's rows come from every rank's copy of them
-        with torch.no_grad():
-            for t in grads + model_state_leaves(bn):
-                dist.broadcast(t, src=0, group=shard.group)
-        keys = radius_edge_keys(plain, sharded, i, mode) if path == "headline" else None
-        with kinks.replay(shard, keys):
-            total_s, parts_s, bn_s = step_loss(sharded, s_sh, i)
-            grads_s = sharding.sharded_grads(total_s, tree_leaves(s_sh.params),
-                                             [not r for r in rules], shard)
-        for k, b in parts.items():
-            a = float(parts_s[k].detach())
-            b = float(b.detach())
-            check(math.isfinite(a) and abs(a - b) <= TRAIN_LOSS_RTOL * max(1.0, abs(b)),
-                  f"{tag}, step on snapshot {i}: {k} loss sharded {a} vs one process {b}")
-            worst["loss"] = max(worst["loss"], abs(a - b) / max(1.0, abs(b)))
-        for name, g, gs, r in zip(names, grads, grads_s, rules):
+        keys = radius_edge_keys(plain, sharded, i, mode) if uvrgcn else None
+        summed = None
+        for inputs, inputs_s in zip(step_inputs(plain, i), step_inputs(sharded, i)):
+            chunks += 1
+            with kinks.record():
+                total, parts, bn, *aux = plain.loss(s_plain, *inputs)
+                grads = torch.autograd.grad(total, tree_leaves(s_plain.params),
+                                            allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(tree_leaves(s_plain.params), grads)]
+            # every rank's one-process run from rank 0's gradients, statistics
+            # and branches: the card's index_add_ sums in no fixed order, so each
+            # process's run may take another branch at a kink, and the sharded
+            # optimizer's rows come from every rank's copy of them
             with torch.no_grad():
-                whole = all_gather_rows(gs, shard.group) if r else gs
-            e = err(whole, g)
-            check(e <= TRAIN_GRAD_TOL, f"{tag}, step on snapshot {i}: {name} gradient sharded "
-                  f"vs one process {e:.3e} > {TRAIN_GRAD_TOL:.0e} of its largest entry")
-            worst["grad"] = max(worst["grad"], e)
-        for a, b in zip(model_state_leaves(bn_s), model_state_leaves(bn)):
-            worst["bn"] = max(worst["bn"], err(a, b))
-        check(worst["bn"] <= TRAIN_GRAD_TOL, f"{tag}, step on snapshot {i}: BN statistics "
-              f"sharded vs one process {worst['bn']:.3e} > {TRAIN_GRAD_TOL:.0e}")
-        plain.opt.step(tree_leaves(s_plain.params), grads, s_plain.opt_state)
+                for t in grads + model_state_leaves(bn):
+                    dist.broadcast(t, src=0, group=shard.group)
+            kinks.share(shard.group)
+            with kinks.replay(shard, keys):
+                total_s, parts_s, bn_s, *aux_s = sharded.loss(s_sh, *inputs_s)
+                grads_s = sharding.sharded_grads(total_s, tree_leaves(s_sh.params),
+                                                 [not r for r in rules], shard)
+            for k, b in parts.items():
+                a = float(parts_s[k].detach())
+                b = float(b.detach())
+                check(math.isfinite(a) and abs(a - b) <= TRAIN_LOSS_RTOL * max(1.0, abs(b)),
+                      f"{tag}, step on snapshot {i}: {k} loss sharded {a} vs one process {b}")
+                worst["loss"] = max(worst["loss"], abs(a - b) / max(1.0, abs(b)))
+            for name, g, gs, r in zip(names, grads, grads_s, rules):
+                with torch.no_grad():
+                    whole = all_gather_rows(gs, shard.group) if r else gs
+                e = err(whole, g)
+                check(e <= TRAIN_GRAD_TOL, f"{tag}, step on snapshot {i}: {name} gradient "
+                      f"sharded vs one process {e:.3e} > {TRAIN_GRAD_TOL:.0e} of its largest "
+                      "entry")
+                worst["grad"] = max(worst["grad"], e)
+            for a, b in zip(model_state_leaves(bn_s), model_state_leaves(bn)):
+                worst["bn"] = max(worst["bn"], err(a, b))
+            check(worst["bn"] <= TRAIN_GRAD_TOL, f"{tag}, step on snapshot {i}: BN statistics "
+                  f"sharded vs one process {worst['bn']:.3e} > {TRAIN_GRAD_TOL:.0e}")
+            if s_plain.est_state is not None:  # the H-PES write-back of the chunk
+                plain.est_update(s_plain, inputs[1], inputs[2], aux[0])
+                sharded.est_update(s_sh, inputs_s[1], inputs_s[2], aux_s[0])
+                memories_alike(f"{tag}, step on snapshot {i}", s_sh.est_state, shard.group)
+                for name in ("fast", "slow"):
+                    want = getattr(s_plain.est_state, name)
+                    dist.broadcast(want, src=0, group=shard.group)
+                    e = err(getattr(s_sh.est_state, name), want)
+                    check(e <= TRAIN_GRAD_TOL, f"{tag}, step on snapshot {i}: EST's {name} "
+                          f"memory sharded vs one process {e:.3e} > {TRAIN_GRAD_TOL:.0e}")
+                    worst["est"] = max(worst["est"], e)
+            s_plain.model_state = s_sh.model_state = bn
+            summed = grads if summed is None else [a + g for a, g in zip(summed, grads)]
+        plain.opt.step(tree_leaves(s_plain.params), summed, s_plain.opt_state)
         sharded.opt.shard(rules, shard.group)
         sharded.opt.step(tree_leaves(s_sh.params),
-                         [g[shard.row0:shard.row0 + shard.rows] if r else g
-                          for g, r in zip(grads, rules)], s_sh.opt_state)
+                         [sharding.rank_rows(g, shard) if r else g for g, r in zip(summed, rules)],
+                         s_sh.opt_state)
         whole = sharding.unshard_state(s_sh, shard)
         for name, a, b in zip(names, tree_leaves(whole.params), tree_leaves(s_plain.params)):
             e = ((a.detach() - b.detach()).abs() / b.detach().abs().clamp(min=1.0)).max().item()
             check(e <= TRAIN_OPT_TOL, f"{tag}, step on snapshot {i}: {name} after the "
                   f"optimizer step sharded vs one process {e:.3e} > {TRAIN_OPT_TOL:.0e}")
             worst["opt"] = max(worst["opt"], e)
-        s_plain.model_state = bn
         s_plain.step += 1
     flips = kinks.check(tag)
-    print(f"[{tag}] (a) 3 steps sharded vs one process on the card from the same state, on its "
-          f"branches at the kinks ({flips.replace('on the cpu', 'in the sharded run')}): losses "
-          f"within {worst['loss']:.2e}, every gradient within {worst['grad']:.2e} of its "
-          f"largest entry, model state within {worst['bn']:.2e}, every parameter (the entity "
-          f"table gathered) after the optimizer step within {worst['opt']:.2e} "
+    extra = (f", EST's memories after each write-back within {worst['est']:.2e} and bit-equal "
+             "on every rank" if s_plain.est_state is not None else "")
+    chunked = f" in {chunks} chunks" if chunks > 3 else ""
+    print(f"[{tag}] (a) 3 steps{chunked} sharded vs one process on the card from the "
+          f"same state, on its branches at the kinks "
+          f"({flips.replace('on the cpu', 'in the sharded run')}): losses within "
+          f"{worst['loss']:.2e}, every gradient within {worst['grad']:.2e} of its largest "
+          f"entry, model state within {worst['bn']:.2e}{extra}, every parameter (the tables "
+          f"gathered) after the optimizer step within {worst['opt']:.2e} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
-def sharded_rank(rank: int, G: int, workdir: str, dev_type: str = "cuda",
-                 paths=SHARDED_PATHS, modes=("gspmd", "halo")) -> None:
+def sharded_rank(rank: int, G: int, workdir: str, dev_type: str = "cuda", jobs=()) -> None:
     """One rank of the sharded phase: a gloo process group over a file
     store, the rank on cuda:0 beside the others, a 1 x G mesh; for each
-    path and each ``dist_agg`` of ``modes``: ``sharded_three_steps``, then
-    one epoch with the config's dropouts and the test split, the kernels'
-    launches counted around each against one process's (each process
-    counts its own); the results into ``workdir``. A failed check exits
-    the rank non-zero. ``dev_type="cpu"`` rehearses it without a card."""
+    (path, ``dist_agg``) of ``jobs``: ``sharded_three_steps``, then one
+    epoch with the config's dropouts (with EST, the memories after it
+    bit-equal on every rank) and the test split, the kernels' launches
+    counted around each against one process's (each process counts its
+    own); the results into ``workdir``. A failed check exits the rank
+    non-zero. ``dev_type="cpu"`` rehearses it without a card."""
     import datetime
 
     import torch.distributed as dist
@@ -3694,137 +3819,154 @@ def sharded_rank(rank: int, G: int, workdir: str, dev_type: str = "cuda",
     dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
     dist.init_process_group("gloo", init_method=f"file://{workdir}/store", world_size=G,
                             rank=rank, timeout=datetime.timedelta(seconds=300))
-    cut = sharded_data()
+    cuts = {False: sharded_data(), True: sharded_static_data()}
     mesh = make_mesh(MeshAxes(1, G), device_type=dev.type)
     out = {}
-    for path in paths:
-        for mode in modes:
-            tag = f"sharded {path} {mode} rank {rank}"
-            sharded_three_steps(tag, path, cut, mesh, mode, dev)
-            trainer = sharded_trainer(path, cut, dev, mesh=mesh, dist_agg=mode)
-            state = trainer.init_state(SEED)
-            order = trainer.epoch_order(0)
-            b1, b2, b1_test = sharded_launches(path, trainer, order)
-            if cuda:
-                torch.cuda.reset_peak_memory_stats()
-                torch.cuda.synchronize()
-            reset_launches()
-            t0 = time.perf_counter()
-            losses = trainer.run_epoch(state, 0)
-            if cuda:
-                torch.cuda.synchronize()
-            epoch_s = time.perf_counter() - t0
-            epoch_counts = read_launches()
-            check(all(math.isfinite(v) for v in losses.values()), f"{tag}: epoch losses {losses}")
-            check(epoch_counts["rgcn_scatter_sorted"] == b1
-                  and all(epoch_counts[k] == b2 for k in CE_KERNELS),
-                  f"{tag}: epoch launches {epoch_counts}, expected {b1} of B1 and {b2} of each "
-                  "B2 kernel, as one process launches")
-            reset_launches()
-            t0 = time.perf_counter()
-            stats = trainer.test(state)
-            if cuda:
-                torch.cuda.synchronize()
-            test_s = time.perf_counter() - t0
-            test_counts = read_launches()
-            check(test_counts["rgcn_scatter_sorted"] == b1_test
-                  and all(test_counts[k] == 0 for k in CE_KERNELS),
-                  f"{tag}: test split launches {test_counts}, expected {b1_test} of B1")
-            out[f"{path} {mode}"] = dict(
-                losses=losses, mrr={k: v.mrr for k, v in stats.items()}, epoch=epoch_counts,
-                test=test_counts, epoch_s=epoch_s, test_s=test_s, steps=len(order),
-                peak_mib=torch.cuda.max_memory_allocated() / 2**20 if cuda else 0.0)
-            del trainer, state
+    for path, mode in jobs:
+        cut = cuts[path in STATIC_PATHS]
+        tag = f"sharded {path} {mode} rank {rank}"
+        sharded_three_steps(tag, path, cut, mesh, mode, dev)
+        trainer = sharded_trainer(path, cut, dev, mesh=mesh, dist_agg=mode)
+        state = trainer.init_state(SEED)
+        order = trainer.epoch_order(0)
+        b1, b2, b1_test = sharded_launches(path, trainer, order)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        losses = trainer.run_epoch(state, 0)
+        if cuda:
+            torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        epoch_counts = read_launches()
+        check(all(math.isfinite(v) for v in losses.values()), f"{tag}: epoch losses {losses}")
+        check(epoch_counts["rgcn_scatter_sorted"] == b1
+              and all(epoch_counts[k] == b2 for k in CE_KERNELS),
+              f"{tag}: epoch launches {epoch_counts}, expected {b1} of B1 and {b2} of each "
+              "B2 kernel, as one process launches")
+        if state.est_state is not None:
+            memories_alike(f"{tag}, after the epoch", state.est_state, trainer.shard.group)
+        reset_launches()
+        t0 = time.perf_counter()
+        stats = trainer.test(state)
+        if cuda:
+            torch.cuda.synchronize()
+        test_s = time.perf_counter() - t0
+        test_counts = read_launches()
+        check(test_counts["rgcn_scatter_sorted"] == b1_test
+              and all(test_counts[k] == 0 for k in CE_KERNELS),
+              f"{tag}: test split launches {test_counts}, expected {b1_test} of B1")
+        out[f"{path} {mode}"] = dict(
+            losses=losses, mrr={k: v.mrr for k, v in stats.items()}, epoch=epoch_counts,
+            test=test_counts, epoch_s=epoch_s, test_s=test_s, steps=len(order),
+            expected=[b1, b2, b1_test],
+            peak_mib=torch.cuda.max_memory_allocated() / 2**20 if cuda else 0.0)
+        del trainer, state
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
 
 
-def phase_sharded(cut, dev: torch.device, paths=SHARDED_PATHS) -> dict:
-    """Config 1, the hyperbolic headline, config 3 and HisRES at full width,
-    entity-sharded (each trainer with ``mesh=..., dist_agg=...``) over
-    SHARDS gloo ranks that share the card, on the cut data: the halo's
-    boundary statistics of the training split; each single-process
-    trainer's epoch (the config's dropouts) and test split as the
-    reference; then the ranks (``sharded_rank``); each rank's MRRs within
+def phase_sharded(dev: torch.device, groups=SHARDED_GROUPS) -> dict:
+    """The paths of ``groups`` at full width, entity-sharded (each trainer
+    with ``mesh=..., dist_agg=...``) over SHARDS gloo ranks that share the
+    card, on the cut data (``sharded_data``; the static graph's paths on
+    ``sharded_static_data``): the halo's boundary statistics of each cut's
+    training split; each group's ranks (``sharded_rank``), the groups side
+    by side, and meanwhile each single-process trainer's epoch (the config's
+    dropouts) and test split as the reference; each rank's MRRs within
     SHARDED_MRR_ATOL of the reference, its launches as one process's, its
     peak memory and walls printed. gloo stages every collective through
     the host, so the walls say nothing of speed."""
     from regcn_torch.parallel.halo import build_halo_store
 
-    cfg, tc = sharded_configs(cut)
-    _, stats = build_halo_store(split_by_time(cut.train), cut.num_nodes, cut.num_rels, SHARDS,
-                                edge_bucket=tc.edge_bucket)
-    print(f"[sharded] halo of the training split at G = {SHARDS}: boundary rows "
-          f"{stats['boundary_fraction_of_N_mean']:.3f} of N on average (max "
-          f"{stats['boundary_fraction_of_N_max']:.3f}), halo rows per shard "
-          f"{stats['halo_rows_per_shard']} against the all-gather's "
-          f"{stats['allgather_rows_per_shard']} (ratio {stats['volume_ratio_vs_allgather']:.3f})",
-          flush=True)
-    ref = {}
-    for path in paths:
-        single = sharded_trainer(path, cut, dev)
-        state = single.init_state(SEED)
-        t0 = time.perf_counter()
-        losses = single.run_epoch(state, 0)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        epoch_s = time.perf_counter() - t0
-        ref[path] = {k: v.mrr for k, v in single.test(state).items()}
-        print(f"[sharded] {path}, one process: epoch of {len(single.epoch_order(0))} steps in "
-              f"{epoch_s:.2f} s, mean losses "
-              + ", ".join(f"{k} {v:.5f}" for k, v in losses.items())
-              + "; test MRR " + ", ".join(f"{k} {v:.6f}" for k, v in ref[path].items()),
-              flush=True)
-        del single, state
+    jobs = [job for group in groups for job in group]
+    paths = list(dict.fromkeys(path for path, _ in jobs))
+    cuts = {False: sharded_data(), True: sharded_static_data()}
+    for static, cut in cuts.items():
+        if static:
+            check(cut.num_nodes % SHARDS == 0 and cut.num_words % SHARDS == 0,
+                  f"sharded phase: the static data's {cut.num_nodes} entities and "
+                  f"{cut.num_words} words do not both divide by {SHARDS}")
+        tc = sharded_configs(cut)[1]
+        _, stats = build_halo_store(split_by_time(cut.train), cut.num_nodes, cut.num_rels,
+                                    SHARDS, edge_bucket=tc.edge_bucket)
+        print(f"[sharded] halo of the training split of {'the static' if static else 'the'} "
+              f"cut data ({cut.num_nodes} entities"
+              + (f", {cut.num_words} words" if static else "")
+              + f") at G = {SHARDS}: boundary rows "
+              f"{stats['boundary_fraction_of_N_mean']:.3f} of N on average (max "
+              f"{stats['boundary_fraction_of_N_max']:.3f}), halo rows per shard "
+              f"{stats['halo_rows_per_shard']} against the all-gather's "
+              f"{stats['allgather_rows_per_shard']} (ratio "
+              f"{stats['volume_ratio_vs_allgather']:.3f})", flush=True)
     t0 = time.perf_counter()
-    # each mode's SHARDS ranks in a process group of their own, the two
-    # groups side by side: gloo stages every collective through the host,
-    # so one group alone leaves most of the host's cores and the card idle
+    # each group's SHARDS ranks in a process group of their own, the groups
+    # side by side: gloo stages every collective through the host, so one
+    # group alone leaves most of the host's cores and the card idle
     with tempfile.TemporaryDirectory() as root:
-        groups = []
-        for mode in ("gspmd", "halo"):
-            workdir = os.path.join(root, mode)
+        spawned = []
+        for g, group in enumerate(groups):
+            workdir = os.path.join(root, str(g))
             os.makedirs(workdir)
-            groups.append((workdir, torch.multiprocessing.start_processes(
-                sharded_rank, args=(SHARDS, workdir, dev.type, paths, (mode,)), nprocs=SHARDS,
+            spawned.append((workdir, torch.multiprocessing.start_processes(
+                sharded_rank, args=(SHARDS, workdir, dev.type, group), nprocs=SHARDS,
                 join=False, start_method="spawn")))
+        # the single-process references while the ranks run: nothing of
+        # theirs waits for them
+        ref = {}
+        for path in paths:
+            single = sharded_trainer(path, cuts[path in STATIC_PATHS], dev)
+            state = single.init_state(SEED)
+            t1 = time.perf_counter()
+            losses = single.run_epoch(state, 0)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            epoch_s = time.perf_counter() - t1
+            ref[path] = {k: v.mrr for k, v in single.test(state).items()}
+            print(f"[sharded] {path}, one process: epoch of {len(single.epoch_order(0))} steps "
+                  f"in {epoch_s:.2f} s, mean losses "
+                  + ", ".join(f"{k} {v:.5f}" for k, v in losses.items())
+                  + "; test MRR " + ", ".join(f"{k} {v:.6f}" for k, v in ref[path].items()),
+                  flush=True)
+            del single, state
         try:
-            for _, ctx in groups:
+            for _, ctx in spawned:
                 while not ctx.join():
                     pass
         except Exception as e:  # a rank failed a check or raised
             fail(f"sharded phase: {type(e).__name__}: {e}")
         ranks = [{} for _ in range(SHARDS)]
-        for workdir, _ in groups:
+        for workdir, _ in spawned:
             for r in range(SHARDS):
                 with open(os.path.join(workdir, f"rank{r}.json")) as f:
                     ranks[r].update(json.load(f))
     wall = time.perf_counter() - t0
     out = {}
-    for path in paths:
-        for mode in ("gspmd", "halo"):
-            key = f"{path} {mode}"
-            for r, res in enumerate(ranks):
-                row = res[key]
-                for k, v in ref[path].items():
-                    check(abs(row["mrr"][k] - v) <= SHARDED_MRR_ATOL,
-                          f"sharded {key} rank {r}: test {k} MRR {row['mrr'][k]:.6f}, one "
-                          f"process {v:.6f}: more than {SHARDED_MRR_ATOL} apart")
-                ce_each = row["epoch"][CE_KERNELS[0]]
-                print(f"[sharded] {key} rank {r}: epoch of {row['steps']} steps in "
-                      f"{row['epoch_s']:.2f} s ({row['epoch_s'] / row['steps'] * 1e3:.1f} ms a "
-                      "step), mean losses "
-                      + ", ".join(f"{k} {v:.5f}" for k, v in row["losses"].items())
-                      + f"; B1 {row['epoch']['rgcn_scatter_sorted']} and each B2 kernel "
-                      f"{ce_each} in the epoch, B1 {row['test']['rgcn_scatter_sorted']} on the "
-                      f"test split ({row['test_s']:.2f} s); test MRR "
-                      + ", ".join(f"{k} {v:.6f}" for k, v in row["mrr"].items())
-                      + f"; peak memory {row['peak_mib']:.0f} MiB", flush=True)
-            out[f"sharded {key} epoch (each rank)"] = ranks[0][key]["epoch"]
-            out[f"sharded {key} test split (each rank)"] = ranks[0][key]["test"]
-    print(f"[sharded] {SHARDS} ranks a mode on one card over gloo, both modes' groups side by "
-          f"side, {len(paths)} paths, {wall:.1f} s with the spawn "
+    for path, mode in jobs:
+        key = f"{path} {mode}"
+        for r, res in enumerate(ranks):
+            row = res[key]
+            for k, v in ref[path].items():
+                check(abs(row["mrr"][k] - v) <= SHARDED_MRR_ATOL,
+                      f"sharded {key} rank {r}: test {k} MRR {row['mrr'][k]:.6f}, one "
+                      f"process {v:.6f}: more than {SHARDED_MRR_ATOL} apart")
+            b1, b2, b1_test = row["expected"]
+            print(f"[sharded] {key} rank {r}: epoch of {row['steps']} steps in "
+                  f"{row['epoch_s']:.2f} s ({row['epoch_s'] / row['steps'] * 1e3:.1f} ms a "
+                  "step), mean losses "
+                  + ", ".join(f"{k} {v:.5f}" for k, v in row["losses"].items())
+                  + f"; B1 {row['epoch']['rgcn_scatter_sorted']} (one process: {b1}) and each "
+                  f"B2 kernel {row['epoch'][CE_KERNELS[0]]} (one process: {b2}) in the epoch, "
+                  f"B1 {row['test']['rgcn_scatter_sorted']} (one process: {b1_test}) on the "
+                  f"test split ({row['test_s']:.2f} s); test MRR "
+                  + ", ".join(f"{k} {v:.6f}" for k, v in row["mrr"].items())
+                  + f"; peak memory {row['peak_mib']:.0f} MiB", flush=True)
+        out[f"sharded {key} epoch (each rank)"] = ranks[0][key]["epoch"]
+        out[f"sharded {key} test split (each rank)"] = ranks[0][key]["test"]
+    print(f"[sharded] {SHARDS} ranks a group on one card over gloo, {len(groups)} groups side "
+          f"by side, {len(jobs)} runs of {len(paths)} paths, {wall:.1f} s with the spawn "
           f"({CARD[0] if CARD else 'card not read'}); the MRRs "
           f"within {SHARDED_MRR_ATOL} of one process's", flush=True)
     return out
@@ -3892,7 +4034,7 @@ def main() -> None:
                          dev))
     by_path.update(timed("bf16 compute", phase_bf16, data, cut, cfg, tc, dev))
     by_path.update(timed("native builder and cumsum", phase_native_cumsum, data, cfg, tc, dev))
-    by_path.update(timed("entity-sharded training", phase_sharded, sharded_data(), dev))
+    by_path.update(timed("entity-sharded training", phase_sharded, dev))
     launches.update({k: by_path["config-3 training epoch"][k] for k in CE_KERNELS})
     for k in CE_KERNELS:
         timing[k]["shapes"] = [config4_times[k]] + ce_widths[k]

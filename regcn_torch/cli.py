@@ -25,12 +25,18 @@ backend for the device):
     torchrun --nproc-per-node 2 -m regcn_torch.cli train -d synthetic-icews14s --shards 2
     torchrun --nproc-per-node 2 -m regcn_torch.cli hyperbolic -d synthetic-icews14s \
         --shards 2 --dist-agg halo
+    torchrun --nproc-per-node 2 -m regcn_torch.cli hyperbolic -d synthetic-icews14s \
+        --shards 2 --use-est --use-time-aware-negative
+
+With ``--shards`` the modes take EST and TANS (``hyperbolic``), triple
+batching (``hyperbolic`` under ``--dist-agg gspmd``; JAX refuses it under
+``halo``) and ``--add-static-graph`` (``train``, ``test``, ``hyperbolic``,
+``hisres``; the dataset's word count must be a multiple of ``--shards``).
 
 Not ported, and stopping with a message that names the ROADMAP item:
 ``bench`` (A.2: ``bench.py`` measures the JAX package); ``--shards`` for
-``grid --vectorize``, and in ``hyperbolic`` / ``hisres`` with EST, TANS,
-gspmd triple batching, the static graph, bf16 or ``--run-analysis``
-(A.11b).
+``grid --vectorize``, and in ``hyperbolic`` / ``hisres`` with bf16 or
+``--run-analysis`` (A.11b).
 
 ``--compute-dtype bfloat16`` reaches the trainers of ``train``, ``test``,
 ``hyperbolic`` and ``hisres`` (and of the sequential ``grid``), as in the
@@ -246,13 +252,7 @@ def check_mesh_options(args) -> None:
     A.11b); the trainers raise for them too."""
     if not args.shards:
         return
-    hyperbolic = args.mode == "hyperbolic"
     for unported, flag in (
-            (hyperbolic and (args.use_est or args.use_time_aware_negative),
-             "--use-est / --use-time-aware-negative"),
-            (hyperbolic and args.triple_batch_size and args.dist_agg == "gspmd",
-             "--triple-batch-size"),
-            (args.add_static_graph, "--add-static-graph"),
             (args.compute_dtype != "float32", f"--compute-dtype {args.compute_dtype}"),
             (args.run_analysis, "--run-analysis")):
         if unported:

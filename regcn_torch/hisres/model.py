@@ -34,8 +34,11 @@ partition of each graph. The fused table is then all-gathered: the
 candidate cells run whole on every rank over the replicated history
 graphs, as JAX keeps them dense, and so do the decoders' queries; the
 entity decoders score the rank's candidate columns, with the CE across
-ranks. Not ported on a mesh yet, and raising (ROADMAP A.11b): the static
-graph and bf16 compute.
+ranks. The static graph's ``words_emb`` is row-sharded as the entity
+table is: the block layer runs whole on the gathered tables on every rank
+(``recurrent._static_init``), and the angular loss sums each rank's rows
+across the ranks. Not ported on a mesh yet, and raising (ROADMAP A.11b):
+bf16 compute.
 """
 
 from __future__ import annotations
@@ -116,12 +119,9 @@ def check_supported(cfg: HisResConfig) -> None:
     context, and on a mesh for what it does not run yet."""
     compute_dtype(cfg.compute_dtype)
     check_impl(cfg.impl)
-    if is_sharded(cfg.impl):
-        for unported, what in ((cfg.use_static, "the static graph"),
-                               (cfg.compute_dtype != "float32", "bf16 compute")):
-            if unported:
-                raise NotImplementedError(f"{what} on a mesh (HisRES) is not ported yet "
-                                          "(ROADMAP A.11b)")
+    if is_sharded(cfg.impl) and cfg.compute_dtype != "float32":
+        raise NotImplementedError("bf16 compute on a mesh (HisRES) is not ported yet "
+                                  "(ROADMAP A.11b)")
     if cfg.rc_mode not in ("src", "both"):
         raise ValueError(f"rc_mode must be 'both' or 'src', got {cfg.rc_mode!r}")
 
@@ -230,7 +230,7 @@ def forward(params: Params, cfg: HisResConfig, history, history_gg, *, static_sn
     check_supported(cfg)
     shard = _shard(cfg, params)
     if cfg.use_static and static_snap is not None:
-        h_init = _static_init(params, cfg, static_snap, gen=gen, train=train)
+        h_init = _static_init(params, cfg, static_snap, gen=gen, train=train, shard=shard)
     else:
         h_init = l2_normalize(params["dynamic_emb"]) if cfg.layer_norm else params["dynamic_emb"]
     g_emb, r_emb, all_h = _stream(params, cfg, history, h_init, "g", True, gen, train, shard)
@@ -341,7 +341,7 @@ def get_loss(
     if cfg.use_static:
         # the angular constraint against every step of the g stream
         # (ref :340-355), against the starting embedding without a static graph
-        losses["static"] = static_angular_loss(static_emb, all_h, cfg)
+        losses["static"] = static_angular_loss(static_emb, all_h, cfg, shard=shard)
     return losses["entity"], losses, HisResState(**new)
 
 

@@ -33,9 +33,12 @@ own trainer and calls the same methods) trains entity-sharded, as JAX's
 each stream's window carries the rank's partition of its own graphs (the
 2-snapshot unions are graphs of their own); the history graphs and the
 vocabularies stay replicated; evaluation, single- and multi-step, ranks
-across the candidate shards; checkpoints hold whole states. Not ported on
-a mesh yet, and raising ``NotImplementedError`` (ROADMAP A.11b): the
-static graph, bf16 compute, ``run_analysis`` and a ``data`` axis above 1.
+across the candidate shards; checkpoints hold whole states. With the
+static graph ``words_emb`` is row-sharded too, so ``num_words`` must be a
+multiple of the ``graph`` axis (a ``ValueError`` at construction, as JAX
+refuses it). Not ported on a mesh yet, and raising ``NotImplementedError``
+(ROADMAP A.11b): bf16 compute, ``run_analysis`` and a ``data`` axis above
+1.
 """
 
 from __future__ import annotations
@@ -58,7 +61,8 @@ from regcn_torch.hisres import model as hmodel
 from regcn_torch.hisres.history import HistoryStore
 from regcn_torch.hisres.model import HisResConfig
 from regcn_torch.parallel import sharding
-from regcn_torch.parallel.mesh import DATA_AXIS, axis_size, check_entity_divisibility, row_shard
+from regcn_torch.parallel.mesh import (DATA_AXIS, axis_size, check_entity_divisibility,
+                                       check_words_divisibility, row_shard)
 from regcn_torch.train import loop, metrics
 from regcn_torch.train import state as train_state
 from regcn_torch.train.optim import tree_leaves
@@ -96,6 +100,8 @@ class HisResTrainer:
         self.mesh, self.dist_agg, self.shard = mesh, dist_agg, None
         if mesh is not None:
             check_entity_divisibility(data.num_nodes, mesh)
+            if cfg.use_static:
+                check_words_divisibility(data.num_words, mesh)
             for unported, what in ((axis_size(mesh, DATA_AXIS) != 1, "a data axis above 1"),
                                    (run_analysis, "run_analysis")):
                 if unported:

@@ -7,7 +7,7 @@ tensors:
   :func:`update_states`): fast (EMA) and slow (gated) tangent-space
   memories of the entities. The buffers live in an :class:`ESTState`
   beside the parameters, carried by the train state and its checkpoints;
-  the writeback runs on detached values, by ``index_add_`` segment sums.
+  the writeback runs on detached values, by segment sums.
 - H-TDP (:func:`time_delta_tangent`, :func:`time_delta_projection`):
   exp_0(MLP(log1p Δt)).
 - ETNR (:class:`TemporalIndex`): a host-side numpy index of each entity's
@@ -25,6 +25,15 @@ tensors:
 - TANS (:func:`build_true_tails_dict`, :func:`tans_mask_coo`): host-built
   (query, candidate) COO entries that training squashes to -1e9.
 
+On an entity-sharded mesh the memories stay whole and replicated on every
+rank, as JAX keeps them, and the writeback runs alike on every rank, from
+the same context rows (the trainer's ``est_update``) and with segment sums
+that are ``index_put_`` accumulations, which add each entity's rows in one
+order on the card too, so the ranks' memories stay bit-equal;
+the enrichment gathers the rows it reads by global id and writes the heads
+the rank owns (:func:`enrich_embeddings`), and TANS keeps the entries of
+the rank's candidate columns (:func:`shard_tans_coo`).
+
 The parameter dictionaries have the JAX package's keys and layouts.
 """
 
@@ -41,6 +50,7 @@ from torch import relu
 
 from regcn_torch.hyperbolic import ops as H
 from regcn_torch.models.layers import gru_gates, init_gru_cell
+from regcn_torch.parallel.collectives import RowShard, rows_of
 from regcn_torch.utils.dtypes import linear, mm, promoted
 from regcn_torch.utils.init import torch_linear_uniform, xavier_uniform
 
@@ -118,14 +128,20 @@ def update_states(params: Params, state: ESTState, entity_ids: torch.Tensor, mas
     ``entity_ids`` [B] (``mask`` [B], 1 = valid) takes the mean of its
     rows' contexts [B, d] into its fast memory, and the slow memory follows
     the fast one through a sigmoid gate on the distance between them; the
-    gate's threshold and scale are read detached. Returns a new state."""
+    gate's threshold and scale are read detached. Returns a new state.
+
+    The segment sums are ``index_put_`` accumulations: on the card these
+    add a repeated entity's rows in one fixed order (``index_add_`` adds
+    them by atomics in any order), so ranks that hold the memories
+    replicated compute them bit for bit alike."""
     n, d = state.fast.shape
     # fp32, as JAX's product with the fp32 triple mask makes a bf16 context
     ctx = context_tangent.detach().float()
     mask = mask.float()
-    cnt = mask.new_zeros(n).index_add_(0, entity_ids, mask)
+    cnt = mask.new_zeros(n).index_put_((entity_ids,), mask, accumulate=True)
     present = (cnt > 0)[:, None]
-    ctx_sum = ctx.new_zeros((n, d)).index_add_(0, entity_ids, ctx * mask[:, None])
+    ctx_sum = ctx.new_zeros((n, d)).index_put_((entity_ids,), ctx * mask[:, None],
+                                               accumulate=True)
     ctx_mean = ctx_sum / torch.clamp(cnt, min=1.0)[:, None]
     fast = torch.where(present, (1.0 - alpha) * state.fast + alpha * ctx_mean, state.fast)
     delta = fast - state.slow
@@ -369,7 +385,7 @@ def set_rows(table: torch.Tensor, rows: torch.Tensor, valid: torch.Tensor,
 def enrich_embeddings(params: Params, cfg, global_emb: torch.Tensor, triples: torch.Tensor,
                       rb: RetrievalBatch, c, slow_state: torch.Tensor,
                       dynamic_tangent: torch.Tensor, rel_tangent: torch.Tensor, *,
-                      return_ctx_tangent: bool = False):
+                      return_ctx_tangent: bool = False, shard: Optional[RowShard] = None):
     """EST enrichment of the query heads' rows of ``global_emb`` [N, d]
     (ball), all on tangent features: each row's neighbours (the
     ``dynamic_tangent`` table plus the detached slow memory), relations
@@ -380,24 +396,34 @@ def enrich_embeddings(params: Params, cfg, global_emb: torch.Tensor, triples: to
     formulation is a ``clamp_tangent_norm``.
 
     With ``return_ctx_tangent`` also returns the fused tangent rows [B, d],
-    which the H-PES writeback takes."""
+    which the H-PES writeback takes.
+
+    With ``shard`` ``global_emb`` and ``dynamic_tangent`` hold this rank's
+    rows (the slow memory stays whole): the heads' and the neighbours' rows
+    are gathered from their owners (``collectives.rows_of``), every rank
+    computes the same fused rows, and the rank writes those of the heads it
+    owns; the fused rows returned are the whole [B, d] on every rank."""
     heads = triples[:, 0]
     B, K = rb.nb_ents.shape
     d = cfg.h_dim
     nb = rb.nb_ents.reshape(-1)
-    nb_t = H.clamp_tangent_norm(dynamic_tangent.index_select(0, nb), c)
+    nb_t = H.clamp_tangent_norm(rows_of(dynamic_tangent, nb, shard), c)
     nb_t = torch.clamp(nb_t + slow_state.detach().index_select(0, nb), -CLAMP, CLAMP)
     nb_t = H.clamp_tangent_norm(nb_t, c).reshape(B, K, d)
     rl_t = H.clamp_tangent_norm(rel_tangent.index_select(0, rb.nb_rels.reshape(-1)),
                                 c).reshape(B, K, d)
     tm_t = H.clamp_tangent_norm(time_delta_tangent(params, rb.deltas), c)
 
-    q_tangent = H.log_map_zero(global_emb.index_select(0, heads), c)
+    q_tangent = H.log_map_zero(rows_of(global_emb, heads, shard), c)
     context_t = history_encoder_tangent(params, cfg, nb_t, rl_t, tm_t, q_tangent, rb.event_mask)
     fused_t = fuse_global_local_tangent(params, q_tangent, H.clamp_tangent_norm(context_t, c))
     # in the table's dtype under bf16 compute
     fused = H.project_to_ball(H.exp_map_zero(fused_t, c), c).to(global_emb.dtype)
-    out = set_rows(global_emb, heads, rb.row_mask > 0, fused)
+    valid = rb.row_mask > 0
+    if shard is not None:  # the heads this rank owns, at their local rows
+        heads = heads - shard.row0
+        valid = valid & (heads >= 0) & (heads < shard.rows)
+    out = set_rows(global_emb, heads, valid, fused)
     if return_ctx_tangent:
         return out, H.clamp_tangent_norm(fused_t, c)
     return out
@@ -444,6 +470,15 @@ def tans_mask_coo(triples: np.ndarray, mask: np.ndarray, true_tails_by_hr: dict,
         out_rows[:n] = np.concatenate(rows)
         out_cols[:n] = np.concatenate(cols)
     return out_rows, out_cols
+
+
+def shard_tans_coo(rows: np.ndarray, cols: np.ndarray, batch: int, shard: RowShard):
+    """:func:`tans_mask_coo`'s (rows, cols) cut to this rank's candidate
+    columns ``row0 .. row0 + rows`` and shifted to them, for scores of the
+    rank's candidates [B, rows]: an entry of another rank's column becomes
+    padding (row ``batch``, which the squash drops). The length stays."""
+    keep = (rows < batch) & (cols >= shard.row0) & (cols < shard.row0 + shard.rows)
+    return np.where(keep, rows, batch), np.where(keep, cols - shard.row0, 0)
 
 
 def squash_entries(scores: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:

@@ -55,9 +55,15 @@ on them, the relation context and the queries gather their rows by
 global id, a replicated [N] leaf (``radius_static``, the ConvTransE bias)
 meets the table through the rank's slice, the tangent ConvTransE scores
 the rank's candidates with the CE across ranks, and the distance
-decoders' CE runs B2 over the all-gathered table on every rank. Not
-ported on a mesh yet, and raising (ROADMAP A.11b): EST, TANS, the static
-graph and bf16 compute.
+decoders' CE runs B2 over the all-gathered table on every rank. EST's
+memories stay whole and replicated: the evolution injects the rank's rows
+of the slow memory, the enrichment gathers the heads' and the neighbours'
+rows by global id, computes the same fused rows on every rank and writes
+back the heads the rank owns; TANS squashes the rank's candidate columns
+(the trainer cuts the COO to them on the host). The static graph's
+``words_emb`` is row-sharded as the entity table is: the block layer runs
+whole on the gathered tables on every rank (``recurrent._static_init``).
+Not ported on a mesh yet, and raising (ROADMAP A.11b): bf16 compute.
 """
 
 from __future__ import annotations
@@ -172,13 +178,8 @@ def check_supported(cfg: HyperbolicConfig) -> None:
         raise ValueError(f"unknown encoder x decoder pair ({cfg.encoder!r}, {cfg.decoder!r}); "
                          f"known: {PORTED}")
     check_impl(cfg.impl)
-    if is_sharded(cfg.impl):
-        for unported, what in ((cfg.use_est or cfg.use_time_aware_negative,
-                                "EST and TANS (config 5)"),
-                               (cfg.use_static, "the static graph"),
-                               (cfg.compute_dtype != "float32", "bf16 compute")):
-            if unported:
-                raise NotImplementedError(f"{what} on a mesh is not ported yet (ROADMAP A.11b)")
+    if is_sharded(cfg.impl) and cfg.compute_dtype != "float32":
+        raise NotImplementedError("bf16 compute on a mesh is not ported yet (ROADMAP A.11b)")
 
 
 def check_device(cfg: HyperbolicConfig, device) -> None:
@@ -312,7 +313,7 @@ def evolve(params: Params, cfg: HyperbolicConfig, history, *, static_snap=None,
     shard = _shard(cfg, params)
     static_emb = None
     if cfg.use_static and static_snap is not None:
-        static_emb = _static_init(params, cfg, static_snap, gen=gen, train=train)
+        static_emb = _static_init(params, cfg, static_snap, gen=gen, train=train, shard=shard)
         h = H.exp_map_zero(static_emb, c)
     elif cfg.manifold_entities:
         # the entities already live on the ball: projected only (ref :775-777)
@@ -323,7 +324,7 @@ def evolve(params: Params, cfg: HyperbolicConfig, history, *, static_snap=None,
     static_radius = _my_rows(_static_radius(params, cfg, c), shard)
     h = H.apply_radius(h, static_radius, c)
     if cfg.use_est and est_slow_state is not None:
-        h = est.inject_slow_state(params["est"], h, est_slow_state, c)
+        h = est.inject_slow_state(params["est"], h, _my_rows(est_slow_state, shard), c)
     emb_rel = params["emb_rel"]
     if tangent_fast is None:
         tangent_fast = cfg.encoder == "hyperbolic_uvrgcn"
@@ -408,10 +409,13 @@ def _evolve_tangent(params, cfg, history, h_init, emb_rel, static_radius, c, *, 
 
 
 def static_angular_loss_tangent(static_emb: torch.Tensor, all_h: torch.Tensor, cfg, c,
-                                active: Optional[torch.Tensor] = None) -> torch.Tensor:
+                                active: Optional[torch.Tensor] = None,
+                                shard: Optional[RowShard] = None) -> torch.Tensor:
     """The static constraint compared in tangent space (ref :1039-1064):
-    ``recurrent.static_angular_loss`` of log_0 of every step's points."""
-    return static_angular_loss(static_emb, H.log_map_zero(all_h, c), cfg, active=active)
+    ``recurrent.static_angular_loss`` of log_0 of every step's points (on a
+    mesh, of the rank's rows, summed across the ranks)."""
+    return static_angular_loss(static_emb, H.log_map_zero(all_h, c), cfg, active=active,
+                               shard=shard)
 
 
 def radius_supervision_loss(params, state: HypModelState, cfg, triples, mask, c):
@@ -483,16 +487,17 @@ def _dynamic_tangent(params, cfg, c):
     return H.log_map_zero(emb, c) if cfg.manifold_entities else emb
 
 
-def _enrich(params, cfg, est_inputs, emb, ent_tan, triples, r_emb, c):
+def _enrich(params, cfg, est_inputs, emb, ent_tan, triples, r_emb, c, shard=None):
     """EST's enrichment of the decoders' table ``emb`` from ``est_inputs``
     (the ESTState, the RetrievalBatch of the batch's heads): (the enriched
     table, the ConvTrans decoders' leaky-tanh tangent table of it where
     ``ent_tan`` was one, the fused tangent rows [B, d]). JAX lets each
     ConvTrans decoder derive the tangent table from the enriched one; it
-    is derived here once for both."""
+    is derived here once for both. With ``shard`` the tables hold this
+    rank's rows (``est.enrich_embeddings``)."""
     emb, ctx = est.enrich_embeddings(params["est"], cfg, emb, triples, est_inputs[1], c,
                                      est_inputs[0].slow, _dynamic_tangent(params, cfg, c),
-                                     r_emb, return_ctx_tangent=True)
+                                     r_emb, return_ctx_tangent=True, shard=shard)
     if ent_tan is not None:
         ent_tan = HD._leaky_tanh(H.log_map_zero(emb, c))
     return emb, ent_tan, ctx
@@ -515,7 +520,8 @@ def get_loss(params: Params, state: HypModelState, cfg: HyperbolicConfig, histor
     angular constraint is then the static loss (else 0).
     ``est_inputs``: (ESTState, RetrievalBatch or None) with ``use_est``.
     ``tans_mask_coo``: (rows, cols) of entity scores squashed to -1e9 in
-    training with ``use_time_aware_negative`` (rows >= B are padding)."""
+    training with ``use_time_aware_negative`` (rows >= B are padding); on a
+    mesh, of the rank's candidate columns (``est.shard_tans_coo``)."""
     c = get_curvature(params, cfg, curvature_max)
     shard = _shard(cfg, params)
     slow = est_inputs[0].slow if cfg.use_est and est_inputs is not None else None
@@ -530,7 +536,7 @@ def get_loss(params: Params, state: HypModelState, cfg: HyperbolicConfig, histor
     aux: Dict[str, Any] = {}
     if slow is not None and est_inputs[1] is not None:
         pre_emb, ent_tan, aux["est_ctx_tan"] = _enrich(params, cfg, est_inputs, pre_emb, ent_tan,
-                                                       triples, r_emb, c)
+                                                       triples, r_emb, c, shard)
     aux.update(pre_emb=pre_emb, curvature=c)
     zero = torch.zeros((), device=h.device)
     losses = {"entity": zero, "relation": zero, "static": zero}
@@ -566,7 +572,8 @@ def get_loss(params: Params, state: HypModelState, cfg: HyperbolicConfig, histor
                 dropout=cfg.input_dropout, gen=gen, train=train)
     if static_emb is not None:
         active = (history.edge_mask.amax(dim=1) > 0).float()
-        losses["static"] = static_angular_loss_tangent(static_emb, all_h, cfg, c, active=active)
+        losses["static"] = static_angular_loss_tangent(static_emb, all_h, cfg, c, active=active,
+                                                       shard=shard)
     losses["radius"] = radius_supervision_loss(params, state, cfg, triples, triple_mask, c)
     new_state = HypModelState(bn_ob=bn_ob, bn_rel=bn_rel, radius_target=state.radius_target)
     return losses["entity"], losses, new_state, aux
@@ -580,10 +587,11 @@ def predict(params: Params, state: HypModelState, cfg: HyperbolicConfig, history
     are this rank's candidates', [B, rows]."""
     c = get_curvature(params, cfg)
     slow = est_inputs[0].slow if cfg.use_est and est_inputs is not None else None
+    shard = _shard(cfg, params)
     h, r_emb = evolve(params, cfg, history, static_snap=static_snap, est_slow_state=slow)
     emb, ent_tan = _decoder_inputs(h, cfg, c)
     if slow is not None and est_inputs[1] is not None:
-        emb, ent_tan, _ = _enrich(params, cfg, est_inputs, emb, ent_tan, triples, r_emb, c)
-    kw = dict(ent_tan=ent_tan, shard=_shard(cfg, params))
+        emb, ent_tan, _ = _enrich(params, cfg, est_inputs, emb, ent_tan, triples, r_emb, c, shard)
+    kw = dict(ent_tan=ent_tan, shard=shard)
     return (entity_scores(params, state, cfg, emb, r_emb, triples, triple_mask, c, **kw)[0],
             relation_scores(params, state, cfg, emb, r_emb, triples, triple_mask, c, **kw)[0])

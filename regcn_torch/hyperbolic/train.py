@@ -58,11 +58,18 @@ aggregation of every encoder, ``"gspmd"`` (an all-gather of the rows) or
 ``"halo"`` (the boundary-set ``all_to_all``), set as ``cfg.impl``. Each
 training window and evaluation window carries the rank's partition of
 its edges; multi-step evaluation runs in both modes (JAX rebuilds each
-window's halo on the host too); checkpoints hold whole states. Not ported
-on a mesh yet, and raising ``NotImplementedError`` (ROADMAP A.11b): EST
-and TANS, triple batching under ``"gspmd"`` (under ``"halo"`` JAX refuses
-it with a ``ValueError``, and so does this trainer), the static graph,
-bf16 compute, ``run_analysis`` and a ``data`` axis above 1.
+window's halo on the host too); checkpoints hold whole states. EST's
+memories stay whole and replicated, and every rank writes them back alike
+from the first rank's context rows;
+each TANS COO, of the whole step or of a chunk, is cut on the host to the
+rank's candidate columns (``est.shard_tans_coo``). Triple batching runs
+under ``"gspmd"``, each chunk's gradients summed across the ranks and the
+clip's norm taken across them once a step (under ``"halo"`` JAX refuses it
+with a ``ValueError``, and so does this trainer). With the static graph
+``words_emb`` is row-sharded too, so ``num_words`` must be a multiple of
+the ``graph`` axis (a ``ValueError`` at construction, as JAX refuses it).
+Not ported on a mesh yet, and raising ``NotImplementedError`` (ROADMAP
+A.11b): bf16 compute, ``run_analysis`` and a ``data`` axis above 1.
 """
 
 from __future__ import annotations
@@ -88,7 +95,9 @@ from regcn_torch.hyperbolic import ops as H
 from regcn_torch.hyperbolic.model import HyperbolicConfig, HypModelState
 from regcn_torch.hyperbolic.optim import dual_optimizer, manifold_mask
 from regcn_torch.parallel import sharding
-from regcn_torch.parallel.mesh import DATA_AXIS, axis_size, check_entity_divisibility, row_shard
+from regcn_torch.parallel.collectives import from_first_rank, rows_of
+from regcn_torch.parallel.mesh import (DATA_AXIS, axis_size, check_entity_divisibility,
+                                       check_words_divisibility, row_shard)
 from regcn_torch.train import loop, metrics
 from regcn_torch.train import state as train_state
 from regcn_torch.train.optim import tree_leaves
@@ -152,8 +161,9 @@ class HyperbolicTrainer:
         self.mesh, self.dist_agg, self.shard = mesh, dist_agg, None
         if mesh is not None:
             check_entity_divisibility(data.num_nodes, mesh)
+            if cfg.use_static:
+                check_words_divisibility(data.num_words, mesh)
             for unported, what in ((axis_size(mesh, DATA_AXIS) != 1, "a data axis above 1"),
-                                   (bool(triple_batch_size), "triple batching"),
                                    (run_analysis, "run_analysis")):
                 if unported:
                     raise NotImplementedError(f"{what} on a mesh is not ported yet "
@@ -238,13 +248,16 @@ class HyperbolicTrainer:
         return self._est_windows[i]
 
     def _est_inputs(self, triples: np.ndarray, mask: np.ndarray, i: int) -> tuple:
-        """(retrieval batch, TANS COO) of ``triples`` at training time i."""
+        """(retrieval batch, TANS COO) of ``triples`` at training time i; on
+        a mesh the COO of the rank's candidate columns."""
         rb = tans = None
         if self.temporal_index is not None:
             rb = est.RetrievalBatch.query(self.temporal_index, triples, mask, i, self.device)
         if self.true_tails is not None:
-            tans = tuple(torch.from_numpy(a).to(self.device)
-                         for a in est.tans_mask_coo(triples, mask, self.true_tails))
+            coo = est.tans_mask_coo(triples, mask, self.true_tails)
+            if self.shard is not None:
+                coo = est.shard_tans_coo(*coo, len(triples), self.shard)
+            tans = tuple(torch.from_numpy(a).to(self.device) for a in coo)
         return rb, tans
 
     def chunks(self, i: int) -> list:
@@ -329,12 +342,18 @@ class HyperbolicTrainer:
         """The H-PES writeback of a step into ``state.est_state``, from the
         fused context rows of its forward (the unenriched rows without a
         retrieval batch) and the gate parameters as they were in that
-        forward; a no-op without EST."""
+        forward; a no-op without EST. On a mesh every rank takes the first
+        rank's context rows, which the others hold up to the card's atomic
+        sums, so the replicated memories stay bit-equal."""
         if state.est_state is None:
             return
         ctx = aux.get("est_ctx_tan")
-        if ctx is None:
-            ctx = H.log_map_zero(aux["pre_emb"].index_select(0, triples[:, 0]), aux["curvature"])
+        if ctx is None:  # on a mesh the heads' rows gathered from their owners
+            with torch.no_grad():
+                ctx = H.log_map_zero(rows_of(aux["pre_emb"], triples[:, 0], self.shard),
+                                     aux["curvature"])
+        if self.shard is not None:  # every rank writes back the first rank's rows
+            ctx = from_first_rank(ctx, self.shard.group)
         state.est_state = est.update_states(state.params["est"], state.est_state, triples[:, 0],
                                             mask, ctx, self.cfg.est_state_alpha)
 

@@ -12,7 +12,10 @@ With ``use_static`` (ref:src/rrgcn.py:146-155, :225-247) the evolution
 starts from the static entity-word graph's embedding, one
 ``rgcn_block_layer`` over the entities and words, and the loss adds the
 angular constraint between that embedding and each step's evolved one
-(:func:`static_angular_loss`).
+(:func:`static_angular_loss`). On an entity-sharded mesh ``words_emb`` is
+row-sharded as ``dynamic_emb`` is: every rank gathers both tables, runs the
+block layer whole and keeps its own rows, and the angular loss sums each
+rank's rows across the ranks.
 
 Under ``dtype="bfloat16"`` the trainer hands the model bf16 parameters
 and windows; the segment sums, the aggregation's product and scatter, the
@@ -34,9 +37,9 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch import relu
 
 from regcn_torch.config import ModelConfig
-from regcn_torch.dist import is_sharded
 from regcn_torch.models import decoders
 from regcn_torch.models.layers import (
     gru_cell,
@@ -48,7 +51,7 @@ from regcn_torch.models.layers import (
 )
 from regcn_torch.ops.activations import l2_normalize
 from regcn_torch.ops.segment import masked_segment_mean
-from regcn_torch.parallel.collectives import RowShard, gather_rows
+from regcn_torch.parallel.collectives import RowShard, all_reduce_sum, gather_rows, whole_rows
 from regcn_torch.parallel.mesh import table_shard
 from regcn_torch.utils.dtypes import compute_dtype, mm
 from regcn_torch.utils.init import xavier_normal, xavier_uniform
@@ -105,14 +108,21 @@ def init_params(
 
 
 def _static_init(params: Params, cfg: ModelConfig, static_snap, *,
-                 gen: Optional[torch.Generator] = None, train: bool = False) -> torch.Tensor:
+                 gen: Optional[torch.Generator] = None, train: bool = False,
+                 shard: Optional[RowShard] = None) -> torch.Tensor:
     """The static graph's entity embedding [N, d] (ref:src/rrgcn.py:146-152):
     the block layer over ``dynamic_emb`` ++ ``words_emb``, its first
-    ``num_ents`` rows, L2-normalised under ``layer_norm``."""
-    h_all = torch.cat([params["dynamic_emb"], params["words_emb"]], dim=0)
+    ``num_ents`` rows, L2-normalised under ``layer_norm``.
+
+    With ``shard`` both tables hold this rank's rows: each is all-gathered
+    (each row's gradient summed over the ranks to its owner), the layer runs
+    whole on every rank, so its dropout draws are one process's, and the
+    rank keeps its own rows of the entities' output, [rows, d]."""
+    h_all = torch.cat([whole_rows(params["dynamic_emb"], shard),
+                       whole_rows(params["words_emb"], shard)], dim=0)
     out = rgcn_block_layer(params["static_rgcn"], h_all, static_snap, cfg.n_bases,
                            dropout=cfg.dropout, gen=gen, train=train)
-    static_emb = out[: cfg.num_ents]
+    static_emb = out[: cfg.num_ents] if shard is None else out[shard.row0:shard.row0 + shard.rows]
     return l2_normalize(static_emb) if cfg.layer_norm else static_emb
 
 
@@ -135,7 +145,7 @@ def evolve(params: Params, cfg: ModelConfig, history, *, static_snap=None,
     shard = _shard(impl, params)
     static_emb = None
     if cfg.use_static and static_snap is not None:
-        static_emb = _static_init(params, cfg, static_snap, gen=gen, train=train)
+        static_emb = _static_init(params, cfg, static_snap, gen=gen, train=train, shard=shard)
         h = static_emb
     else:
         h = l2_normalize(params["dynamic_emb"]) if cfg.layer_norm else params["dynamic_emb"]
@@ -170,9 +180,6 @@ def evolve(params: Params, cfg: ModelConfig, history, *, static_snap=None,
 def _shard(impl, params: Params) -> Optional[RowShard]:
     """This rank's rows of the entity table under a sharded ``impl``, else
     None."""
-    if is_sharded(impl) and "words_emb" in params:
-        raise NotImplementedError("the static graph on a mesh (config 2's sharded words_emb) is "
-                                  "not ported yet (ROADMAP A.11b)")
     return table_shard(impl, params["dynamic_emb"].shape[0])
 
 
@@ -186,12 +193,16 @@ def _masked_ce(scores: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -
 
 
 def static_angular_loss(static_emb: torch.Tensor, all_h: torch.Tensor, cfg,
-                        active: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        active: Optional[torch.Tensor] = None,
+                        shard: Optional[RowShard] = None) -> torch.Tensor:
     """Angular constraint between the static and the evolved embeddings
     (ref:src/rrgcn.py:225-247): per history step t (1-indexed, counting
     ``active`` steps only when it is given), max(0, cos(angle * t) -
     cos_sim(static, evolved)) summed over entities and steps, times
-    ``static_weight``; with ``discount`` 0 the angle does not grow with t."""
+    ``static_weight``; with ``discount`` 0 the angle does not grow with t.
+    With ``shard`` both tables hold this rank's rows: the rank sums its
+    rows and the sum is all-reduced, so every rank holds the whole loss
+    (``collectives.py``'s convention)."""
     T = all_h.shape[0]
     if active is None:
         steps = torch.arange(1, T + 1, dtype=torch.float32, device=all_h.device)
@@ -208,11 +219,12 @@ def static_angular_loss(static_emb: torch.Tensor, all_h: torch.Tensor, cfg,
         den = torch.linalg.vector_norm(static_emb, dim=-1)[None] * torch.linalg.vector_norm(
             all_h, dim=-1)
         sim = num / torch.clamp(den, min=1e-12)
-    gap = angles[:, None] - sim
-    gap = torch.where(gap > 0, gap, torch.zeros_like(gap))
+    # JAX's where(gap > 0, gap, 0), its gradient 0 at 0 as relu's
+    gap = relu(angles[:, None] - sim)
     if active is not None:
         gap = gap * active[:, None]
-    return cfg.static_weight * torch.sum(gap)
+    total = torch.sum(gap)
+    return cfg.static_weight * (total if shard is None else all_reduce_sum(total, shard.group))
 
 
 def get_loss(
@@ -265,7 +277,8 @@ def get_loss(
         losses["relation"] = _masked_ce(scores, triples[:, 1], triple_mask)
     if static_emb is not None:
         active = (history.edge_mask.amax(dim=1) > 0).float()
-        losses["static"] = static_angular_loss(static_emb, all_h, cfg, active=active)
+        losses["static"] = static_angular_loss(static_emb, all_h, cfg, active=active,
+                                               shard=shard)
     return losses["entity"], losses, ModelState(bn_ob=bn_ob, bn_rel=bn_rel)
 
 

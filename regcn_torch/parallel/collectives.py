@@ -119,6 +119,16 @@ def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
     return y
 
 
+def from_first_rank(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as the first rank of ``group`` holds it, on every rank; not
+    differentiable. Replicated activations agree across ranks only up to
+    the card's atomic sums, which add in no fixed order: state that ranks
+    derive from them alike (EST's memories) takes one rank's copy."""
+    y = x.detach().contiguous().clone()
+    dist.broadcast(y, src=dist.get_global_rank(group, 0), group=group)
+    return y
+
+
 def gather_rows(h_local: torch.Tensor, idx: torch.Tensor, shard: RowShard) -> torch.Tensor:
     """``h[idx]`` of the row-sharded table of which this rank holds the
     rows of ``shard`` as ``h_local``: each rank contributes the rows it owns

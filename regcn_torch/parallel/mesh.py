@@ -80,6 +80,18 @@ def check_entity_divisibility(num_ents: int, mesh) -> None:
             f"{((num_ents + g - 1) // g) * g} (see docstring)")
 
 
+def check_words_divisibility(num_words: int, mesh) -> None:
+    """The static graph's ``words_emb`` is row-sharded as the entity table
+    is, so ``num_words`` must be a multiple of the ``graph`` axis too; JAX
+    refuses the same table at ``device_put``. Raised at the trainer's
+    construction, before any collective."""
+    g = graph_size(mesh)
+    if num_words % g != 0:
+        raise ValueError(
+            f"num_words={num_words} is not divisible by the '{GRAPH_AXIS}' mesh axis ({g}): "
+            "the static graph's words_emb is row-sharded over it, as the entity table is")
+
+
 def graph_rank(mesh) -> int:
     """This rank's position on the ``graph`` axis: its shard of rows."""
     return int(mesh.get_local_rank(GRAPH_AXIS))

@@ -3,7 +3,8 @@
 Counterpart of ``regcn_tpu/parallel/sharding.py``. The design is JAX's:
 
 - the entity axis is the big axis: the entity table ``dynamic_emb`` (and
-  ``words_emb``), their Adam moments, the evolved entity states and the
+  the static graph's ``words_emb``, in blocks of ``num_words / G`` rows),
+  their Adam moments, the evolved entity states and the
   decoder's candidate axis are row-sharded over the mesh's ``graph`` axis,
   one block of ``N / G`` rows per rank;
 - relation tables and the GRU and decoder weights are small, so
@@ -76,8 +77,11 @@ def state_sharding_rules(state) -> List[bool]:
     return param_sharding_rules(state.params)
 
 
-def _rows(t: torch.Tensor, shard: RowShard) -> torch.Tensor:
-    return t.detach()[shard.row0:shard.row0 + shard.rows].clone()
+def rank_rows(t: torch.Tensor, shard: RowShard) -> torch.Tensor:
+    """This rank's block of the row-sharded ``t`` (a detached copy):
+    ``t.shape[0] / G`` rows, so ``words_emb`` takes its own row count."""
+    rows = t.shape[0] // shard.size
+    return t.detach()[shard.rank * rows:(shard.rank + 1) * rows].clone()
 
 
 def _rebuild(tree, leaves: list):
@@ -98,7 +102,7 @@ def shard_params(tree, shard: RowShard):
     """``tree`` with each row-sharded leaf cut to this rank's rows (a
     detached copy that requires grad as the leaf did); replicated leaves as
     they are."""
-    leaves = [(_rows(t, shard).requires_grad_(t.requires_grad) if s else t)
+    leaves = [(rank_rows(t, shard).requires_grad_(t.requires_grad) if s else t)
               for t, s in zip(tree_leaves(tree), param_sharding_rules(tree))]
     return _rebuild(tree, leaves)
 
@@ -108,7 +112,7 @@ def shard_state(state, shard: RowShard):
     their Adam moments; everything else as it is."""
     rules = state_sharding_rules(state)
     opt = state.opt_state
-    moments = [[_rows(t, shard) if s else t for t, s in zip(ts, rules)] for ts in (opt.mu, opt.nu)]
+    moments = [[rank_rows(t, shard) if s else t for t, s in zip(ts, rules)] for ts in (opt.mu, opt.nu)]
     return dataclasses.replace(
         state, params=shard_params(state.params, shard),
         opt_state=AdamState(count=opt.count, mu=moments[0], nu=moments[1],

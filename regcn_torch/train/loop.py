@@ -47,7 +47,8 @@ from regcn_torch.dist import check_impl_compatible, sharded_impl
 from regcn_torch.models import recurrent
 from regcn_torch.ops.rgcn_scatter import check_impl
 from regcn_torch.parallel import sharding
-from regcn_torch.parallel.mesh import DATA_AXIS, axis_size, check_entity_divisibility, row_shard
+from regcn_torch.parallel.mesh import (DATA_AXIS, axis_size, check_entity_divisibility,
+                                       check_words_divisibility, row_shard)
 from regcn_torch.train import metrics
 from regcn_torch.train import state as train_state
 from regcn_torch.train.optim import tree_leaves
@@ -330,9 +331,11 @@ class Trainer:
     all-gather of the entity rows) or ``"halo"`` (the boundary-set
     ``all_to_all``). ``init_state`` and the checkpoints take and give
     whole states' rows; multi-step evaluation needs ``"gspmd"``, as in
-    JAX. Not ported on a mesh yet, and raising ``NotImplementedError``
-    (ROADMAP A.11b): the static graph, bf16 compute, ``run_analysis``,
-    ``impl="cumsum"`` and a ``data`` axis above 1."""
+    JAX. With the static graph ``words_emb`` is row-sharded too, so
+    ``num_words`` must be a multiple of the ``graph`` axis (a ``ValueError``
+    at construction otherwise, as JAX refuses it). Not ported on a mesh yet,
+    and raising ``NotImplementedError`` (ROADMAP A.11b): bf16 compute,
+    ``run_analysis``, ``impl="cumsum"`` and a ``data`` axis above 1."""
 
     def __init__(self, cfg: ExperimentConfig, data: TKGData, *, impl: str = "xla", mesh=None,
                  dist_agg: str = "gspmd", run_analysis: bool = False, device="cuda"):
@@ -347,9 +350,10 @@ class Trainer:
         self.mesh, self.dist_agg, self.shard = mesh, dist_agg, None
         if mesh is not None:
             check_entity_divisibility(data.num_nodes, mesh)
+            if cfg.model.use_static:
+                check_words_divisibility(data.num_words, mesh)
             for unported, what in ((axis_size(mesh, DATA_AXIS) != 1, "a data axis above 1"),
                                    (impl == "cumsum", "impl='cumsum'"),
-                                   (cfg.model.use_static, "the static graph"),
                                    (self.compute_dtype != torch.float32, "bf16 compute"),
                                    (run_analysis, "run_analysis")):
                 if unported:

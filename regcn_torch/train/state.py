@@ -151,7 +151,7 @@ def restore_checkpoint(path: str, template: TrainState, shard=None
     if shard is not None:
         from regcn_torch.parallel.sharding import param_sharding_rules
 
-        want = [(shard.n,) + tuple(w[1:]) if s else w
+        want = [(shard.size * w[0],) + tuple(w[1:]) if s else w
                 for w, s in zip(want, param_sharding_rules(template.params))]
     if [t.shape for t in got] != [torch.Size(w) for w in want]:
         raise ValueError(f"checkpoint {path} holds parameters of other shapes than the model's")

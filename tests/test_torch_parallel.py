@@ -183,11 +183,12 @@ def test_each_ranks_aggregate_is_its_rows_of_the_unsharded_one(G, mode):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * scale)
 
 
-@pytest.mark.parametrize("what", ["data_axis", "cumsum", "static", "bf16", "run_analysis",
+@pytest.mark.parametrize("what", ["data_axis", "cumsum", "bf16", "run_analysis",
                                   "pallas_halo"])
 def test_trainer_refuses_what_a_mesh_does_not_run_yet(what):
     """The sharded trainer's refusals, before any collective: ROADMAP A.11b's
-    options raise ``NotImplementedError``; ``impl="pallas"`` with the halo
+    options raise ``NotImplementedError`` (the static graph, refused until
+    it was ported, runs in ``tests/test_torch_sharded_static.py``); ``impl="pallas"`` with the halo
     raises JAX's ``check_impl_compatible`` error."""
     from regcn_torch.config import ExperimentConfig, ModelConfig, TrainConfig
     from regcn_torch.data.synthetic import generate
@@ -199,8 +200,6 @@ def test_trainer_refuses_what_a_mesh_does_not_run_yet(what):
     kw = dict(mesh=types.SimpleNamespace(mesh_dim_names=("data", "graph"),
                                          shape=(2 if what == "data_axis" else 1, 2)),
               device="cpu")
-    if what == "static":
-        model.update(use_static=True)
     if what == "bf16":
         model.update(dtype="bfloat16")
     if what == "run_analysis":

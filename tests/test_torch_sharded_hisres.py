@@ -255,6 +255,7 @@ def _rank_cli(G, mode, workdir, data) -> dict:
 
 def rank_main(rank: int, G: int, workdir: str) -> None:
     torch.set_num_threads(1)
+    os.nice(10)  # a helper of this test: the other test workers keep their CPU share
     dist.init_process_group("gloo", init_method=f"file://{workdir}/store", world_size=G,
                             rank=rank)
     with open(os.path.join(workdir, "inputs.pkl"), "rb") as f:
@@ -484,7 +485,6 @@ def test_cli_hisres_shards(rank_results, cli_unsharded, mode):
 
 FAKE_MESH = types.SimpleNamespace(mesh_dim_names=("data", "graph"), shape=(1, 2))
 REFUSALS = {
-    "static": (dict(cfg=dict(use_static=True)), NotImplementedError, "A.11b"),
     "bf16": (dict(cfg=dict(compute_dtype="bfloat16")), NotImplementedError, "A.11b"),
     "run-analysis": (dict(run_analysis=True), NotImplementedError, "A.11b"),
     "data-axis": (dict(mesh=types.SimpleNamespace(mesh_dim_names=("data", "graph"),
