@@ -164,7 +164,8 @@ Phases, each of which exits non-zero on failure:
    steps and two evaluations: B1 exactly 64, the accuracies, the peak
    memory;
 18. ``cli.main(["grid", "--tune", "lr,seed", "--vectorize", ...])`` for
-   the regcn family, K = 6 models under ``torch.func.vmap``: (a) 3
+   the regcn family on synthetic-icews14s cut to 120 snapshots (phase 6's
+   cut data), K = 6 models under ``torch.func.vmap``: (a) 3
    vmapped steps against each model's steps alone on the card from the
    same state (dropouts 0; each model on the kinks' branches the vmapped
    step took); (b) the CLI's epoch and valid split, B1 folded to one
@@ -231,8 +232,8 @@ Phases, each of which exits non-zero on failure:
    write-back (within the gradients' limit of one process's, bit-equal on
    every rank), and every parameter after both optimizers step with the
    same gradients, within the 3-step checks' limits; (b) one epoch with
-   the config's dropouts (none on ``NOISY_PATHS``, config 5 and HisRES
-   with the static graph), B1 and B2 launched per rank as one process
+   the config's dropouts (none on ``NOISY_PATHS``, config 5, HisRES
+   with the static graph and the bf16 headline), B1 and B2 launched per rank as one process
    launches, each count printed beside its prediction from the data (B1 2
    x the windows' snapshots, HisRES ``hisres_launches``, config 3's B2
    kernels twice a step or, triple-batched, twice a chunk), with EST the
@@ -240,7 +241,18 @@ Phases, each of which exits non-zero on failure:
    rank as one process, the four MRRs within 0.01 of the single
    process's; each rank's peak memory and walls (gloo stages every
    collective through the host: no speed is read from them). A failing
-   rank fails the phase.
+   rank fails the phase. In the same groups (ROADMAP A.11b item 2): the
+   headline in bf16 compute in both modes and config 3 in bf16 under
+   ``gspmd`` (B2 on each rank, fed fp32), whose (a) is the loss and every
+   gradient on 3 windows under the bf16 drift bound of phase 19 (the
+   sharded bf16 run against one process's fp32 run within twice one
+   process's bf16 drift); config 1 with ``impl="cumsum"`` under ``gspmd``
+   (no B1 launch on a rank); and
+   config 1 under ``gspmd`` with ``run_analysis``, its ``analysis_record``
+   from the initial state within 1e-5 (relative) of one process's, every
+   key. And one group of 4 ranks on a (data 2, graph 2) mesh, config 1
+   under ``gspmd``: (b) and (c) as above, the two replicas' parameters,
+   Adam moments and BN statistics bit-equal after the epoch.
 
 The line before the last is ``{"kernels": [...]}``: each row's
 ``launches`` is B1's on the config-1 test split or a B2 kernel's in the
@@ -2836,7 +2848,9 @@ def vmapped_three_steps(tag: str, runner, trainers, order, *loss_args) -> None:
 def phase_vectorized_grid(data, dev: torch.device) -> tuple:
     """(18) ``cli.main(["grid", "--tune", "lr,seed", "--vectorize", ...])``
     for the regcn family (K = 6: lr {1e-3, 5e-4} x seed {2023, 2024,
-    2025}) on synthetic-icews14s with the CLI's defaults and one epoch:
+    2025}) on ``data`` (the CLI's ``load_data`` returning it; main passes
+    synthetic-icews14s cut to 120 snapshots) with the CLI's defaults and
+    one epoch:
     (a) 3 vmapped steps against each model's 3 steps alone
     (``vmapped_three_steps``, dropouts 0); (b) the CLI's run, B1 folded: as
     many launches as one model's epoch and valid split, no B2; (c) 20
@@ -2846,6 +2860,7 @@ def phase_vectorized_grid(data, dev: torch.device) -> tuple:
     index_add_ and its bound."""
     import itertools
 
+    import regcn_torch.data as pt_data
     from regcn_torch import cli
     from regcn_torch.train.sweep import SweepRunner
 
@@ -2870,12 +2885,17 @@ def phase_vectorized_grid(data, dev: torch.device) -> tuple:
     gs = f"{args.dataset}.{args.encoder}-{args.decoder}.gs"
     train_list = split_by_time(data.train)
     want = expected_epoch_scatters(train_list, 3) + 6 * len(split_by_time(data.valid))
-    reset_launches()
-    t0 = time.perf_counter()
-    rows = cli.main(argv, device=dev)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = read_launches()
+    load = pt_data.load_data
+    pt_data.load_data = lambda *a, **k: data
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        rows = cli.main(argv, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        pt_data.load_data = load
     os.remove(gs)
     check(len(rows) == K and all(0.0 < r["valid_ent_mrr_raw"] <= 1.0 for r in rows),
           f"grid --vectorize: rows {rows}")
@@ -3522,8 +3542,10 @@ SHARDED_TRIPLE_BATCH = 128  # config 3 triple-batched: the padded triples in chu
 # and HisRES with the static graph train chaotically on the card, one
 # process's own test MRR moving by about SHARDED_MRR_ATOL or more between runs
 # of the same epoch (without dropout it stays put;
-# tools/static_spread_diagnosis.py), so no one process's run can stand for them
-NOISY_PATHS = ("config 5", "hisres static")
+# tools/static_spread_diagnosis.py), so no one process's run can stand for them;
+# so does the headline in bf16 compute (one process's test ent raw MRR 0.2179 to
+# 0.2242 over three identical runs, the fp32 headline's sharded runs within 7e-4)
+NOISY_PATHS = ("config 5", "hisres static", "headline bf16")
 # the (path, mode) runs of the sharded phase in three groups of SHARDS ranks
 # each, side by side: config 1, the headline, config 3, HisRES, config 5
 # (EST and TANS) and config 2 in both modes; config 3 triple-batched, the
@@ -3533,9 +3555,24 @@ SHARDED_GROUPS = (
     (("config 1", "gspmd"), ("config 1", "halo"), ("headline", "gspmd"), ("headline", "halo"),
      ("config 3", "gspmd"), ("config 3", "halo"), ("hisres static", "gspmd")),
     (("hisres", "gspmd"), ("hisres", "halo"), ("config 5", "gspmd"), ("config 5", "halo"),
-     ("config 2", "halo")),
-    (("config 3 triple", "gspmd"), ("config 2", "gspmd"), ("static headline", "gspmd")),
+     ("config 2", "halo"), ("config 3 bf16", "gspmd")),
+    (("config 3 triple", "gspmd"), ("config 2", "gspmd"), ("static headline", "gspmd"),
+     ("headline bf16", "gspmd"), ("headline bf16", "halo"), ("config 1 cumsum", "gspmd")),
 )
+# the paths in bf16 compute; their (a) is 3 windows under the bf16 drift bound
+BF16_PATHS = ("headline bf16", "config 3 bf16")
+# the slack of a gradient's drift bound, a share of the whole fp32 gradient's
+# norm (bf16's resolution, 2^-8): bf16's error in a leaf's gradient scales with
+# the activations that flow into it, not with the leaf's own norm, which
+# cancelling sums make small (the BatchNorms' scales, the ConvTrans biases of
+# true gradient 0, the radius MLP under a loss of ~1e-7)
+BF16_RESOLUTION = 2.0 ** -8
+# the run whose trainer takes run_analysis: its record against one process's
+ANALYSIS_JOB = ("config 1", "gspmd")
+ANALYSIS_RTOL = 1e-5
+# a group on a (data, graph) mesh: the replicas run config 1 alike
+DATA_AXES = (2, SHARDS)
+DATA_GROUP = (("config 1", "gspmd"),)
 
 
 def sharded_data():
@@ -3570,12 +3607,15 @@ def sharded_trainer(path: str, cut, dev, dropout: bool = True, **mesh_kw):
     SHARDED_TRIPLE_BATCH triples, ``accumulate``), HisRES (``run_hisres``'s
     defaults), config 5 (the headline with EST and TANS), and with the
     static graph config 2, the static headline and HisRES, each with its
-    dropouts or, without ``dropout`` or on NOISY_PATHS, every one at 0."""
+    dropouts or, without ``dropout`` or on NOISY_PATHS, every one at 0;
+    ``config 1 cumsum`` with ``impl="cumsum"``, the BF16_PATHS in bf16
+    compute."""
     cfg1, tc = sharded_configs(cut)
     off = {} if dropout and path not in NOISY_PATHS else NO_DROPOUT
-    if path == "config 1":
+    if path.startswith("config 1"):
+        impl = "cumsum" if path == "config 1 cumsum" else "xla"
         return loop.Trainer(ExperimentConfig(model=dataclasses.replace(cfg1, **off), train=tc),
-                            cut, device=dev, **mesh_kw)
+                            cut, impl=impl, device=dev, **mesh_kw)
     if path == "config 2":
         return loop.Trainer(ExperimentConfig(model=config2(cut, **off), train=tc), cut,
                             device=dev, **mesh_kw)
@@ -3585,12 +3625,15 @@ def sharded_trainer(path: str, cut, dev, dropout: bool = True, **mesh_kw):
         off = off and dict(off, cand_dropout=0.0)
         return HisResTrainer(hisres_config(cut, **static, **off), tc, cut, device=dev,
                              **HISRES_TRAINER, **mesh_kw)
+    bf16 = dict(compute_dtype="bfloat16") if path in BF16_PATHS else {}
     if path.startswith("config 3"):
         triple = (dict(triple_batch_size=SHARDED_TRIPLE_BATCH, triple_batch_mode="accumulate")
                   if path == "config 3 triple" else {})
-        return HyperbolicTrainer(config3(cut, **off), tc, cut, device=dev, **triple, **mesh_kw)
+        return HyperbolicTrainer(config3(cut, **off, **bf16), tc, cut, device=dev, **triple,
+                                 **mesh_kw)
     config = config5 if path == "config 5" else headline_config
-    return HyperbolicTrainer(config(cut, **static, **off), tc, cut, device=dev, **mesh_kw)
+    return HyperbolicTrainer(config(cut, **static, **off, **bf16), tc, cut, device=dev,
+                             **mesh_kw)
 
 
 def trainer_parts(trainer) -> tuple:
@@ -3620,8 +3663,10 @@ def sharded_launches(path: str, trainer, order) -> tuple:
     window's snapshots (HisRES: ``hisres_launches``), no B1 on config 3,
     whose B2 kernels launch twice a step, or with triple batching twice a
     chunk (a snapshot that fits one chunk is one step); B2 on no test
-    split."""
+    split; no kernel under ``impl="cumsum"``."""
     cfg, tc = trainer_parts(trainer)
+    if path == "config 1 cumsum":  # the cumulative sum in place of B1
+        return 0, 0, 0
     if path.startswith("config 3"):
         steps = (sum(len(trainer.chunks(i)) or 1 for i in order) if trainer.triple_batch_size
                  else len(order))
@@ -3796,15 +3841,166 @@ def sharded_three_steps(tag: str, path: str, cut, mesh, mode: str, dev: torch.de
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
-def sharded_rank(rank: int, G: int, workdir: str, dev_type: str = "cuda", jobs=()) -> None:
+def sharded_bf16_steps(tag: str, path: str, cut, mesh, mode: str, dev: torch.device) -> None:
+    """(a) of a BF16_PATHS run, in each rank: on the first 3 windows of
+    epoch 0, each from the state of one process's fp32 run before it
+    (dropouts 0), the loss and every gradient of the sharded bf16 trainer
+    (the entity table's gathered), of the single-process trainer in bf16
+    and in fp32, all on the card, under the drift bound of phase 19
+    (``drift_check``: the sharded bf16 run against one process's fp32 run
+    within twice one process's own bf16 drift, plus BF16_LOSS_ATOL of the
+    fp32 loss, or for a gradient BF16_RESOLUTION of the whole fp32
+    gradient's norm). The fp32 run then steps."""
+    from regcn_torch.parallel import sharding
+    from regcn_torch.parallel.collectives import all_gather_rows
+
+    t0 = time.perf_counter()
+    plain16 = sharded_trainer(path, cut, dev, dropout=False)
+    plain32 = sharded_trainer(path[:-len(" bf16")], cut, dev, dropout=False)
+    sharded = sharded_trainer(path, cut, dev, dropout=False, mesh=mesh, dist_agg=mode)
+    shard = sharded.shard
+    state = plain32.init_state(SEED)
+    names = leaf_names(state.params)
+    worst, seen = 0.0, []
+
+    def loss_grads(trainer, st, i, sharded_run=False):
+        total, parts, ms, *_ = trainer.loss(st, *step_inputs(trainer, i)[0])
+        parts = {k: float(v.detach()) for k, v in parts.items()}
+        leaves = tree_leaves(st.params)
+        if not sharded_run:
+            return parts, ms, torch.autograd.grad(total, leaves, allow_unused=True)
+        rules = sharding.state_sharding_rules(st)
+        grads = sharding.sharded_grads(total, leaves, [not r for r in rules], shard)
+        with torch.no_grad():
+            return parts, ms, [all_gather_rows(g, shard.group) if r else g
+                               for g, r in zip(grads, rules)]
+
+    for i in plain32.epoch_order(0)[:3]:
+        s_sh = sharding.shard_state(train_state.copy_state(state), shard)
+        p32, ms32, g32 = loss_grads(plain32, state, i)
+        p16, _, g16 = loss_grads(plain16, state, i)
+        ps, _, gs = loss_grads(sharded, s_sh, i, sharded_run=True)
+        seen.append((ps["entity"], p16["entity"], p32["entity"]))
+        for n, v in p32.items():
+            worst = max(worst, drift_check(tag, f"window {i} {n} loss", ps[n], p16[n], v,
+                                           BF16_LOSS_ATOL))
+        whole = math.sqrt(sum(float(g.double().norm()) ** 2 for g in g32 if g is not None))
+        for name, a, b, f, p in zip(names, gs, g16, g32, tree_leaves(state.params)):
+            a, b, f = ((torch.zeros_like(p) if g is None else g).detach().cpu()
+                       for g in (a, b, f))
+            check(a.dtype == torch.float32, f"{tag}: the gradient of {name} is {a.dtype}, "
+                  "expected float32 at the fp32 parameter")
+            worst = max(worst, drift_check(tag, f"window {i} {name} gradient", a, b, f,
+                                           BF16_RESOLUTION, whole))
+        plain32.opt.step(tree_leaves(state.params), [
+            torch.zeros_like(p) if g is None else g
+            for p, g in zip(tree_leaves(state.params), g32)], state.opt_state)
+        state.model_state = ms32
+    print(f"[{tag}] (a) 3 windows, each from one process's fp32 state: the sharded bf16 "
+          f"loss and every gradient against one process's bf16 and fp32 on the card, each "
+          f"within {worst:.3f} of its drift bound; entity losses sharded/bf16/fp32 "
+          + "; ".join(f"{a:.5f}/{b:.5f}/{c:.5f}" for a, b, c in seen)
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def analysis_alike(tag: str, path: str, cut, mesh, mode: str, dev: torch.device) -> None:
+    """``run_analysis`` on the mesh: the sharded trainer's
+    ``analysis_record`` of the initial state (dropouts 0) against one
+    process's, every key within ANALYSIS_RTOL (relative). Both run with
+    torch's deterministic algorithms: the card's atomic sums otherwise move
+    one process's own record by up to ~7e-6 between two processes, while
+    the order of a sum is what the check holds apart."""
+    t0 = time.perf_counter()
+    plain = sharded_trainer(path, cut, dev, dropout=False, run_analysis=True)
+    sharded = sharded_trainer(path, cut, dev, dropout=False, mesh=mesh, dist_agg=mode,
+                              run_analysis=True)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)  # the ops without such a version
+            want = plain.analysis_record(plain.init_state(SEED))
+            got = sharded.analysis_record(sharded.init_state(SEED))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(set(got) == set(want), f"{tag}: analysis record keys {sorted(got)} vs one process "
+          f"{sorted(want)}")
+    errs = {k: abs(got[k] - v) / max(abs(v), 1e-30) for k, v in want.items()}
+    key = max(errs, key=errs.get)
+    check(errs[key] <= ANALYSIS_RTOL, f"{tag}: analysis record {key} sharded vs one process "
+          f"{errs[key]:.3e} > {ANALYSIS_RTOL} (relative)")
+    worst = errs[key]
+    print(f"[{tag}] run_analysis: the record of the initial state, {len(want)} keys, within "
+          f"{worst:.2e} (relative; {key}) of one process's; global gradient norm "
+          f"{got['global_norm']:.6e} vs {want['global_norm']:.6e} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def replicas_alike(tag: str, state, shard) -> None:
+    """Fails unless this rank's parameters, Adam moments and model state
+    are bit-equal to those of the rank at its position in every other
+    replica of the mesh."""
+    import torch.distributed as dist
+
+    mine = torch.cat([t.detach().reshape(-1).float() for t in tree_leaves(state.params)
+                      + state.opt_state.mu + state.opt_state.nu
+                      + model_state_leaves(state.model_state)])
+    every = [torch.empty_like(mine) for _ in range(dist.get_world_size(shard.replicas))]
+    dist.all_gather(every, mine, group=shard.replicas)
+    check(all(torch.equal(every[0], m) for m in every[1:]),
+          f"{tag}: the replicas' states differ after the epoch")
+    print(f"[{tag}] the {len(every)} replicas' parameters, Adam moments and BN statistics "
+          f"({mine.numel()} values) bit-equal after the epoch", flush=True)
+
+
+def bf16_collectives_probe(dev: torch.device) -> None:
+    """The collectives that carry bf16 rows on a mesh, on bf16 tensors of
+    ``dev`` over the whole gloo group: ``all_gather``,
+    ``all_gather_into_tensor`` and ``all_to_all_single`` must return every
+    rank's values exactly, and ``all_reduce`` of small integers too (the
+    port's sums run in fp32; this shows the backend takes bf16 at all, so
+    that nothing falls back quietly). Rank 0 prints the result beside
+    torch's and NCCL's versions (NCCL takes bf16 from 2.10; on one card it
+    cannot run: a communicator takes each card once)."""
+    import torch.distributed as dist
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    x = torch.arange(4 * world, device=dev, dtype=torch.bfloat16) + 8 * rank
+    want = torch.cat([torch.arange(4 * world, device=dev, dtype=torch.bfloat16) + 8 * r
+                      for r in range(world)])
+    parts = [torch.empty_like(x) for _ in range(world)]
+    dist.all_gather(parts, x)
+    check(torch.equal(torch.cat(parts), want), "gloo all_gather of bf16 rows is not exact")
+    flat = torch.empty(4 * world * world, device=dev, dtype=torch.bfloat16)
+    dist.all_gather_into_tensor(flat, x)
+    check(torch.equal(flat, want), "gloo all_gather_into_tensor of bf16 rows is not exact")
+    got = torch.empty_like(x)
+    dist.all_to_all_single(got, x)
+    check(torch.equal(got, want.reshape(world, world, 4)[:, rank].reshape(-1)),
+          "gloo all_to_all_single of bf16 rows is not exact")
+    y = x.clone()
+    dist.all_reduce(y)
+    check(torch.equal(y, want.reshape(world, -1).float().sum(0).bfloat16()),
+          "gloo all_reduce of bf16 is not exact on small integers")
+    if rank == 0:
+        nccl = ".".join(map(str, torch.cuda.nccl.version())) if dev.type == "cuda" else "-"
+        print(f"[sharded] bf16 over gloo on {dev.type}, {world} ranks: all_gather, "
+              f"all_gather_into_tensor, all_to_all_single exact, all_reduce taken; torch "
+              f"{torch.__version__}, CUDA {torch.version.cuda}, NCCL {nccl}", flush=True)
+
+
+def sharded_rank(rank: int, G: int, workdir: str, dev_type: str = "cuda", jobs=(),
+                 data: int = 1) -> None:
     """One rank of the sharded phase: a gloo process group over a file
-    store, the rank on cuda:0 beside the others, a 1 x G mesh; for each
-    (path, ``dist_agg``) of ``jobs``: ``sharded_three_steps``, then one
-    epoch with the config's dropouts (with EST, the memories after it
-    bit-equal on every rank) and the test split, the kernels' launches
-    counted around each against one process's (each process counts its
-    own); the results into ``workdir``. A failed check exits the rank
-    non-zero. ``dev_type="cpu"`` rehearses it without a card."""
+    store, the rank on cuda:0 beside the others, a ``data`` x G mesh; for
+    each (path, ``dist_agg``) of ``jobs``: with one replica
+    ``sharded_three_steps`` (``sharded_bf16_steps`` on BF16_PATHS, and
+    ``analysis_alike`` on ANALYSIS_JOB), then one epoch with the config's
+    dropouts (with EST, the memories after it bit-equal on every rank;
+    with several replicas, their states bit-equal) and the test split, the
+    kernels' launches counted around each against one process's (each
+    process counts its own); the results into ``workdir``. A failed check
+    exits the rank non-zero. ``dev_type="cpu"`` rehearses it without a
+    card."""
     import datetime
 
     import torch.distributed as dist
@@ -3817,15 +4013,23 @@ def sharded_rank(rank: int, G: int, workdir: str, dev_type: str = "cuda", jobs=(
         torch.backends.cudnn.allow_tf32 = False
         torch.cuda.set_device(0)
     dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
-    dist.init_process_group("gloo", init_method=f"file://{workdir}/store", world_size=G,
-                            rank=rank, timeout=datetime.timedelta(seconds=300))
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/store",
+                            world_size=data * G, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
     cuts = {False: sharded_data(), True: sharded_static_data()}
-    mesh = make_mesh(MeshAxes(1, G), device_type=dev.type)
+    mesh = make_mesh(MeshAxes(data, G), device_type=dev.type)
+    if data > 1:
+        bf16_collectives_probe(dev)
     out = {}
     for path, mode in jobs:
         cut = cuts[path in STATIC_PATHS]
-        tag = f"sharded {path} {mode} rank {rank}"
-        sharded_three_steps(tag, path, cut, mesh, mode, dev)
+        key = sharded_key(path, mode, data)
+        tag = f"sharded {key} rank {rank}"
+        if data == 1:
+            steps = sharded_bf16_steps if path in BF16_PATHS else sharded_three_steps
+            steps(tag, path, cut, mesh, mode, dev)
+            if (path, mode) == ANALYSIS_JOB:
+                analysis_alike(tag, path, cut, mesh, mode, dev)
         trainer = sharded_trainer(path, cut, dev, mesh=mesh, dist_agg=mode)
         state = trainer.init_state(SEED)
         order = trainer.epoch_order(0)
@@ -3847,6 +4051,8 @@ def sharded_rank(rank: int, G: int, workdir: str, dev_type: str = "cuda", jobs=(
               "B2 kernel, as one process launches")
         if state.est_state is not None:
             memories_alike(f"{tag}, after the epoch", state.est_state, trainer.shard.group)
+        if data > 1:
+            replicas_alike(tag, state, trainer.shard)
         reset_launches()
         t0 = time.perf_counter()
         stats = trainer.test(state)
@@ -3857,7 +4063,7 @@ def sharded_rank(rank: int, G: int, workdir: str, dev_type: str = "cuda", jobs=(
         check(test_counts["rgcn_scatter_sorted"] == b1_test
               and all(test_counts[k] == 0 for k in CE_KERNELS),
               f"{tag}: test split launches {test_counts}, expected {b1_test} of B1")
-        out[f"{path} {mode}"] = dict(
+        out[key] = dict(
             losses=losses, mrr={k: v.mrr for k, v in stats.items()}, epoch=epoch_counts,
             test=test_counts, epoch_s=epoch_s, test_s=test_s, steps=len(order),
             expected=[b1, b2, b1_test],
@@ -3868,7 +4074,13 @@ def sharded_rank(rank: int, G: int, workdir: str, dev_type: str = "cuda", jobs=(
     dist.destroy_process_group()
 
 
-def phase_sharded(dev: torch.device, groups=SHARDED_GROUPS) -> dict:
+def sharded_key(path: str, mode: str, data: int = 1) -> str:
+    """The name of a (path, mode) run, with its mesh where it has several
+    replicas."""
+    return f"{path} {mode}" + (f" on ({data}, {SHARDS})" if data > 1 else "")
+
+
+def phase_sharded(dev: torch.device, groups=SHARDED_GROUPS, data_group=DATA_GROUP) -> dict:
     """The paths of ``groups`` at full width, entity-sharded (each trainer
     with ``mesh=..., dist_agg=...``) over SHARDS gloo ranks that share the
     card, on the cut data (``sharded_data``; the static graph's paths on
@@ -3877,12 +4089,15 @@ def phase_sharded(dev: torch.device, groups=SHARDED_GROUPS) -> dict:
     by side, and meanwhile each single-process trainer's epoch (the config's
     dropouts) and test split as the reference; each rank's MRRs within
     SHARDED_MRR_ATOL of the reference, its launches as one process's, its
-    peak memory and walls printed. gloo stages every collective through
-    the host, so the walls say nothing of speed."""
+    peak memory and walls printed; ``data_group``'s runs on a mesh of
+    DATA_AXES, its ranks beside the others. gloo stages every collective
+    through the host, so the walls say nothing of speed."""
     from regcn_torch.parallel.halo import build_halo_store
 
-    jobs = [job for group in groups for job in group]
-    paths = list(dict.fromkeys(path for path, _ in jobs))
+    spawns = [(group, 1) for group in groups] + ([(data_group, DATA_AXES[0])] if data_group
+                                                else [])
+    jobs = [(path, mode, data) for group, data in spawns for path, mode in group]
+    paths = list(dict.fromkeys(path for path, _, _ in jobs))
     cuts = {False: sharded_data(), True: sharded_static_data()}
     for static, cut in cuts.items():
         if static:
@@ -3907,12 +4122,12 @@ def phase_sharded(dev: torch.device, groups=SHARDED_GROUPS) -> dict:
     # group alone leaves most of the host's cores and the card idle
     with tempfile.TemporaryDirectory() as root:
         spawned = []
-        for g, group in enumerate(groups):
+        for g, (group, data) in enumerate(spawns):
             workdir = os.path.join(root, str(g))
             os.makedirs(workdir)
-            spawned.append((workdir, torch.multiprocessing.start_processes(
-                sharded_rank, args=(SHARDS, workdir, dev.type, group), nprocs=SHARDS,
-                join=False, start_method="spawn")))
+            spawned.append((workdir, data * SHARDS, torch.multiprocessing.start_processes(
+                sharded_rank, args=(SHARDS, workdir, dev.type, group, data),
+                nprocs=data * SHARDS, join=False, start_method="spawn")))
         # the single-process references while the ranks run: nothing of
         # theirs waits for them
         ref = {}
@@ -3932,22 +4147,22 @@ def phase_sharded(dev: torch.device, groups=SHARDED_GROUPS) -> dict:
                   flush=True)
             del single, state
         try:
-            for _, ctx in spawned:
+            for _, _, ctx in spawned:
                 while not ctx.join():
                     pass
         except Exception as e:  # a rank failed a check or raised
             fail(f"sharded phase: {type(e).__name__}: {e}")
-        ranks = [{} for _ in range(SHARDS)]
-        for workdir, _ in spawned:
-            for r in range(SHARDS):
+        ranks = {}  # run -> each rank's row
+        for workdir, nprocs, _ in spawned:
+            for r in range(nprocs):
                 with open(os.path.join(workdir, f"rank{r}.json")) as f:
-                    ranks[r].update(json.load(f))
+                    for key, row in json.load(f).items():
+                        ranks.setdefault(key, []).append(row)
     wall = time.perf_counter() - t0
     out = {}
-    for path, mode in jobs:
-        key = f"{path} {mode}"
-        for r, res in enumerate(ranks):
-            row = res[key]
+    for path, mode, data in jobs:
+        key = sharded_key(path, mode, data)
+        for r, row in enumerate(ranks[key]):
             for k, v in ref[path].items():
                 check(abs(row["mrr"][k] - v) <= SHARDED_MRR_ATOL,
                       f"sharded {key} rank {r}: test {k} MRR {row['mrr'][k]:.6f}, one "
@@ -3963,9 +4178,11 @@ def phase_sharded(dev: torch.device, groups=SHARDED_GROUPS) -> dict:
                   f"test split ({row['test_s']:.2f} s); test MRR "
                   + ", ".join(f"{k} {v:.6f}" for k, v in row["mrr"].items())
                   + f"; peak memory {row['peak_mib']:.0f} MiB", flush=True)
-        out[f"sharded {key} epoch (each rank)"] = ranks[0][key]["epoch"]
-        out[f"sharded {key} test split (each rank)"] = ranks[0][key]["test"]
-    print(f"[sharded] {SHARDS} ranks a group on one card over gloo, {len(groups)} groups side "
+        out[f"sharded {key} epoch (each rank)"] = ranks[key][0]["epoch"]
+        out[f"sharded {key} test split (each rank)"] = ranks[key][0]["test"]
+    print(f"[sharded] {SHARDS} ranks a group on one card over gloo"
+          + (f" ({DATA_AXES[0] * SHARDS} on the {DATA_AXES} mesh)" if data_group else "")
+          + f", {len(spawns)} groups side "
           f"by side, {len(jobs)} runs of {len(paths)} paths, {wall:.1f} s with the spawn "
           f"({CARD[0] if CARD else 'card not read'}); the MRRs "
           f"within {SHARDED_MRR_ATOL} of one process's", flush=True)
@@ -4028,7 +4245,7 @@ def main() -> None:
     entity_paths, entity_times, entity_err = timed("cli entity", phase_entity, dev)
     by_path.update(entity_paths)
     grid_paths, folded_times, folded_err = timed("cli grid --vectorize", phase_vectorized_grid,
-                                                 data, dev)
+                                                 cut, dev)
     by_path.update(grid_paths)
     by_path.update(timed("hyperbolic grid --vectorize", phase_vectorized_hyperbolic, cut, tc,
                          dev))

@@ -30,13 +30,19 @@ backend for the device):
 
 With ``--shards`` the modes take EST and TANS (``hyperbolic``), triple
 batching (``hyperbolic`` under ``--dist-agg gspmd``; JAX refuses it under
-``halo``) and ``--add-static-graph`` (``train``, ``test``, ``hyperbolic``,
-``hisres``; the dataset's word count must be a multiple of ``--shards``).
+``halo``), ``--add-static-graph`` (``train``, ``test``, ``hyperbolic``,
+``hisres``; the dataset's word count must be a multiple of ``--shards``),
+``--compute-dtype bfloat16`` and ``--run-analysis`` (each of the four;
+``impl="cumsum"`` on a mesh, as JAX's, is the Python API's: neither CLI
+offers it). ``--shards G`` builds a
+mesh of ``data`` 1 and ``graph`` G, as JAX's CLI does: a ``data`` axis
+above 1 is reached through the Python API only, in both packages
+(``make_mesh(MeshAxes(data=..., graph=...))``).
 
 Not ported, and stopping with a message that names the ROADMAP item:
-``bench`` (A.2: ``bench.py`` measures the JAX package); ``--shards`` for
-``grid --vectorize``, and in ``hyperbolic`` / ``hisres`` with bf16 or
-``--run-analysis`` (A.11b).
+``bench`` (A.2: ``bench.py`` measures the JAX package) and ``--shards``
+for ``grid --vectorize`` (A.11b: the sweep's model axis over a mesh). The
+counterpart of JAX's ``dryrun_multichip`` (A.11b) has no mode here yet.
 
 ``--compute-dtype bfloat16`` reaches the trainers of ``train``, ``test``,
 ``hyperbolic`` and ``hisres`` (and of the sequential ``grid``), as in the
@@ -246,20 +252,6 @@ def check_single_device(args) -> None:
                          "ported to regcn_torch yet (ROADMAP A.11b)")
 
 
-def check_mesh_options(args) -> None:
-    """Stops, before any process group is made, on the options that the
-    ``hyperbolic`` and ``hisres`` modes do not run on a mesh yet (ROADMAP
-    A.11b); the trainers raise for them too."""
-    if not args.shards:
-        return
-    for unported, flag in (
-            (args.compute_dtype != "float32", f"--compute-dtype {args.compute_dtype}"),
-            (args.run_analysis, "--run-analysis")):
-        if unported:
-            raise SystemExit(f"{flag} with --shards: '{args.mode}' on a mesh does not run it "
-                             "yet (ROADMAP A.11b)")
-
-
 def make_cli_mesh(args):
     """The ``("data", "graph")`` mesh of ``--shards`` over the ranks of the
     process group, or None: the group is the caller's where one is
@@ -391,7 +383,6 @@ def _report(stats) -> dict:
 def run_hyperbolic(args) -> dict:
     from regcn_torch.hyperbolic.train import HyperbolicTrainer
 
-    check_mesh_options(args)
     mesh = make_cli_mesh(args)
     data = _load(args)
     cfg, tc = make_hyperbolic_configs(args, data)
@@ -414,7 +405,6 @@ def run_hyperbolic(args) -> dict:
 def run_hisres(args) -> dict:
     from regcn_torch.hisres.train import HisResTrainer
 
-    check_mesh_options(args)
     mesh = make_cli_mesh(args)
     data = _load(args)
     cfg, tc = make_hisres_configs(args, data)

@@ -48,7 +48,12 @@ class ShardedImpl:
 
 @dataclasses.dataclass(frozen=True)
 class GspmdImpl(ShardedImpl):
-    """Select the all-gather aggregation over ``mesh``."""
+    """Select the all-gather aggregation over ``mesh``. ``route="cumsum"``
+    (``Trainer(impl="cumsum")``, which JAX's ``check_impl_compatible``
+    lets through under gspmd) reduces each rank's destination-sorted edges
+    by the cumulative sum instead of B1."""
+
+    route: str = "xla"  # the rank's local reduction: "xla" (B1) or "cumsum"
 
     dist_agg = "gspmd"
 
@@ -69,9 +74,14 @@ def is_sharded(impl) -> bool:
     return isinstance(impl, ShardedImpl)
 
 
-def sharded_impl(mesh, dist_agg: str) -> ShardedImpl:
-    """The marker of ``dist_agg`` over ``mesh``."""
-    return HaloImpl(mesh) if dist_agg == "halo" else GspmdImpl(mesh)
+def sharded_impl(mesh, dist_agg: str, impl: str = "xla") -> ShardedImpl:
+    """The marker of ``dist_agg`` over ``mesh``; under gspmd ``impl``
+    "cumsum" keeps its route on each rank ("xla" and "pallas" both take
+    B1). Call :func:`check_impl_compatible` first: the halo takes "xla"
+    only."""
+    if dist_agg == "halo":
+        return HaloImpl(mesh)
+    return GspmdImpl(mesh, route="cumsum" if impl == "cumsum" else "xla")
 
 
 def require_halo(snap):

@@ -37,8 +37,12 @@ entity decoders score the rank's candidate columns, with the CE across
 ranks. The static graph's ``words_emb`` is row-sharded as the entity
 table is: the block layer runs whole on the gathered tables on every rank
 (``recurrent._static_init``), and the angular loss sums each rank's rows
-across the ranks. Not ported on a mesh yet, and raising (ROADMAP A.11b):
-bf16 compute.
+across the ranks. Under bf16 compute the rank's rows enter in bf16 as the
+whole table does on one device, with the same fp32 islands; the gathers
+carry the rows in their dtype and every sum across ranks runs in fp32
+(``parallel/collectives.py``). Still to come on a mesh (ROADMAP A.11b):
+the sweep's model axis and the counterpart of JAX's ``dryrun_multichip``,
+neither of which is this module's.
 """
 
 from __future__ import annotations
@@ -48,7 +52,6 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from regcn_torch.dist import is_sharded
 from regcn_torch.hisres import layers as HLayers
 from regcn_torch.models import decoders as D
 from regcn_torch.models.layers import gru_cell, init_gru_cell, init_rgcn_block_layer
@@ -56,7 +59,7 @@ from regcn_torch.models.recurrent import _masked_ce, _static_init, static_angula
 from regcn_torch.ops.activations import l2_normalize
 from regcn_torch.ops.rgcn_scatter import check_impl
 from regcn_torch.ops.segment import masked_segment_mean
-from regcn_torch.parallel.collectives import RowShard, rows_of, whole_rows
+from regcn_torch.parallel.collectives import RowShard, columns_dot, rows_of, whole_rows
 from regcn_torch.parallel.mesh import table_shard
 from regcn_torch.utils.dtypes import compute_dtype, dot_f32, mm
 from regcn_torch.utils.init import torch_linear_uniform, xavier_normal
@@ -116,12 +119,9 @@ class HisResState:
 
 def check_supported(cfg: HisResConfig) -> None:
     """Raises for an unknown compute dtype, aggregation route or relation
-    context, and on a mesh for what it does not run yet."""
+    context."""
     compute_dtype(cfg.compute_dtype)
     check_impl(cfg.impl)
-    if is_sharded(cfg.impl) and cfg.compute_dtype != "float32":
-        raise NotImplementedError("bf16 compute on a mesh (HisRES) is not ported yet "
-                                  "(ROADMAP A.11b)")
     if cfg.rc_mode not in ("src", "both"):
         raise ValueError(f"rc_mode must be 'both' or 'src', got {cfg.rc_mode!r}")
 
@@ -257,9 +257,12 @@ def _time_convtrans_score(dec_params, bn_state, embedding, rel_emb, triples, mas
         dec_params, bn_state, torch.stack([e1, other], dim=1), mask,
         input_dropout=cfg.input_dropout, hidden_dropout=cfg.hidden_dropout,
         feat_dropout=cfg.feat_dropout, gen=gen, train=train)
-    if mode == "entity" and shard is not None:
-        ent_all = ent_all[shard.row0:shard.row0 + shard.rows]
-    scores = dot_f32(x, (ent_all if mode == "entity" else rel_emb).T)  # fp32 scores
+    if mode == "entity":
+        if shard is not None:
+            ent_all = ent_all[shard.row0:shard.row0 + shard.rows]
+        scores = columns_dot(x, ent_all, shard)  # fp32 scores
+    else:
+        scores = dot_f32(x, rel_emb.T)
     if partial is not None:
         scores = scores * partial  # the one-hot history mask (ref decoder :48-51)
     return scores, new_bn

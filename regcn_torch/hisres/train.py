@@ -36,9 +36,20 @@ vocabularies stay replicated; evaluation, single- and multi-step, ranks
 across the candidate shards; checkpoints hold whole states. With the
 static graph ``words_emb`` is row-sharded too, so ``num_words`` must be a
 multiple of the ``graph`` axis (a ``ValueError`` at construction, as JAX
-refuses it). Not ported on a mesh yet, and raising ``NotImplementedError``
-(ROADMAP A.11b): bf16 compute, ``run_analysis`` and a ``data`` axis above
-1.
+refuses it). Under bf16 compute the rank's rows are cast as the whole
+table is on one device, the gathers and the halo's exchange carry bf16 rows
+and every sum across ranks runs in fp32 (``parallel/collectives.py``).
+``run_analysis`` records the norms of whole arrays (the entity table's
+rows all-gathered), the same on every rank, and only the mesh's first rank
+logs it. A ``data`` axis above 1 replicates the whole training, as JAX's
+rules replicate every leaf over it: every step's gradients and BatchNorm
+statistics, and the ranks of every evaluation, are taken from the first
+replica (a broadcast over the ``data`` group), so the replicas stay
+bit-equal by construction although each computes apart and the card's
+atomic sums add in no fixed order; the dropouts draw from the same seed on
+every replica, and only the mesh's first rank writes a checkpoint.
+Still to come on a mesh (ROADMAP A.11b): the sweep's model axis
+(``train/sweep.py``) and the counterpart of JAX's ``dryrun_multichip``.
 """
 
 from __future__ import annotations
@@ -61,8 +72,8 @@ from regcn_torch.hisres import model as hmodel
 from regcn_torch.hisres.history import HistoryStore
 from regcn_torch.hisres.model import HisResConfig
 from regcn_torch.parallel import sharding
-from regcn_torch.parallel.mesh import (DATA_AXIS, axis_size, check_entity_divisibility,
-                                       check_words_divisibility, row_shard)
+from regcn_torch.parallel.mesh import (check_entity_divisibility, check_words_divisibility,
+                                       row_shard)
 from regcn_torch.train import loop, metrics
 from regcn_torch.train import state as train_state
 from regcn_torch.train.optim import tree_leaves
@@ -102,11 +113,6 @@ class HisResTrainer:
             check_entity_divisibility(data.num_nodes, mesh)
             if cfg.use_static:
                 check_words_divisibility(data.num_words, mesh)
-            for unported, what in ((axis_size(mesh, DATA_AXIS) != 1, "a data axis above 1"),
-                                   (run_analysis, "run_analysis")):
-                if unported:
-                    raise NotImplementedError(f"{what} on a mesh (HisRES) is not ported yet "
-                                              "(ROADMAP A.11b)")
             # both recurrent streams dispatch on the marker
             cfg = dataclasses.replace(cfg, impl=sharded_impl(mesh, dist_agg))
             hmodel.check_supported(cfg)
@@ -237,7 +243,7 @@ class HisResTrainer:
         total, losses, new_model_state = self.loss(state, *inputs)
         grads = sharding.train_grads(total, state, self.opt, self.shard)
         self.opt.step(tree_leaves(state.params), grads, state.opt_state)
-        state.model_state = new_model_state
+        state.model_state = sharding.from_first_replica_tree(new_model_state, self.shard)
         state.step += 1
         return {k: v.detach() for k, v in losses.items()}
 
@@ -324,7 +330,8 @@ class HisResTrainer:
             with torch.inference_mode():
                 s_ent, s_rel = self.predict(state, *inputs)
                 if self.shard is not None:
-                    s_ent = self._sharded_eval().full_scores(s_ent)
+                    sharded = self._sharded_eval()
+                    s_ent, s_rel = sharded.full_scores(s_ent), sharded.rel_scores(s_rel)
             allq = torch.cat([inputs[2], inputs[3]]).cpu().numpy()
             m = inputs[4].cpu().numpy()
             allm = np.concatenate([m, m]) > 0
@@ -384,15 +391,16 @@ class HisResTrainer:
         the gradient norms of the training loss on the first full window,
         with the entity embeddings' row-norm statistics. Its dropouts draw
         from a generator seeded 0, as JAX's from a fixed key, and leave the
-        state's generator alone."""
+        state's generator alone. On a mesh (a collective) the statistics are
+        those of the whole arrays."""
         hlen = self.tc.train_history_len
         i = min(max(hlen, 1), len(self.train_list) - 1)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(0)
         total, _, _ = self.loss(dataclasses.replace(state, gen=gen), *self.window(i))
-        grads = torch.autograd.grad(total, tree_leaves(state.params), allow_unused=True)
-        rec = gradient_stats(state.params, grads)
-        rec.update(embedding_stats(state.params["dynamic_emb"], "entity"))
+        grads = sharding.train_grads(total, state, shard=self.shard)
+        rec = gradient_stats(state.params, grads, shard=self.shard)
+        rec.update(embedding_stats(state.params["dynamic_emb"], "entity", shard=self.shard))
         return rec
 
     # ------------------------------------------------------------------- fit
@@ -435,8 +443,10 @@ class HisResTrainer:
                      mrr, dt)
             if self.run_analysis:
                 row["analysis"] = rec = self.analysis_record(state)
-                log.info("analysis %03d | grad global %.4e | ent norm %.3f±%.3f", epoch,
-                         rec["global_norm"], rec["entity_norm_mean"], rec["entity_norm_std"])
+                if self.shard is None or self.shard.first:
+                    log.info("analysis %03d | grad global %.4e | ent norm %.3f±%.3f", epoch,
+                             rec["global_norm"], rec["entity_norm_mean"],
+                             rec["entity_norm_std"])
             rows.append(row)
             if mrr > best_mrr:
                 best_mrr, best_epoch = mrr, epoch

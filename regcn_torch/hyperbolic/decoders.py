@@ -35,7 +35,7 @@ from regcn_torch.hyperbolic import ops as H
 from regcn_torch.models import decoders as euclidean_decoders
 from regcn_torch.ops.activations import inverted_dropout
 from regcn_torch.ops.streaming_ce import SCORE_EPS, distance_logits, streaming_nll
-from regcn_torch.parallel.collectives import rows_of
+from regcn_torch.parallel.collectives import columns_dot, rows_of
 from regcn_torch.utils.dtypes import dot_f32, mm
 from regcn_torch.utils.init import xavier_uniform
 
@@ -239,11 +239,12 @@ def _leaky_tanh(x: torch.Tensor) -> torch.Tensor:
     return 0.9 * torch.tanh(x) + 0.1 * x
 
 
-def _convtrans_score(params, bn_state, stacked, candidates, bias, mask, dropouts, gen, train):
+def _convtrans_score(params, bn_state, stacked, candidates, bias, mask, dropouts, gen, train,
+                     shard=None):
     x, new_bn = euclidean_decoders._convtrans_features(
         params, bn_state, stacked, mask, input_dropout=dropouts[0], hidden_dropout=dropouts[1],
         feat_dropout=dropouts[2], gen=gen, train=train)
-    return dot_f32(x, candidates.T) + bias, new_bn
+    return columns_dot(x, candidates, shard) + bias, new_bn
 
 
 def hyperbolic_convtranse_score(params, bn_state, entity_embedding, rel_embedding, triples, c,
@@ -261,7 +262,8 @@ def hyperbolic_convtranse_score(params, bn_state, entity_embedding, rel_embeddin
     stacked = torch.stack([rows_of(ent_tan, triples[:, 0], shard),
                            rel_embedding.index_select(0, triples[:, 1])], dim=1)
     bias = params["b"] if shard is None else params["b"][shard.row0:shard.row0 + shard.rows]
-    return _convtrans_score(params, bn_state, stacked, ent_tan, bias, mask, dropouts, gen, train)
+    return _convtrans_score(params, bn_state, stacked, ent_tan, bias, mask, dropouts, gen, train,
+                            shard)
 
 
 def hyperbolic_convtransr_score(params, bn_state, entity_embedding, rel_embedding, triples, c,

@@ -63,7 +63,13 @@ back the heads the rank owns; TANS squashes the rank's candidate columns
 (the trainer cuts the COO to them on the host). The static graph's
 ``words_emb`` is row-sharded as the entity table is: the block layer runs
 whole on the gathered tables on every rank (``recurrent._static_init``).
-Not ported on a mesh yet, and raising (ROADMAP A.11b): bf16 compute.
+Under bf16 compute the rank's rows enter in bf16 as the whole table does
+on one device, and every fp32 island (the norm clamps, the radius weight's
+scalars, EST's gathers and write-back) stays where the one-device path
+keeps it: the gathers carry the rows in their dtype and every sum across
+ranks runs in fp32 (``parallel/collectives.py``). Still to come on a mesh
+(ROADMAP A.11b): the sweep's model axis and the counterpart of JAX's
+``dryrun_multichip``, neither of which is this module's.
 """
 
 from __future__ import annotations
@@ -74,7 +80,6 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from regcn_torch.dist import is_sharded
 from regcn_torch.hyperbolic import decoders as HD
 from regcn_torch.hyperbolic import est
 from regcn_torch.hyperbolic import layers as HL
@@ -172,14 +177,12 @@ class HypModelState:
 
 def check_supported(cfg: HyperbolicConfig) -> None:
     """Raises for an unknown compute dtype, encoder x decoder pair or
-    aggregation route, and on a mesh for what it does not run yet."""
+    aggregation route."""
     compute_dtype(cfg.compute_dtype)
     if (cfg.encoder, cfg.decoder) not in PORTED:
         raise ValueError(f"unknown encoder x decoder pair ({cfg.encoder!r}, {cfg.decoder!r}); "
                          f"known: {PORTED}")
     check_impl(cfg.impl)
-    if is_sharded(cfg.impl) and cfg.compute_dtype != "float32":
-        raise NotImplementedError("bf16 compute on a mesh is not ported yet (ROADMAP A.11b)")
 
 
 def check_device(cfg: HyperbolicConfig, device) -> None:

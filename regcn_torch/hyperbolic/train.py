@@ -68,8 +68,20 @@ clip's norm taken across them once a step (under ``"halo"`` JAX refuses it
 with a ``ValueError``, and so does this trainer). With the static graph
 ``words_emb`` is row-sharded too, so ``num_words`` must be a multiple of
 the ``graph`` axis (a ``ValueError`` at construction, as JAX refuses it).
-Not ported on a mesh yet, and raising ``NotImplementedError`` (ROADMAP
-A.11b): bf16 compute, ``run_analysis`` and a ``data`` axis above 1.
+Under bf16 compute the rank's rows are cast as the whole table is on one
+device, the gathers and the halo's exchange carry bf16 rows and every sum
+across ranks runs in fp32 (``parallel/collectives.py``). ``run_analysis``
+records the norms of whole arrays (the entity table's rows all-gathered),
+the same on every rank, and only the mesh's first rank logs it. A ``data``
+axis above 1 replicates the whole training, as JAX's rules replicate every
+leaf over it: every step's gradients, BatchNorm statistics and EST
+context rows, and the ranks of every evaluation, are taken from the first
+replica (a broadcast over the ``data`` group), so the replicas stay
+bit-equal by construction although each computes apart and the card's
+atomic sums add in no fixed order; the dropouts draw from the same seed
+on every replica, and only the mesh's first rank writes a checkpoint.
+Still to come on a mesh (ROADMAP A.11b): the sweep's model axis
+(``train/sweep.py``) and the counterpart of JAX's ``dryrun_multichip``.
 """
 
 from __future__ import annotations
@@ -95,9 +107,9 @@ from regcn_torch.hyperbolic import ops as H
 from regcn_torch.hyperbolic.model import HyperbolicConfig, HypModelState
 from regcn_torch.hyperbolic.optim import dual_optimizer, manifold_mask
 from regcn_torch.parallel import sharding
-from regcn_torch.parallel.collectives import from_first_rank, rows_of
-from regcn_torch.parallel.mesh import (DATA_AXIS, axis_size, check_entity_divisibility,
-                                       check_words_divisibility, row_shard)
+from regcn_torch.parallel.collectives import from_first_rank, from_first_replica, rows_of
+from regcn_torch.parallel.mesh import (check_entity_divisibility, check_words_divisibility,
+                                       row_shard)
 from regcn_torch.train import loop, metrics
 from regcn_torch.train import state as train_state
 from regcn_torch.train.optim import tree_leaves
@@ -163,11 +175,6 @@ class HyperbolicTrainer:
             check_entity_divisibility(data.num_nodes, mesh)
             if cfg.use_static:
                 check_words_divisibility(data.num_words, mesh)
-            for unported, what in ((axis_size(mesh, DATA_AXIS) != 1, "a data axis above 1"),
-                                   (run_analysis, "run_analysis")):
-                if unported:
-                    raise NotImplementedError(f"{what} on a mesh is not ported yet "
-                                              "(ROADMAP A.11b)")
             # every encoder and decoder dispatches on the marker
             cfg = dataclasses.replace(cfg, impl=sharded_impl(mesh, dist_agg))
             hmodel.check_supported(cfg)
@@ -352,8 +359,8 @@ class HyperbolicTrainer:
             with torch.no_grad():
                 ctx = H.log_map_zero(rows_of(aux["pre_emb"], triples[:, 0], self.shard),
                                      aux["curvature"])
-        if self.shard is not None:  # every rank writes back the first rank's rows
-            ctx = from_first_rank(ctx, self.shard.group)
+        if self.shard is not None:  # every rank writes back the mesh's first rank's rows
+            ctx = from_first_replica(from_first_rank(ctx, self.shard.group), self.shard)
         state.est_state = est.update_states(state.params["est"], state.est_state, triples[:, 0],
                                             mask, ctx, self.cfg.est_state_alpha)
 
@@ -368,7 +375,7 @@ class HyperbolicTrainer:
                                                         tans)
         grads = sharding.train_grads(total, state, self.opt, self.shard)
         self.est_update(state, triples, mask, aux)
-        state.model_state = new_model_state
+        state.model_state = sharding.from_first_replica_tree(new_model_state, self.shard)
         return {k: v.detach() for k, v in losses.items()}, grads
 
     def train_step(self, state: TrainState, history, triples, mask, cmax, rb=None, tans=None
@@ -428,7 +435,8 @@ class HyperbolicTrainer:
         and without TANS, as JAX takes them; the entity table's row norms;
         the static radii's mean and spread; the curvature. Its dropouts
         draw from a generator seeded 0, as JAX's from a fixed key, and the
-        state is left as it was."""
+        state is left as it was. On a mesh (a collective) the statistics
+        are those of the whole arrays."""
         i = min(self.tc.train_history_len, len(self.train_list) - 1)
         history, triples, mask = self.window(i)
         rb = self.est_window(i)[0]
@@ -437,9 +445,9 @@ class HyperbolicTrainer:
         cmax = self._curvature_max(epoch)
         probe = dataclasses.replace(state, gen=gen)
         total, *_ = self.loss(probe, history, triples, mask, cmax, rb, None)
-        grads = torch.autograd.grad(total, tree_leaves(state.params), allow_unused=True)
-        rec = gradient_stats(state.params, grads)
-        rec.update(embedding_stats(state.params["dynamic_emb"], "entity"))
+        grads = sharding.train_grads(total, state, shard=self.shard)
+        rec = gradient_stats(state.params, grads, shard=self.shard)
+        rec.update(embedding_stats(state.params["dynamic_emb"], "entity", shard=self.shard))
         radius = state.params["radius_static"].detach().cpu().numpy()
         rec["radius_static_mean"] = float(radius.mean())
         rec["radius_static_std"] = float(radius.std())
@@ -505,10 +513,12 @@ class HyperbolicTrainer:
                    "epoch_time_s": dt}
             if self.run_analysis:
                 row["analysis"] = rec = self.analysis_record(state, epoch)
-                log.info("analysis %03d | grad global %.4e | ent norm %.3f±%.3f | radius "
-                         "%.3f±%.3f | c %.5f", epoch, rec["global_norm"], rec["entity_norm_mean"],
-                         rec["entity_norm_std"], rec["radius_static_mean"],
-                         rec["radius_static_std"], rec["curvature"])
+                if self.shard is None or self.shard.first:
+                    log.info("analysis %03d | grad global %.4e | ent norm %.3f±%.3f | radius "
+                             "%.3f±%.3f | c %.5f", epoch, rec["global_norm"],
+                             rec["entity_norm_mean"], rec["entity_norm_std"],
+                             rec["radius_static_mean"], rec["radius_static_std"],
+                             rec["curvature"])
             rows.append(row)
             log.info("epoch %03d | e/r/s/rad %.4f/%.4f/%.4f/%.4f | %s MRR %.4f | %.1fs", epoch,
                      losses["entity"], losses["relation"], losses["static"], losses["radius"],

@@ -30,8 +30,8 @@ from torch import relu
 
 from regcn_torch.ops.activations import inverted_dropout
 from regcn_torch.parallel.collectives import (RowShard, all_reduce_max, all_reduce_sum,
-                                              gather_rows)
-from regcn_torch.utils.dtypes import dot_f32, linear
+                                              columns_dot, gather_rows)
+from regcn_torch.utils.dtypes import linear
 from regcn_torch.utils.init import torch_linear_uniform
 
 Params = Dict[str, torch.Tensor]
@@ -155,11 +155,11 @@ def sharded_masked_ce(scores: torch.Tensor, labels: torch.Tensor, mask: torch.Te
 
 
 def _score(params, state, stacked, candidates, mask, input_dropout, hidden_dropout,
-           feat_dropout, gen, train) -> Scores:
+           feat_dropout, gen, train, shard=None) -> Scores:
     x, new_state = _convtrans_features(
         params, state, stacked, mask, input_dropout=input_dropout,
         hidden_dropout=hidden_dropout, feat_dropout=feat_dropout, gen=gen, train=train)
-    scores = dot_f32(x, candidates.T)  # fp32 scores in every compute dtype
+    scores = columns_dot(x, candidates, shard)  # fp32 scores in every compute dtype
     return (scores, new_state) if train else scores
 
 
@@ -187,7 +187,7 @@ def convtranse_score(
     ent_all = torch.tanh(embedding)
     stacked = torch.stack([_rows(ent_all, triples[:, 0], shard), rel_emb[triples[:, 1]]], dim=1)
     return _score(params, state, stacked, ent_all, mask, input_dropout, hidden_dropout,
-                  feat_dropout, gen, train)
+                  feat_dropout, gen, train, shard)
 
 
 def convtransr_score(

@@ -347,12 +347,19 @@ def rgcn_aggregate_cumsum(h, rel_emb, weight, src, dst, rel, edge_mask, in_deg_n
     span to the running-max segment is exact. Its messages are not keyed
     to n as B1's are: it relies on that layout (every real edge before
     every padded one, real dst ascending)."""
-    n = h.shape[0]
     msg = dot_f32(h[src] + rel_emb[rel], weight)
-    msg = msg * edge_mask.float()[:, None]
+    agg = cumsum_segment_sum(msg * edge_mask.float()[:, None], dst, h.shape[0])
+    return (agg * in_deg_norm.float()[:, None]).to(h.dtype)
+
+
+def cumsum_segment_sum(msg: torch.Tensor, dst: torch.Tensor, n: int) -> torch.Tensor:
+    """[n, d]: the sum of the rows of ``msg`` [E, d] over each destination
+    of ``dst`` [E], as a cumulative sum and its differences at the segment
+    boundaries (:func:`rgcn_aggregate_cumsum`, whose layout it needs: the
+    real edges first, by ascending destination, the masked ones' messages
+    zero). A rank on a mesh runs it over its own destination partition."""
     cum = torch.cat([msg.new_zeros((1, msg.shape[1])), torch.cumsum(msg, dim=0)], dim=0)
     dst_keys = torch.cummax(dst, dim=0).values.contiguous()
     offsets = torch.searchsorted(dst_keys, torch.arange(n + 1, dtype=dst_keys.dtype,
                                                         device=dst_keys.device))
-    agg = cum[offsets[1:]] - cum[offsets[:-1]]
-    return (agg * in_deg_norm.float()[:, None]).to(h.dtype)
+    return cum[offsets[1:]] - cum[offsets[:-1]]

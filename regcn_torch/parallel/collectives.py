@@ -12,7 +12,10 @@ So:
 - :class:`AllGatherRows`: forward the rows of every rank stacked, backward
   the sum over ranks of the incoming gradient, then this rank's rows;
 - :class:`AllToAll`: forward block g of the input to rank g, backward the
-  same exchange of the gradients the other way.
+  same exchange of the gradients the other way;
+- :class:`ColumnsDot`: the decoders' scores of replicated query features
+  against the rank's candidate columns, the features' gradient reduced
+  over ranks in fp32 before it rounds.
 
 A value that every rank computes alike from replicated inputs (a loss, the
 decoders' query features) is counted once over the ranks by scaling each
@@ -21,6 +24,24 @@ replicated parameters are summed over ranks after the backward
 (:func:`all_reduce_replicated`). ``reduce_scatter`` is not used: gloo
 may lack it. Every rank must call the same collectives in the same order,
 so the sharded paths never branch on a rank's data.
+
+Under bf16 compute the all-gather and the all-to-all carry bf16 rows,
+which is exact. A sum over ranks is not: every sum here runs in fp32
+(:func:`_sum` widens bf16 partials to fp32, sums them in one collective
+and rounds the result once to the partials' dtype; at G = 2 that is the
+bf16 sum itself). That is the backward of the all-gather and of
+:func:`gather_rows`, whose forward sums one owner's row and zeros (exact
+in any dtype); the losses' and the replicated gradients' sums are fp32
+already, as JAX's fp32 islands keep them.
+
+A ``data`` axis above 1 replicates the whole training: each replica runs
+the same steps on the same data, and JAX's replicas are one program with
+one result. The port's replicas compute apart, and the card's atomic sums
+add in no fixed order, so they would part in their last bits after a
+step. So every value that a replica carries forward (each step's
+gradients, BatchNorm statistics, EST's memories, the evaluation's ranks)
+is taken from the first replica (:func:`from_first_replica`), and the
+replicas stay bit-equal by construction.
 """
 
 from __future__ import annotations
@@ -41,6 +62,8 @@ class RowShard:
     rank: int
     size: int
     rows: int
+    replicas: Any = None  # the mesh's data-axis group where that axis is above 1
+    first: bool = True  # this rank is the mesh's first (data 0, graph 0)
 
     @property
     def row0(self) -> int:
@@ -52,9 +75,10 @@ class RowShard:
 
 
 def _sum(x: torch.Tensor, group) -> torch.Tensor:
-    y = x.contiguous().clone()
+    """The sum over ranks in fp32 (see the module), in ``x``'s dtype."""
+    y = x.contiguous().to(torch.float32 if x.dtype == torch.bfloat16 else x.dtype, copy=True)
     dist.all_reduce(y, group=group)
-    return y
+    return y.to(x.dtype)
 
 
 class AllReduceSum(torch.autograd.Function):
@@ -97,6 +121,50 @@ class AllToAll(torch.autograd.Function):
         return out, None
 
 
+class ColumnsDot(torch.autograd.Function):
+    """``dot_f32(x, cols.T)``: the replicated query features ``x`` [B, k]
+    against this rank's candidate columns ``cols`` [rows, k], an fp32
+    [B, rows]. The gradient of ``x`` is a contraction over the sharded
+    candidate axis: the backward sums the ranks' fp32 partial products in
+    one collective and rounds the sum once to ``x``'s dtype, as GSPMD
+    reduces a contraction's partials before the convert after it. Each
+    rank keeps 1 / G of it, its share of the replicated activation, so the
+    replicated leaves' gradients summed over ranks count it once."""
+
+    @staticmethod
+    def forward(ctx, x, cols, group):
+        from regcn_torch.utils.dtypes import dot_f32
+
+        ctx.save_for_backward(x, cols)
+        ctx.group = group
+        return dot_f32(x, cols.T)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, cols = ctx.saved_tensors
+        g = g.float()
+        gx = gc = None
+        if ctx.needs_input_grad[0]:
+            gx = _sum(g @ cols.float(), ctx.group) / dist.get_world_size(ctx.group)
+            gx = gx.to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            gc = (g.T @ x.float()).to(cols.dtype)
+        return gx, gc, None
+
+
+def columns_dot(x: torch.Tensor, cols: torch.Tensor, shard: Optional["RowShard"]
+                ) -> torch.Tensor:
+    """The fp32 scores ``x @ cols.T`` of the decoders' query features
+    against their candidates; with ``shard`` the candidates are this rank's
+    columns (:class:`ColumnsDot`)."""
+    if shard is None:
+        from regcn_torch.utils.dtypes import dot_f32
+
+        return dot_f32(x, cols.T)
+    x, cols = (t.to(torch.promote_types(x.dtype, cols.dtype)) for t in (x, cols))
+    return ColumnsDot.apply(x, cols, shard.group)
+
+
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """The sum over the ranks of ``group``, differentiable (see module)."""
     return AllReduceSum.apply(x, group)
@@ -127,6 +195,33 @@ def from_first_rank(x: torch.Tensor, group) -> torch.Tensor:
     y = x.detach().contiguous().clone()
     dist.broadcast(y, src=dist.get_global_rank(group, 0), group=group)
     return y
+
+
+def from_first_replica(x: torch.Tensor, shard: Optional[RowShard]) -> torch.Tensor:
+    """``x`` as the first replica of the mesh holds it (the rank at the
+    same ``graph`` position on ``data`` 0), on every replica; ``x`` itself
+    where there is one replica. Not differentiable."""
+    if shard is None or shard.replicas is None:
+        return x
+    return from_first_rank(x, shard.replicas)
+
+
+def tensors_from_first_replica(ts: Sequence[Optional[torch.Tensor]], shard: Optional[RowShard]
+                               ) -> List[Optional[torch.Tensor]]:
+    """:func:`from_first_replica` of each tensor of ``ts`` (None stays
+    None), in one broadcast per dtype."""
+    if shard is None or shard.replicas is None:
+        return list(ts)
+    out = list(ts)
+    for dtype in dict.fromkeys(t.dtype for t in ts if t is not None):
+        at = [i for i, t in enumerate(ts) if t is not None and t.dtype == dtype]
+        flat = from_first_rank(torch.cat([ts[i].detach().reshape(-1) for i in at]),
+                               shard.replicas)
+        pos = 0
+        for i in at:
+            out[i] = flat[pos:pos + ts[i].numel()].view_as(ts[i])
+            pos += ts[i].numel()
+    return out
 
 
 def gather_rows(h_local: torch.Tensor, idx: torch.Tensor, shard: RowShard) -> torch.Tensor:

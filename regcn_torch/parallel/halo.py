@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from regcn_torch.dist import HaloImpl, require_halo, require_parts
-from regcn_torch.ops.rgcn_scatter import scatter_add_sorted
+from regcn_torch.ops.rgcn_scatter import cumsum_segment_sum, scatter_add_sorted
 from regcn_torch.parallel.collectives import all_gather_rows, all_to_all
 from regcn_torch.parallel.mesh import graph_group, graph_rank, graph_size, table_shard
 from regcn_torch.utils.dtypes import dot_f32
@@ -402,13 +402,21 @@ def local_halo(halo: HaloPartitionedEdges, rank: int) -> LocalEdges:
         halo.send_idx[..., rank, :, :], rows)
 
 
-def _aggregate(table, rel_emb, weight, edges: LocalEdges, edge_weight=None) -> torch.Tensor:
+def _aggregate(table, rel_emb, weight, edges: LocalEdges, edge_weight=None,
+               cumsum: bool = False) -> torch.Tensor:
     """``norm_v * sum_{dst_e = v} w_e (table[src_e] + rel_emb[rel_e]) @ W``
-    over the rank's rows, the sum on B1 (one launch)."""
+    over the rank's rows, the sum on B1 (one launch); with ``cumsum`` the
+    cumulative-sum reduction over the rank's sorted edges instead (no edge
+    weight), as ``impl="cumsum"`` takes on one device."""
+    msg = dot_f32(table[edges.src] + rel_emb[edges.rel], weight)
+    if cumsum:
+        if edge_weight is not None:
+            raise ValueError("impl='cumsum' takes no edge weight")
+        agg = cumsum_segment_sum(msg * edges.edge_mask.float()[:, None], edges.dst, edges.rows)
+        return agg * edges.in_deg_norm.float()[:, None]
     keys = torch.where(edges.edge_mask > 0, edges.dst, edges.rows).to(torch.int32)
     w = edges.edge_mask.float() if edge_weight is None else \
         edge_weight.float() * edges.edge_mask.float()
-    msg = dot_f32(table[edges.src] + rel_emb[edges.rel], weight)
     return scatter_add_sorted(msg, keys, edges.rows, edge_weight=w.contiguous(),
                               row_scale=edges.in_deg_norm.float().contiguous())
 
@@ -437,17 +445,21 @@ def sharded_rgcn_aggregate(
     *,
     row_scalar_fn=None,  # rows [n, d] -> [n] per-row scalar (e.g. radius)
     edge_weight_fn=None,  # (scalar_src [E], scalar_dst [E]) -> [E] weight
+    cumsum: bool = False,  # the cumulative-sum reduction instead of B1
 ) -> torch.Tensor:
     """Shard-local scatter with an all-gather of the source rows (JAX's
     ``sharded_rgcn_aggregate``; what GSPMD inserts for its trainer): the
     rank's aggregated [rows, d] rows, in ``h``'s dtype. ``row_scalar_fn`` /
     ``edge_weight_fn`` as in :func:`halo_rgcn_aggregate`, the scalars taken
-    of the gathered table (a destination is row ``row0 + dst`` there)."""
+    of the gathered table (a destination is row ``row0 + dst`` there).
+    ``cumsum`` reduces the rank's edges by their cumulative sum: JAX's
+    runs over the whole sorted edge array, this over the rank's, so the
+    two round apart (shorter prefixes here)."""
     _check_rows(mesh, h, edges)
     h_full = all_gather_rows(h, graph_group(mesh))  # [G * rows, d]
     row0 = graph_rank(mesh) * edges.rows
     w = _edge_weight(h_full, edges.src, edges.dst + row0, row_scalar_fn, edge_weight_fn)
-    return _aggregate(h_full, rel_emb, weight, edges, w).to(h.dtype)
+    return _aggregate(h_full, rel_emb, weight, edges, w, cumsum).to(h.dtype)
 
 
 def halo_buffer(mesh, h: torch.Tensor, edges: LocalEdges) -> torch.Tensor:
@@ -528,8 +540,10 @@ def mesh_edges(impl, snap) -> LocalEdges:
 def mesh_rgcn_aggregate(impl, h, rel_emb, weight, edges: LocalEdges, **weight_fns):
     """:func:`halo_rgcn_aggregate` or :func:`sharded_rgcn_aggregate`, as
     ``impl`` selects: one B1 launch over the rank's edges."""
-    fn = halo_rgcn_aggregate if isinstance(impl, HaloImpl) else sharded_rgcn_aggregate
-    return fn(impl.mesh, h, rel_emb, weight, edges, **weight_fns)
+    if isinstance(impl, HaloImpl):
+        return halo_rgcn_aggregate(impl.mesh, h, rel_emb, weight, edges, **weight_fns)
+    return sharded_rgcn_aggregate(impl.mesh, h, rel_emb, weight, edges,
+                                  cumsum=impl.route == "cumsum", **weight_fns)
 
 
 def mesh_local_aggregate(impl, h, edges: LocalEdges, local_fn: Callable) -> torch.Tensor:

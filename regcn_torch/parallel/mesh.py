@@ -6,11 +6,14 @@ Counterpart of ``regcn_tpu/parallel/mesh.py``: the 2-D logical mesh
 
 where the ``graph`` axis shards the entity dimension (the entity table and
 its Adam moments, the evolved entity states, the decoder's candidate axis)
-and ``data`` replicates. One rank of the process group holds one position
-of the mesh. JAX builds its mesh over devices and lets GSPMD insert the
-collectives; here the caller initialises the process group (its backend,
-NCCL across cards or gloo, is the caller's choice: nothing in the package
-picks one) and the port's sharded paths call the collectives themselves
+and ``data`` replicates: JAX's trainers shard every entity leaf over
+``graph`` and replicate the rest, so each row of the mesh (one position on
+``data``) runs the whole training, a replica of the others. One rank of
+the process group holds one position of the mesh. JAX builds its mesh
+over devices and lets GSPMD insert the collectives; here the caller
+initialises the process group (its backend, NCCL across cards or gloo, is
+the caller's choice: nothing in the package picks one) and the port's
+sharded paths call the collectives themselves
 (``regcn_torch/parallel/collectives.py``).
 """
 
@@ -102,13 +105,28 @@ def graph_group(mesh):
     return mesh.get_group(GRAPH_AXIS)
 
 
+def data_group(mesh):
+    """The process group of this rank's ``data`` axis: the ranks that hold
+    the same rows in every replica of the training."""
+    return mesh.get_group(DATA_AXIS)
+
+
+def first_rank(mesh) -> int:
+    """The global rank at the mesh's first position, (data 0, graph 0):
+    the one that writes what the whole mesh shares (a checkpoint)."""
+    return int(mesh.mesh.flatten()[0])
+
+
 def row_shard(mesh, num_rows: int):
     """This rank's :class:`~regcn_torch.parallel.collectives.RowShard` of an
-    [num_rows, ...] table row-sharded over the mesh's ``graph`` axis."""
+    [num_rows, ...] table row-sharded over the mesh's ``graph`` axis; with
+    a ``data`` axis above 1 it carries that axis's group as ``replicas``."""
     from regcn_torch.parallel.collectives import RowShard
 
     g = graph_size(mesh)
-    return RowShard(graph_group(mesh), graph_rank(mesh), g, num_rows // g)
+    replicas = data_group(mesh) if axis_size(mesh, DATA_AXIS) > 1 else None
+    return RowShard(graph_group(mesh), graph_rank(mesh), g, num_rows // g, replicas=replicas,
+                    first=dist.get_rank() == first_rank(mesh))
 
 
 def table_shard(impl, rows: int):

@@ -33,6 +33,13 @@ route ``models/``). What the JAX module's functions become:
   window carries the rank's partition of its edges (:func:`attach_partition`),
   and ``Trainer.run_epoch`` takes the port's eager epoch, the fused
   epoch's steps in their order.
+
+A ``data`` axis above 1 replicates all of this, as JAX's rules replicate
+every leaf over it: each replica's ranks hold the same rows as the first
+replica's. What a step carries forward is taken from the first replica
+(:func:`train_grads`, :func:`from_first_replica_tree`, the ranks of
+:class:`ShardedEval`), so the replicas stay bit-equal
+(``collectives.py``).
 """
 
 from __future__ import annotations
@@ -46,9 +53,11 @@ import torch
 from regcn_torch.data.snapshots import Snapshot, build_history
 from regcn_torch.dist import attach_history_halo
 from regcn_torch.parallel import halo as H
-from regcn_torch.parallel.collectives import RowShard, all_gather_rows, all_reduce_replicated
+from regcn_torch.parallel.collectives import (RowShard, all_gather_rows, all_reduce_replicated,
+                                              from_first_replica, tensors_from_first_replica)
 from regcn_torch.train import metrics
 from regcn_torch.train.optim import AdamState, tree_leaves
+from regcn_torch.utils.dtypes import map_tensors
 
 # parameter leaves sharded over the entity axis (row-sharded)
 _ENTITY_SHARDED = ("dynamic_emb", "words_emb")
@@ -150,17 +159,33 @@ def sharded_grads(total: torch.Tensor, leaves: Sequence[torch.Tensor], replicate
     return all_reduce_replicated(grads, leaves, replicated, shard.group)
 
 
-def train_grads(total: torch.Tensor, state, opt, shard=None) -> list:
+def train_grads(total: torch.Tensor, state, opt=None, shard=None) -> list:
     """The gradients of a training step's loss ``total`` by every parameter
     of ``state`` (``tree_leaves`` order, None where a leaf has none): off a
     mesh plain ``autograd.grad``; on one (``shard``) :func:`sharded_grads`,
-    with ``opt``'s clip norm taken across the ranks."""
+    taken from the first replica where the ``data`` axis is above 1, with
+    ``opt``'s clip norm taken across the ranks (no optimizer: the
+    ``run_analysis`` gradients)."""
     leaves = tree_leaves(state.params)
     if shard is None:
         return list(torch.autograd.grad(total, leaves, allow_unused=True))
     rules = state_sharding_rules(state)
-    opt.shard(rules, shard.group)
-    return sharded_grads(total, leaves, [not r for r in rules], shard)
+    if opt is not None:
+        opt.shard(rules, shard.group)
+    return tensors_from_first_replica(sharded_grads(total, leaves, [not r for r in rules], shard),
+                                      shard)
+
+
+def from_first_replica_tree(tree, shard=None):
+    """``tree`` (a model state: BatchNorm statistics, buffers) with every
+    tensor taken from the first replica of the mesh, in one broadcast per
+    dtype; ``tree`` itself off a mesh or with one replica."""
+    if shard is None or shard.replicas is None:
+        return tree
+    leaves: list = []
+    map_tensors(tree, lambda t: leaves.append(t) or t)
+    it = iter(tensors_from_first_replica(leaves, shard))
+    return map_tensors(tree, lambda t: next(it))
 
 
 def attach_partition(history: Snapshot, snaps: Sequence[np.ndarray], num_nodes: int,
@@ -204,14 +229,20 @@ class ShardedEval:
 
     def ranks(self, s_ob, s_rel, trip, er, ec, rr, rc) -> torch.Tensor:
         """[4, B]: the entity ranks (raw, filtered) across the shards, the
-        relation ranks (replicated scores)."""
-        return torch.stack([
+        relation ranks (replicated scores); the first replica's."""
+        return from_first_replica(torch.stack([
             metrics.sharded_ranks(s_ob, trip[:, 2], self.shard),
             metrics.sharded_filtered_ranks(s_ob, trip[:, 2], er, ec, self.shard),
             metrics.device_ranks(s_rel, trip[:, 1]),
             metrics.device_filtered_ranks(s_rel, trip[:, 1], rr, rc),
-        ])
+        ]), self.shard)
 
     def full_scores(self, s_ob: torch.Tensor) -> torch.Tensor:
-        """[B, N]: every rank's candidate columns, in rank order."""
-        return all_gather_rows(s_ob.T.contiguous(), self.shard.group).T
+        """[B, N]: every rank's candidate columns, in rank order; the first
+        replica's."""
+        return from_first_replica(all_gather_rows(s_ob.T.contiguous(), self.shard.group).T,
+                                  self.shard)
+
+    def rel_scores(self, s_rel: torch.Tensor) -> torch.Tensor:
+        """The replicated relation scores, the first replica's."""
+        return from_first_replica(s_rel, self.shard)

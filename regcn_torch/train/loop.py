@@ -47,8 +47,8 @@ from regcn_torch.dist import check_impl_compatible, sharded_impl
 from regcn_torch.models import recurrent
 from regcn_torch.ops.rgcn_scatter import check_impl
 from regcn_torch.parallel import sharding
-from regcn_torch.parallel.mesh import (DATA_AXIS, axis_size, check_entity_divisibility,
-                                       check_words_divisibility, row_shard)
+from regcn_torch.parallel.mesh import (check_entity_divisibility, check_words_divisibility,
+                                       row_shard)
 from regcn_torch.train import metrics
 from regcn_torch.train import state as train_state
 from regcn_torch.train.optim import tree_leaves
@@ -177,7 +177,7 @@ def multi_step_ranks(
                                   torch.from_numpy(mask).to(device),
                                   **(step_inputs(t, triples, mask) if step_inputs else {}))
             if sharded is not None:
-                s_ob = sharded.full_scores(s_ob)
+                s_ob, s_rel = sharded.full_scores(s_ob), sharded.rel_scores(s_rel)
         # the dense scores go to the host, in float64 as in the JAX loop
         s_ob = s_ob.cpu().numpy().astype(np.float64)[valid]
         s_rel = s_rel.cpu().numpy().astype(np.float64)[valid]
@@ -333,9 +333,32 @@ class Trainer:
     whole states' rows; multi-step evaluation needs ``"gspmd"``, as in
     JAX. With the static graph ``words_emb`` is row-sharded too, so
     ``num_words`` must be a multiple of the ``graph`` axis (a ``ValueError``
-    at construction otherwise, as JAX refuses it). Not ported on a mesh yet,
-    and raising ``NotImplementedError`` (ROADMAP A.11b): bf16 compute,
-    ``run_analysis``, ``impl="cumsum"`` and a ``data`` axis above 1."""
+    at construction otherwise, as JAX refuses it). On a mesh:
+
+    - bf16 compute casts the rank's rows as the unsharded loss casts the
+      table; the gathers and the halo's exchange carry bf16 rows, and
+      every sum across ranks runs in fp32 (``parallel/collectives.py``);
+    - ``impl="cumsum"`` under ``"gspmd"`` reduces each rank's
+      destination-sorted edges by their cumulative sum in place of B1, in
+      training and evaluation; under ``"halo"`` it raises JAX's
+      ``ValueError`` (``check_impl_compatible``);
+    - ``run_analysis`` records the norms of whole arrays, the entity
+      table's rows all-gathered, the same record on every rank, and only
+      the mesh's first rank logs it;
+    - a ``data`` axis above 1 replicates the whole training, as JAX's
+      rules replicate every leaf over it. Each replica would compute its
+      steps apart, and the card's atomic sums add in no fixed order, so
+      every step's gradients and BatchNorm statistics, and the ranks of
+      every evaluation, are taken from the first replica (a broadcast over
+      the ``data`` group): the replicas stay bit-equal by construction, at
+      the cost of one broadcast a step, where an average over the group
+      would leave them equal only as far as its sum is. The dropouts draw
+      from the same seed on every replica. Only the mesh's first rank
+      writes a checkpoint, and every rank waits for it.
+
+    Still to come on a mesh (ROADMAP A.11b): the sweep's model axis
+    (``train/sweep.py``) and the counterpart of JAX's ``dryrun_multichip``.
+    """
 
     def __init__(self, cfg: ExperimentConfig, data: TKGData, *, impl: str = "xla", mesh=None,
                  dist_agg: str = "gspmd", run_analysis: bool = False, device="cuda"):
@@ -352,15 +375,8 @@ class Trainer:
             check_entity_divisibility(data.num_nodes, mesh)
             if cfg.model.use_static:
                 check_words_divisibility(data.num_words, mesh)
-            for unported, what in ((axis_size(mesh, DATA_AXIS) != 1, "a data axis above 1"),
-                                   (impl == "cumsum", "impl='cumsum'"),
-                                   (self.compute_dtype != torch.float32, "bf16 compute"),
-                                   (run_analysis, "run_analysis")):
-                if unported:
-                    raise NotImplementedError(f"{what} on a mesh is not ported yet "
-                                              "(ROADMAP A.11b)")
             self.shard = row_shard(mesh, data.num_nodes)
-            impl = sharded_impl(mesh, dist_agg)
+            impl = sharded_impl(mesh, dist_agg, impl)
         self.impl = impl
         self.cfg, self.data = cfg, data
         self.device = torch.device(device)
@@ -422,7 +438,7 @@ class Trainer:
         total, losses, new_model_state = self.loss(state, history, triples, mask)
         grads = sharding.train_grads(total, state, self.opt, self.shard)
         self.opt.step(tree_leaves(state.params), grads, state.opt_state)
-        state.model_state = new_model_state
+        state.model_state = sharding.from_first_replica_tree(new_model_state, self.shard)
         state.step += 1
         return {k: v.detach() for k, v in losses.items()}
 
@@ -448,15 +464,16 @@ class Trainer:
         ``Trainer.analysis_record``): the gradient norms of the training
         loss on the first full window, with the entity embeddings' row-norm
         statistics. Its dropouts draw from a generator seeded 0, as JAX's
-        from a fixed key, and leave the state's generator alone."""
+        from a fixed key, and leave the state's generator alone. On a mesh
+        (a collective) the statistics are those of the whole arrays."""
         i = min(self.cfg.train.train_history_len, len(self.train_list) - 1)
         history, triples, mask = self.window(i)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(0)
         total, _, _ = self.loss(dataclasses.replace(state, gen=gen), history, triples, mask)
-        grads = torch.autograd.grad(total, tree_leaves(state.params), allow_unused=True)
-        rec = gradient_stats(state.params, grads)
-        rec.update(embedding_stats(state.params["dynamic_emb"], "entity"))
+        grads = sharding.train_grads(total, state, shard=self.shard)
+        rec = gradient_stats(state.params, grads, shard=self.shard)
+        rec.update(embedding_stats(state.params["dynamic_emb"], "entity", shard=self.shard))
         return rec
 
     # ------------------------------------------------------------------ eval
@@ -530,8 +547,10 @@ class Trainer:
                          losses["entity"], losses["relation"], losses["static"], dt)
             if self.run_analysis:
                 rec = self.analysis_record(state)
-                log.info("analysis %04d | grad global %.4e | ent norm %.3f±%.3f", epoch,
-                         rec["global_norm"], rec["entity_norm_mean"], rec["entity_norm_std"])
+                if self.shard is None or self.shard.first:
+                    log.info("analysis %04d | grad global %.4e | ent norm %.3f±%.3f", epoch,
+                             rec["global_norm"], rec["entity_norm_mean"],
+                             rec["entity_norm_std"])
             if epoch % tc.evaluate_every == 0:
                 stats = self.evaluate(state, self.train_list, self.valid_list, ent_f, rel_f)
                 mrr = stats[selection_metric].mrr

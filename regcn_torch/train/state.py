@@ -18,10 +18,12 @@ synchronous. Orbax checkpoints of the JAX package are not read.
 
 On an entity-sharded mesh (``shard``, this rank's
 ``regcn_torch.parallel.collectives.RowShard``) a checkpoint keeps the
-unsharded format: every rank gathers the whole state and rank 0 writes it;
-a restore reads the whole state and keeps the rank's rows. So a sharded
-run resumes from an unsharded checkpoint and the other way round, as JAX
-restores, then shards.
+unsharded format: every rank gathers the whole state and the mesh's first
+rank writes it (with a ``data`` axis above 1 the replicas hold the same
+state, and one writer keeps them from replacing one file at once); a
+restore reads the whole state and keeps the rank's rows, the same rows in
+every replica. So a sharded run resumes from an unsharded checkpoint and
+the other way round, as JAX restores, then shards.
 """
 
 from __future__ import annotations
@@ -112,14 +114,18 @@ def save_checkpoint(path: str, state: TrainState, meta: Optional[Dict[str, Any]]
                     shard=None) -> None:
     """The whole train state to ``<path>/state.pt``, then ``meta`` to
     ``<path>/meta.json``; with ``shard``, gathered over the ranks (a
-    collective) and written by rank 0, the other ranks waiting for it."""
+    collective) and written by the mesh's first rank, every rank waiting
+    for it: a barrier over the ``graph`` group, then over the ``data``
+    group, whose rank in the first replica has passed the first barrier."""
     if shard is not None:
         from regcn_torch.parallel.sharding import unshard_state
 
         whole = unshard_state(state, shard)
-        if shard.rank == 0:
+        if shard.first:
             save_checkpoint(path, whole, meta)
         dist.barrier(group=shard.group)
+        if shard.replicas is not None:
+            dist.barrier(group=shard.replicas)
         return
     os.makedirs(path, exist_ok=True)
     blob = {

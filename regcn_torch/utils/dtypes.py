@@ -33,30 +33,41 @@ def compute_dtype(name: str) -> torch.dtype:
 def tree_to_compute(tree, dtype: torch.dtype):
     """``tree`` with every fp32 tensor of at least one axis cast to
     ``dtype``: through dicts, lists, tuples and dataclasses (a Snapshot's
-    ``edge_mask``, ``in_deg_norm``, ``has_in_edge`` and ``rc_mask``); 0-d
-    tensors and everything else as they are. The identity for fp32."""
+    ``edge_mask``, ``in_deg_norm``, ``has_in_edge`` and ``rc_mask``, and on
+    a mesh those of the rank's edge partition it carries, as JAX casts the
+    halo partition of its snapshot); 0-d tensors and everything else as
+    they are. The identity for fp32."""
     if dtype == torch.float32:
         return tree
-    return _map(tree, lambda t: t.to(dtype) if t.dtype == torch.float32 and t.dim() >= 1 else t)
+    return map_tensors(tree, lambda t: t.to(dtype) if t.dtype == torch.float32 and t.dim() >= 1
+                       else t)
 
 
 def tree_to_fp32(tree):
     """``tree`` with every floating tensor cast to fp32."""
-    return _map(tree, lambda t: t.float() if t.is_floating_point() else t)
+    return map_tensors(tree, lambda t: t.float() if t.is_floating_point() else t)
 
 
-def _map(tree, fn):
+def map_tensors(tree, fn):
+    """``tree`` with ``fn`` applied to each of its tensors, through dicts,
+    lists, tuples and dataclasses, in one fixed order."""
     if isinstance(tree, torch.Tensor):
         return fn(tree)
     if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
+        return {k: map_tensors(v, fn) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(v, fn) for v in tree)
-    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return type(tree)(map_tensors(v, fn) for v in tree)
+    if _is_instance(tree):
         return dataclasses.replace(tree, **{
-            f.name: _map(getattr(tree, f.name), fn) for f in dataclasses.fields(tree)
-            if f.init and isinstance(getattr(tree, f.name), (torch.Tensor, dict, list, tuple))})
+            f.name: map_tensors(getattr(tree, f.name), fn) for f in dataclasses.fields(tree)
+            if f.init and (isinstance(getattr(tree, f.name), (torch.Tensor, dict, list, tuple))
+                           or _is_instance(getattr(tree, f.name)))})
     return tree
+
+
+def _is_instance(x) -> bool:
+    """A dataclass instance (not a class)."""
+    return dataclasses.is_dataclass(x) and not isinstance(x, type)
 
 
 def promoted(*ts):

@@ -28,6 +28,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from regcn_torch.parallel.collectives import all_gather_rows
 from regcn_torch.train.optim import tree_leaves
 
 log = logging.getLogger(__name__)
@@ -63,12 +64,24 @@ def _named_leaves(tree, grads: dict, prefix: str = "") -> List[Tuple[str, torch.
     return [(prefix, grads[id(tree)])]
 
 
-def gradient_stats(params, grads: Sequence[Optional[torch.Tensor]], top_k: int = 10
-                   ) -> Dict[str, float]:
+def gradient_stats(params, grads: Sequence[Optional[torch.Tensor]], top_k: int = 10,
+                   shard=None) -> Dict[str, float]:
     """The global gradient norm and the ``top_k`` largest per-parameter
     norms, by name, largest first. ``grads`` follows
     ``regcn_torch.train.optim.tree_leaves(params)``; a None gradient counts
-    as 0, as JAX's zero gradient of an unused leaf."""
+    as 0, as JAX's zero gradient of an unused leaf. On an entity-sharded
+    mesh (``shard``, this rank's ``RowShard``) ``params`` holds the rank's
+    rows of the entity tables and ``grads`` their gradients, the
+    replicated leaves' summed over the ranks already: each row-sharded
+    leaf's gradient is all-gathered whole (a collective: every rank calls
+    it), so the norms are those of whole arrays, as JAX's, and every rank
+    returns the same record. The norms are fp32, as JAX takes them."""
+    if shard is not None:
+        from regcn_torch.parallel.sharding import param_sharding_rules
+
+        with torch.no_grad():
+            grads = [all_gather_rows(g, shard.group) if r and g is not None else g
+                     for g, r in zip(grads, param_sharding_rules(params))]
     by_id = {id(p): g for p, g in zip(tree_leaves(params), grads)}
     named = {}
     for name, g in _named_leaves(params, by_id):
@@ -78,9 +91,14 @@ def gradient_stats(params, grads: Sequence[Optional[torch.Tensor]], top_k: int =
     return {"global_norm": global_norm, **top}
 
 
-def embedding_stats(emb: torch.Tensor, prefix: str = "emb") -> Dict[str, float]:
+def embedding_stats(emb: torch.Tensor, prefix: str = "emb", shard=None) -> Dict[str, float]:
     """Row-norm statistics of an embedding table (mean, std, max), taken
-    on the host in float32 as JAX takes them."""
+    on the host in float32 as JAX takes them; with ``shard`` (``emb`` the
+    rank's rows of a row-sharded table) over every row of the table, the
+    rows all-gathered (a collective), the same record on every rank."""
+    if shard is not None:
+        with torch.no_grad():
+            emb = all_gather_rows(emb.detach(), shard.group)
     norms = np.linalg.norm(emb.detach().cpu().numpy().astype(np.float32), axis=-1)
     return {
         f"{prefix}_norm_mean": float(norms.mean()),

@@ -344,17 +344,18 @@ def test_rejections_match_jax(tiny, tmp_path, argv):
     (["bench", "-d", "synthetic-small"], "A.2"),
     (["grid", "-d", "synthetic-small", "--tune", "lr", "--vectorize", "--shards", "2"],
      "A.11b"),
-    (["hyperbolic", "-d", "synthetic-small", "--shards", "2", "--dist-agg", "halo",
-      "--compute-dtype", "bfloat16"], "A.11b"),
+    (["grid", "-d", "synthetic-small", "--tune", "lr", "--vectorize", "--dist-agg", "halo"],
+     "A.11b"),
 ], ids=["bench", "shards", "halo"])
 def test_unported_modes_stop_naming_their_roadmap_item(tiny, tmp_path, argv, item):
     """``hyperbolic`` and ``hisres`` on a mesh, stopped here until they were
     ported, now run (``tests/test_torch_sharded_hyperbolic.py``,
     ``tests/test_torch_sharded_hisres.py``); what stays unported on a mesh
-    stops before any process group: the vectorized grid's model axis, and
-    bf16 (or ``--run-analysis``) with ``--shards``; EST and the static
-    graph with ``--shards``, stopped here until they were ported, run
-    (``tests/test_torch_sharded_est.py``)."""
+    stops before any process group: the vectorized grid's model axis, with
+    ``--shards`` or ``--dist-agg halo``. EST, the static graph, bf16 and
+    ``--run-analysis`` with ``--shards``, stopped here until they were
+    ported, run (``tests/test_torch_sharded_est.py``,
+    ``tests/test_torch_sharded_static.py``)."""
     with pytest.raises(SystemExit, match=item):
         run_cli(cli, argv, tmp_path, device="cpu")
 

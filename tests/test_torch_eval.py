@@ -32,6 +32,16 @@ MRR_TOL = 1e-4
 MAX_RANK_MISMATCHES, MAX_RANK_DIFF = 2, 2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Tiny tensors: torch's intra-op threads cost more than they save,
+    and on a CPU shared with other test workers far more."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def setup():
     data = generate("synthetic-small", seed=123, **TINY)

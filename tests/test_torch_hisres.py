@@ -388,12 +388,11 @@ def test_get_loss_every_gradient_and_predict_match_jax(stores, snaps, data, use_
 def test_unported_configs_raise(data):
     """The halo aggregation, once refused, is ported on a mesh
     (``tests/test_torch_sharded_hisres.py``): ``impl="halo"`` names no
-    single-device route and raises, and a mesh's marker with bf16 compute,
-    not ported there yet, raises naming its ROADMAP item (the static graph,
-    refused there until it was ported, runs in
-    ``tests/test_torch_sharded_static.py``); bf16
-    compute, refused until it was ported, initialises fp32 parameters, and
-    a dtype JAX does not offer raises."""
+    single-device route and raises; bf16 compute, refused until it was
+    ported (on a mesh too, ``tests/test_torch_sharded_options.py``: a
+    mesh's marker with bf16, refused there until then, initialises the
+    same fp32 parameters), initialises fp32 parameters, and a dtype JAX
+    does not offer raises."""
     import types
 
     from regcn_torch.dist import HaloImpl
@@ -403,13 +402,13 @@ def test_unported_configs_raise(data):
         PM.init_params(torch.Generator().manual_seed(0), dataclasses.replace(pcfg, impl="halo"),
                        device="cpu")
     marker = HaloImpl(types.SimpleNamespace(mesh_dim_names=("data", "graph"), shape=(1, 2)))
-    with pytest.raises(NotImplementedError, match="A.11b"):
-        PM.init_params(torch.Generator().manual_seed(0),
-                       dataclasses.replace(pcfg, impl=marker, compute_dtype="bfloat16"),
-                       device="cpu")
+    on_mesh, _ = PM.init_params(torch.Generator().manual_seed(0),
+                                dataclasses.replace(pcfg, impl=marker, compute_dtype="bfloat16"),
+                                device="cpu")
     params, _ = PM.init_params(torch.Generator().manual_seed(0),
                                dataclasses.replace(pcfg, compute_dtype="bfloat16"), device="cpu")
     assert all(t.dtype == torch.float32 for t in tree_leaves(params))
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(on_mesh), tree_leaves(params)))
     with pytest.raises(ValueError, match="compute dtype"):
         PM.init_params(torch.Generator().manual_seed(0),
                        dataclasses.replace(pcfg, compute_dtype="float16"), device="cpu")

@@ -341,14 +341,13 @@ def test_analysis_record_matches_jax(data, jax_run):
 
 def test_unported_options_raise(data):
     """A mesh, refused until HisRES was ported to one
-    (``tests/test_torch_sharded_hisres.py``), now refuses only what it does
-    not run yet, naming its ROADMAP item (here ``run_analysis``); the halo
-    without a mesh raises JAX's error."""
-    import types
-
+    (``tests/test_torch_sharded_hisres.py``), takes every option JAX's
+    does (``run_analysis``, refused on a mesh until it was ported, runs in
+    ``tests/test_torch_sharded_options.py``); what JAX's trainer refuses
+    raises its error: an unknown aggregation, and the halo without a
+    mesh."""
     _, _, pcfg, ptc = configs(data)
-    mesh = types.SimpleNamespace(mesh_dim_names=("data", "graph"), shape=(1, 2))
-    with pytest.raises(NotImplementedError, match="A.11b"):
-        HisResTrainer(pcfg, ptc, data, device="cpu", mesh=mesh, run_analysis=True)
+    with pytest.raises(ValueError, match="dist_agg must be 'gspmd' or 'halo'"):
+        HisResTrainer(pcfg, ptc, data, device="cpu", dist_agg="ring")
     with pytest.raises(ValueError, match="requires a mesh"):
         HisResTrainer(pcfg, ptc, data, device="cpu", dist_agg="halo")

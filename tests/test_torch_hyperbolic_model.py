@@ -34,6 +34,16 @@ RTOL, ATOL = 1e-4, 1e-5
 HLEN = 2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Tiny tensors: torch's intra-op threads cost more than they save,
+    and on a CPU shared with other test workers far more."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def close(got, want, rtol=RTOL, atol=ATOL, msg=""):
     got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
     np.testing.assert_allclose(got, np.asarray(want), rtol=rtol, atol=atol, err_msg=msg)

@@ -18,6 +18,16 @@ RTOL, ATOL = 1e-4, 1e-5
 C = 0.01
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Tiny tensors: torch's intra-op threads cost more than they save,
+    and on a CPU shared with other test workers far more."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def close(got, want, rtol=RTOL, atol=ATOL):
     np.testing.assert_allclose(np.asarray(got.detach() if isinstance(got, torch.Tensor) else got),
                                np.asarray(want), rtol=rtol, atol=atol)

@@ -39,6 +39,16 @@ TINY = dict(num_ents=40, num_rels=5, num_snaps=10, triples_per_snap=30, split=(6
 STEPS = 3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Tiny tensors: torch's intra-op threads cost more than they save,
+    and on a CPU shared with other test workers far more."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def data():
     return generate("synthetic-small", seed=123, **TINY)
@@ -57,28 +67,36 @@ def configs(data, **kw):
 
 @pytest.fixture(scope="module")
 def jax_run(data):
-    """JAX: the initial parameters, then per step the losses and parameters."""
-    jcfg, jtc, _, _ = configs(data)
+    """JAX: the initial parameters, then per step the losses and parameters;
+    and the whole state after epoch 0 taken by the same compiled steps in
+    the epoch's order (the fused epoch's steps, ``tests/test_epoch_fused.py``)."""
+    from regcn_tpu.data.snapshots import pad_triples
+
+    jcfg, jtc, pcfg, ptc = configs(data)
     trainer = JaxTrainer(jcfg, jtc, data, curvature_warmup_epochs=5)
     state = trainer.init_state(jax.random.PRNGKey(0))
     init = jax.tree.map(np.asarray, (state.params, state.model_state))
     cmax = jnp.asarray(trainer._curvature_max(0), jnp.float32)
+
+    def step(state, i):
+        lo = max(0, i - jtc.train_history_len)
+        triples, mask = pad_triples(trainer.train_list[i], data.num_rels, jtc.triple_bucket)
+        return trainer.train_step(state, trainer._history(trainer.train_list[lo:i]),
+                                  jnp.asarray(triples), jnp.asarray(mask), cmax)
+
     order = [2, 1, 4]  # windows of 2, 1 (short) and 2 snapshots
     steps = []
     for i in order:
-        lo = max(0, i - jtc.train_history_len)
-        history = trainer._history(trainer.train_list[lo:i])
-        from regcn_tpu.data.snapshots import pad_triples
-
-        triples, mask = pad_triples(trainer.train_list[i], data.num_rels, jtc.triple_bucket)
-        state, losses = trainer.train_step(state, history, jnp.asarray(triples),
-                                           jnp.asarray(mask), cmax)
+        state, losses = step(state, i)
         steps.append((jax.tree.map(float, losses), jax.tree.map(np.asarray, state.params)))
-    return init, order, steps
+    state = trainer.init_state(jax.random.PRNGKey(0))
+    for i in HyperbolicTrainer(pcfg, ptc, data, device="cpu").epoch_order(0):
+        state, _ = step(state, i)
+    return init, order, steps, jax.tree.map(np.array, state)
 
 
 def test_three_steps_match_jax(data, jax_run):
-    (params_np, state_np), order, steps = jax_run
+    (params_np, state_np), order, steps, _ = jax_run
     _, _, pcfg, ptc = configs(data)
     trainer = HyperbolicTrainer(pcfg, ptc, data, curvature_warmup_epochs=5, device="cpu")
     state = trainer.state_from(*hyperbolic_params_from_jax(params_np, state_np, device="cpu"))
@@ -138,7 +156,7 @@ def test_run_epoch_reports_mean_losses(data):
 
 
 @pytest.mark.parametrize("unported", ["triple_batch_size", "dilate_len", "manifold_entities"])
-def test_unported_options_raise(data, unported):
+def test_unported_options_raise(data, jax_run, unported):
     """``dilate_len > 1``, once refused, is now read as JAX's trainer reads
     it, not at all: the training list equals JAX's, undilated. Triple batching (chunks
     of 16 rows, mode ``accumulate``) and entities on the ball with
@@ -161,10 +179,13 @@ def test_unported_options_raise(data, unported):
     cfg_kw = {"manifold_entities": True} if unported == "manifold_entities" else {}
     kw = {"triple_batch_size": 16} if unported == "triple_batch_size" else {}
     jcfg, jtc, pcfg, ptc = configs(data, **cfg_kw)
-    fused = JaxTrainer(jcfg, jtc, data, curvature_warmup_epochs=5)
-    after0, _ = fused.run_epoch(fused.init_state(jax.random.PRNGKey(0)), 0)
-    after0 = jax.tree.map(np.array, after0)
-    jax_trainer = JaxTrainer(jcfg, jtc, data, curvature_warmup_epochs=5, **kw) if kw else fused
+    if kw:  # the plain configuration's epoch 0, by the module's compiled steps
+        after0 = jax_run[3]
+        jax_trainer = JaxTrainer(jcfg, jtc, data, curvature_warmup_epochs=5, **kw)
+    else:
+        jax_trainer = JaxTrainer(jcfg, jtc, data, curvature_warmup_epochs=5)
+        after0, _ = jax_trainer.run_epoch(jax_trainer.init_state(jax.random.PRNGKey(0)), 0)
+        after0 = jax.tree.map(np.array, after0)
     want_state, want_losses = jax_trainer.run_epoch(jax.tree.map(jnp.asarray, after0), 1)
     trainer = HyperbolicTrainer(pcfg, ptc, data, curvature_warmup_epochs=5, device="cpu", **kw)
     state = train_state_from_jax(after0, device="cpu")

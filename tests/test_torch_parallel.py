@@ -183,13 +183,15 @@ def test_each_ranks_aggregate_is_its_rows_of_the_unsharded_one(G, mode):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * scale)
 
 
-@pytest.mark.parametrize("what", ["data_axis", "cumsum", "bf16", "run_analysis",
-                                  "pallas_halo"])
+@pytest.mark.parametrize("what", ["cumsum", "pallas_halo"])
 def test_trainer_refuses_what_a_mesh_does_not_run_yet(what):
-    """The sharded trainer's refusals, before any collective: ROADMAP A.11b's
-    options raise ``NotImplementedError`` (the static graph, refused until
-    it was ported, runs in ``tests/test_torch_sharded_static.py``); ``impl="pallas"`` with the halo
-    raises JAX's ``check_impl_compatible`` error."""
+    """The sharded trainer's refusals, before any collective: ``impl``
+    "cumsum" or "pallas" with the halo raises JAX's ``check_impl_compatible``
+    error (the halo replaces the aggregation backend). A data axis above 1,
+    bf16 compute, ``run_analysis`` and ``impl="cumsum"`` under ``"gspmd"``,
+    refused until they were ported, run on a mesh
+    (``tests/test_torch_sharded_options.py``), as the static graph does
+    (``tests/test_torch_sharded_static.py``)."""
     from regcn_torch.config import ExperimentConfig, ModelConfig, TrainConfig
     from regcn_torch.data.synthetic import generate
     from regcn_torch.train.loop import Trainer
@@ -197,21 +199,10 @@ def test_trainer_refuses_what_a_mesh_does_not_run_yet(what):
     data = generate("synthetic-small", seed=123, num_ents=40, num_rels=5, num_snaps=10,
                     triples_per_snap=30, split=(6, 2, 2))
     model = dict(num_ents=data.num_nodes, num_rels=data.num_rels, h_dim=8, n_layers=2)
-    kw = dict(mesh=types.SimpleNamespace(mesh_dim_names=("data", "graph"),
-                                         shape=(2 if what == "data_axis" else 1, 2)),
-              device="cpu")
-    if what == "bf16":
-        model.update(dtype="bfloat16")
-    if what == "run_analysis":
-        kw["run_analysis"] = True
-    if what in ("cumsum", "pallas_halo"):
-        kw["impl"] = "cumsum" if what == "cumsum" else "pallas"
-    if what == "pallas_halo":
-        kw["dist_agg"] = "halo"
+    kw = dict(mesh=types.SimpleNamespace(mesh_dim_names=("data", "graph"), shape=(1, 2)),
+              device="cpu", dist_agg="halo", impl="cumsum" if what == "cumsum" else "pallas")
     cfg = ExperimentConfig(model=ModelConfig(**model), train=TrainConfig())
-    error = ValueError if what == "pallas_halo" else NotImplementedError
-    with pytest.raises(error, match="conflicts with dist_agg='halo'" if what == "pallas_halo"
-                       else "A.11b"):
+    with pytest.raises(ValueError, match="conflicts with dist_agg='halo'"):
         Trainer(cfg, data, **kw)
 
 

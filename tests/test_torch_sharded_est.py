@@ -65,6 +65,7 @@ from regcn_torch.train.optim import tree_leaves
 from test_torch_sharded_hyperbolic import (CLI_ARGS, D, NO_DROPOUT, SHIFT_INVARIANT, TC, TINY,
                                            _rank_checkpoint, assert_ranks_match, blob_of,
                                            host_copy, paths, recorded_test, state_of)
+from test_torch_sharded_train import read_input, write_input
 
 EST = dict(use_est=True, use_time_aware_negative=True, est_encoder="gru", est_history_len=4)
 EST_FLAGS = ["--use-est", "--use-time-aware-negative", "--est-history-len", "4"]
@@ -170,23 +171,23 @@ def rank_main(rank: int, G: int, workdir: str) -> None:
     os.nice(10)  # a helper of this test: the other test workers keep their CPU share
     dist.init_process_group("gloo", init_method=f"file://{workdir}/store", world_size=G,
                             rank=rank)
-    with open(os.path.join(workdir, "inputs.pkl"), "rb") as f:
-        inputs = pickle.load(f)
+    init = read_input(workdir, "init")
     data = data_of()
     mesh = make_mesh(MeshAxes(1, G), device_type="cpu")
     results = {}
     for name, (_, _, modes) in CONFIGS.items():
         for mode in modes:
             trainer = trainer_of(name, data, mesh=mesh, dist_agg=mode)
-            res = {"get_loss": _rank_get_loss(trainer, inputs["init"][name])}
-            res["epoch"], state = _rank_epoch(trainer, inputs["after0"][name])
-            final = sharding.shard_state(state_of(inputs["final"][name]), trainer.shard)
+            res = {"get_loss": _rank_get_loss(trainer, init[name])}
+            late = read_input(workdir, name)
+            res["epoch"], state = _rank_epoch(trainer, late["after0"])
+            final = sharding.shard_state(state_of(late["final"]), trainer.shard)
             res["test"] = recorded_test(trainer, final)
             if name == "config5":
                 res["multi_step"] = recorded_test(trainer, final, multi_step=True, topk=3)
                 res["round_trip"] = _rank_checkpoint(trainer, state, workdir, name)
                 if G == 2 and mode == "gspmd":
-                    res["anchor"] = _rank_anchor(trainer, inputs["init"][name])
+                    res["anchor"] = _rank_anchor(trainer, init[name])
             results[name, mode] = res
     if G == 2:
         results["cli"] = _rank_cli(G, workdir, data)
@@ -238,17 +239,33 @@ def jax_anchor(trainer, state) -> dict:
 
 
 @pytest.fixture(scope="module")
-def unsharded(jax_runs):
-    """The unsharded port from JAX's converted initial states: get_loss
-    with every gradient, one epoch, the test ranks after it."""
+def spawns(jax_runs, tmp_path_factory):
+    """The spawns of G = 2 and G = 4, side by side, from JAX's converted
+    initial states; each case's states after the unsharded epochs reach
+    them later (``unsharded``)."""
     from regcn_torch.convert import train_state_from_jax
 
+    init = {name: blob_of(train_state_from_jax(jax_runs[2][name.split("-")[0]], device="cpu"))
+            for name in CONFIGS}
+    out = {}
+    for G in (2, 4):
+        workdir = str(tmp_path_factory.mktemp(f"g{G}"))
+        write_input(workdir, "init", init)
+        out[G] = workdir, mp.start_processes(rank_main, args=(G, workdir), nprocs=G,
+                                             join=False, start_method="spawn")
+    return init, out
+
+
+@pytest.fixture(scope="module")
+def unsharded(spawns):
+    """The unsharded port from JAX's converted initial states, while the
+    ranks run: get_loss with every gradient, one epoch, the test ranks
+    after it; each case's states after its epochs go to the ranks."""
     data = data_of()
-    out = {"init": {}, "after0": {}, "final": {}}
+    out = {"init": spawns[0], "after0": {}, "final": {}}
     for name in CONFIGS:
         trainer = trainer_of(name, data)
-        init = blob_of(train_state_from_jax(jax_runs[2][name.split("-")[0]], device="cpu"))
-        out["init"][name] = init
+        init = out["init"][name]
         state = state_of(init)
         total, losses, _, _ = trainer.loss(state, *window_inputs(trainer))
         grads = torch.autograd.grad(total, tree_leaves(state.params), allow_unused=True)
@@ -264,6 +281,8 @@ def unsharded(jax_runs):
                               "params": [t.detach().clone() for t in tree_leaves(state.params)],
                               "est": est_of(state)}
         out["final"][name] = blob_of(state)
+        for workdir, _ in spawns[1].values():
+            write_input(workdir, name, {k: out[k][name] for k in ("after0", "final")})
         out[name, "test"] = recorded_test(trainer, state)
         if name == "config5":
             out[name, "multi_step"] = recorded_test(trainer, state, multi_step=True, topk=3)
@@ -284,18 +303,11 @@ def cli_unsharded(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def rank_results(unsharded, jax_runs, tmp_path_factory):
-    """Every rank's results per G, and JAX's sharded anchor: the spawns of
-    G = 2 and G = 4 run side by side while this process runs JAX's."""
-    spawns = {}
-    for G in (2, 4):
-        workdir = str(tmp_path_factory.mktemp(f"g{G}"))
-        with open(os.path.join(workdir, "inputs.pkl"), "wb") as f:
-            pickle.dump({k: unsharded[k] for k in ("init", "after0", "final")}, f)
-        spawns[G] = workdir, mp.start_processes(rank_main, args=(G, workdir), nprocs=G,
-                                                join=False, start_method="spawn")
+def rank_results(unsharded, jax_runs, spawns):
+    """Every rank's results per G, and JAX's sharded anchor, which this
+    process runs while the ranks do."""
     out = {"anchor": jax_anchor(*jax_runs[:2])}
-    for G, (workdir, ctx) in spawns.items():
+    for G, (workdir, ctx) in spawns[1].items():
         while not ctx.join():
             pass
         out[G] = []

@@ -39,8 +39,9 @@ Tolerances:
 - ``python -m regcn_torch.cli hisres --shards 2`` with torchrun's
   variables set, in both modes, against the same command unsharded: the
   test MRRs within 1e-3;
-- every refusal on a mesh names its ROADMAP item, or raises JAX's error
-  where JAX refuses.
+- every refusal on a mesh raises JAX's error where JAX refuses (bf16
+  compute, ``run_analysis`` and a data axis, refused until they were
+  ported, run in ``tests/test_torch_sharded_options.py``).
 """
 
 import copy
@@ -67,6 +68,7 @@ from regcn_torch.parallel.mesh import MeshAxes, make_mesh
 from regcn_torch.train import metrics
 from regcn_torch.train import state as train_state
 from regcn_torch.train.optim import AdamState, tree_leaves, tree_map
+from test_torch_sharded_train import read_input, write_input
 
 TINY = dict(num_ents=40, num_rels=5, num_snaps=10, triples_per_snap=30, split=(6, 2, 2))
 NO_DROPOUT = dict(dropout=0.0, input_dropout=0.0, hidden_dropout=0.0, feat_dropout=0.0,
@@ -258,8 +260,7 @@ def rank_main(rank: int, G: int, workdir: str) -> None:
     os.nice(10)  # a helper of this test: the other test workers keep their CPU share
     dist.init_process_group("gloo", init_method=f"file://{workdir}/store", world_size=G,
                             rank=rank)
-    with open(os.path.join(workdir, "inputs.pkl"), "rb") as f:
-        inputs = pickle.load(f)
+    init = read_input(workdir, "init")
     data = data_of()
     mesh = make_mesh(MeshAxes(1, G), device_type="cpu")
     cells = cell_inputs(data)
@@ -267,15 +268,16 @@ def rank_main(rank: int, G: int, workdir: str) -> None:
     for mode in MODES:
         trainer = trainer_of(data, mesh=mesh, dist_agg=mode)
         res = {"cell": _rank_cell(trainer, data, cells)}
-        mine = sharding.shard_state(state_of(inputs["init"]), trainer.shard)
+        mine = sharding.shard_state(state_of(init), trainer.shard)
         res["get_loss"] = loss_grads(trainer, mine, trainer.window(WINDOW))
-        res["epoch"], state = _rank_epoch(trainer, inputs["after0"])
-        final = sharding.shard_state(state_of(inputs["final"]), trainer.shard)
+        late = read_input(workdir, "late")
+        res["epoch"], state = _rank_epoch(trainer, late["after0"])
+        final = sharding.shard_state(state_of(late["final"]), trainer.shard)
         res["test"] = recorded_test(trainer, final)
         res["multi_step"] = recorded_test(trainer, final, multi_step=True, topk=3)
         res["round_trip"] = _rank_checkpoint(trainer, state, workdir)
         if G == 4 and mode == "halo":
-            res["anchor"] = _rank_anchor(trainer, inputs["init"])
+            res["anchor"] = _rank_anchor(trainer, init)
         if G == 2:
             res["cli"] = _rank_cli(G, mode, workdir, data)
         results[mode] = res
@@ -333,15 +335,31 @@ def jax_anchor(trainer, state) -> dict:
 
 
 @pytest.fixture(scope="module")
-def unsharded(jax_trainer):
-    """The unsharded port from JAX's converted initial state: the union
-    cell, get_loss at WINDOW with every gradient, epochs 0 and 1, the test
-    ranks after them (single- and multi-step)."""
+def spawns(jax_trainer, tmp_path_factory):
+    """The spawns of G = 2 and G = 4, side by side, from JAX's converted
+    initial state; the states after the unsharded epochs reach them later
+    (``unsharded``)."""
     from regcn_torch.convert import train_state_from_jax
 
+    init = blob_of(train_state_from_jax(jax_trainer[2], device="cpu"))
+    out = {}
+    for G in (2, 4):
+        workdir = str(tmp_path_factory.mktemp(f"g{G}"))
+        write_input(workdir, "init", init)
+        out[G] = workdir, mp.start_processes(rank_main, args=(G, workdir), nprocs=G,
+                                             join=False, start_method="spawn")
+    return init, out
+
+
+@pytest.fixture(scope="module")
+def unsharded(spawns):
+    """The unsharded port from JAX's converted initial state, while the
+    ranks run: the union cell, get_loss at WINDOW with every gradient,
+    epochs 0 and 1, the test ranks after them (single- and multi-step);
+    the states after the epochs go to the ranks."""
     data = data_of()
     trainer = trainer_of(data)
-    init = blob_of(train_state_from_jax(jax_trainer[2], device="cpu"))
+    init = spawns[0]
     h, rel, probe_h, probe_r, cell = cell_inputs(data)
     snap = build_history(split_by_time(data.train)[3:4], data.num_nodes, data.num_rels,
                          edge_bucket=TC["edge_bucket"], rc_bucket=TC["rc_bucket"],
@@ -355,6 +373,8 @@ def unsharded(jax_trainer):
     out["epoch"] = {"losses": trainer.run_epoch(state, 1),
                     "params": [t.detach().clone() for t in tree_leaves(state.params)]}
     out["final"] = blob_of(state)
+    for workdir, _ in spawns[1].values():
+        write_input(workdir, "late", {k: out[k] for k in ("after0", "final")})
     out["test"] = recorded_test(trainer, state)
     out["multi_step"] = recorded_test(trainer, state, multi_step=True, topk=3)
     return out
@@ -373,19 +393,11 @@ def cli_unsharded(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def rank_results(unsharded, jax_trainer, tmp_path_factory):
-    """Every rank's results, per (G, mode), and JAX's sharded anchor: the
-    spawns of G = 2 and G = 4 run side by side while this process runs
-    JAX's."""
-    spawns = {}
-    for G in (2, 4):
-        workdir = str(tmp_path_factory.mktemp(f"g{G}"))
-        with open(os.path.join(workdir, "inputs.pkl"), "wb") as f:
-            pickle.dump({k: unsharded[k] for k in ("init", "after0", "final")}, f)
-        spawns[G] = workdir, mp.start_processes(rank_main, args=(G, workdir), nprocs=G,
-                                                join=False, start_method="spawn")
+def rank_results(unsharded, jax_trainer, spawns):
+    """Every rank's results, per (G, mode), and JAX's sharded anchor, which
+    this process runs while the ranks do."""
     out = {"anchor": jax_anchor(*jax_trainer[:2])}
-    for G, (workdir, ctx) in spawns.items():
+    for G, (workdir, ctx) in spawns[1].items():
         while not ctx.join():
             pass
         ranks = []
@@ -485,18 +497,14 @@ def test_cli_hisres_shards(rank_results, cli_unsharded, mode):
 
 FAKE_MESH = types.SimpleNamespace(mesh_dim_names=("data", "graph"), shape=(1, 2))
 REFUSALS = {
-    "bf16": (dict(cfg=dict(compute_dtype="bfloat16")), NotImplementedError, "A.11b"),
-    "run-analysis": (dict(run_analysis=True), NotImplementedError, "A.11b"),
-    "data-axis": (dict(mesh=types.SimpleNamespace(mesh_dim_names=("data", "graph"),
-                                                  shape=(2, 2))), NotImplementedError, "A.11b"),
     "halo-without-mesh": (dict(mesh=None, dist_agg="halo"), ValueError, "requires a mesh"),
 }
 
 
 @pytest.mark.parametrize("what", list(REFUSALS))
 def test_refusals_on_a_mesh(what):
-    """What a mesh does not run yet raises before any collective, naming
-    its ROADMAP item; the halo without a mesh raises JAX's error."""
+    """What the trainer refuses raises before any collective: the halo
+    without a mesh raises JAX's error."""
     from regcn_tpu.config import TrainConfig as JaxTrainConfig
     from regcn_tpu.hisres import model as JM
     from regcn_tpu.hisres.train import HisResTrainer as JaxTrainer

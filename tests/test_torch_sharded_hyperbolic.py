@@ -49,10 +49,11 @@ bias), and the FHNN and HGAT encoders with RotH. Tolerances:
 - ``python -m regcn_torch.cli hyperbolic --shards 2`` with torchrun's
   variables set, in both modes, against the same command unsharded: the
   test MRRs within 1e-3;
-- every refusal on a mesh names its ROADMAP item, or raises JAX's error
-  where JAX refuses (config 5, triple batching under ``"gspmd"`` and the
-  static graph, refused until they were ported, run in
-  ``tests/test_torch_sharded_est.py`` and ``tests/test_torch_sharded_static.py``).
+- every refusal on a mesh raises JAX's error where JAX refuses (config 5,
+  triple batching under ``"gspmd"`` and the static graph, refused until
+  they were ported, run in ``tests/test_torch_sharded_est.py`` and
+  ``tests/test_torch_sharded_static.py``; bf16 compute, ``run_analysis``
+  and a data axis in ``tests/test_torch_sharded_options.py``).
 """
 
 import copy
@@ -81,6 +82,7 @@ from regcn_torch.parallel.mesh import MeshAxes, make_mesh
 from regcn_torch.train import metrics
 from regcn_torch.train import state as train_state
 from regcn_torch.train.optim import AdamState, tree_leaves, tree_map
+from test_torch_sharded_train import read_input, write_input
 
 TINY = dict(num_ents=40, num_rels=5, num_snaps=10, triples_per_snap=30, split=(6, 2, 2))
 NO_DROPOUT = dict(dropout=0.0, input_dropout=0.0, hidden_dropout=0.0, feat_dropout=0.0)
@@ -319,8 +321,7 @@ def rank_main(rank: int, G: int, workdir: str) -> None:
     os.nice(10)  # a helper of this test: the other test workers keep their CPU share
     dist.init_process_group("gloo", init_method=f"file://{workdir}/store", world_size=G,
                             rank=rank)
-    with open(os.path.join(workdir, "inputs.pkl"), "rb") as f:
-        inputs = pickle.load(f)
+    init = read_input(workdir, "init")
     data = data_of()
     mesh = make_mesh(MeshAxes(1, G), device_type="cpu")
     cells = cell_inputs(data)
@@ -331,16 +332,17 @@ def rank_main(rank: int, G: int, workdir: str) -> None:
             trainer = trainer_of(name, data, mesh=mesh, dist_agg=mode)
             if name == "headline":
                 res["cells"] = _rank_cells(mesh, mode, trainer.shard, data, cells)
-                res["evolve"] = _rank_evolve(trainer, inputs["init"][name], cells[2])
-            res[name, "get_loss"] = _rank_get_loss(trainer, inputs["init"][name])
-            res[name, "epoch"], state = _rank_epoch(trainer, inputs["after0"][name])
-            final = sharding.shard_state(state_of(inputs["final"][name]), trainer.shard)
+                res["evolve"] = _rank_evolve(trainer, init[name], cells[2])
+            res[name, "get_loss"] = _rank_get_loss(trainer, init[name])
+            late = read_input(workdir, name)
+            res[name, "epoch"], state = _rank_epoch(trainer, late["after0"])
+            final = sharding.shard_state(state_of(late["final"]), trainer.shard)
             res[name, "test"] = recorded_test(trainer, final)
             res[name, "multi_step"] = recorded_test(trainer, final, multi_step=True, topk=3)
             if name == "headline":
                 res["round_trip"] = _rank_checkpoint(trainer, state, workdir)
                 if G == 4 and mode == "halo":
-                    res["anchor"] = _rank_anchor(trainer, inputs["init"][name])
+                    res["anchor"] = _rank_anchor(trainer, init[name])
         if G == 2:
             res["cli"] = _rank_cli(G, mode, workdir, data)
         results[mode] = res
@@ -406,19 +408,35 @@ def jax_anchor(trainer, state) -> dict:
 
 
 @pytest.fixture(scope="module")
-def unsharded(jax_runs):
-    """The unsharded port from JAX's converted initial states: get_loss at
-    WINDOW with every gradient, one epoch, the test ranks after it
-    (single-step; the headline multi-step too), each cell and the
-    headline's evolution; and the CLI command without ``--shards``."""
+def spawns(jax_runs, tmp_path_factory):
+    """The spawns of G = 2 and G = 4, side by side, from JAX's converted
+    initial states; each configuration's states after the unsharded epochs
+    reach them later (``unsharded``)."""
     from regcn_torch.convert import train_state_from_jax
 
+    init = {name: blob_of(train_state_from_jax(jax_runs[2][name], device="cpu"))
+            for name in CONFIGS}
+    out = {}
+    for G in (2, 4):
+        workdir = str(tmp_path_factory.mktemp(f"g{G}"))
+        write_input(workdir, "init", init)
+        out[G] = workdir, mp.start_processes(rank_main, args=(G, workdir), nprocs=G,
+                                             join=False, start_method="spawn")
+    return init, out
+
+
+@pytest.fixture(scope="module")
+def unsharded(spawns):
+    """The unsharded port from JAX's converted initial states, while the
+    ranks run: get_loss at WINDOW with every gradient, one epoch, the test
+    ranks after it (single-step; the headline multi-step too), each cell
+    and the headline's evolution; each configuration's states after its
+    epochs go to the ranks."""
     data = data_of()
-    out = {"init": {}, "after0": {}, "final": {}}
+    out = {"init": spawns[0], "after0": {}, "final": {}}
     for name in CONFIGS:
         trainer = trainer_of(name, data)
-        init = blob_of(train_state_from_jax(jax_runs[2][name], device="cpu"))
-        out["init"][name] = init
+        init = out["init"][name]
         state = state_of(init)
         total, losses, _, _ = trainer.loss(state, *trainer.window(WINDOW),
                                            trainer._curvature_max(0))
@@ -434,6 +452,8 @@ def unsharded(jax_runs):
         out[name, "epoch"] = {"losses": trainer.run_epoch(state, 1),
                               "params": [t.detach().clone() for t in tree_leaves(state.params)]}
         out["final"][name] = blob_of(state)
+        for workdir, _ in spawns[1].values():
+            write_input(workdir, name, {k: out[k][name] for k in ("after0", "final")})
         out[name, "test"] = recorded_test(trainer, state)
         out[name, "multi_step"] = recorded_test(trainer, state, multi_step=True, topk=3)
         if name == "headline":
@@ -461,19 +481,11 @@ def cli_unsharded(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def rank_results(unsharded, jax_runs, tmp_path_factory):
-    """Every rank's results, per (G, mode), and JAX's sharded anchor: the
-    spawns of G = 2 and G = 4 run side by side while this process runs
-    JAX's."""
-    spawns = {}
-    for G in (2, 4):
-        workdir = str(tmp_path_factory.mktemp(f"g{G}"))
-        with open(os.path.join(workdir, "inputs.pkl"), "wb") as f:
-            pickle.dump({k: unsharded[k] for k in ("init", "after0", "final")}, f)
-        spawns[G] = workdir, mp.start_processes(rank_main, args=(G, workdir), nprocs=G,
-                                                join=False, start_method="spawn")
+def rank_results(unsharded, jax_runs, spawns):
+    """Every rank's results, per (G, mode), and JAX's sharded anchor, which
+    this process runs while the ranks do."""
     out = {"anchor": jax_anchor(*jax_runs[:2])}
-    for G, (workdir, ctx) in spawns.items():
+    for G, (workdir, ctx) in spawns[1].items():
         while not ctx.join():
             pass
         ranks = []
@@ -591,19 +603,15 @@ FAKE_MESH = types.SimpleNamespace(mesh_dim_names=("data", "graph"), shape=(1, 2)
 REFUSALS = {
     "halo-triple-batching": (dict(triple_batch_size=16, dist_agg="halo"), ValueError,
                              "triple_batch_size chunking is not supported"),
-    "bf16": (dict(cfg=dict(compute_dtype="bfloat16")), NotImplementedError, "A.11b"),
-    "run-analysis": (dict(run_analysis=True), NotImplementedError, "A.11b"),
-    "data-axis": (dict(mesh=types.SimpleNamespace(mesh_dim_names=("data", "graph"),
-                                                  shape=(2, 2))), NotImplementedError, "A.11b"),
     "halo-without-mesh": (dict(mesh=None, dist_agg="halo"), ValueError, "requires a mesh"),
 }
 
 
 @pytest.mark.parametrize("what", list(REFUSALS))
 def test_refusals_on_a_mesh(what):
-    """What a mesh does not run yet raises before any collective, naming
-    its ROADMAP item; where JAX's trainer refuses (the halo without a mesh
-    or with triple batching), the port raises JAX's error."""
+    """What the trainer refuses raises before any collective: where JAX's
+    trainer refuses (the halo without a mesh or with triple batching), the
+    port raises JAX's error."""
     import regcn_tpu.hyperbolic.model as JM
     from regcn_tpu.config import TrainConfig as JaxTrainConfig
     from regcn_tpu.hyperbolic.train import HyperbolicTrainer as JaxTrainer

@@ -59,6 +59,7 @@ from regcn_torch.parallel.collectives import all_gather_rows
 from regcn_torch.parallel.mesh import MeshAxes, make_mesh
 from regcn_torch.train import loop
 from regcn_torch.train.optim import tree_leaves
+from test_torch_sharded_train import read_input, write_input
 from test_torch_sharded_hyperbolic import (NO_DROPOUT, SHIFT_INVARIANT, TC, TINY,
                                            _rank_checkpoint, assert_ranks_match, blob_of,
                                            host_copy, paths, recorded_test, state_of)
@@ -140,21 +141,21 @@ def rank_main(rank: int, G: int, workdir: str) -> None:
     os.nice(10)  # a helper of this test: the other test workers keep their CPU share
     dist.init_process_group("gloo", init_method=f"file://{workdir}/store", world_size=G,
                             rank=rank)
-    with open(os.path.join(workdir, "inputs.pkl"), "rb") as f:
-        inputs = pickle.load(f)
+    init = read_input(workdir, "init")
     data = data_of()
     mesh = make_mesh(MeshAxes(1, G), device_type="cpu")
     results = {}
     for family in FAMILIES:
         for mode in MODES:
             trainer = trainer_of(family, data, mesh=mesh, dist_agg=mode)
-            res = {"get_loss": _rank_get_loss(trainer, inputs["init"][family])}
-            res["epoch"], state = _rank_epoch(trainer, inputs["after0"][family])
-            final = sharding.shard_state(state_of(inputs["final"][family]), trainer.shard)
+            res = {"get_loss": _rank_get_loss(trainer, init[family])}
+            late = read_input(workdir, family)
+            res["epoch"], state = _rank_epoch(trainer, late["after0"])
+            final = sharding.shard_state(state_of(late["final"]), trainer.shard)
             res["test"] = recorded_test(trainer, final)
             res["round_trip"] = _rank_checkpoint(trainer, state, workdir, family)
             if family == "regcn" and G == 2 and mode == "gspmd":
-                res["anchor"] = _rank_anchor(trainer, inputs["init"][family])
+                res["anchor"] = _rank_anchor(trainer, init[family])
             results[family, mode] = res
     with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(results, f)
@@ -235,17 +236,32 @@ def jax_anchor(trainer, state) -> dict:
 
 
 @pytest.fixture(scope="module")
-def unsharded(jax_runs):
-    """The unsharded port from JAX's converted initial states: get_loss
-    with every gradient, one epoch, the test ranks after it."""
+def spawns(jax_runs, tmp_path_factory):
+    """The spawns of G = 2 and G = 4, side by side, from JAX's converted
+    initial states; each family's states after the unsharded epochs reach
+    them later (``unsharded``)."""
     from regcn_torch.convert import train_state_from_jax
 
+    init = {f: blob_of(train_state_from_jax(jax_runs[2][f], device="cpu")) for f in FAMILIES}
+    out = {}
+    for G in (2, 4):
+        workdir = str(tmp_path_factory.mktemp(f"g{G}"))
+        write_input(workdir, "init", init)
+        out[G] = workdir, mp.start_processes(rank_main, args=(G, workdir), nprocs=G,
+                                             join=False, start_method="spawn")
+    return init, out
+
+
+@pytest.fixture(scope="module")
+def unsharded(spawns):
+    """The unsharded port from JAX's converted initial states, while the
+    ranks run: get_loss with every gradient, one epoch, the test ranks
+    after it; each family's states after its epochs go to the ranks."""
     data = data_of()
-    out = {"init": {}, "after0": {}, "final": {}}
+    out = {"init": spawns[0], "after0": {}, "final": {}}
     for family in FAMILIES:
         trainer = trainer_of(family, data)
-        init = blob_of(train_state_from_jax(jax_runs[2][family], device="cpu"))
-        out["init"][family] = init
+        init = out["init"][family]
         state = state_of(init)
         total, losses = loss_of(trainer, state)
         grads = torch.autograd.grad(total, tree_leaves(state.params), allow_unused=True)
@@ -260,23 +276,18 @@ def unsharded(jax_runs):
         out[family, "epoch"] = {"losses": trainer.run_epoch(state, 1),
                                 "params": [t.detach().clone() for t in tree_leaves(state.params)]}
         out["final"][family] = blob_of(state)
+        for workdir, _ in spawns[1].values():
+            write_input(workdir, family, {k: out[k][family] for k in ("after0", "final")})
         out[family, "test"] = recorded_test(trainer, state)
     return out
 
 
 @pytest.fixture(scope="module")
-def rank_results(unsharded, jax_runs, tmp_path_factory):
-    """Every rank's results per G, and JAX's sharded anchor: the spawns of
-    G = 2 and G = 4 run side by side while this process runs JAX's."""
-    spawns = {}
-    for G in (2, 4):
-        workdir = str(tmp_path_factory.mktemp(f"g{G}"))
-        with open(os.path.join(workdir, "inputs.pkl"), "wb") as f:
-            pickle.dump({k: unsharded[k] for k in ("init", "after0", "final")}, f)
-        spawns[G] = workdir, mp.start_processes(rank_main, args=(G, workdir), nprocs=G,
-                                                join=False, start_method="spawn")
+def rank_results(unsharded, jax_runs, spawns):
+    """Every rank's results per G, and JAX's sharded anchor, which this
+    process runs while the ranks do."""
     out = {"anchor": jax_anchor(*jax_runs[:2])}
-    for G, (workdir, ctx) in spawns.items():
+    for G, (workdir, ctx) in spawns[1].items():
         while not ctx.join():
             pass
         out[G] = []
@@ -363,16 +374,16 @@ def test_words_not_divisible_by_the_graph_axis_raise_as_jax_refuses(family):
 
 
 @pytest.mark.parametrize("mode", ["train", "test", "hyperbolic", "hisres"])
-def test_cli_takes_the_static_graph_with_shards(mode):
+def test_cli_takes_the_static_graph_with_shards(mode, monkeypatch):
     """``--add-static-graph`` with ``--shards``, stopped before it was
-    ported, passes the CLI's mesh options in every mode that takes a mesh;
-    bf16 and ``--run-analysis`` still stop there, naming ROADMAP A.11b."""
+    ported, passes the CLI's option checks in every mode that takes a mesh,
+    and so do bf16 and ``--run-analysis`` beside it (stopped there, naming
+    ROADMAP A.11b, until they were ported): launched without torchrun, each
+    command stops only for the process group it lacks."""
     from regcn_torch import cli
 
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     argv = [mode, "-d", "synthetic-small", "--shards", "2", "--add-static-graph"]
-    cli.check_mesh_options(cli.build_parser().parse_args(argv))
-    for extra in (["--compute-dtype", "bfloat16"], ["--run-analysis"]):
-        if mode in ("hyperbolic", "hisres"):
-            with pytest.raises(SystemExit, match="A.11b"):
-                cli.check_mesh_options(cli.build_parser().parse_args(argv + extra))
-
+    for extra in ([], ["--compute-dtype", "bfloat16"], ["--run-analysis"]):
+        with pytest.raises(SystemExit, match="launch with torchrun"):
+            cli.main(argv + extra, device="cpu")

@@ -41,6 +41,7 @@ Tolerances, those of ``tests/test_torch_train.py``:
 import dataclasses
 import os
 import pickle
+import time
 
 import numpy as np
 import pytest
@@ -287,22 +288,45 @@ def _rank_cli(G, mode, workdir, data) -> dict:
     return {"train": trained, "test": tested, "wrong_shards": wrong}
 
 
+def write_input(workdir: str, name: str, value) -> None:
+    """``value`` into ``workdir`` as ``name``.pkl for the ranks, whole or
+    not at all (written beside, then renamed)."""
+    path = os.path.join(workdir, f"{name}.pkl")
+    with open(path + ".tmp", "wb") as f:
+        pickle.dump(value, f)
+    os.replace(path + ".tmp", path)
+
+
+def read_input(workdir: str, name: str, timeout_s: float = 1800.0):
+    """A rank's input ``name``.pkl from ``workdir``, waiting until the test
+    process has written it: the ranks start with what they can run and
+    meet the late inputs (states that the test process computes while they
+    run) when they need them."""
+    path, waited = os.path.join(workdir, f"{name}.pkl"), 0.0
+    while not os.path.exists(path):
+        if waited > timeout_s:
+            raise TimeoutError(f"{path} was not written within {timeout_s} s")
+        time.sleep(0.1)
+        waited += 0.1
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
 def rank_main(rank: int, G: int, workdir: str) -> None:
     torch.set_num_threads(1)
     os.nice(10)  # a helper of this test: the other test workers keep their CPU share
     dist.init_process_group("gloo", init_method=f"file://{workdir}/store", world_size=G,
                             rank=rank)
-    with open(os.path.join(workdir, "inputs.pkl"), "rb") as f:
-        inputs = pickle.load(f)
+    init = read_input(workdir, "init")
     data = data_of()
     mesh = make_mesh(MeshAxes(1, G), device_type="cpu")
     results = {}
     for mode in MODES:
         trainer = loop.Trainer(port_config(data), data, mesh=mesh, dist_agg=mode, device="cpu")
         res = {"aggregate": _rank_aggregate(trainer),
-               "get_loss": _rank_get_loss(trainer, inputs["init"])}
-        res["epochs"], state = _rank_epochs(trainer, inputs["init"])
-        res["test"] = _rank_test(trainer, inputs["final"][mode])
+               "get_loss": _rank_get_loss(trainer, init)}
+        res["epochs"], state = _rank_epochs(trainer, init)
+        res["test"] = _rank_test(trainer, read_input(workdir, "final")[mode])
         res.update(_rank_checkpoint(trainer, state, workdir))
         res["cli"] = _rank_cli(G, mode, workdir, data)
         if mode == "halo":
@@ -332,28 +356,54 @@ def host_copy(tree):
     return jax.tree.map(lambda a: np.array(a), tree)
 
 
-@pytest.fixture(scope="module")
-def jax_runs():
-    """JAX's sharded trainer per (G, mode): the initial state, the states
-    and mean losses after two fused epochs, and the test ranks of the last
-    state."""
+def jax_setup():
+    """(JAX's data and experiment config, its initial state as numpy)."""
     import jax
 
     from regcn_tpu.config import ExperimentConfig as JaxExperimentConfig
     from regcn_tpu.config import ModelConfig as JaxModelConfig
     from regcn_tpu.config import TrainConfig as JaxTrainConfig
     from regcn_tpu.data.synthetic import generate as jax_generate
-    from regcn_tpu.parallel.mesh import MeshAxes as JaxMeshAxes
-    from regcn_tpu.parallel.mesh import make_mesh as jax_make_mesh
-    from regcn_tpu.parallel.sharding import state_sharding_rules
-    from regcn_tpu.train import loop as jax_loop
-    from regcn_tpu.train import metrics as jax_metrics
     from regcn_tpu.train.state import create_train_state
 
     data = jax_generate("synthetic-small", seed=123, **TINY)
     base, tc = configs(data)
     jcfg = JaxExperimentConfig(model=JaxModelConfig(**base), train=JaxTrainConfig(**tc))
-    init = host_copy(create_train_state(jax.random.PRNGKey(0), jcfg.model, jcfg.train))
+    return data, jcfg, host_copy(create_train_state(jax.random.PRNGKey(0), jcfg.model,
+                                                    jcfg.train))
+
+
+@pytest.fixture(scope="module")
+def spawns(tmp_path_factory):
+    """The spawns of G = 2 and G = 4, side by side, from JAX's converted
+    initial state; JAX's final states reach them later (``jax_runs``)."""
+    from regcn_torch.convert import train_state_from_jax
+
+    init = blob_of(train_state_from_jax(jax_setup()[2], device="cpu"))
+    out = {}
+    for G in (2, 4):
+        workdir = str(tmp_path_factory.mktemp(f"g{G}"))
+        write_input(workdir, "init", init)
+        out[G] = workdir, mp.start_processes(rank_main, args=(G, workdir), nprocs=G,
+                                             join=False, start_method="spawn")
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_runs(spawns):
+    """JAX's sharded trainer per (G, mode), while the ranks run: the initial
+    state, the states and mean losses after two fused epochs, and the test
+    ranks of the last state, whose converted state goes to the ranks."""
+    import jax
+
+    from regcn_torch.convert import train_state_from_jax
+    from regcn_tpu.parallel.mesh import MeshAxes as JaxMeshAxes
+    from regcn_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from regcn_tpu.parallel.sharding import state_sharding_rules
+    from regcn_tpu.train import loop as jax_loop
+    from regcn_tpu.train import metrics as jax_metrics
+
+    data, jcfg, init = jax_setup()
     runs = {}
     for G, mode in CASES:
         mesh = jax_make_mesh(JaxMeshAxes(1, G), devices=jax.devices()[:G])
@@ -374,25 +424,20 @@ def jax_runs():
             stats = trainer.test(state)
         runs[G, mode] = {"states": states, "losses": losses, "ranks": seen,
                          "mrr": {k: s.mrr for k, s in stats.items()}}
+        if mode == MODES[-1]:
+            write_input(spawns[G][0], "final", {
+                m: blob_of(train_state_from_jax(runs[G, m]["states"][-1], device="cpu"))
+                for m in MODES})
     return init, runs
 
 
 @pytest.fixture(scope="module")
-def rank_results(jax_runs, tmp_path_factory):
-    """Every rank's results, per (G, mode): one spawn for each G."""
-    from regcn_torch.convert import train_state_from_jax
-
-    init, runs = jax_runs
+def rank_results(spawns, jax_runs):
+    """Every rank's results, per (G, mode)."""
     out = {}
-    for G in (2, 4):
-        workdir = str(tmp_path_factory.mktemp(f"g{G}"))
-        inputs = {"init": blob_of(train_state_from_jax(init, device="cpu")),
-                  "final": {m: blob_of(train_state_from_jax(runs[G, m]["states"][-1],
-                                                            device="cpu")) for m in MODES}}
-        with open(os.path.join(workdir, "inputs.pkl"), "wb") as f:
-            pickle.dump(inputs, f)
-        mp.start_processes(rank_main, args=(G, workdir), nprocs=G, join=True,
-                           start_method="spawn")
+    for G, (workdir, ctx) in spawns.items():
+        while not ctx.join():
+            pass
         ranks = []
         for r in range(G):
             with open(os.path.join(workdir, f"rank{r}.pkl"), "rb") as f:

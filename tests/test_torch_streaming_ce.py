@@ -51,6 +51,16 @@ CASES = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Tiny tensors: torch's intra-op threads cost more than they save,
+    and on a CPU shared with other test workers far more."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def inputs(case):
     true, per_query, masked, edge = CASES[case]
     rng = np.random.default_rng(sorted(CASES).index(case))
