@@ -172,7 +172,7 @@ Phases, each of which exits non-zero on failure:
    launch for the 6 models (as many as one model's run); (c) 20 steady
    vmapped steps beside 20 of one model, and each profiled; (d) B1 at the
    folded [E, 1200]; then the hyperbolic ``grid --vectorize`` on config 3
-   (phase 6's cut data, K = 6): its 3-step check, 10 steady steps with
+   (phase 6's cut data, K = 6): its 3-step check, 5 steady steps with
    each B2 kernel exactly 2 x K a step beside one model's, and the
    headline vmapped over 2 learning rates (B1 folded with each model's
    radius weight) through the same 3-step check;
@@ -252,7 +252,20 @@ Phases, each of which exits non-zero on failure:
    from the initial state within 1e-5 (relative) of one process's, every
    key. And one group of 4 ranks on a (data 2, graph 2) mesh, config 1
    under ``gspmd``: (b) and (c) as above, the two replicas' parameters,
-   Adam moments and BN statistics bit-equal after the epoch.
+   Adam moments and BN statistics bit-equal after the epoch; then, on the
+   same mesh (ROADMAP A.11b item 3), config 1's ``SweepRunner`` of K = 4
+   (lr {1e-3, 5e-4} x two seeds) with its model axis over ``data``, 2
+   models a rank: 3 vmapped steps (dropouts 0) of the rank's models
+   against each of them alone, on the branches the vmapped step took at
+   the kinks, within the 3-step checks' limits (as phase 18 holds the
+   one-process sweep); ``run(n_epochs=1)`` with the config's dropouts,
+   every rank's rows all 4 models in combo order, each model's valid
+   MRRs within 0.01 of the one-process sweep run in this process beside
+   the ranks, B1 per rank as one process launches for all 4 models, no
+   B2; the two ranks of each ``graph`` group, which hold the same models
+   and take each step's gradients, BN statistics and losses from the
+   group's first rank, bit-equal after the epoch; each rank's wall and
+   peak memory.
 
 The line before the last is ``{"kernels": [...]}``: each row's
 ``launches`` is B1's on the config-1 test split or a B2 kernel's in the
@@ -355,6 +368,15 @@ TRAIN_OPT_TOL = 1e-6
 # (1 to 3 of 59.6M entries on an H100); the CPU replays the card's
 # branches, so only a few entries within rounding of 0 may differ
 KINK_FLIP_SHARE = 1e-6
+# a pre-activation at these kinks is a BatchNorm's or a layer's output, a
+# sum of terms of order 1, so one within one fp32 ulp of 1 (2^-23) of 0 is
+# 0 up to that sum's rounding: its branch is a tie, which either device may
+# take. A block of such values (the sharded HisRES run's 3 steps once had
+# 126 of 54.8M relu entries at |x| <= 1.9e-8, and 0 to 2 in five runs
+# alone; tools/kink_flip_diagnosis.py) flips as a block, so such ties are
+# counted apart and not held to KINK_FLIP_SHARE; the replay puts them on
+# the recorded branch, and the losses and gradients are held as before
+KINK_TIE_TOL = 2.0 ** -23
 # the uvrgcn's radius weight exp(-γ|r_src - r_dst|): the sign of r_src -
 # r_dst may differ between the devices only where the two radii (0.5 to
 # ~3.2) agree within rounding, ~40 fp32 ulps at radius 3
@@ -374,6 +396,9 @@ PROFILE_STEPS = 20  # steady steps timed
 BF16_STEADY_STEPS = 10
 # the fhnn and hgat phase's steady steps, for the same reason
 ENCODER_STEADY_STEPS = 10
+# the hyperbolic grid's steady vmapped steps (and its one model's beside
+# them): 5 since the sharded phase took the sweep on a mesh, 10 before
+HYPERBOLIC_GRID_STEADY_STEPS = 5
 # steps under torch.profiler: its key_averages over a step's thousands of
 # kernels take seconds a step, the most of a phase at 20 steps; 3 (5 until
 # the sharded phase took four paths) keep the script within its time on a
@@ -1225,9 +1250,10 @@ class PinnedKinks:
     TRAIN_GRAD_TOL of its parameter's largest entry. Replaying the card's
     branches on the CPU compares the two devices on one branch of the
     function. ``flips`` counts, per kind, the entries whose own branch
-    differed, which the training phases hold to KINK_FLIP_SHARE of
-    ``entries`` for the activations: pre-activations that went wrong on
-    the card would show there. Radii tie by construction (entities of
+    differed, and ``ties`` those of them within KINK_TIE_TOL of 0; the
+    training phases hold the activations' other flips to KINK_FLIP_SHARE
+    of ``entries``: pre-activations that went wrong on the card would show
+    there. Radii tie by construction (entities of
     one radius target), so there ``abs_flip_max``, the largest |r_src -
     r_dst| of a flipped edge, is held to ABS_TIE_TOL instead, and the
     attention logits, which tie at 0 on every padded edge of HGAT, to
@@ -1239,6 +1265,7 @@ class PinnedKinks:
     def __init__(self):
         self.masks = {k: [] for k in self.KINDS}
         self.flips = {k: 0 for k in self.KINDS}
+        self.ties = {k: 0 for k in self.KINDS}  # flips within KINK_TIE_TOL of 0
         self.entries = {k: 0 for k in self.KINDS}
         self.flip_max = {}  # per kind, the largest |pre-activation| that flipped
         self.abs_flip_max = 0.0
@@ -1335,8 +1362,9 @@ class PinnedKinks:
             self.flips[kind] += int(flipped.sum())
             self.entries[kind] += mask.numel()
             if flipped.any():
-                self.flip_max[kind] = max(self.flip_max.get(kind, 0.0),
-                                          x.detach()[flipped].abs().max().item())
+                size = x.detach()[flipped].abs()
+                self.ties[kind] += int((size <= KINK_TIE_TOL).sum())
+                self.flip_max[kind] = max(self.flip_max.get(kind, 0.0), size.max().item())
             return mask
 
         def rep_rrelu(x):
@@ -1365,13 +1393,15 @@ class PinnedKinks:
         """Fails if too many activation entries flipped, or a radius sign
         flipped away from a tie; returns a summary."""
         flips = sum(self.flips[k] for k in self.ACTIVATIONS)
+        ties = sum(self.ties[k] for k in self.ACTIVATIONS)
         entries = sum(self.entries[k] for k in self.ACTIVATIONS)
         by_kind = ", ".join(f"{k} {self.flips[k]} of {self.entries[k]}"
-                            + (f" (|x| <= {self.flip_max[k]:.2e})" if k in self.flip_max else "")
+                            + (f" (|x| <= {self.flip_max[k]:.2e}, {self.ties[k]} within "
+                               f"{KINK_TIE_TOL:.2e})" if k in self.flip_max else "")
                             for k in self.ACTIVATIONS + ("leaky",) if self.entries[k])
-        check(flips <= KINK_FLIP_SHARE * entries, f"{tag}: {flips} of {entries} "
-              f"pre-activations took the other branch at a kink on the cpu, over "
-              f"{KINK_FLIP_SHARE:.0e} of them ({by_kind})")
+        check(flips - ties <= KINK_FLIP_SHARE * entries, f"{tag}: {flips - ties} of {entries} "
+              f"pre-activations beyond {KINK_TIE_TOL:.2e} of 0 took the other branch at a "
+              f"kink on the cpu, over {KINK_FLIP_SHARE:.0e} of them ({by_kind})")
         check(self.flip_max.get("leaky", 0.0) <= LEAKY_TIE_TOL, f"{tag}: an attention logit "
               f"took the other branch on the cpu at |x| = {self.flip_max.get('leaky', 0.0):.3e} > "
               f"{LEAKY_TIE_TOL:.0e} ({by_kind})")
@@ -2754,8 +2784,8 @@ def kink_recording(runner):
             losses, new_state = orig(*args)
         losses = dict(losses)
         for kind, masks in kinks.masks.items():
-            for j, m in enumerate(masks):
-                losses[f"kink {kind} {j}"] = m
+            for j, m in enumerate(masks):  # as bytes: a sharded sweep broadcasts them
+                losses[f"kink {kind} {j}"] = m.to(torch.uint8)
         return losses, new_state
 
     return model_loss
@@ -2766,7 +2796,7 @@ def model_kinks(losses: dict, k: int) -> PinnedKinks:
     kinks = PinnedKinks()
     for kind in PinnedKinks.KINDS:
         n = sum(1 for key in losses if key.startswith(f"kink {kind} "))
-        kinks.masks[kind] = [losses[f"kink {kind} {j}"][k] for j in range(n)]
+        kinks.masks[kind] = [losses[f"kink {kind} {j}"][k].bool() for j in range(n)]
     return kinks
 
 
@@ -2965,9 +2995,9 @@ def phase_vectorized_hyperbolic(data, tc: TrainConfig, dev: torch.device) -> dic
     (LGCN + RotH, c learned, h=200; K = 6) on phase 6's cut of
     synthetic-icews14s, through ``HyperbolicSweepRunner`` with the configs
     ``cli.make_hyperbolic_configs`` builds: (a) 3 vmapped steps against each
-    model alone (dropouts 0); (b) 10 steady vmapped steps with the config's
+    model alone (dropouts 0); (b) 5 steady vmapped steps with the config's
     dropouts, each B2 kernel exactly K x 2 (entity and relation loss) a
-    step, no B1, beside 10 steps of one model; a profile of each; (c) the
+    step, no B1, beside 5 steps of one model; a profile of each; (c) the
     headline (uvrgcn + tangent ConvTransE/R, buckets of 128) vmapped over
     K = 2 learning rates: its 3-step check, B1 folded with each model's
     radius weight multiplied in (as many launches as one model's steps)."""
@@ -3000,7 +3030,7 @@ def phase_vectorized_hyperbolic(data, tc: TrainConfig, dev: torch.device) -> dic
                                data, device=dev)
     s1 = single.init_state()
     cmax = single._curvature_max(0)
-    order = runner.epoch_order(0)[:10]
+    order = runner.epoch_order(0)[:HYPERBOLIC_GRID_STEADY_STEPS]
     for i in order:
         runner.window(i), runner.draws(state, i), single.window(i)
     out = steady_steps(f"grid hyperbolic x{K}", lambda i: runner.train_step(state, i), order)
@@ -3570,9 +3600,14 @@ BF16_RESOLUTION = 2.0 ** -8
 # the run whose trainer takes run_analysis: its record against one process's
 ANALYSIS_JOB = ("config 1", "gspmd")
 ANALYSIS_RTOL = 1e-5
-# a group on a (data, graph) mesh: the replicas run config 1 alike
+# a group on a (data, graph) mesh: the replicas run config 1 alike, and the
+# sweep's models split over its data axis
 DATA_AXES = (2, SHARDS)
-DATA_GROUP = (("config 1", "gspmd"),)
+SWEEP_JOB = ("sweep", "models")
+DATA_GROUP = (("config 1", "gspmd"), SWEEP_JOB)
+# config 1's sweep on the mesh: K = 4 models, lr {1e-3, 5e-4} x two seeds,
+# K / 2 on each position of the data axis
+SWEEP_COMBOS = {"lr": [1e-3, 5e-4, 1e-3, 5e-4], "seed": [SEED, SEED, SEED + 1, SEED + 1]}
 
 
 def sharded_data():
@@ -3952,6 +3987,95 @@ def replicas_alike(tag: str, state, shard) -> None:
           f"({mine.numel()} values) bit-equal after the epoch", flush=True)
 
 
+def sweep_runner(cut, dev, dropout: bool = True, mesh=None):
+    """Config 1's SweepRunner of SWEEP_COMBOS at full width on the cut data,
+    with the config's dropouts or every one at 0; over ``mesh``'s data axis
+    where one is given."""
+    from regcn_torch.train.sweep import SweepRunner
+
+    cfg, tc = sharded_configs(cut)
+    cfg = cfg if dropout else dataclasses.replace(cfg, **NO_DROPOUT)
+    return SweepRunner(cfg, tc, cut, dict(SWEEP_COMBOS), mesh=mesh, device=dev)
+
+
+def sharded_sweep_steps(tag: str, cut, mesh, dev: torch.device) -> None:
+    """(a) of the sharded sweep, in each rank: ``vmapped_three_steps`` of
+    the rank's K / D models (dropouts 0) against each of those models
+    alone, a ``loop.Trainer`` with its lr and seed, on the branches the
+    vmapped step took at the kinks, as phase 18 holds the one-process
+    sweep. Within a ``graph`` group the step's losses, gradients, BN
+    statistics and branches are the group's first rank's, so every rank
+    replays the run whose gradients it holds."""
+    cfg, tc = sharded_configs(cut)
+    cfg = dataclasses.replace(cfg, **NO_DROPOUT)
+    runner = sweep_runner(cut, dev, dropout=False, mesh=mesh)
+    trainers = [loop.Trainer(ExperimentConfig(model=cfg, train=dataclasses.replace(
+        tc, lr=runner.lrs[k], seed=runner.seeds[k])), cut, device=dev) for k in runner.own]
+    vmapped_three_steps(tag, runner, trainers, runner.epoch_order(0)[:3])
+
+
+def sharded_sweep(tag: str, cut, mesh, dev: torch.device) -> dict:
+    """The sweep on the mesh, in each rank: ``sharded_sweep_steps``, then
+    ``run(n_epochs=1)`` with the config's dropouts, its B1 launches counted
+    and its wall and peak memory taken; the rank's state bit-equal to that
+    of the other ranks of its ``graph`` group, which hold the same models
+    and take each step's carried values from the group's first rank.
+    Returns the rank's row for ``phase_sharded``."""
+    import torch.distributed as dist
+
+    from regcn_torch.parallel.mesh import graph_group
+
+    sharded_sweep_steps(tag, cut, mesh, dev)
+    runner = sweep_runner(cut, dev, mesh=mesh)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    rows, state = runner.run(n_epochs=1)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    mine = torch.cat([t.detach().reshape(-1).float() for t in tree_leaves(state.params)
+                      + state.opt_state.mu + state.opt_state.nu
+                      + tree_leaves(state.model_state)])
+    group = graph_group(mesh)
+    every = [torch.empty_like(mine) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(every, mine, group=group)
+    check(all(torch.equal(every[0], m) for m in every[1:]),
+          f"{tag}: the states of the ranks that hold the same models differ after the epoch")
+    print(f"[{tag}] the {len(every)} ranks of the graph group that hold models "
+          f"{runner.own.start}..{runner.own.stop - 1}: parameters, Adam moments and BN "
+          f"statistics ({mine.numel()} values) bit-equal after the epoch", flush=True)
+    return dict(rows=[{k: v for k, v in r.items() if k != "stats"}
+                      | {"mrr": {k: v.mrr for k, v in r["stats"].items()}} for r in rows],
+                own=[runner.own.start, runner.own.stop], launches=counts, wall_s=wall,
+                steps=len(runner.epoch_order(0)),
+                peak_mib=torch.cuda.max_memory_allocated() / 2**20 if cuda else 0.0)
+
+
+def sweep_reference(cut, dev: torch.device) -> dict:
+    """The one-process sweep of SWEEP_COMBOS (``run(n_epochs=1)``, the
+    config's dropouts) on the card: each model's valid MRRs and the
+    kernels' launches."""
+    runner = sweep_runner(cut, dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    rows, _ = runner.run(n_epochs=1)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    mrrs = [{k: v.mrr for k, v in r["stats"].items()} for r in rows]
+    print(f"[sharded] sweep of {runner.n_models} models, one process: an epoch of "
+          f"{len(runner.epoch_order(0))} vmapped steps and the valid split in {wall:.2f} s, B1 "
+          f"{counts['rgcn_scatter_sorted']}; valid ent raw MRR "
+          + ", ".join(f"{m['ent_raw']:.6f}" for m in mrrs), flush=True)
+    return {"mrrs": mrrs, "launches": counts}
+
+
 def bf16_collectives_probe(dev: torch.device) -> None:
     """The collectives that carry bf16 rows on a mesh, on bf16 tensors of
     ``dev`` over the whole gloo group: ``all_gather``,
@@ -4025,6 +4149,9 @@ def sharded_rank(rank: int, G: int, workdir: str, dev_type: str = "cuda", jobs=(
         cut = cuts[path in STATIC_PATHS]
         key = sharded_key(path, mode, data)
         tag = f"sharded {key} rank {rank}"
+        if (path, mode) == SWEEP_JOB:
+            out[key] = sharded_sweep(tag, cut, mesh, dev)
+            continue
         if data == 1:
             steps = sharded_bf16_steps if path in BF16_PATHS else sharded_three_steps
             steps(tag, path, cut, mesh, mode, dev)
@@ -4132,6 +4259,9 @@ def phase_sharded(dev: torch.device, groups=SHARDED_GROUPS, data_group=DATA_GROU
         # theirs waits for them
         ref = {}
         for path in paths:
+            if path == SWEEP_JOB[0]:
+                ref[path] = sweep_reference(cuts[False], dev)
+                continue
             single = sharded_trainer(path, cuts[path in STATIC_PATHS], dev)
             state = single.init_state(SEED)
             t1 = time.perf_counter()
@@ -4162,6 +4292,10 @@ def phase_sharded(dev: torch.device, groups=SHARDED_GROUPS, data_group=DATA_GROU
     out = {}
     for path, mode, data in jobs:
         key = sharded_key(path, mode, data)
+        if (path, mode) == SWEEP_JOB:
+            out[f"sharded {key} epoch and valid split (each rank)"] = sweep_checked(
+                key, ranks[key], ref[path])
+            continue
         for r, row in enumerate(ranks[key]):
             for k, v in ref[path].items():
                 check(abs(row["mrr"][k] - v) <= SHARDED_MRR_ATOL,
@@ -4187,6 +4321,39 @@ def phase_sharded(dev: torch.device, groups=SHARDED_GROUPS, data_group=DATA_GROU
           f"({CARD[0] if CARD else 'card not read'}); the MRRs "
           f"within {SHARDED_MRR_ATOL} of one process's", flush=True)
     return out
+
+
+def sweep_checked(key: str, rows: list, ref: dict) -> dict:
+    """The sharded sweep's ranks against the one-process sweep: every rank
+    reports all K models in combo order, each model's valid MRRs within
+    SHARDED_MRR_ATOL of one process's, and B1 launched as often as one
+    process launches it for all K models (no B2); prints each rank's wall
+    and peak memory. Returns the launches of each rank."""
+    want_combos = list(zip(SWEEP_COMBOS["lr"], SWEEP_COMBOS["seed"]))
+    b1 = ref["launches"]["rgcn_scatter_sorted"]
+    check(b1 > 0, f"sharded {key}: the one-process sweep launched no B1")
+    for r, row in enumerate(rows):
+        check([(m["lr"], m["seed"]) for m in row["rows"]] == want_combos,
+              f"sharded {key} rank {r}: rows {row['rows']} not in combo order")
+        for k, (got, want) in enumerate(zip(row["rows"], ref["mrrs"])):
+            for name, v in want.items():
+                check(abs(got["mrr"][name] - v) <= SHARDED_MRR_ATOL,
+                      f"sharded {key} rank {r}, model {k}: valid {name} MRR "
+                      f"{got['mrr'][name]:.6f}, one process {v:.6f}: more than "
+                      f"{SHARDED_MRR_ATOL} apart")
+        counts = row["launches"]
+        check(counts["rgcn_scatter_sorted"] == b1 and all(counts[k] == 0 for k in CE_KERNELS),
+              f"sharded {key} rank {r}: launches {counts}, expected {b1} of B1 and no B2, as "
+              "one process launches for all the models")
+        lo, hi = row["own"]
+        print(f"[sharded] {key} rank {r}: models {lo}..{hi - 1} of {len(want_combos)}, an epoch "
+              f"of {row['steps']} vmapped steps and the valid split in {row['wall_s']:.2f} s "
+              f"(gloo correctness run: no speed is read from it); B1 "
+              f"{counts['rgcn_scatter_sorted']} (one process: {b1}); valid ent raw MRR "
+              + ", ".join(f"{m['mrr']['ent_raw']:.6f}" for m in row["rows"])
+              + f" (one process: " + ", ".join(f"{m['ent_raw']:.6f}" for m in ref["mrrs"])
+              + f"); peak memory {row['peak_mib']:.0f} MiB", flush=True)
+    return rows[0]["launches"]
 
 
 def config3_data():

@@ -40,9 +40,11 @@ above 1 is reached through the Python API only, in both packages
 (``make_mesh(MeshAxes(data=..., graph=...))``).
 
 Not ported, and stopping with a message that names the ROADMAP item:
-``bench`` (A.2: ``bench.py`` measures the JAX package) and ``--shards``
-for ``grid --vectorize`` (A.11b: the sweep's model axis over a mesh). The
-counterpart of JAX's ``dryrun_multichip`` (A.11b) has no mode here yet.
+``bench`` (A.2: ``bench.py`` measures the JAX package). ``--shards`` for
+``grid --vectorize`` stops too (A.11b), as JAX's CLI routes no mesh to
+the vectorized grid; ``SweepRunner(mesh=...)`` shards the sweep's model
+axis from Python. The counterpart of JAX's ``dryrun_multichip`` (A.11b)
+has no mode here yet.
 
 ``--compute-dtype bfloat16`` reaches the trainers of ``train``, ``test``,
 ``hyperbolic`` and ``hisres`` (and of the sequential ``grid``), as in the
@@ -242,14 +244,16 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def check_single_device(args) -> None:
-    """Stops on the multi-device flags where the JAX package has no mesh
-    either (the vectorized grid's model axis, ROADMAP A.11b)."""
+    """Stops on the multi-device flags where the JAX package's CLI routes no
+    mesh either: the vectorized grid, whose model axis takes a mesh through
+    the Python API only (``SweepRunner(mesh=...)``, ROADMAP A.11b)."""
     if args.shards:
-        raise SystemExit(f"--shards {args.shards}: '{args.mode}' on a mesh is not ported to "
-                         "regcn_torch yet (ROADMAP A.11b)")
+        raise SystemExit(f"--shards {args.shards}: '{args.mode}' takes no mesh from the CLI, as "
+                         "JAX's CLI passes none to it; SweepRunner(mesh=...) shards its model "
+                         "axis from Python (ROADMAP A.11b)")
     if args.dist_agg != "gspmd":
-        raise SystemExit(f"--dist-agg requires --shards, and '{args.mode}' on a mesh is not "
-                         "ported to regcn_torch yet (ROADMAP A.11b)")
+        raise SystemExit(f"--dist-agg requires --shards, and '{args.mode}' takes no mesh from "
+                         "the CLI, as JAX's CLI passes none to it (ROADMAP A.11b)")
 
 
 def make_cli_mesh(args):

@@ -206,22 +206,28 @@ def from_first_replica(x: torch.Tensor, shard: Optional[RowShard]) -> torch.Tens
     return from_first_rank(x, shard.replicas)
 
 
+def tensors_from_first_rank(ts: Sequence[Optional[torch.Tensor]], group
+                            ) -> List[Optional[torch.Tensor]]:
+    """:func:`from_first_rank` of each tensor of ``ts`` over ``group`` (None
+    stays None), in one broadcast per dtype."""
+    out = list(ts)
+    for dtype in dict.fromkeys(t.dtype for t in ts if t is not None):
+        at = [i for i, t in enumerate(ts) if t is not None and t.dtype == dtype]
+        flat = from_first_rank(torch.cat([ts[i].detach().reshape(-1) for i in at]), group)
+        pos = 0
+        for i in at:
+            out[i] = flat[pos:pos + ts[i].numel()].view_as(ts[i])
+            pos += ts[i].numel()
+    return out
+
+
 def tensors_from_first_replica(ts: Sequence[Optional[torch.Tensor]], shard: Optional[RowShard]
                                ) -> List[Optional[torch.Tensor]]:
     """:func:`from_first_replica` of each tensor of ``ts`` (None stays
     None), in one broadcast per dtype."""
     if shard is None or shard.replicas is None:
         return list(ts)
-    out = list(ts)
-    for dtype in dict.fromkeys(t.dtype for t in ts if t is not None):
-        at = [i for i, t in enumerate(ts) if t is not None and t.dtype == dtype]
-        flat = from_first_rank(torch.cat([ts[i].detach().reshape(-1) for i in at]),
-                               shard.replicas)
-        pos = 0
-        for i in at:
-            out[i] = flat[pos:pos + ts[i].numel()].view_as(ts[i])
-            pos += ts[i].numel()
-    return out
+    return tensors_from_first_rank(ts, shard.replicas)
 
 
 def gather_rows(h_local: torch.Tensor, idx: torch.Tensor, shard: RowShard) -> torch.Tensor:

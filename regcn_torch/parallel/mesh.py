@@ -95,6 +95,23 @@ def check_words_divisibility(num_words: int, mesh) -> None:
             "the static graph's words_emb is row-sharded over it, as the entity table is")
 
 
+def check_model_divisibility(n_models: int, data: int) -> None:
+    """A sweep's model axis is split evenly over the ``data`` mesh axis of
+    size ``data``, so ``n_models`` must be a multiple of it; JAX's
+    ``SweepRunner`` raises the same error at its construction."""
+    if n_models % data != 0:
+        raise ValueError(
+            f"{n_models} sweep models not divisible by the '{DATA_AXIS}' "
+            f"mesh axis ({data}); pad the combo list to "
+            f"{((n_models + data - 1) // data) * data}")
+
+
+def data_rank(mesh) -> int:
+    """This rank's position on the ``data`` axis: its replica of the
+    training, or its block of a sweep's models."""
+    return int(mesh.get_local_rank(DATA_AXIS))
+
+
 def graph_rank(mesh) -> int:
     """This rank's position on the ``graph`` axis: its shard of rows."""
     return int(mesh.get_local_rank(GRAPH_AXIS))

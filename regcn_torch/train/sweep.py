@@ -28,8 +28,23 @@ sweep casts neither the parameters nor the windows, so its bf16 policy
 never starts there (its islands are no-ops on fp32 inputs).
 
 Shape-changing knobs (n_hidden, n_layers, dropout rates, n_bases) sweep
-sequentially (``regcn_torch/cli.py``'s grid). A mesh (the JAX sweep's
-model axis over devices) is not ported (ROADMAP A.11b).
+sequentially (``regcn_torch/cli.py``'s grid).
+
+On a mesh (``SweepRunner(mesh=...)``, JAX's model axis sharded over the
+``data`` mesh axis and replicated over ``graph``) the rank at position r
+of a ``data`` axis of size D trains models ``[r K / D, (r + 1) K / D)``:
+their learning rates, task weights, seeds, parameters, Adam moments and
+dropout generators, each generator seeded as in one process. The models
+are independent, so nothing crosses the ``data`` axis within a step. The
+ranks of one ``graph`` group hold the same models; JAX's replicas there
+are one program with one result, while the port's are processes whose
+atomic sums on the card add in no fixed order, so every value a step
+carries forward (the gradients, the BatchNorm statistics, the losses)
+and the evaluation's ranks are taken from the group's first rank, one
+broadcast each, and the replicas stay bit-equal (as a trainer's ``data``
+replicas do, ``regcn_torch/parallel/collectives.py``). The
+epoch's mean losses and the evaluation's ranks are all-gathered over the
+``data`` group, so every rank reports all K models in combo order.
 """
 
 from __future__ import annotations
@@ -50,6 +65,10 @@ from regcn_torch.hyperbolic.train import compute_radius_targets
 from regcn_torch.models import recurrent
 from regcn_torch.ops.activations import DropoutDraws
 from regcn_torch.ops.rgcn_scatter import check_impl, shape_run
+from regcn_torch.parallel.collectives import (all_gather_rows, from_first_rank,
+                                               tensors_from_first_rank)
+from regcn_torch.parallel.mesh import (DATA_AXIS, GRAPH_AXIS, axis_size, check_model_divisibility,
+                                       data_group, data_rank, graph_group)
 from regcn_torch.train import metrics
 from regcn_torch.train.loop import RANK_KEYS, train_window
 from regcn_torch.train.optim import AdamState, EuclideanAdam, tree_leaves, tree_map
@@ -124,7 +143,8 @@ class StackedAdam(EuclideanAdam):
 class SweepState:
     """K models' training state: parameters and model state (a dict of the
     model-state dataclass's fields) stacked on axis 0, the stacked Adam
-    moments, one dropout generator per model and the step."""
+    moments, one dropout generator per model and the step. On a mesh it
+    holds the rank's own K / D models."""
 
     params: dict
     opt_state: AdamState
@@ -135,21 +155,37 @@ class SweepState:
 
 class _Sweep:
     """What both runners share: the combos, the windows, the vmapped step,
-    the epoch order and the vmapped rolling evaluation of the valid split."""
+    the epoch order and the vmapped rolling evaluation of the valid split.
+    ``lrs``, ``tws``, ``seeds`` and ``n_models`` are every model's; ``own``
+    is the range of those this rank trains (all of them without a mesh);
+    ``replicas`` the mesh's ``graph`` group, whose ranks hold the same
+    models, where that axis is above 1."""
 
     loss_keys: Tuple[str, ...] = ()
     model_state_type: type = object  # the model's state dataclass
 
-    def __init__(self, cfg, tc: TrainConfig, data, combos: Dict[str, Sequence], device):
+    def __init__(self, cfg, tc: TrainConfig, data, combos: Dict[str, Sequence], device,
+                 mesh=None):
         self.cfg, self.tc, self.data = cfg, tc, data
         self.device = torch.device(device)
         self.lrs, self.tws, self.seeds = expand_combos(combos, tc)
         self.n_models = len(self.lrs)
+        self.group = self.replicas = None  # the mesh's data and graph groups
+        self.own = range(self.n_models)
+        if mesh is not None:
+            d = axis_size(mesh, DATA_AXIS)
+            check_model_divisibility(self.n_models, d)
+            per = self.n_models // d
+            self.own = range(data_rank(mesh) * per, (data_rank(mesh) + 1) * per)
+            self.group = data_group(mesh) if d > 1 else None
+            self.replicas = graph_group(mesh) if axis_size(mesh, GRAPH_AXIS) > 1 else None
         self.train_list = split_by_time(data.train)
         self.valid_list = split_by_time(data.valid)
-        self.opt = StackedAdam(torch.tensor(self.lrs, dtype=torch.float32, device=self.device),
+        own = slice(self.own.start, self.own.stop)
+        self.opt = StackedAdam(torch.tensor(self.lrs[own], dtype=torch.float32,
+                                            device=self.device),
                                tc.grad_norm, tc.weight_decay)
-        self.task_weights = torch.tensor(self.tws, dtype=torch.float32, device=self.device)
+        self.task_weights = torch.tensor(self.tws[own], dtype=torch.float32, device=self.device)
         self._windows: Dict[int, tuple] = {}
         self._draw_shapes: Dict[tuple, list] = {}
 
@@ -167,21 +203,24 @@ class _Sweep:
         raise NotImplementedError
 
     # ------------------------------------------------------------------ state
+    def own_seeds(self) -> List[int]:
+        return [self.seeds[k] for k in self.own]
+
     def init_state(self) -> SweepState:
-        """Each model from its seed, stacked; dropout generators seeded
-        ``seed + 1``, on the device."""
-        models = [self.init_model(s) for s in self.seeds]
+        """Each of the rank's models from its seed, stacked; dropout
+        generators seeded ``seed + 1``, on the device."""
+        models = [self.init_model(s) for s in self.own_seeds()]
         return self.state_from(stack_trees([p for p, _ in models]),
                                stack_trees([fields_of(m) for _, m in models]))
 
     def state_from(self, params: dict, model_state: dict) -> SweepState:
         """A fresh state (zero moments, step 0) around stacked ``params`` and
-        ``model_state`` (a dict of the model-state fields), copied onto the
-        device."""
+        ``model_state`` (a dict of the model-state fields) of the rank's own
+        models, copied onto the device."""
         params = tree_map(lambda t: t.detach().to(self.device, copy=True), params)
         model_state = tree_map(lambda t: t.detach().to(self.device, copy=True), model_state)
         gens = []
-        for s in self.seeds:
+        for s in self.own_seeds():
             g = torch.Generator(device=self.device)
             g.manual_seed(int(s) + 1)
             gens.append(g)
@@ -236,7 +275,8 @@ class _Sweep:
         """Every model's forward and backward on training snapshot ``i``
         without the optimizer: (losses, each [K]; the gradients in
         ``tree_leaves`` order, each [K, ...]; the new model state, stacked).
-        Draws each model's dropout from its generator."""
+        Draws each model's dropout from its generator. On a mesh whose
+        ``graph`` axis is above 1, all three are the group's first rank's."""
         history, triples, mask = self.window(i)
         mtype = self.model_state_type
 
@@ -249,8 +289,16 @@ class _Sweep:
 
         grads, (_, (losses, new_state)) = vmap(grad_and_value(loss, has_aux=True))(
             state.params, state.model_state, self.draws(state, i), self.task_weights)
-        return ({k: v.detach() for k, v in losses.items()}, tree_leaves(grads),
-                tree_map(torch.Tensor.detach, new_state))
+        losses = {k: v.detach() for k, v in losses.items()}
+        grads, new_state = tree_leaves(grads), tree_map(torch.Tensor.detach, new_state)
+        if self.replicas is not None:  # the graph group's first rank's, one broadcast
+            n_g, n_s = len(grads), len(tree_leaves(new_state))
+            flat = tensors_from_first_rank(grads + tree_leaves(new_state) + list(losses.values()),
+                                           self.replicas)
+            grads, state_leaves = flat[:n_g], iter(flat[n_g:n_g + n_s])
+            new_state = tree_map(lambda _: next(state_leaves), new_state)
+            losses = dict(zip(losses, flat[n_g + n_s:]))
+        return losses, grads, new_state
 
     def train_step(self, state: SweepState, i: int) -> Dict[str, torch.Tensor]:
         """One optimizer step of every model on training snapshot ``i``, in
@@ -266,15 +314,20 @@ class _Sweep:
         random.Random(self.tc.seed + epoch).shuffle(idx)
         return idx
 
+    def gathered(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` [k, ...] of the rank's own models as [K, ...] of every
+        model, in combo order: all-gathered over the mesh's data group."""
+        return x if self.group is None else all_gather_rows(x, self.group)
+
     def run_epoch(self, state: SweepState, epoch: int) -> Dict[str, np.ndarray]:
-        """One step of every model per training snapshot; the mean losses,
-        each [K] (one host sync)."""
+        """One step of each of the rank's models per training snapshot; the
+        mean losses of every model, each [K] (one host sync)."""
         order = self.epoch_order(epoch)
-        sums = torch.zeros((len(self.loss_keys), self.n_models), device=self.device)
+        sums = torch.zeros((len(self.own), len(self.loss_keys)), device=self.device)
         for i in order:
             losses = self.train_step(state, i)
-            sums += torch.stack([losses[k] for k in self.loss_keys])
-        means = (sums / max(len(order), 1)).cpu().numpy()
+            sums += torch.stack([losses[k] for k in self.loss_keys], dim=1)
+        means = self.gathered(sums / max(len(order), 1)).T.cpu().numpy()
         return dict(zip(self.loss_keys, means))
 
     # ------------------------------------------------------------------- eval
@@ -283,8 +336,9 @@ class _Sweep:
                  eval_list: Sequence[np.ndarray], ent_filters=None, rel_filters=None
                  ) -> List[Dict[str, metrics.RankStats]]:
         """Rolling-window evaluation of every model (``loop.rolling_ranks``
-        with the scores of the K models from one vmapped forward); per
-        model, ``RANK_KEYS`` -> RankStats."""
+        with the scores of the rank's models from one vmapped forward, their
+        ranks the ``graph`` group's first rank's and gathered over the
+        mesh's data group); per model of all K, ``RANK_KEYS`` -> RankStats."""
         tc, num_rels = self.tc, self.data.num_rels
         mtype = self.model_state_type
         window = list(history_list[-tc.test_history_len:])
@@ -307,7 +361,10 @@ class _Sweep:
                 metrics.device_filtered_ranks(s_ob[k], trip[:, 2], er, ec),
                 metrics.device_ranks(s_rel[k], trip[:, 1]),
                 metrics.device_filtered_ranks(s_rel[k], trip[:, 1], rr, rc),
-            ]) for k in range(self.n_models)]).cpu().numpy()
+            ]) for k in range(len(self.own))])
+            if self.replicas is not None:
+                step = from_first_rank(step, self.replicas)
+            step = self.gathered(step).cpu().numpy()
             valid = mask > 0
             for k in range(self.n_models):
                 for key, row in zip(RANK_KEYS, step[k]):
@@ -319,7 +376,9 @@ class _Sweep:
         """Train every model ``n_epochs`` (default ``tc.n_epochs``) epochs,
         then evaluate each on the valid split; returns (rows, state), a row
         per model with its lr, task weight, seed, ``valid_ent_mrr_raw`` and
-        ``stats``, as JAX's runner gives them."""
+        ``stats``, as JAX's runner gives them. On a mesh every rank returns
+        the rows of all K models, in combo order, and its own state: that of
+        its K / D models."""
         state = state or self.init_state()
         for epoch in range(n_epochs or self.tc.n_epochs):
             self.run_epoch(state, epoch)
@@ -337,19 +396,19 @@ class SweepRunner(_Sweep):
 
     As in JAX's runner the training snapshots are not dilated and the
     static graph is not used (a ``use_static`` model gets a static loss of
-    0). ``impl`` is "xla" or "pallas" (both take kernel B1); a ``mesh``
-    raises (ROADMAP A.11b)."""
+    0). ``impl`` is "xla" or "pallas" (both take kernel B1). ``mesh`` (from
+    ``regcn_torch.parallel.mesh.make_mesh``) splits the models over its
+    ``data`` axis, whose size must divide K, as JAX's ``mesh`` shards them
+    (see the module)."""
 
     loss_keys = ("entity", "relation", "static")
     model_state_type = recurrent.ModelState
 
     def __init__(self, cfg: ModelConfig, tc: TrainConfig, data, combos: Dict[str, Sequence],
                  impl: str = "xla", mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("a sweep over a mesh is not ported yet (ROADMAP A.11b)")
         check_impl(impl)
         recurrent.check_supported(cfg)
-        super().__init__(cfg, tc, data, combos, device)
+        super().__init__(cfg, tc, data, combos, device, mesh)
 
     def init_model(self, seed: int):
         return recurrent.init_params(torch.Generator().manual_seed(int(seed)), self.cfg,

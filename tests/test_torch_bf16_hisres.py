@@ -17,12 +17,15 @@ port-bf16 vs JAX-bf16 gap.
   its fp32 loss (JAX's criterion).
 """
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
 import torch
 
 from regcn_tpu.config import TrainConfig as JaxTrainConfig
+from regcn_tpu.data.snapshots import Snapshot as JaxSnapshot
 from regcn_tpu.hisres import model as JRM
 from regcn_tpu.hisres.train import HisResTrainer as JaxHisResTrainer
 from regcn_torch.config import TrainConfig
@@ -86,12 +89,25 @@ def hisres_configs(data, dtype):
             TrainConfig(**HISRES_TC))
 
 
+def fused_counts(arg):
+    """A JAX Snapshot with its static unpadded counts set as JAX's fused
+    epoch sets them (``regcn_tpu/train/epoch.py:175-176``): the padded edge
+    count and the triple bucket. No computation reads either field, but as
+    static pytree fields each distinct pair compiles ``train_step`` anew."""
+    if not isinstance(arg, JaxSnapshot):
+        return arg
+    return dataclasses.replace(arg, num_edges=int(arg.src.shape[-1]),
+                               num_triples=HISRES_TC["triple_bucket"])
+
+
 def test_hisres_three_steps_track_jax_bf16(hisres_data):
     """Three steps on windows of 2 snapshots from the same converted state:
-    each step's losses and every parameter after them."""
+    each step's losses and every parameter after them. The windows' padded
+    shapes agree, and their static counts are set as the fused epoch sets
+    them (``fused_counts``): one compile of JAX's step per dtype."""
     data = hisres_data
     runs = {}
-    order = (3, 4, 5)  # windows of 2 snapshots: one compile of JAX's step
+    order = (3, 4, 5)  # windows of 2 snapshots
     for dt in ("float32", "bfloat16"):
         jcfg, jtc, pcfg, ptc = hisres_configs(data, dt)
         trainer = JaxHisResTrainer(jcfg, jtc, data, his_edge_bucket=64)
@@ -100,9 +116,9 @@ def test_hisres_three_steps_track_jax_bf16(hisres_data):
         losses = []
         for i in order:
             window = trainer.train_list[max(0, i - 2):i]
-            state, ls = trainer.train_step(
-                state, trainer._history(window), trainer._history(union_snapshots(window)),
-                *trainer._batch(trainer.train_list[i], i))
+            args = (trainer._history(window), trainer._history(union_snapshots(window)),
+                    *trainer._batch(trainer.train_list[i], i))
+            state, ls = trainer.train_step(state, *map(fused_counts, args))
             losses.append(jax.tree.map(float, ls))
         runs[dt] = (init, losses, jax.tree.map(np.asarray, state.params))
         if dt == "bfloat16":

@@ -16,6 +16,10 @@ sends each written row's cotangent to the one update written, where
 torch's ``index_put`` sends it to every duplicate: the enrichment cases
 run batches with repeated heads and padded rows, and one case shows that
 a plain ``index_put`` would miss JAX's gradients.
+
+JAX's values and gradients come from one jitted program a case
+(``jax.jit(jax.value_and_grad(...))``): run eagerly, each operation
+compiles a program of its own.
 """
 
 import jax
@@ -114,7 +118,7 @@ def test_inject_slow_state(with_ids):
         return jnp.sum(JE.inject_slow_state(jp, h, jnp.asarray(slow), C,
                                             None if ids is None else jnp.asarray(ids)) * w)
 
-    want, want_g = jax.value_and_grad(jfn)(jnp.asarray(h))
+    want, want_g = jax.jit(jax.value_and_grad(jfn))(jnp.asarray(h))
     th = t(h, grad=True)
     got = PE.inject_slow_state(pp, th, t(slow), C, None if ids is None else t(ids))
     close(got, JE.inject_slow_state(jp, jnp.asarray(h), jnp.asarray(slow), C,
@@ -164,7 +168,7 @@ def test_time_delta(ball_points):
                else JE.time_delta_tangent(p, jnp.asarray(deltas)))
         return jnp.sum(out * w), out
 
-    (want, want_out), want_g = jax.value_and_grad(jfn, has_aux=True)(jp)
+    (want, want_out), want_g = jax.jit(jax.value_and_grad(jfn, has_aux=True))(jp)
     out = (PE.time_delta_projection(pp, t(deltas), C) if ball_points
            else PE.time_delta_tangent(pp, t(deltas)))
     close(out, want_out)
@@ -197,8 +201,8 @@ def test_history_encoder_tangent_values_and_gradients(encoder):
         out = JE.history_encoder_tangent(p, jcfg, nb, rl, tm, q, jnp.asarray(mask))
         return jnp.sum(out * w), out
 
-    (want, want_out), want_g = jax.value_and_grad(jfn, argnums=(0, 1, 2, 3, 4), has_aux=True)(
-        jp, *map(jnp.asarray, (nb, rl, tm, q)))
+    (want, want_out), want_g = jax.jit(jax.value_and_grad(
+        jfn, argnums=(0, 1, 2, 3, 4), has_aux=True))(jp, *map(jnp.asarray, (nb, rl, tm, q)))
     ins = [t(a, grad=True) for a in (nb, rl, tm, q)]
     out = PE.history_encoder_tangent(pp, pcfg, *ins, t(mask))
     close(out, want_out)
@@ -246,7 +250,7 @@ def test_fuse_global_local(ball_points):
                else JE.fuse_global_local_tangent(p, g, l))
         return jnp.sum(out * w), out
 
-    (_, want_out), want_g = jax.value_and_grad(jfn, argnums=(0, 1, 2), has_aux=True)(
+    (_, want_out), want_g = jax.jit(jax.value_and_grad(jfn, argnums=(0, 1, 2), has_aux=True))(
         jp, jnp.asarray(g), jnp.asarray(l))
     tg, tl = t(g, grad=True), t(l, grad=True)
     out = (PE.fuse_global_local(pp, tg, tl, C) if ball_points
@@ -272,8 +276,8 @@ def test_set_rows_sends_each_rows_gradient_to_the_update_written():
         out = table.at[safe].set(upd, mode="drop")
         return jnp.sum(out * w), out
 
-    (_, want_out), (want_gt, want_gu) = jax.value_and_grad(jfn, argnums=(0, 1), has_aux=True)(
-        jnp.asarray(table), jnp.asarray(upd))
+    (_, want_out), (want_gt, want_gu) = jax.jit(jax.value_and_grad(
+        jfn, argnums=(0, 1), has_aux=True))(jnp.asarray(table), jnp.asarray(upd))
     tt, tu = t(table, grad=True), t(upd, grad=True)
     out = PE.set_rows(tt, t(rows), t(valid) > 0, tu)
     np.testing.assert_array_equal(out.detach().numpy(), want_out)
@@ -423,7 +427,7 @@ def test_squash_entries_drops_padding_and_passes_no_gradient(snapshots):
         out = s.at[jnp.asarray(rows), jnp.asarray(cols)].set(-1e9, mode="drop")
         return jnp.sum(jnp.where(out > -1e8, out * w, 0.0)), out
 
-    (_, want), want_g = jax.value_and_grad(jfn, has_aux=True)(jnp.asarray(scores))
+    (_, want), want_g = jax.jit(jax.value_and_grad(jfn, has_aux=True))(jnp.asarray(scores))
     ts = t(scores, grad=True)
     got = PE.squash_entries(ts, t(rows), t(cols))
     np.testing.assert_array_equal(got.detach().numpy(), want)
@@ -480,7 +484,7 @@ def test_hyperbolic_gru_library_matches_jax(name):
     ws = [rng.normal(size=o.shape).astype(np.float32)
           for o in flat(jfn(jp, *map(jnp.asarray, ins), C))]
     argnums = tuple(range(len(ins) + 1))
-    (_, want_outs), want_g = jax.value_and_grad(jloss, argnums=argnums, has_aux=True)(
+    (_, want_outs), want_g = jax.jit(jax.value_and_grad(jloss, argnums=argnums, has_aux=True))(
         jp, *map(jnp.asarray, ins))
     pp = tree_map(lambda a: t(a, grad=True), jax.tree.map(np.asarray, jp))
     tins = [t(a, grad=True) for a in ins]

@@ -12,9 +12,10 @@ proxy distance with its bias, scale and margin.
 
 One module-scoped JAX run, dropouts 0, no curvature warmup (the bound is
 ``curvature_max`` from the first epoch, as ``tools/bench_configs.py``
-runs config 4), from ``init_state(PRNGKey(0))``: epoch 0 step by step
-through its ``train_step`` (the state before and after each step), and
-fused through ``run_epoch``; epoch 1 through ``run_epoch``; ``fit`` for 2
+runs config 4), from ``init_state(PRNGKey(0))``: epochs 0 and 1 through
+``run_epoch``, then epoch 0 again step by step through the same fused
+epoch, one snapshot a call (the state before and after each step; as in
+``tests/test_torch_hyperbolic_headline_train.py``, ``fused_steps``); ``fit`` for 2
 epochs from the state after epoch 0; ``test(multi_step=True)`` of fit's
 best state with entity and with relation feedback, the rank arrays read
 where they are reduced. The port starts from the converted JAX states
@@ -49,9 +50,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_hyperbolic_headline_train import fused_steps
 
 from regcn_tpu.config import TrainConfig as JaxTrainConfig
-from regcn_tpu.data.snapshots import pad_triples
 from regcn_tpu.hyperbolic import model as JM
 from regcn_tpu.hyperbolic.train import HyperbolicTrainer as JaxTrainer
 from regcn_tpu.train import metrics as jax_metrics
@@ -145,19 +146,11 @@ def jax_run(data):
     jcfg, jtc, _, _ = configs(data)
     trainer = JaxTrainer(jcfg, jtc, data)
     init = host_copy(trainer.init_state(jax.random.PRNGKey(0)))
-    cmax = jnp.asarray(trainer._curvature_max(0), jnp.float32)
-    state, steps = device_copy(init), []
-    for i in trainer_of(data).epoch_order(0):
-        history = trainer._history(trainer.train_list[max(0, i - jtc.train_history_len):i])
-        triples, mask = pad_triples(trainer.train_list[i], data.num_rels, jtc.triple_bucket)
-        before = host_copy(state)
-        state, losses = trainer.train_step(state, history, jnp.asarray(triples),
-                                           jnp.asarray(mask), cmax)
-        steps.append((i, before, jax.tree.map(float, losses), host_copy(state)))
     state, _ = trainer.run_epoch(device_copy(init), 0)
     after0 = host_copy(state)
     state, mean1 = trainer.run_epoch(state, 1)
     after1 = host_copy(state)
+    steps = fused_steps(trainer, init, trainer_of(data).epoch_order(0))
     best, info = trainer.fit(state=device_copy(after0))
     with pytest.MonkeyPatch.context() as mp:
         tests = {rel: multi_step_ranks(trainer, best, mp, jax_metrics, rel)

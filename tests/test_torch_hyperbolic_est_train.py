@@ -3,11 +3,14 @@
 QCHHE GRU; and TANS negatives) against regcn_tpu's HyperbolicTrainer.
 
 One module-scoped JAX run, dropouts 0, K = 8 events, from
-``init_state(PRNGKey(0))``: epoch 0 step by step through its
-``train_step`` with the retrieval batch at the snapshot's time and the
-TANS COO (the state before and after each step, the H-PES memories
-included); epoch 0 and epoch 1 through ``run_epoch``, JAX's fused epoch
-on its precomputed ``ESTStore``; ``fit`` for 2 epochs from the state after
+``init_state(PRNGKey(0))``: epoch 0 and epoch 1 through ``run_epoch``,
+JAX's fused epoch on its precomputed ``ESTStore``; epoch 0 again step by
+step through that fused epoch, one snapshot a call (the state before and
+after each step, the H-PES memories included; JAX holds the fused epoch
+on its ``ESTStore`` to ``train_step`` with the retrieval batch at the
+snapshot's time and the TANS COO, ``tests/test_hyperbolic_model.py:314``;
+``fused_steps`` of ``tests/test_torch_hyperbolic_headline_train.py``);
+``fit`` for 2 epochs from the state after
 epoch 0; the valid and test splits of fit's best state, single-step
 (JAX's fused eval on its ``ESTStore``) and multi-step, the rank arrays
 read where they are reduced. The port starts from the converted JAX
@@ -44,6 +47,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_hyperbolic_headline_train import fused_steps
 
 from regcn_tpu.config import TrainConfig as JaxTrainConfig
 from regcn_tpu.data.answers import build_answer_filters_by_time as jax_filters
@@ -157,21 +161,11 @@ def jax_run(data):
     jcfg, jtc, _, _ = configs(data)
     trainer = JaxTrainer(jcfg, jtc, data)
     init = host_copy(trainer.init_state(jax.random.PRNGKey(0)))
-    cmax = jnp.asarray(trainer._curvature_max(0), jnp.float32)
-    state, steps = device_copy(init), []
-    for i in trainer_of(data).epoch_order(0):
-        history = trainer._history(trainer.train_list[max(0, i - jtc.train_history_len):i])
-        triples, mask = pad_triples(trainer.train_list[i], data.num_rels, jtc.triple_bucket)
-        rb = trainer._retrieval(triples, mask, i)
-        tans = tuple(map(jnp.asarray, JE.tans_mask_coo(triples, mask, trainer.true_tails)))
-        before = host_copy(state)
-        state, losses = trainer.train_step(state, history, jnp.asarray(triples),
-                                           jnp.asarray(mask), cmax, rb, tans)
-        steps.append((i, before, jax.tree.map(float, losses), host_copy(state)))
     state, _ = trainer.run_epoch(device_copy(init), 0)
     after0 = host_copy(state)
     state, mean1 = trainer.run_epoch(state, 1)
     after1 = host_copy(state)
+    steps = fused_steps(trainer, init, trainer_of(data).epoch_order(0))
     best, info = trainer.fit(state=device_copy(after0))
     filters = (jax_filters(data.valid, data.num_rels, False),
                jax_filters(data.valid, data.num_rels, True))

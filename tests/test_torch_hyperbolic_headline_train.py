@@ -2,12 +2,16 @@
 tangent ConvTransE/R, fixed c) against regcn_tpu's HyperbolicTrainer.
 
 One module-scoped JAX run, dropouts 0, from ``init_state(PRNGKey(0))``:
-epoch 0 step by step through its ``train_step`` (the state before and
-after each step), and fused through ``run_epoch``; epoch 1 through
-``run_epoch``; ``fit`` for 2 epochs from the state after epoch 0;
-``test(multi_step=True)`` of fit's best state with entity and with
-relation feedback, the rank arrays read where they are reduced. The port
-starts from the converted JAX states (``train_state_from_jax``).
+epochs 0 and 1 through ``run_epoch``, then epoch 0 again step by step
+through the same fused epoch, ``epoch_fn`` on one snapshot a call (the
+state before and after each step; the fused store front-pads the short
+windows with empty snapshots, and JAX holds that path to its per-step
+``train_step``, ``tests/test_hyperbolic_model.py:273``): one compiled
+step for every window length, where ``train_step`` compiles one each;
+``fit`` for 2 epochs from the state after epoch 0; ``test(multi_step=
+True)`` of fit's best state with entity and with relation feedback, the
+rank arrays read where they are reduced. The port starts from the
+converted JAX states (``train_state_from_jax``).
 Tolerances:
 
 - a step, or an epoch: the (mean) losses within rtol 1e-4 / atol 1e-5;
@@ -40,7 +44,6 @@ import pytest
 import torch
 
 from regcn_tpu.config import TrainConfig as JaxTrainConfig
-from regcn_tpu.data.snapshots import pad_triples
 from regcn_tpu.hyperbolic import model as JM
 from regcn_tpu.hyperbolic.train import HyperbolicTrainer as JaxTrainer
 from regcn_tpu.train import metrics as jax_metrics
@@ -129,19 +132,11 @@ def jax_run(data):
     jcfg, jtc, _, _ = configs(data)
     trainer = JaxTrainer(jcfg, jtc, data)
     init = host_copy(trainer.init_state(jax.random.PRNGKey(0)))
-    cmax = jnp.asarray(trainer._curvature_max(0), jnp.float32)
-    state, steps = device_copy(init), []
-    for i in trainer_of(data).epoch_order(0):
-        history = trainer._history(trainer.train_list[max(0, i - jtc.train_history_len):i])
-        triples, mask = pad_triples(trainer.train_list[i], data.num_rels, jtc.triple_bucket)
-        before = host_copy(state)
-        state, losses = trainer.train_step(state, history, jnp.asarray(triples),
-                                           jnp.asarray(mask), cmax)
-        steps.append((i, before, jax.tree.map(float, losses), host_copy(state)))
     state, _ = trainer.run_epoch(device_copy(init), 0)
     after0 = host_copy(state)
     state, mean1 = trainer.run_epoch(state, 1)
     after1 = host_copy(state)
+    steps = fused_steps(trainer, init, trainer_of(data).epoch_order(0))
     best, info = trainer.fit(state=device_copy(after0))
     with pytest.MonkeyPatch.context() as mp:
         tests = {rel: multi_step_ranks(trainer, best, mp, jax_metrics, rel)
@@ -152,6 +147,39 @@ def jax_run(data):
 
 def device_copy(tree):
     return jax.tree.map(jnp.asarray, tree)
+
+
+def fused_stores(trainer):
+    """The stores of JAX's fused epoch, as its ``run_epoch`` builds them
+    before its first fused epoch (``regcn_tpu/hyperbolic/train.py:607-624``)."""
+    from regcn_tpu.train.epoch import build_snapshot_store
+
+    tc, hlen = trainer.tc, trainer.tc.train_history_len
+    trainer._store = build_snapshot_store(
+        trainer.train_list, trainer.num_nodes, trainer.num_rels, edge_bucket=tc.edge_bucket,
+        rc_bucket=tc.rc_bucket, triple_bucket=tc.triple_bucket, pad_front=hlen,
+        halo_shards=trainer._halo_shards())
+    triples_all = np.asarray(trainer._store.triples[hlen:])
+    masks_all = np.asarray(trainer._store.triple_mask[hlen:])
+    trainer._train_est_store = trainer._build_est_store(
+        triples_all, masks_all, times=list(range(len(triples_all))), with_tans=True)
+
+
+def fused_steps(trainer, init, order):
+    """JAX's epoch 0 one step a call through its fused epoch (``epoch_fn``
+    on the order [i], over the stores ``run_epoch`` builds): (window index,
+    state before, losses, state after) of each step."""
+    if trainer._store is None:
+        fused_stores(trainer)
+    cmax = jnp.asarray(trainer._curvature_max(0), jnp.float32)
+    state, steps = device_copy(init), []
+    for i in order:
+        before = host_copy(state)
+        state, losses = trainer.epoch_fn(state, trainer._store, trainer._train_est_store,
+                                         jnp.asarray([i], jnp.int32), cmax)
+        steps.append((i, before, {k: float(v[0]) for k, v in losses.items()},
+                      host_copy(state)))
+    return steps
 
 
 def paths(tree, prefix=""):

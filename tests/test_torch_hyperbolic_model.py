@@ -239,8 +239,8 @@ def test_static_radius_detaches_the_curvature(data):
     gradient reaches log_c through it, in JAX or here."""
     jcfg, pcfg, (jp, _), (cp, _) = init(data, learn_curvature=True)
     jp = dict(jp, radius_static=jnp.full_like(jp["radius_static"], 50.0))  # past 1/sqrt(c)
-    jg = jax.grad(lambda lc: jnp.sum(JM._static_radius(
-        dict(jp, log_c=lc), jcfg, JM.get_curvature(dict(jp, log_c=lc), jcfg))))(
+    jg = jax.jit(jax.grad(lambda lc: jnp.sum(JM._static_radius(
+        dict(jp, log_c=lc), jcfg, JM.get_curvature(dict(jp, log_c=lc), jcfg)))))(
         jnp.asarray(jp["log_c"]))
     log_c = cp["log_c"].clone().requires_grad_(True)
     radius = torch.full_like(cp["radius_static"], 50.0).requires_grad_(True)

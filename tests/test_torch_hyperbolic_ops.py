@@ -81,7 +81,8 @@ def test_op_value_and_gradient_match_jax(rng, name):
     close(got, want)
     # gradient of a fixed random projection of the output, w.r.t. x and c
     w = rng.normal(size=np.shape(want)).astype(np.float32)
-    jgx, jgc = jax.grad(lambda a, c: jnp.sum(jfn(a, jnp.asarray(y), c) * w), argnums=(0, 1))(
+    jgx, jgc = jax.jit(jax.grad(lambda a, c: jnp.sum(jfn(a, jnp.asarray(y), c) * w),
+                                argnums=(0, 1)))(
         jnp.asarray(x), jnp.float32(C))
     gx, gc = torch.autograd.grad(torch.sum(got * torch.from_numpy(w)), [xt, ct],
                                  allow_unused=True)
@@ -99,7 +100,8 @@ def test_clip_splits_the_gradient_at_ties_as_jax_does(tie):
     """radius targets hit radius_min / radius_max exactly: at a tie JAX's
     clip passes half the gradient, torch.clamp all of it."""
     v = 0.5 if tie == "lo" else 3.0
-    jg = jax.grad(lambda a: jnp.sum(jnp.clip(a, 0.5, 3.0)))(jnp.asarray([v, 1.0], jnp.float32))
+    jg = jax.jit(jax.grad(lambda a: jnp.sum(jnp.clip(a, 0.5, 3.0))))(
+        jnp.asarray([v, 1.0], jnp.float32))
     x = torch.tensor([v, 1.0], requires_grad=True)
     (g,) = torch.autograd.grad(PH.clip(x, 0.5, 3.0).sum(), [x])
     close(g, jg, rtol=0, atol=0)
@@ -126,8 +128,8 @@ def test_lorentz_centroid_segments_with_empty_segments(rng):
     for s in (3, 5, 6):
         close(got[s], origin)
     proj = rng.normal(size=(S, d + 1)).astype(np.float32)
-    jge, jgw = jax.grad(lambda e, ww: jnp.sum(JH.lorentz_centroid_segments(
-        e, ww, jnp.asarray(seg), S, C) * proj), argnums=(0, 1))(jnp.asarray(emb), jnp.asarray(w))
+    jge, jgw = jax.jit(jax.grad(lambda e, ww: jnp.sum(JH.lorentz_centroid_segments(
+        e, ww, jnp.asarray(seg), S, C) * proj), argnums=(0, 1)))(jnp.asarray(emb), jnp.asarray(w))
     ge, gw = torch.autograd.grad(torch.sum(got * torch.from_numpy(proj)), [et, wt])
     close(ge, jge)
     close(gw, jgw)

@@ -7,9 +7,13 @@ The trainer runs BASELINE config 5's model (the headline, uvrgcn +
 tangent ConvTransE/R, with EST and TANS negatives, K = 4 events) with
 ``manifold_entities``, dropouts 0, from JAX's ``init_state(PRNGKey(0))``
 converted (its optax ``multi_transform`` state included). One
-module-scoped JAX run: epoch 0 step by step through its ``train_step``;
-epoch 1, from the state after epoch 0 (whose Adam moments damp the
-rounding noise of zero-gradient parameters), with triple batches of 32
+module-scoped JAX run: epoch 0 step by step through its fused epoch, one
+snapshot a call (``fused_steps`` of
+``tests/test_torch_hyperbolic_headline_train.py``: JAX holds the fused
+epoch with EST to its per-step ``train_step``,
+``tests/test_hyperbolic_model.py:314``); epoch 1, from the state after
+epoch 0 (whose Adam moments damp the rounding noise of zero-gradient
+parameters), with triple batches of 32
 rows (two chunks of real triples and two all-masked ones a snapshot) in
 mode ``accumulate`` and in mode ``per_chunk``; the analysis record of the
 initial state. Tolerances:
@@ -46,6 +50,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from test_torch_hyperbolic_headline_train import fused_steps
 
 from regcn_tpu.config import ExperimentConfig as JaxExperimentConfig
 from regcn_tpu.config import ModelConfig as JaxModelConfig
@@ -220,18 +225,7 @@ def jax_run(data):
     jcfg, jtc, _, _ = configs(data)
     trainer = JaxTrainer(jcfg, jtc, data)
     init = host_copy(trainer.init_state(jax.random.PRNGKey(0)))
-    cmax = jnp.asarray(trainer._curvature_max(0), jnp.float32)
-    state, steps = device_copy(init), []
-    for i in trainer_of(data).epoch_order(0):
-        history = trainer._history(trainer.train_list[max(0, i - jtc.train_history_len):i])
-        triples, mask = jax_snapshots.pad_triples(trainer.train_list[i], data.num_rels,
-                                                  jtc.triple_bucket)
-        rb = trainer._retrieval(triples, mask, i)
-        coo = JaxTrainerTans(trainer, triples, mask)
-        before = host_copy(state)
-        state, losses = trainer.train_step(state, history, jnp.asarray(triples),
-                                           jnp.asarray(mask), cmax, rb, coo)
-        steps.append((i, before, jax.tree.map(float, losses), host_copy(state)))
+    steps = fused_steps(trainer, init, trainer_of(data).epoch_order(0))
     chunked, after0 = {}, steps[-1][3]
     for mode in MODES:
         tr = JaxTrainer(jcfg, jtc, data, triple_batch_size=CHUNK, triple_batch_mode=mode)
@@ -241,13 +235,6 @@ def jax_run(data):
         every_norm(mp, jax_profiling)
         analysis = trainer.analysis_record(device_copy(init), 0)
     return dict(init=init, steps=steps, chunked=chunked, analysis=analysis)
-
-
-def JaxTrainerTans(trainer, triples, mask):
-    from regcn_tpu.hyperbolic import est as jax_est
-
-    rows, cols = jax_est.tans_mask_coo(triples, mask, trainer.true_tails)
-    return jnp.asarray(rows), jnp.asarray(cols)
 
 
 def assert_state_close(state, want, skip=frozenset(), rtol=1e-3, atol=1e-5):
@@ -445,7 +432,7 @@ def test_hyperbolic_union_layer_matches_jax(data):
         out = JL.hyperbolic_union_layer(lp, x, jrel, jsnap, 0.01, prev_h=pv)
         return jnp.sum(out * probe), out
 
-    (jg_p, jg_h, jg_prev), want = jax.grad(jax_fn, argnums=(0, 1, 2), has_aux=True)(
+    (jg_p, jg_h, jg_prev), want = jax.jit(jax.grad(jax_fn, argnums=(0, 1, 2), has_aux=True))(
         jlayer, jnp.asarray(h), jnp.asarray(prev))
     lp = {k: v.clone().requires_grad_(True) for k, v in cp["rgcn"]["layers"][1].items()}
     x, pv = (torch.from_numpy(a).requires_grad_(True) for a in (h, prev))
@@ -479,7 +466,7 @@ def test_ball_space_evolve_matches_jax_and_the_tangent_carry(data, residual):
         h, h0, _, all_h = JM.evolve(p, jcfg, jx_hist, return_all=True, tangent_fast=False)
         return jnp.sum(h * probe) + jnp.sum(h0 ** 2), (h, h0, all_h)
 
-    want_grads, want = jax.grad(jax_fn, has_aux=True)(jp)
+    want_grads, want = jax.jit(jax.grad(jax_fn, has_aux=True))(jp)
     cp = jax.tree.map(lambda t: t.clone().requires_grad_(True), cp)
     h, h0, _, all_h = PM.evolve(cp, pcfg, pt_hist, return_all=True, tangent_fast=False)
     for name, g, w in zip(("h", "h0", "all_h"), (h, h0, all_h), want):

@@ -156,7 +156,8 @@ def test_radius_maps_match_jax(rng, learned):
     jc = jnp.asarray(C, jnp.float32)
     want_val = (JH.radius_from_tangent(jnp.asarray(v), jc),
                 JH.apply_radius_tangent(jnp.asarray(v), jnp.asarray(radius), jc))
-    want_grads = jax.grad(jax_fn, argnums=(0, 1, 2))(jnp.asarray(v), jnp.asarray(radius), jc)
+    want_grads = jax.jit(jax.grad(jax_fn, argnums=(0, 1, 2)))(jnp.asarray(v), jnp.asarray(radius),
+                                                               jc)
     leaves = [t(v).requires_grad_(True), t(radius).requires_grad_(True),
               torch.tensor(C).requires_grad_(True)]
     c = leaves[2] if learned else C
@@ -226,7 +227,7 @@ def test_union_layer_tangent_matches_jax(data, rng, case, layer, impl):
 
     args = (jlp, jnp.asarray(v), jnp.asarray(rel), None if prev is None else jnp.asarray(prev))
     with pltpu.force_tpu_interpret_mode() if impl == "pallas" else contextlib.nullcontext():
-        want_grads, want = jax.grad(jax_fn, argnums=(0, 1, 2, 3), has_aux=True)(*args)
+        want_grads, want = jax.jit(jax.grad(jax_fn, argnums=(0, 1, 2, 3), has_aux=True))(*args)
     lp = {k: p.clone().requires_grad_(True) for k, p in cp["rgcn"]["layers"][layer].items()}
     leaves = [t(v).requires_grad_(True), t(rel).requires_grad_(True)]
     if prev is not None:
@@ -270,7 +271,7 @@ def test_uvrgcn_cell_tangent_matches_jax(data, rng, skip):
         out = JL.uvrgcn_cell_tangent(p, v, r, jsnap, C)
         return jnp.sum(out * G), out
 
-    want_grads, want = jax.grad(jax_fn, argnums=(0, 1, 2), has_aux=True)(
+    want_grads, want = jax.jit(jax.grad(jax_fn, argnums=(0, 1, 2), has_aux=True))(
         jp["rgcn"], jnp.asarray(v), jnp.asarray(rel))
     params = {"layers": [{k: p.clone().requires_grad_(True) for k, p in lp.items()}
                          for lp in cp["rgcn"]["layers"]]}
@@ -359,7 +360,7 @@ def test_convtrans_decoders_match_jax(data, rng, which, train):
         scores, new = jfn(p, bn_np, e, r, jnp.asarray(triples), C, jnp.asarray(mask), train=train)
         return jnp.sum(scores * G), (scores, new)
 
-    want_grads, (want_scores, want_bn) = jax.grad(jax_fn, argnums=(0, 1, 2), has_aux=True)(
+    want_grads, (want_scores, want_bn) = jax.jit(jax.grad(jax_fn, argnums=(0, 1, 2), has_aux=True))(
         jp[dec], jnp.asarray(emb), jnp.asarray(rel))
     params = tree_map(lambda p: p.clone().requires_grad_(True), cp[dec])
     leaves = [t(emb).requires_grad_(True), t(rel).requires_grad_(True)]

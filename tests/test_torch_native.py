@@ -264,7 +264,7 @@ def test_cumsum_matches_jax_and_the_exact_route(seed):
                                  jnp.asarray(snap.in_deg_norm), impl="cumsum", dst_sorted=True)
         return jnp.sum(out * g), out
 
-    jgrads, jout = jax.grad(jax_fn, argnums=(0, 1, 2), has_aux=True)(h, rel, w)
+    jgrads, jout = jax.jit(jax.grad(jax_fn, argnums=(0, 1, 2), has_aux=True))(h, rel, w)
     scale = np.abs(np.asarray(jout)).max()
     np.testing.assert_allclose(got, np.asarray(jout), rtol=1e-5, atol=1e-6 * scale)
     for name, a, b in zip(("h", "rel", "w"), got_grads, jgrads):

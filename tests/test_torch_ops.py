@@ -149,9 +149,9 @@ def test_rgcn_aggregate_gradients_match_jax_xla_and_pallas(rng, case, dst_sorted
         return lambda h, r, w: jnp.sum(fn(h, r, w, *jrest, dst_sorted=dst_sorted, **kw) * G)
 
     jleaves = [jnp.asarray(a) for a in args[:3]]
-    want_xla = jax.grad(loss(jax_rgcn_aggregate, impl="xla"), argnums=(0, 1, 2))(*jleaves)
+    want_xla = jax.jit(jax.grad(loss(jax_rgcn_aggregate, impl="xla"), argnums=(0, 1, 2)))(*jleaves)
     with pltpu.force_tpu_interpret_mode():
-        want_pallas = jax.grad(loss(rgcn_aggregate_pallas), argnums=(0, 1, 2))(*jleaves)
+        want_pallas = jax.jit(jax.grad(loss(rgcn_aggregate_pallas), argnums=(0, 1, 2)))(*jleaves)
     for name, g, wx, wp in zip(("h", "rel_emb", "W"), got, want_xla, want_pallas):
         close(g, wx)
         close(g, wp)
@@ -181,7 +181,7 @@ def test_weighted_scatter_gradients_match_jax(rng, case):
         return jnp.sum(o * (1.0 if scale is None else scale[:, None]) * G)
 
     with pltpu.force_tpu_interpret_mode():
-        want = jax.grad(loss, argnums=(0, 1))(jnp.asarray(msg), jnp.asarray(w))
+        want = jax.jit(jax.grad(loss, argnums=(0, 1)))(jnp.asarray(msg), jnp.asarray(w))
     for g, wt in zip(got, want):
         close(g, wt)
     if case == "all_masked":

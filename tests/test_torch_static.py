@@ -22,7 +22,7 @@ Tolerances:
   within rtol 1e-3 / atol 1e-5, ``words_emb`` and ``static_rgcn.weight``
   among them;
 - a training step (epoch 0 step by step from JAX's state before each
-  ``train_step``): the losses within rtol 1e-4 / atol 1e-5; every
+  step): the losses within rtol 1e-4 / atol 1e-5; every
   parameter and BN statistic within atol 1e-5 + rtol 1e-3, far below
   lr = 1e-3, so each step's direction must agree. As in the trainers'
   other tests, the decoders' ``conv_b`` / ``fc_b`` (a batch-statistics
@@ -49,6 +49,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_hyperbolic_headline_train import fused_steps
 
 from regcn_tpu.config import ExperimentConfig as JaxExperimentConfig
 from regcn_tpu.config import ModelConfig as JaxModelConfig
@@ -221,7 +222,7 @@ def test_block_layer_matches_jax(data):
         out = jax_layers.rgcn_block_layer({"weight": w}, x, jx_snap, N_BASES)
         return jnp.sum(out * probe), out
 
-    (jg_w, jg_h), out_j = jax.grad(jax_fn, argnums=(0, 1), has_aux=True)(jp["weight"],
+    (jg_w, jg_h), out_j = jax.jit(jax.grad(jax_fn, argnums=(0, 1), has_aux=True))(jp["weight"],
                                                                          jnp.asarray(h))
     w = torch.from_numpy(np.asarray(jp["weight"])).requires_grad_(True)
     x = torch.from_numpy(h).requires_grad_(True)
@@ -265,7 +266,7 @@ def test_static_angular_loss_matches_jax(layer_norm, discount, padded):
         return jax_recurrent.static_angular_loss(
             s, a, jcfg, active=None if active is None else jnp.asarray(active))
 
-    want, (jg_s, jg_a) = jax.value_and_grad(jax_fn, argnums=(0, 1))(jnp.asarray(static),
+    want, (jg_s, jg_a) = jax.jit(jax.value_and_grad(jax_fn, argnums=(0, 1)))(jnp.asarray(static),
                                                                      jnp.asarray(all_h))
     s, a = (torch.from_numpy(v).requires_grad_(True) for v in (static, all_h))
     got = pt_recurrent.static_angular_loss(
@@ -300,7 +301,7 @@ def test_static_angular_loss_tangent_matches_jax(layer_norm):
     def jax_fn(s, a):
         return JM.static_angular_loss_tangent(s, a, jcfg, 0.01, active=jnp.asarray(active))
 
-    want, (jg_s, jg_a) = jax.value_and_grad(jax_fn, argnums=(0, 1))(jnp.asarray(static),
+    want, (jg_s, jg_a) = jax.jit(jax.value_and_grad(jax_fn, argnums=(0, 1)))(jnp.asarray(static),
                                                                      jnp.asarray(all_h))
     s, a = (torch.from_numpy(v).requires_grad_(True) for v in (static, all_h))
     got = PM.static_angular_loss_tangent(s, a, pcfg, 0.01, active=torch.from_numpy(active))
@@ -448,8 +449,12 @@ def port_trainer(data, family):
 
 @pytest.fixture(scope="module", params=FAMILIES)
 def jax_run(request, data):
-    """JAX, with the static graph: epoch 0 step by step through its
-    ``train_step`` (window index, state before, losses, state after);
+    """JAX, with the static graph: epoch 0 step by step through its fused
+    epoch, one snapshot a call (window index, state before, losses, state
+    after; the store front-pads the short windows, and JAX holds the fused
+    epoch to its per-step ``train_step``, ``tests/test_epoch_fused.py:51``
+    and ``tests/test_hyperbolic_model.py:273``): one compiled step where
+    ``train_step`` compiles one for each window's edge count;
     ``fit`` for 1 epoch from the initial state; the rolling test of fit's
     best state, the rank arrays read where they are reduced."""
     family = request.param
@@ -458,22 +463,18 @@ def jax_run(request, data):
         jcfg, _ = regcn_configs(data)
         trainer = jax_loop.Trainer(jcfg, data)
         init = host_copy(jax_create_train_state(jax.random.PRNGKey(0), jcfg.model, jcfg.train))
-        hlen, step_args = TC["train_history_len"], ()
+        store, epoch_fn = trainer._ensure_store()
+        state, steps = device_copy(init), []
+        for i in order:
+            before = host_copy(state)
+            state, losses = epoch_fn(state, store, jnp.asarray([i], jnp.int32))
+            steps.append((i, before, {k: float(v[0]) for k, v in losses.items()},
+                          host_copy(state)))
     else:
         jcfg, _ = hyp_configs(data)
         trainer = JaxHypTrainer(jcfg, JaxTrainConfig(**TC), data)
         init = host_copy(trainer.init_state(jax.random.PRNGKey(0)))
-        hlen = TC["train_history_len"]
-        step_args = (jnp.asarray(trainer._curvature_max(0), jnp.float32),)
-    state, steps = device_copy(init), []
-    for i in order:
-        hist = trainer._history(trainer.train_list[max(0, i - hlen):i])
-        triples, mask = jax_snapshots.pad_triples(trainer.train_list[i], data.num_rels,
-                                                  TC["triple_bucket"])
-        before = host_copy(state)
-        state, losses = trainer.train_step(state, hist, jnp.asarray(triples),
-                                           jnp.asarray(mask), *step_args)
-        steps.append((i, before, jax.tree.map(float, losses), host_copy(state)))
+        steps = fused_steps(trainer, init, order)
     if family == "regcn":
         trainer.cfg = dataclasses.replace(
             trainer.cfg, train=dataclasses.replace(trainer.cfg.train, n_epochs=1))

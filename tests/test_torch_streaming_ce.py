@@ -103,7 +103,7 @@ def jax_loss(a, streaming):
     args = tuple(jnp.asarray(v) for v in (a["q"], a["x"], a["bias"],
                                           a["qc"] if diff_qc else a["c"], a["scale"], a["margin"]))
     with pltpu.force_tpu_interpret_mode():
-        value, grads = jax.value_and_grad(f, argnums=tuple(range(6)))(*args)
+        value, grads = jax.jit(jax.value_and_grad(f, argnums=tuple(range(6))))(*args)
     return float(value), [np.asarray(g) for g in grads]
 
 

@@ -26,36 +26,52 @@ rules of kernels B1 and B2, on the CPU.
   above, and on the headline (uvrgcn on B1, the per-model radius weight)
   against the port's ``HyperbolicTrainer`` step by step as above; its
   refusals (``manifold_entities``, ``use_est``, a mesh) as JAX's.
+- ``SweepRunner(mesh=...)`` on one spawn of 2 gloo CPU ranks, a (data 2,
+  graph 1) mesh (a file store; the ranks niced, torch on one thread),
+  started before this process computes the references, at this file's
+  sizes (h = 16, 2 layers): K = 4 models (lr {1e-3, 5e-4} x seeds {1, 2})
+  with the config's dropouts for one epoch, on that mesh and on a (data 1,
+  graph 2) mesh of the same ranks (both ranks bit-equal there), against
+  the unsharded port on the same combos: every parameter within rtol 1e-5
+  / atol 1e-7, the epoch's mean losses within rtol 1e-5, the four valid
+  MRRs within 1e-6 (each model's dropout draws come from its own
+  generator whatever rank holds it, and a vmapped batch of K / D models
+  rounds as one of K), the rows of all K models in combo order on both
+  ranks; K = 8 (4 a rank, dropouts 0) against JAX's ``SweepRunner`` on a
+  (data 8, graph 1) mesh, as ``tests/test_sweep.py`` builds it, by
+  ``check_against_jax``'s criteria (see the test for the one entry that
+  the unsharded port, too, holds only as far as it is from JAX); the
+  divisibility error's message as JAX's, without a process group. JAX is
+  imported inside functions only, so that the spawned ranks, which import
+  this module to find their entry point, load none.
 """
 
 import dataclasses
+import os
+import pickle
 import random
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 from torch.func import grad, vmap
 
-from regcn_tpu.config import ModelConfig as JaxModelConfig
-from regcn_tpu.config import TrainConfig as JaxTrainConfig
-from regcn_tpu.data.synthetic import generate as jax_generate
-from regcn_tpu.hyperbolic.model import HyperbolicConfig as JaxHyperbolicConfig
-from regcn_tpu.train.sweep import HyperbolicSweepRunner as JaxHyperbolicSweepRunner
-from regcn_tpu.train.sweep import SweepRunner as JaxSweepRunner
+import test_torch_sharded_train as TT
 from regcn_torch.config import ExperimentConfig, ModelConfig, TrainConfig
 from regcn_torch.convert import _adam_states, _like, _tensor_tree
 from regcn_torch.data.answers import build_answer_filters_by_time
 from regcn_torch.data.synthetic import generate
 from regcn_torch.hyperbolic.model import HyperbolicConfig
 from regcn_torch.hyperbolic.train import HyperbolicTrainer
+from regcn_torch.parallel.mesh import MeshAxes, check_model_divisibility, make_mesh
 from regcn_torch.ops import rgcn_scatter
 from regcn_torch.ops import streaming_ce as ce
 from regcn_torch.train import loop as pt_loop
 from regcn_torch.train import state as pt_state
 from regcn_torch.train.loop import RANK_KEYS
-from regcn_torch.train.optim import AdamState, tree_leaves
+from regcn_torch.train.optim import AdamState, tree_leaves, tree_map
 from regcn_torch.train.sweep import HyperbolicSweepRunner, SweepRunner, SweepState, model_slice
 from regcn_torch.utils.profiling import _named_leaves
 
@@ -79,6 +95,8 @@ def one_torch_thread():
 
 @pytest.fixture(scope="module")
 def data():
+    from regcn_tpu.data.synthetic import generate as jax_generate
+
     return jax_generate("synthetic-small", seed=17, **TINY), generate("synthetic-small",
                                                                       seed=17, **TINY)
 
@@ -197,10 +215,27 @@ def named(params) -> dict:
     return dict(_named_leaves(params, {id(t): t for t in tree_leaves(params)}))
 
 
+def jax_placed(jr, states):
+    """numpy ``states`` on JAX's devices as its sweep's ``run`` places them:
+    the model axis over the ``data`` axis of its mesh, if it has one."""
+    import jax
+    import jax.numpy as jnp
+
+    from regcn_tpu.train.sweep import model_axis_shardings
+
+    states = jax.tree.map(jnp.asarray, states)
+    mesh = getattr(jr, "mesh", None)
+    return states if mesh is None else jax.device_put(states,
+                                                      model_axis_shardings(states, mesh))
+
+
 def jax_epoch(jr, states, epoch):
+    import jax
+    import jax.numpy as jnp
+
     idx = list(range(1, len(jr.train_list)))
     random.Random(jr.tc.seed + epoch).shuffle(idx)
-    states, _ = jr.epoch_fn(jax.tree.map(jnp.asarray, states), jr.store,
+    states, _ = jr.epoch_fn(jax_placed(jr, states), jr.store,
                             jnp.asarray(np.asarray(idx, np.int32)),
                             jnp.asarray(np.asarray(jr.tws, np.float32)))
     return jax.tree.map(np.array, states)
@@ -209,6 +244,8 @@ def jax_epoch(jr, states, epoch):
 def jax_valid_mrrs(jr, states) -> list:
     """Each model's four valid MRRs of a JAX sweep state (its ``run``'s
     evaluation, from a given state)."""
+    import jax
+
     from regcn_tpu.data.answers import build_answer_filters_by_time
     from regcn_tpu.train import metrics
     from regcn_tpu.train.epoch import build_eval_store, stack_eval_filters
@@ -223,10 +260,32 @@ def jax_valid_mrrs(jr, states) -> list:
                                 rel_mode=False)
     rr, rc = stack_eval_filters(rel_f, jr.valid_list, d.num_rels, tc.triple_bucket,
                                 rel_mode=True)
-    ranks = jax.device_get(jr.eval_fn(jax.tree.map(jnp.asarray, states), estore, er, ec, rr, rc))
+    ranks = jax.device_get(jr.eval_fn(jax_placed(jr, states), estore, er, ec, rr, rc))
     tmask = np.asarray(estore.triple_mask)[tc.test_history_len:] > 0
     return [{key: metrics.stat_ranks([arr[k][t][tmask[t]] for t in range(arr.shape[1])]).mrr
              for key, arr in zip(RANK_KEYS, ranks)} for k in range(jr.n_models)]
+
+
+def assert_params_near_jax(got_params, want_params):
+    """Every parameter but NOISE's within rtol 1e-3 / atol 1e-5 of JAX's."""
+    got, want = named(got_params), named(_tensor_tree(want_params, "cpu"))
+    assert set(got) == set(want)
+    for name, w in want.items():
+        if not name.endswith(tuple(f"['{n}']" for n in NOISE)):
+            torch.testing.assert_close(got[name], w, rtol=1e-3, atol=1e-5, msg=name)
+
+
+def assert_mrrs_near_jax(got, want):
+    for g, w in zip(got, want, strict=True):
+        for key in RANK_KEYS:
+            assert abs(g[key] - w[key]) <= MRR_TOL, (key, g[key], w[key])
+
+
+def valid_stats(runner, state):
+    """Each model's RANK_KEYS -> RankStats on the valid split."""
+    ent_f = build_answer_filters_by_time(runner.data.valid, runner.data.num_rels, False)
+    rel_f = build_answer_filters_by_time(runner.data.valid, runner.data.num_rels, True)
+    return runner.evaluate(state, runner.train_list, runner.valid_list, ent_f, rel_f)
 
 
 def check_against_jax(jr, runner, init):
@@ -234,20 +293,11 @@ def check_against_jax(jr, runner, init):
     every parameter, then each model's valid MRRs (the rows of ``run``)."""
     after0 = jax_epoch(jr, init, 0)
     after1 = jax_epoch(jr, after0, 1)
-    want = named(_tensor_tree(after1.params, "cpu"))
     state = sweep_state_from_jax(runner, after0)
     runner.run_epoch(state, 1)
-    got = named(state.params)
-    assert set(got) == set(want)
-    for name, w in want.items():
-        if not name.endswith(tuple(f"['{n}']" for n in NOISE)):
-            torch.testing.assert_close(got[name], w, rtol=1e-3, atol=1e-5, msg=name)
-    ent_f = build_answer_filters_by_time(runner.data.valid, runner.data.num_rels, False)
-    rel_f = build_answer_filters_by_time(runner.data.valid, runner.data.num_rels, True)
-    got = runner.evaluate(state, runner.train_list, runner.valid_list, ent_f, rel_f)
-    for g, w in zip(got, jax_valid_mrrs(jr, after1)):
-        for key in RANK_KEYS:
-            assert abs(g[key].mrr - w[key]) <= MRR_TOL, (key, g[key].mrr, w[key])
+    assert_params_near_jax(state.params, after1.params)
+    assert_mrrs_near_jax([{k: s.mrr for k, s in g.items()} for g in valid_stats(runner, state)],
+                         jax_valid_mrrs(jr, after1))
     rows, _ = runner.run(n_epochs=1)
     assert [(r["lr"], r["task_weight"], r["seed"]) for r in rows] == list(
         zip(jr.lrs, jr.tws, jr.seeds))
@@ -255,6 +305,12 @@ def check_against_jax(jr, runner, init):
 
 
 def test_sweep_runner_matches_jax(data):
+    import jax
+
+    from regcn_tpu.config import ModelConfig as JaxModelConfig
+    from regcn_tpu.config import TrainConfig as JaxTrainConfig
+    from regcn_tpu.train.sweep import SweepRunner as JaxSweepRunner
+
     jdata, pdata = data
     base = dict(num_ents=jdata.num_nodes, num_rels=jdata.num_rels, h_dim=16, n_layers=2,
                 **NO_DROPOUT)
@@ -266,6 +322,12 @@ def test_sweep_runner_matches_jax(data):
 
 
 def test_hyperbolic_sweep_runner_matches_jax_on_config3(data):
+    import jax
+
+    from regcn_tpu.config import TrainConfig as JaxTrainConfig
+    from regcn_tpu.hyperbolic.model import HyperbolicConfig as JaxHyperbolicConfig
+    from regcn_tpu.train.sweep import HyperbolicSweepRunner as JaxHyperbolicSweepRunner
+
     jdata, pdata = data
     base = dict(num_ents=jdata.num_nodes, num_rels=jdata.num_rels, h_dim=8, n_layers=2,
                 encoder="lgcn", decoder="roth", n_bases=4, learn_curvature=True, **NO_DROPOUT)
@@ -355,5 +417,262 @@ def test_hyperbolic_sweep_refusals(data):
     cfg = ModelConfig(num_ents=pdata.num_nodes, num_rels=pdata.num_rels, h_dim=8)
     with pytest.raises(ValueError, match="shape-changing"):
         SweepRunner(cfg, tc, pdata, {"n_hidden": [8, 16]}, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.11"):
-        SweepRunner(cfg, tc, pdata, {"lr": [1e-3]}, mesh=object(), device="cpu")
+    with pytest.raises(TypeError, match="mesh"):  # JAX's takes no mesh either
+        HyperbolicSweepRunner(HyperbolicConfig(num_ents=pdata.num_nodes,
+                                               num_rels=pdata.num_rels, h_dim=8),
+                              tc, pdata, {"lr": [1e-3]}, mesh=object(), device="cpu")
+
+
+# ------------------------------------------------- the model axis on a mesh
+
+D = 2  # the data axis of the port's mesh
+COMBOS_4 = {"lr": [1e-3, 5e-4, 1e-3, 5e-4], "seed": [1, 1, 2, 2]}
+# JAX's sharded sweep case (tests/test_sweep.py): 8 models on a data axis of 8
+COMBOS_8 = {"lr": [1e-3, 5e-4] * 4, "seed": [1, 2, 3, 4, 5, 6, 7, 8]}
+
+
+def mesh_data():
+    return generate("synthetic-small", seed=17, **TINY)
+
+
+def mesh_model(data, dropout: bool) -> dict:
+    return dict(num_ents=data.num_nodes, num_rels=data.num_rels, h_dim=16, n_layers=2,
+                **({} if dropout else NO_DROPOUT))
+
+
+def port_sweep(data, combos, dropout: bool, mesh=None) -> SweepRunner:
+    return SweepRunner(ModelConfig(**mesh_model(data, dropout)), TrainConfig(**TC), data,
+                       combos, mesh=mesh, device="cpu")
+
+
+def run_recording(runner) -> tuple:
+    """``run(n_epochs=1)``: (rows, the rank's state, the epoch's mean losses)."""
+    seen, run_epoch = [], runner.run_epoch
+    runner.run_epoch = lambda *a: seen.append(run_epoch(*a)) or seen[-1]
+    rows, state = runner.run(n_epochs=1)
+    return rows, state, seen[0]
+
+
+def mrrs(rows) -> list:
+    return [{k: s.mrr for k, s in r["stats"].items()} for r in rows]
+
+
+def sweep_rank_main(rank: int, workdir: str) -> None:
+    """One rank of the (data 2, graph 1) mesh: the K = 4 sweep with dropouts
+    from its seeds; then JAX's K = 8 state after epoch 0 (converted by the
+    test process), the rank's models' slice of it, epoch 1 and the valid
+    split of every model."""
+    torch.set_num_threads(1)
+    os.nice(10)  # a helper of this test: the other test workers keep their CPU share
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/store", world_size=D,
+                            rank=rank)
+    data, mesh = mesh_data(), make_mesh(MeshAxes(data=D, graph=1), device_type="cpu")
+    runner = port_sweep(data, COMBOS_4, dropout=True, mesh=mesh)
+    rows, state, losses = run_recording(runner)
+    out = {"own": list(runner.own), "rows": [{k: v for k, v in r.items() if k != "stats"}
+                                             for r in rows],
+           "mrrs": mrrs(rows), "losses": losses, "params": state.params}
+    # the same sweep on a (data 1, graph 2) mesh of the same ranks: both
+    # hold all 4 models, the graph group's first rank's values carried
+    runner = port_sweep(data, COMBOS_4, dropout=True,
+                        mesh=make_mesh(MeshAxes(data=1, graph=D), device_type="cpu"))
+    rows, state, losses = run_recording(runner)
+    out["replicas"] = {"own": list(runner.own), "mrrs": mrrs(rows), "losses": losses,
+                       "params": state.params}
+    runner = port_sweep(data, COMBOS_8, dropout=False, mesh=mesh)
+    own = slice(runner.own.start, runner.own.stop)
+
+    def own_state(blob):
+        state = runner.state_from(tree_map(lambda t: t[own], blob["params"]),
+                                  tree_map(lambda t: t[own], blob["model_state"]))
+        state.opt_state = AdamState(count=blob["count"], mu=[m[own] for m in blob["mu"]],
+                                    nu=[m[own] for m in blob["nu"]])
+        return state
+
+    def valid_mrrs(state):
+        return [{k: s.mrr for k, s in st.items()} for st in valid_stats(runner, state)]
+
+    state = own_state(TT.read_input(workdir, "after0"))
+    runner.run_epoch(state, 1)
+    out["jax"] = {"own": list(runner.own), "params": state.params, "mrrs": valid_mrrs(state),
+                  "mrrs_of_jax": valid_mrrs(own_state(TT.read_input(workdir, "after1")))}
+    with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def sweep_spawn(tmp_path_factory):
+    """The D = 2 ranks, started first: their K = 4 sweep needs nothing of
+    this process; JAX's state after epoch 0 reaches them later."""
+    workdir = str(tmp_path_factory.mktemp("sweep_mesh"))
+    return workdir, mp.start_processes(sweep_rank_main, args=(workdir,), nprocs=D, join=False,
+                                       start_method="spawn")
+
+
+@pytest.fixture(scope="module")
+def mesh_jax(sweep_spawn):
+    """JAX's SweepRunner over a (data 8, graph 1) mesh, K = 8, dropouts 0:
+    its states after epochs 0 and 1, each converted for the ranks, and each
+    model's valid MRRs after epoch 1; the unsharded port's parameters after
+    its epoch 1 from the same state after epoch 0."""
+    import jax
+
+    from regcn_tpu.config import ModelConfig as JaxModelConfig
+    from regcn_tpu.config import TrainConfig as JaxTrainConfig
+    from regcn_tpu.data.synthetic import generate as jax_generate
+    from regcn_tpu.parallel.mesh import MeshAxes as JaxMeshAxes
+    from regcn_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from regcn_tpu.train.sweep import SweepRunner as JaxSweepRunner
+
+    jdata = jax_generate("synthetic-small", seed=17, **TINY)
+    jcfg, jtc = JaxModelConfig(**mesh_model(jdata, dropout=False)), JaxTrainConfig(**TC)
+    jr = JaxSweepRunner(jcfg, jtc, jdata, dict(COMBOS_8),
+                        mesh=jax_make_mesh(JaxMeshAxes(data=8, graph=1)))
+    init = jax.tree.map(np.array, jr.init_fn(jr.seeds, jr.lrs))
+    after0 = jax_epoch(jr, init, 0)
+    runner = port_sweep(mesh_data(), COMBOS_8, dropout=False)
+
+    def send(name, states):
+        state = sweep_state_from_jax(runner, states)
+        TT.write_input(sweep_spawn[0], name, {
+            "params": state.params, "model_state": state.model_state,
+            "count": state.opt_state.count, "mu": state.opt_state.mu, "nu": state.opt_state.nu})
+
+    send("after0", after0)
+    after1 = jax_epoch(jr, after0, 1)
+    send("after1", after1)
+    state = sweep_state_from_jax(runner, after0)
+    runner.run_epoch(state, 1)
+    return after1, jax_valid_mrrs(jr, after1), state.params
+
+
+@pytest.fixture(scope="module")
+def unsharded_4(sweep_spawn):
+    """The unsharded port's K = 4 sweep with dropouts, while the ranks run."""
+    return run_recording(port_sweep(mesh_data(), COMBOS_4, dropout=True))
+
+
+@pytest.fixture(scope="module")
+def mesh_ranks(sweep_spawn, mesh_jax, unsharded_4):
+    """Every rank's results, once JAX's and the unsharded references are in."""
+    workdir, ctx = sweep_spawn
+    while not ctx.join():
+        pass
+    ranks = []
+    for r in range(D):
+        with open(os.path.join(workdir, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    return ranks
+
+
+def test_sharded_sweep_matches_the_unsharded_sweep(mesh_ranks, unsharded_4):
+    """Each rank's K / D models after one epoch with dropouts: every
+    parameter, every model's mean losses and four valid MRRs as the
+    unsharded sweep's."""
+    rows, state, losses = unsharded_4
+    assert [r["own"] for r in mesh_ranks] == [[0, 1], [2, 3]]
+    for res in mesh_ranks:
+        own = slice(res["own"][0], res["own"][-1] + 1)
+        want = named(tree_map(lambda t: t[own], state.params))
+        got = named(res["params"])
+        assert set(got) == set(want)
+        for name, w in want.items():
+            torch.testing.assert_close(got[name], w, rtol=1e-5, atol=1e-7, msg=name)
+        assert set(res["losses"]) == set(losses)
+        for k, w in losses.items():
+            np.testing.assert_allclose(res["losses"][k], w, rtol=1e-5, atol=0, err_msg=k)
+        for g, w in zip(res["mrrs"], mrrs(rows), strict=True):
+            for key in RANK_KEYS:
+                assert abs(g[key] - w[key]) <= 1e-6, (key, g[key], w[key])
+
+
+def test_sharded_sweep_replicas_on_a_graph_axis(mesh_ranks, unsharded_4):
+    """On a (data 1, graph 2) mesh both ranks train all 4 models, each
+    step's gradients, BN statistics and losses and the valid split's ranks
+    their graph group's first rank's: the two ranks bit-equal, and every
+    parameter, loss and MRR as the unsharded sweep's."""
+    _, state, losses = unsharded_4
+    first, second = (res["replicas"] for res in mesh_ranks)
+    assert first["own"] == second["own"] == [0, 1, 2, 3]
+    for a, b in zip(tree_leaves(first["params"]), tree_leaves(second["params"])):
+        assert torch.equal(a, b)
+    assert first["mrrs"] == second["mrrs"]
+    got, want = named(first["params"]), named(state.params)
+    for name, w in want.items():
+        torch.testing.assert_close(got[name], w, rtol=1e-5, atol=1e-7, msg=name)
+    for k, w in losses.items():
+        np.testing.assert_allclose(first["losses"][k], w, rtol=1e-5, atol=0, err_msg=k)
+    for g, w in zip(first["mrrs"], mrrs(unsharded_4[0]), strict=True):
+        for key in RANK_KEYS:
+            assert abs(g[key] - w[key]) <= 1e-6, (key, g[key], w[key])
+
+
+def test_sharded_sweep_rows_in_combo_order_on_every_rank(mesh_ranks, unsharded_4):
+    rows = unsharded_4[0]
+    want = [(lr, 0.7, s) for lr, s in zip(*COMBOS_4.values())]  # tc's task weight
+    for res in mesh_ranks:
+        assert [(r["lr"], r["task_weight"], r["seed"]) for r in res["rows"]] == want
+        assert [r["valid_ent_mrr_raw"] for r in res["rows"]] == [m["ent_raw"]
+                                                               for m in res["mrrs"]]
+        assert all(0 < r["valid_ent_mrr_raw"] <= 1 for r in res["rows"])
+    assert mesh_ranks[0]["rows"] == mesh_ranks[1]["rows"]
+    assert len(rows) == len(want)
+
+
+def test_sharded_sweep_matches_jax_sharded_sweep(mesh_ranks, mesh_jax):
+    """K = 8 at D = 2 (4 models a rank) against JAX's sweep over a (data
+    8, graph 1) mesh, epoch 1 from JAX's state after epoch 0: every rank's
+    models' parameters as ``check_against_jax`` holds them, but that an
+    entry outside that tolerance must lie no further from JAX than the
+    unsharded port's sweep from the same state does (one entry does: model
+    6's decoder_rel bn1 bias, 4.62e-5 from JAX against 1.4e-5 allowed, in
+    the port sharded or not; JAX's own sharded and unsharded sweeps part by
+    1.4e-4 in that leaf of model 1); every model's valid MRRs on each rank
+    within MRR_TOL of JAX's; and the mesh's evaluation of JAX's own state
+    after epoch 1 within MRR_TOL of JAX's."""
+    after1, want_mrrs, unsharded = mesh_jax
+    outside = []
+    for res in mesh_ranks:
+        own = slice(res["jax"]["own"][0], res["jax"]["own"][-1] + 1)
+        assert own.stop - own.start == 8 // D
+        got = named(res["jax"]["params"])
+        want = named(tree_map(lambda t: t[own], _tensor_tree(after1.params, "cpu")))
+        port = named(tree_map(lambda t: t[own], unsharded))
+        assert set(got) == set(want)
+        for name, w in want.items():
+            if name.endswith(tuple(f"['{n}']" for n in NOISE)):
+                continue
+            gap, allowed = (got[name] - w).abs(), 1e-5 + 1e-3 * w.abs()
+            far = gap > allowed
+            if bool(far.any()):
+                outside.append((name, gap.max().item()))
+                assert bool((gap[far] <= (port[name] - w).abs()[far] + 1e-7).all()), name
+        assert_mrrs_near_jax(res["jax"]["mrrs"], want_mrrs)
+        assert_mrrs_near_jax(res["jax"]["mrrs_of_jax"], want_mrrs)
+    assert len(outside) <= 1, outside
+
+
+def test_sweep_divisibility_error_matches_jax():
+    """K = 3 on a data axis of 2: JAX's SweepRunner raises at construction,
+    the port's check (which ``SweepRunner(mesh=...)`` runs first) the same
+    message, without a process group."""
+    import jax
+
+    from regcn_tpu.config import ModelConfig as JaxModelConfig
+    from regcn_tpu.config import TrainConfig as JaxTrainConfig
+    from regcn_tpu.data.synthetic import generate as jax_generate
+    from regcn_tpu.parallel.mesh import MeshAxes as JaxMeshAxes
+    from regcn_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from regcn_tpu.train.sweep import SweepRunner as JaxSweepRunner
+
+    jdata = jax_generate("synthetic-small", seed=17, **TINY)
+    with pytest.raises(ValueError, match="pad the combo list to 4") as want:
+        JaxSweepRunner(JaxModelConfig(**mesh_model(jdata, dropout=False)),
+                       JaxTrainConfig(**TC), jdata, {"seed": [1, 2, 3]},
+                       mesh=jax_make_mesh(JaxMeshAxes(data=2, graph=1),
+                                          devices=jax.devices()[:2]))
+    with pytest.raises(ValueError, match="pad the combo list to 4") as got:
+        check_model_divisibility(3, 2)
+    assert str(got.value) == str(want.value)
+    check_model_divisibility(4, 2)

@@ -4,6 +4,17 @@ junit report of a run. Run from the repository root:
 
     python3 tools/tier1_schedule.py /tmp/_t1.xml [--workers 6] [--top 20]
 
+or, before any run, the queue's head from the collected test ids:
+
+    python -m pytest tests/ --collect-only -q -m 'not slow' -p no:cacheprovider \
+        > /tmp/collect.txt
+    python3 tools/tier1_schedule.py --collect /tmp/collect.txt
+
+``--collect`` prints the first ``--workers`` files of the queue, which
+start at once, with their test counts, and exits 1 unless JAX's
+``tests/test_hyperbolic_model.py``, the longest file, is among them: a
+file queued after them starts only when a worker frees up.
+
 ``loadfile`` sends each test file whole to one worker. It queues the files
 by their number of tests, largest first (ties in collection order), gives
 each worker one file, and gives a worker its next file as soon as two of
@@ -61,12 +72,47 @@ def replay(files, workers: int):
     return max(clock), list(zip(clock, taken))
 
 
+FLOOR_FILE = "tests/test_hyperbolic_model.py"
+
+
+def collected(path: str) -> "collections.OrderedDict[str, int]":
+    """file -> its number of tests, in collection order, from the output of
+    ``pytest --collect-only -q``."""
+    counts: "collections.OrderedDict[str, int]" = collections.OrderedDict()
+    with open(path) as f:
+        for line in f:
+            if "::" in line:
+                name = line.split("::")[0].strip()
+                counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def queue_head(counts, workers: int) -> list:
+    """The first ``workers`` files of loadfile's queue: most tests first,
+    ties in collection order."""
+    return sorted(counts, key=lambda f: -counts[f])[:workers]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("junit")
+    ap.add_argument("junit", nargs="?")
+    ap.add_argument("--collect", metavar="OUTPUT",
+                    help="the output of pytest --collect-only -q instead of a junit report")
     ap.add_argument("--workers", type=int, default=6)
     ap.add_argument("--top", type=int, default=20)
     args = ap.parse_args()
+    if args.collect:
+        counts = collected(args.collect)
+        head = queue_head(counts, args.workers)
+        for f in head:
+            print(f"{counts[f]:4d} tests  {f}")
+        if FLOOR_FILE not in head:
+            raise SystemExit(f"{FLOOR_FILE} ({counts.get(FLOOR_FILE, 0)} tests) is not among "
+                             f"the first {args.workers} files of the queue")
+        print(f"{FLOOR_FILE} starts at once ({head.index(FLOOR_FILE) + 1} of {args.workers})")
+        return
+    if not args.junit:
+        ap.error("a junit report or --collect is needed")
     files = load(args.junit)
     wall, per_worker = replay(files, args.workers)
     for w, (end, taken) in enumerate(per_worker):
